@@ -1,0 +1,166 @@
+"""Build, load and count the port's CUDA kernels.
+
+Each source in `csrc/` is compiled by `nvcc` for sm_90a into its own
+shared library with a plain C interface, at first use, into `_build/`
+beside the package (a directory git ignores); the library's file name
+carries a hash of its source, so an edited source is rebuilt. Libraries
+are loaded with ctypes: pointers and the CUDA stream travel as
+`c_void_p`, and every C entry point returns `cudaGetLastError()`, which
+`check` turns into an exception.
+
+`launches` counts, per kernel wrapper, the calls that launched the
+kernel on the card (plain-version calls on CPU tensors are not counted).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Tuple
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+SOURCES = ("level", "select", "patches")
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3",
+    # No multiply-add contraction: the blur must round like its plain
+    # version (see csrc/level.cu).
+    "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_c_void_p = ctypes.c_void_p
+_c_int = ctypes.c_int
+_c_float = ctypes.c_float
+
+# C signatures of the entry points, per library.
+SIGNATURES = {
+    "level": {
+        "level_preprocess_launch": (
+            _c_void_p, _c_int, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_int,
+            _c_float, _c_float, ctypes.POINTER(_c_float), _c_void_p),
+        "combine_nms_launch": (
+            _c_void_p, _c_void_p, _c_void_p, _c_int, _c_void_p, _c_void_p,
+            _c_int, _c_int, _c_void_p),
+    },
+    "select": {
+        "cell_topk_launch": (
+            _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_void_p, _c_void_p,
+            _c_void_p),
+    },
+    "patches": {
+        "extract_patches_launch": (
+            _c_void_p, _c_int, _c_int, _c_void_p, _c_int, _c_int, _c_void_p,
+            _c_void_p),
+    },
+}
+
+launches: Dict[str, int] = {
+    "level_preprocess": 0, "combine_nms": 0, "cell_topk": 0,
+    "extract_patches": 0,
+}
+
+_libraries: Dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def _library_path(name: str) -> Path:
+    digest = hashlib.sha1((CSRC_DIR / f"{name}.cu").read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
+def build(names=SOURCES) -> Dict[str, Tuple[float, str]]:
+    """Compile the named sources that are not built yet, all nvcc
+    processes at once. -> {name: (seconds, compiler log)} for each source
+    compiled now; raises if any compile fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name in names:
+        out = _library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            time.perf_counter(), tmp, out)
+    results, failed = {}, []
+    for name, (proc, t0, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        results[name] = (time.perf_counter() - t0, log)
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return results
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built first if needed."""
+    lib = _libraries.get(name)
+    if lib is None:
+        path = _library_path(name)
+        if not path.exists():
+            build((name,))
+        lib = ctypes.CDLL(str(path))
+        for fn_name, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        _libraries[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def on_card(t, name: str) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (take the plain version); any other device raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: no kernel or plain version for {t.device}")
+
+
+def require(t, name: str, dtype, ndim: int) -> None:
+    """Check what a kernel takes: dtype, rank and contiguity."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")

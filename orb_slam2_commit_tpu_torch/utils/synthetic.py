@@ -1,0 +1,165 @@
+"""Synthetic scene rendering (host-side numpy) for the port's examples.
+
+A copy of the parts of the JAX package's renderer that `render_sequence`
+needs for its default forward motion without photometric degradation: a
+cloud of 3D landmarks, each splatted as a small random-texture patch with
+bilinear subpixel accuracy along a known trajectory. The same seed gives
+the same images, poses and scene as the JAX package's renderer.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Tuple
+
+import numpy as np
+
+from orb_slam2_commit_tpu_torch.utils.config import CameraConfig
+
+
+@dataclasses.dataclass
+class Scene:
+    points: np.ndarray       # [P, 3] world coords
+    patches: np.ndarray      # [P, S, S] float32 textures (0..255)
+    patch_half: int
+
+
+def make_scene(
+    rng: np.random.Generator,
+    n_points: int = 500,
+    depth_range: Tuple[float, float] = (4.0, 12.0),
+    spread: float = 6.0,
+    patch_size: int = 15,
+) -> Scene:
+    """Random landmark cloud in front of the origin (+z forward); each
+    landmark's texture is a bright central disc (one strong FAST corner),
+    random blocks (distinctive BRIEF) and a directional ramp (stable
+    intensity-centroid orientation)."""
+    z = rng.uniform(*depth_range, size=n_points)
+    x = rng.uniform(-spread, spread, size=n_points)
+    y = rng.uniform(-spread * 0.75, spread * 0.75, size=n_points)
+    points = np.stack([x, y, z], axis=-1)
+
+    s = max(patch_size, 17)
+    half = s // 2
+    tex = rng.uniform(0.0, 255.0, size=(n_points, s, s))
+    tex = np.where(tex > 127.5, 165.0, 55.0)
+    theta = rng.uniform(0, 2 * np.pi, n_points)
+    yy, xx = np.mgrid[0:s, 0:s].astype(np.float64)
+    yc, xc = (yy - half) / half, (xx - half) / half
+    ramp = (
+        np.cos(theta)[:, None, None] * xc[None]
+        + np.sin(theta)[:, None, None] * yc[None]
+    )
+    patches = np.clip(tex + 35.0 * ramp, 0.0, 255.0)
+    r2 = (yy - half) ** 2 + (xx - half) ** 2
+    disc = r2 <= 2.5 ** 2
+    patches[:, disc] = 250.0
+    return Scene(points=points.astype(np.float64),
+                 patches=patches.astype(np.float32),
+                 patch_half=half)
+
+
+def _aa_blur(img: np.ndarray, sigma: float = 0.7) -> np.ndarray:
+    """Separable 5-tap Gaussian anti-aliasing (camera optics stand-in)."""
+    x = np.arange(-2, 3, dtype=np.float64)
+    k = np.exp(-(x * x) / (2 * sigma * sigma))
+    k /= k.sum()
+    pad = np.pad(img, ((0, 0), (2, 2)), mode="edge")
+    img = sum(k[i] * pad[:, i : i + img.shape[1]] for i in range(5))
+    pad = np.pad(img, ((2, 2), (0, 0)), mode="edge")
+    return sum(k[i] * pad[i : i + img.shape[0], :] for i in range(5)).astype(
+        np.float32
+    )
+
+
+def render(
+    scene: Scene,
+    R_cw: np.ndarray,
+    t_cw: np.ndarray,
+    cam: CameraConfig,
+    background: float = 96.0,
+) -> np.ndarray:
+    """Render image [H, W] float32 from camera pose (world -> camera) of a
+    distortion-free pinhole camera."""
+    if cam.has_distortion:
+        raise ValueError("the port's renderer draws undistorted images only")
+    h, w = cam.height, cam.width
+    img = np.full((h, w), background, dtype=np.float32)
+    pc = scene.points @ R_cw.T + t_cw
+    z = pc[:, 2]
+    order = np.where(z >= 0.5)[0]
+    order = order[np.argsort(-z[order])]  # far first: near draws on top
+    half = scene.patch_half
+    s = 2 * half + 1
+    for i in order:
+        u = cam.fx * pc[i, 0] / z[i] + cam.cx
+        v = cam.fy * pc[i, 1] / z[i] + cam.cy
+        if not (half + 2 <= u < w - half - 2 and half + 2 <= v < h - half - 2):
+            continue
+        u0, v0 = int(np.floor(u)), int(np.floor(v))
+        fu, fv = u - u0, v - v0
+        # Bilinear splat of the patch at subpixel offset (fu, fv).
+        p = scene.patches[i]
+        top = v0 - half
+        left = u0 - half
+        block = img[top : top + s + 1, left : left + s + 1]
+        w00 = (1 - fu) * (1 - fv)
+        w10 = fu * (1 - fv)
+        w01 = (1 - fu) * fv
+        w11 = fu * fv
+        acc = np.zeros((s + 1, s + 1), dtype=np.float32)
+        wgt = np.zeros((s + 1, s + 1), dtype=np.float32)
+        acc[:s, :s] += w00 * p
+        wgt[:s, :s] += w00
+        acc[:s, 1:] += w10 * p
+        wgt[:s, 1:] += w10
+        acc[1:, :s] += w01 * p
+        wgt[1:, :s] += w01
+        acc[1:, 1:] += w11 * p
+        wgt[1:, 1:] += w11
+        mask = wgt > 1e-6
+        block[mask] = acc[mask] / np.maximum(wgt[mask], 1e-6)
+    return _aa_blur(img)
+
+
+def look_ahead_trajectory(
+    n_frames: int,
+    step: float = 0.06,
+    lateral_amp: float = 0.25,
+    yaw_amp: float = 0.02,
+) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """Forward-dominant trajectory with gentle sway; camera-from-world
+    (R_cw, t_cw) per frame. Camera starts at origin looking +z."""
+    poses = []
+    for k in range(n_frames):
+        c = np.array(
+            [
+                lateral_amp * np.sin(2.0 * np.pi * k / max(n_frames - 1, 1)),
+                0.05 * np.sin(4.0 * np.pi * k / max(n_frames - 1, 1)),
+                step * k,
+            ]
+        )
+        yaw = yaw_amp * np.sin(2.0 * np.pi * k / max(n_frames - 1, 1))
+        cy, sy = np.cos(yaw), np.sin(yaw)
+        R_wc = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+        R_cw = R_wc.T
+        t_cw = -R_cw @ c
+        poses.append((R_cw, t_cw))
+    return poses
+
+
+def render_sequence(
+    cam: CameraConfig,
+    n_frames: int = 30,
+    n_points: int = 500,
+    seed: int = 0,
+    step: float = 0.06,
+):
+    """Images [T, H, W] float32 + ground-truth (R_cw, t_cw) poses + scene,
+    along the forward trajectory."""
+    rng = np.random.default_rng(seed)
+    scene = make_scene(rng, n_points=n_points)
+    poses = look_ahead_trajectory(n_frames, step=step)
+    images = np.stack([render(scene, R, t, cam) for R, t in poses])
+    return images, poses, scene
