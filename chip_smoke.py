@@ -5,26 +5,33 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
+Two main paths run at full width (640x480, 1000 features): the tracking
+step (`tracking_forward_step`, 1024 local-map points) and the tracker's
+per-frame pair (`fused_motion_track_packed` against 1024 last-frame
+points, then `fused_local_map_track` against a 2048-row candidate table),
+both with the default configuration (subpixel refinement on).
+
 Phases (any failure exits non-zero and prints no result line):
   1. the card: name, count, torch/CUDA versions, nvidia-smi name + power limit;
-  2. build every kernel of the tracking step from csrc/ (one nvcc per
-     source, all at once) and print nvcc's register and shared-memory lines;
+  2. build every kernel's library from csrc/ (one nvcc per source, all at
+     once) and print nvcc's register, stack and spill lines;
   3. each kernel against its plain PyTorch version on the card, on the
-     tensors the main path gives it at 640x480 / 1000 features;
-  4. the main path: the tracking step at that width through the port's
-     entry points, with the kernels' launch counts read around it, and
-     its result held against the same step on the CPU;
-  5. timing: step throughput by the bench recipe; per stage of the step
-     its synchronised wall time and device time, and under torch.profiler
-     the device's busy time, idle share and operations per step; per
-     kernel its time, its plain version's time, one library call's time
-     where one exists, and the least time the card could take (its bound).
+     tensors the main paths give it (recorded from one run of each path);
+  4. each main path through the port's entry points, with the kernels'
+     launch counts reset just before and read just after it, and its
+     result held against the same call on the CPU;
+  5. timing: throughput of each path by the bench recipe; per stage its
+     synchronised wall time and device time; under torch.profiler the
+     device's busy time, idle share and operations per call; per kernel its
+     time, its plain version's time, one library call's time where one
+     exists, and the least time the card could take (its bound).
 Then a `kernels` JSON line, the nvidia-smi line, and last the result line
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -35,26 +42,37 @@ import torch
 
 try:
     from orb_slam2_commit_tpu_torch import interop
-    from orb_slam2_commit_tpu_torch.kernels import _build, level, patches, select
+    from orb_slam2_commit_tpu_torch.kernels import (
+        _build, level, matching as kmatching, patches, pose_lm, select, subpix)
     from orb_slam2_commit_tpu_torch.ops import extractor
     from orb_slam2_commit_tpu_torch.ops import packed_extractor as pe
     from orb_slam2_commit_tpu_torch.optim import pose_opt
     from orb_slam2_commit_tpu_torch.slam import matchers
     from orb_slam2_commit_tpu_torch.slam.jit_frontend import (
-        pose_inputs, tracking_forward_step)
-    from orb_slam2_commit_tpu_torch.utils.config import synthetic_config
+        fused_local_map_track, fused_motion_track_packed, pose_inputs,
+        tracking_forward_step)
 except ImportError as e:   # the script was copied away from its repository
     raise SystemExit(f"chip_smoke: run it from the repository root ({e})")
 
 # The H100 SXM's published rates (NVIDIA data sheet), for the bounds.
+# Integer operations (K6) are counted at the float32 rate as well.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
-WIDTH, HEIGHT, N_FEATURES, N_POINTS = 640, 480, 1000, 1024
+WIDTH, HEIGHT, N_FEATURES, N_POINTS, N_CANDIDATES = 640, 480, 1000, 1024, 2048
+LM_TH = 3.0        # TrackerConfig.search_radius_local_map
 # Pose bounds of the port's tests (rotation in degrees, translation).
 ROT_DEG_TOL, T_TOL = 0.05, 2e-3
-# Steps traced by torch.profiler for the device's busy time and idle share.
-PROFILE_STEPS = 5
+XY_TOL = 1e-4      # px, refined keypoints card vs CPU
+K5_TOL = 1e-5      # px, K5 vs its plain version (tests/test_subpix.py:69,82)
+K8_INLIER_TOL = 0.005   # share of observations whose inlier flag may differ
+# Calls traced by torch.profiler for the device's busy time and idle share.
+PROFILE_CALLS = 5
+
+STEP_WANT = {"level_preprocess": 1, "combine_nms": 1, "cell_topk": 1,
+             "extract_patches": 2, "corner_subpix": 1,
+             "projection_hamming_top2": 1, "pose_lm": 1}
+PAIR_WANT = dict(STEP_WANT, projection_hamming_top2=3, pose_lm=2)
 
 
 def log(*parts):
@@ -91,6 +109,26 @@ def max_abs(a, b):
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+@contextlib.contextmanager
+def recording(module, name, calls):
+    """Record the arguments of every call of module.name into calls."""
+    fn = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        calls.append((args, kwargs))
+        return fn(*args, **kwargs)
+
+    setattr(module, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -107,7 +145,6 @@ def phase_device():
 
 
 def phase_build():
-
     t0 = time.perf_counter()
     results = _build.build()
     log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(results)} "
@@ -119,9 +156,23 @@ def phase_build():
                 log("   ", line.strip())
 
 
-def main_path_inputs(image):
-    """The tensors the tracking step hands each kernel, on the card."""
-    config = synthetic_config(width=WIDTH, height=HEIGHT, n_features=N_FEATURES)
+# ---------------------------------------------------------------------------
+# The main paths
+# ---------------------------------------------------------------------------
+
+def run_pair(config, motion, cands):
+    """The tracker's per-frame pair through its entry points: the motion
+    stage, then the local-map stage on the features it left on the card."""
+    out = fused_motion_track_packed(*motion, config)
+    feat_state, lm_meta = interop.local_map_args(out, motion[1], LM_TH)
+    lm = fused_local_map_track(out[1], out[2], feat_state, *cands, lm_meta, config)
+    return out, lm
+
+
+def main_path_inputs(image, config, motion, cands):
+    """The tensors each kernel gets on the main paths, on the card: K1-K4
+    from the tracking step's extraction (as in slice 1), K5-K8's from one
+    recorded run of the pair."""
     orb = config.orb
     plan = pe.make_plan(orb, HEIGHT, WIDTH)
     canvas = pe.build_canvas(image, plan)
@@ -131,15 +182,29 @@ def main_path_inputs(image):
     score = level.combine_nms(hi_c, lo_c, bounds)
     cells = pe.cell_matrix(score, orb.cell_size)
     yx, _, _ = pe.select_flat(score, plan, orb)
-    return dict(canvas=canvas, blur=blur_c, hi=hi_c, lo=lo_c, bounds=bounds,
-                cells=cells, k=orb.cell_top_k, yx=yx, ths=(
-                    float(orb.ini_th_fast), float(orb.min_th_fast)))
+    x = dict(canvas=canvas, blur=blur_c, hi=hi_c, lo=lo_c, bounds=bounds,
+             cells=cells, k=orb.cell_top_k, yx=yx,
+             ths=(float(orb.ini_th_fast), float(orb.min_th_fast)))
 
+    k5, k6, k8 = [], [], []
+    with recording(subpix, "corner_subpix_from_patches", k5), \
+            recording(kmatching, "projection_hamming_top2", k6), \
+            recording(pose_lm, "pose_lm", k8):
+        run_pair(config, motion, cands)
+    torch.cuda.synchronize()
+    if (len(k5), len(k6), len(k8)) != (1, 3, 2):
+        raise AssertionError(f"recorded {len(k5)} K5, {len(k6)} K6, {len(k8)} K8 calls")
+    x.update(k5=k5[0][0], k6=[c[0] for c in k6], k8=[c[0] for c in k8])
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: each kernel against its plain version
+# ---------------------------------------------------------------------------
 
 def phase_kernels(x):
     """Each kernel against its plain version on the card (not counted as
-    main-path launches: the counts are reset before the main path)."""
-
+    main-path launches: the counts are reset before each main path)."""
     rows = {}
     th_hi, th_lo = x["ths"]
     canvas = x["canvas"]
@@ -174,7 +239,6 @@ def phase_kernels(x):
     log(f"K3 cell_topk {tuple(x['cells'].shape)} k={x['k']}: exact")
     rows["cell_topk"] = 0.0
 
-    err = 0.0
     for img, p in ((canvas, 31), (x["blur"], 39)):
         got = patches.extract_patches(img, x["yx"], p)
         want = patches.extract_patches_plain(img, x["yx"], p)
@@ -182,98 +246,289 @@ def phase_kernels(x):
         if not torch.equal(got, want):
             raise AssertionError(f"K4 P={p} differs: {max_abs(got, want)}")
         log(f"K4 extract_patches K={x['yx'].shape[0]} P={p}: exact")
-    rows["extract_patches"] = err
+    rows["extract_patches"] = 0.0
+
+    got = subpix.corner_subpix_from_patches(*x["k5"])
+    want = subpix.corner_subpix_from_patches_plain(*x["k5"])
+    torch.cuda.synchronize()
+    err = max_abs(got, want)
+    log(f"K5 corner_subpix {tuple(x['k5'][0].shape)}: max|d| = {err:g} px "
+        f"(tolerance {K5_TOL:g})")
+    if not err <= K5_TOL:
+        raise AssertionError(f"K5 differs from its plain version by {err} px")
+    rows["corner_subpix"] = err
+
+    for args in x["k6"]:
+        got = kmatching.projection_hamming_top2(*args)
+        want = kmatching.projection_hamming_top2_plain(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(
+                "K6 differs: " + ", ".join(f"{max_abs(g, w):g}" for g, w in zip(got, want)))
+        log(f"K6 projection_hamming_top2 [{args[0].shape[0]}, {args[6].shape[0]}]: "
+            f"exact in all four outputs ({int((got[0] <= 256).sum())} rows with a candidate)")
+    rows["projection_hamming_top2"] = 0.0
+
+    worst = 0.0
+    for args in x["k8"]:
+        got = pose_lm.pose_lm(*args)
+        want = pose_opt.pose_optimization_plain(*args)
+        torch.cuda.synchronize()
+        d_rot = rot_angle_deg(got.R.cpu(), want.R.cpu())
+        d_t = float((got.t - want.t).norm())
+        n_obs = args[2].shape[0]
+        differ = int((got.inliers != want.inliers).sum())
+        log(f"K8 pose_lm O={n_obs}: rot {d_rot:.6f} deg, |dt| {d_t:.3g}, inliers "
+            f"{int(got.n_inliers)} vs {int(want.n_inliers)}, {differ} flags differ")
+        if not (d_rot < ROT_DEG_TOL and d_t < T_TOL and differ <= K8_INLIER_TOL * n_obs):
+            raise AssertionError("K8 differs from its plain version beyond the bounds")
+        worst = max(worst, max_abs(got.R, want.R), max_abs(got.t, want.t))
+    # With no valid observation every step is rejected: the pose stays put.
+    R0, t0, points, obs, *cam = x["k8"][0]
+    none = obs._replace(valid=torch.zeros_like(obs.valid),
+                        is_stereo=torch.zeros_like(obs.is_stereo))
+    got = pose_lm.pose_lm(R0, t0, points, none, *cam)
+    torch.cuda.synchronize()
+    if not (torch.equal(got.R, R0) and torch.equal(got.t, t0) and int(got.n_inliers) == 0):
+        raise AssertionError("K8 moved the pose without a valid observation")
+    log("K8 pose_lm with no valid observation: pose unchanged, 0 inliers")
+    rows["pose_lm"] = worst
     return rows
 
 
-def phase_main_path(config, args):
-    """One tracking step on the card through the entry points, the launch
+# ---------------------------------------------------------------------------
+# Phase 4: the main paths, their launch counts, and the CPU
+# ---------------------------------------------------------------------------
+
+def check_counts(what, counts, want):
+    log(f"{what} launches: {counts}")
+    if counts != want:
+        raise AssertionError(f"{what}: launch counts {counts}, expected {want}")
+
+
+def _feature_diffs(card, cpu):
+    """card / cpu: dicts of numpy xy, response, octave, valid, desc (and
+    angle). -> (max keypoint |d| px, descriptors that differ [N] bool,
+    max response |d|, max angle |d| or None)."""
+    d_xy = float(np.abs(card["xy"] - cpu["xy"]).max())
+    desc = np.any(card["desc"] != cpu["desc"], axis=1)
+    d_resp = float(np.abs(card["response"] - cpu["response"]).max())
+    d_ang = (float(np.abs(card["angle"] - cpu["angle"]).max())
+             if "angle" in card else None)
+    return d_xy, desc, d_resp, d_ang
+
+
+def check_same_canvas(what, image, config):
+    """Extraction after the pyramid, on the card's canvas, on the card and
+    on the CPU: octaves, valid flags, responses, angles and descriptors bit
+    for bit, refined keypoints within XY_TOL (K5 against its plain
+    version)."""
+    cam, orb = config.camera, config.orb
+    plan = pe.make_plan(orb, cam.height, cam.width)
+    canvas = pe.build_canvas(image, plan)
+    card, cpu = (interop.features_to_numpy(pe.features_from_canvas(c, plan, orb))
+                 for c in (canvas, canvas.cpu()))
+    d_xy, desc, d_resp, d_ang = _feature_diffs(card, cpu)
+    log(f"{what} on the card's canvas, card vs cpu: keypoints max|d| {d_xy:.3g} px, "
+        f"{int(desc.sum())} descriptors differ, responses max|d| {d_resp:g}, "
+        f"angles max|d| {d_ang:g}")
+    for key in ("octave", "valid", "response", "angle", "desc"):
+        if not np.array_equal(card[key], cpu[key]):
+            raise AssertionError(f"{what}: {key} differs between card and CPU")
+    if not d_xy <= XY_TOL:
+        raise AssertionError(f"{what}: keypoints differ by {d_xy} px")
+
+
+def check_features(what, card, cpu):
+    """End to end, each device from the image: octaves and valid flags bit
+    for bit, refined keypoints within XY_TOL, and at level 0 (the image
+    itself) descriptors and responses bit for bit. Above level 0 the
+    canvas comes from the pyramid's resize products, which the card's and
+    the CPU's BLAS sum in different orders, so blurred values, responses
+    and angles differ in the last bits and descriptor bits flip where two
+    samples tie (ROADMAP.md section 3); those differences are printed."""
+    for key in ("octave", "valid"):
+        if not np.array_equal(card[key], cpu[key]):
+            raise AssertionError(f"{what}: {key} differs between card and CPU")
+    d_xy, desc, d_resp, _ = _feature_diffs(card, cpu)
+    lvl0 = cpu["octave"] == 0
+    desc &= cpu["valid"]
+    by_level = np.bincount(cpu["octave"][desc], minlength=8).tolist()
+    log(f"{what} card vs cpu: keypoints max|d| {d_xy:.3g} px; descriptors that "
+        f"differ {int(desc.sum())} of {int(cpu['valid'].sum())} valid "
+        f"(by level {by_level}); responses max|d| {d_resp:g}")
+    if not d_xy <= XY_TOL:
+        raise AssertionError(f"{what}: keypoints differ by {d_xy} px")
+    if desc[lvl0].any() or not np.array_equal(card["response"][lvl0], cpu["response"][lvl0]):
+        raise AssertionError(f"{what}: level-0 descriptors or responses differ")
+
+
+def check_pose_and_counts(what, card, cpu):
+    """card / cpu: (R, t, n_matches or None, n_inliers)."""
+    (R, t, n_m, n_i), (cR, ct, c_m, c_i) = card, cpu
+    d_rot, d_t = rot_angle_deg(R, cR), float(np.linalg.norm(t - ct))
+    log(f"{what}: card n_matches={n_m} n_inliers={n_i}; cpu n_matches={c_m} "
+        f"n_inliers={c_i}; card vs cpu rot {d_rot:.5f} deg, |dt| {d_t:.6f}")
+    if not (np.isfinite(R).all() and np.isfinite(t).all()):
+        raise AssertionError(f"{what}: non-finite pose")
+    for a, b in ((n_m, c_m), (n_i, c_i)):
+        if a is not None and abs(a - b) > 0.01 * b:
+            raise AssertionError(f"{what}: card and CPU counts differ by more than 1%")
+    if not (d_rot < ROT_DEG_TOL and d_t < T_TOL):
+        raise AssertionError(f"{what}: card and CPU poses differ beyond the bounds")
+
+
+def phase_step(config, args):
+    """The tracking step on the card through the entry points, the launch
     counts read around it, and the same step on the CPU."""
     _build.reset_launches()
     res = tracking_forward_step(*args, config)
     torch.cuda.synchronize()
     counts = dict(_build.launches)
-    log(f"main path launches: {counts}")
-    want = {"level_preprocess": 1, "combine_nms": 1, "cell_topk": 1,
-            "extract_patches": 2}
-    if counts != want:
-        raise AssertionError(f"launch counts {counts}, expected {want}")
+    check_counts("tracking step", counts, STEP_WANT)
 
-    R, t, xy = res.R.cpu().numpy(), res.t.cpu().numpy(), res.feat_xy.cpu()
+    cpu_args = tuple(a.cpu() for a in args)
+    cpu = tracking_forward_step(*cpu_args, config)
+    R, t = res.R.cpu().numpy(), res.t.cpu().numpy()
     n_m, n_i = int(res.n_matches), int(res.n_inliers)
-    if not (np.isfinite(R).all() and np.isfinite(t).all()
-            and res.feat_xy.shape == (N_FEATURES, 2)):
-        raise AssertionError("non-finite pose or wrong feature shape")
-    R_gt, t_gt = args[6].cpu().numpy(), args[7].cpu().numpy()
-    log(f"card: n_matches={n_m} n_inliers={n_i}; vs ground truth of frame 1: "
-        f"rot {rot_angle_deg(R, R_gt):.4f} deg, |dt| {np.linalg.norm(t - t_gt):.5f}")
-
-    cpu = tracking_forward_step(*(a.cpu() for a in args), config)
-    c_m, c_i = int(cpu.n_matches), int(cpu.n_inliers)
-    d_rot = rot_angle_deg(R, cpu.R.numpy())
-    d_t = float(np.linalg.norm(t - cpu.t.numpy()))
-    xy_differ = int((xy != cpu.feat_xy).any(dim=1).sum())
-    log(f"cpu:  n_matches={c_m} n_inliers={c_i}; card vs cpu: rot {d_rot:.5f} "
-        f"deg, |dt| {d_t:.6f}, keypoints that differ {xy_differ}")
-    # K1-K4 are exact and every product runs in full float32, so the
-    # keypoints must agree bit for bit.
-    if xy_differ:
-        raise AssertionError(f"{xy_differ} keypoints differ between card and CPU")
-    if abs(n_m - c_m) > 0.01 * c_m or abs(n_i - c_i) > 0.01 * c_i:
-        raise AssertionError("card and CPU counts differ by more than 1%")
-    if not (d_rot < ROT_DEG_TOL and d_t < T_TOL):
-        raise AssertionError("card and CPU poses differ beyond the bounds")
+    if res.feat_xy.shape != (N_FEATURES, 2):
+        raise AssertionError("wrong feature shape")
+    R_gt, t_gt = cpu_args[6].numpy(), cpu_args[7].numpy()
+    log(f"tracking step vs ground truth of frame 1: rot {rot_angle_deg(R, R_gt):.4f} "
+        f"deg, |dt| {np.linalg.norm(t - t_gt):.5f}")
+    check_pose_and_counts("tracking step", (R, t, n_m, n_i),
+                          (cpu.R.numpy(), cpu.t.numpy(), int(cpu.n_matches),
+                           int(cpu.n_inliers)))
+    cam = config.camera
+    feats = [interop.features_to_numpy(extractor.extract_features(
+        im, config.orb, cam.height, cam.width)) for im in (args[0], cpu_args[0])]
+    check_features("tracking step extraction", *feats)
+    check_same_canvas("tracking step extraction", args[0], config)
+    if not np.array_equal(feats[0]["xy"], res.feat_xy.cpu().numpy()):
+        raise AssertionError("the step's keypoints are not its extraction's")
     if n_m < 100 or n_i < 0.8 * n_m:
         raise AssertionError("too few matches or inliers on the card")
     return counts
 
 
-def phase_fps(config, args, power):
+def _packed_features(feat, desc):
+    return dict(xy=feat[:, 0:2], response=feat[:, 4], octave=feat[:, 6].astype(np.int32),
+                valid=feat[:, 7] > 0.5, desc=desc)
+
+
+def phase_pair(config, motion, cands):
+    """The pair on the card through the entry points, the launch counts
+    read around it, and the same calls on the CPU."""
+    _build.reset_launches()
+    out, lm = run_pair(config, motion, cands)
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    check_counts("pair", counts, PAIR_WANT)
+
+    cpu_out, cpu_lm = run_pair(config, tuple(a.cpu() for a in motion),
+                               tuple(a.cpu() for a in cands))
+    (m, f, d), (cm, cf, cd) = (interop.packed_to_numpy(*o) for o in (out, cpu_out))
+    (lmm, lmf, lmv), (clm, clf, clv) = (interop.packed_to_numpy(*o) for o in (lm, cpu_lm))
+    for name, a in (("motion meta", m), ("motion features", f), ("local-map meta", lmm)):
+        if not np.isfinite(a).all():
+            raise AssertionError(f"pair: non-finite {name}")
+    if f.shape != (N_FEATURES, 12) or lmf.shape != (N_FEATURES, 2) \
+            or lmv.shape != (N_CANDIDATES,):
+        raise AssertionError("pair: wrong output shapes")
+    check_features("pair extraction", _packed_features(f, d), _packed_features(cf, cd))
+    check_same_canvas("pair extraction", motion[0], config)
+    check_pose_and_counts("motion stage", (m[0:9].reshape(3, 3), m[9:12], int(m[12]), int(m[13])),
+                          (cm[0:9].reshape(3, 3), cm[9:12], int(cm[12]), int(cm[13])))
+    # The local-map stage's matches: the features bound after it, kept
+    # from the motion stage or newly bound to a candidate.
+    new, c_new = lmf[:, 0] >= 0, clf[:, 0] >= 0
+    bound = new | ((f[:, 10] >= 0) & (f[:, 11] > 0.5))
+    c_bound = c_new | ((cf[:, 10] >= 0) & (cf[:, 11] > 0.5))
+    log(f"local-map stage: {int(lmv.sum())} candidates visible (cpu {int(clv.sum())}), "
+        f"{int(new.sum())} new bindings (cpu {int(c_new.sum())})")
+    check_pose_and_counts(
+        "local-map stage", (lmm[0:9].reshape(3, 3), lmm[9:12], int(bound.sum()), int(lmm[12])),
+        (clm[0:9].reshape(3, 3), clm[9:12], int(c_bound.sum()), int(clm[12])))
+    if int(m[12]) < 100 or int(m[13]) < 0.8 * int(m[12]) or int(lmm[12]) < int(m[13]):
+        raise AssertionError("pair: too few matches or inliers on the card")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: timing
+# ---------------------------------------------------------------------------
+
+def phase_fps(name, step, image, power):
     """Frames/s by bench.py's recipe: 8 distinct noisy frames, frame i fed
     frame i-2's inlier count, a value fetch ending each block of 64, best
-    of 5 blocks."""
-    image, rest = args[0], args[1:]
+    of 5 blocks. step(image, fb) -> the call's inlier count (a tensor)."""
     gen = torch.Generator(device=image.device).manual_seed(0)
     images = [image + 0.5 * torch.randn(image.shape, generator=gen,
                                         device=image.device)
               for _ in range(8)]
-    pt_pos, pt_desc, pt_octave, pt_angle, pt_valid, R, t = rest
-
-    def step(im, fb):
-        return tracking_forward_step(im, pt_pos, pt_desc, pt_octave, pt_angle,
-                                     pt_valid, R, t + 0.0 * fb, config)
-
     fb1 = fb2 = torch.zeros((), device=image.device)
     for i in range(16):
-        out = step(images[i % 8], fb2)
-        fb2, fb1 = fb1, out.n_inliers.to(torch.float32)
+        fb2, fb1 = fb1, step(images[i % 8], fb2).to(torch.float32)
     _ = float(fb1) + float(fb2)
     fps_blocks = []
     for _ in range(5):
         t0 = time.perf_counter()
         for i in range(64):
-            out = step(images[i % 8], fb2)
-            fb2, fb1 = fb1, out.n_inliers.to(torch.float32)
+            fb2, fb1 = fb1, step(images[i % 8], fb2).to(torch.float32)
         final = float(fb1) + float(fb2)
         fps_blocks.append(64 / (time.perf_counter() - t0))
         if not final >= 0:
             raise AssertionError("bad inlier chain")
-    log(f"tracking step {WIDTH}x{HEIGHT}/{N_FEATURES} feat/{N_POINTS} pts: "
-        f"{max(fps_blocks):.2f} frames/s best of 5x64 "
-        f"(blocks {[round(f, 2) for f in fps_blocks]}) on {power}")
+    log(f"{name} {WIDTH}x{HEIGHT}/{N_FEATURES} feat: {max(fps_blocks):.2f} frames/s "
+        f"best of 5x64 (blocks {[round(f, 2) for f in fps_blocks]}) on {power}")
 
 
-def phase_stages(config, args, power):
-    """Where the step's time goes. Per stage: host wall time per call with
-    a synchronise after each call, and device time per call by CUDA events
-    over calls in a row. Then, under torch.profiler over PROFILE_STEPS
-    steps: the device's busy time per step, its idle share of the wall
-    time, and the device operations per step."""
+def time_stages(name, stages, power, reps=10):
+    """Per stage: host wall time per call with a synchronise after each
+    call, and device time per call by CUDA events over calls in a row."""
+    for stage, fn in stages:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / reps * 1e3
+        log(f"{name} stage {stage}: {wall:.3f} ms synced wall, "
+            f"{gpu_time_ms(fn, reps):.3f} ms device events, per call, on {power}")
+
+
+def profile_calls(name, fn, power):
+    """Under torch.profiler over PROFILE_CALLS calls: the device's busy
+    time per call, its idle share of the wall time, the device operations
+    per call, and the kernels by device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / PROFILE_CALLS * 1e3
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ops:
+        raise AssertionError("the profiler saw no device operation")
+    busy = sum(e.time_range.elapsed_us() for e in ops) / 1e3 / PROFILE_CALLS
+    log(f"profiled {name} ({PROFILE_CALLS} calls): {wall:.3f} ms wall, {busy:.3f} ms "
+        f"device busy, idle share {1.0 - busy / wall:.4f}, "
+        f"{len(ops) / PROFILE_CALLS:.0f} device operations per call, on {power}")
+    log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=12))
+
+
+def phase_step_timing(config, args, power):
     image, pt_pos, pt_desc, pt_octave, pt_angle, pt_valid, R, t = args
     cam, orb = config.camera, config.orb
+
+    phase_fps("tracking step", lambda im, fb: tracking_forward_step(
+        im, pt_pos, pt_desc, pt_octave, pt_angle, pt_valid, R, t + 0.0 * fb,
+        config).n_inliers, image, power)
 
     def extract():
         return extractor.extract_features(image, orb, cam.height, cam.width)
@@ -297,38 +552,40 @@ def phase_stages(config, args, power):
     def step():
         return tracking_forward_step(*args, config)
 
-    reps = 10
-    for name, fn in (("extraction", extract), ("matching", match),
-                     ("pose_lm", pose), ("step", step)):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-            torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / reps * 1e3
-        log(f"stage {name}: {wall:.3f} ms synced wall, "
-            f"{gpu_time_ms(fn, reps):.3f} ms device events, per call, on {power}")
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(PROFILE_STEPS):
-            step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / PROFILE_STEPS * 1e3
-    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in ops) / 1e3 / PROFILE_STEPS
-    if not ops:
-        raise AssertionError("the profiler saw no device operation")
-    log(f"profiled step ({PROFILE_STEPS} steps): {wall:.3f} ms wall, {busy:.3f} ms "
-        f"device busy, idle share {1.0 - busy / wall:.4f}, "
-        f"{len(ops) / PROFILE_STEPS:.0f} device operations per step, on {power}")
-    log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=12))
+    time_stages("tracking step", (("extraction", extract), ("matching", match),
+                                  ("pose_lm", pose), ("step", step)), power)
+    profile_calls("tracking step", step, power)
 
 
-def phase_timing(x, errs, counts, power):
+def phase_pair_timing(config, motion, cands, x, power):
+    image, pt_f32, pt_desc, meta = motion
 
+    phase_fps("pair", lambda im, fb: run_pair(
+        config, (im, pt_f32, pt_desc, meta + 0.0 * fb), cands)[1][0][12],
+        image, power)
+
+    out = fused_motion_track_packed(*motion, config)
+    feat_state, lm_meta = interop.local_map_args(out, pt_f32, LM_TH)
+    (m_top2, m_top2_wide, l_top2), (m_lm, l_lm) = x["k6"], x["k8"]
+    cam = config.camera
+    stages = (
+        ("extraction", lambda: extractor.extract_features(
+            image, config.orb, cam.height, cam.width)),
+        ("motion K6 x2", lambda: (kmatching.projection_hamming_top2(*m_top2),
+                                  kmatching.projection_hamming_top2(*m_top2_wide))),
+        ("motion pose_lm", lambda: pose_lm.pose_lm(*m_lm)),
+        ("motion stage", lambda: fused_motion_track_packed(*motion, config)),
+        ("local-map K6", lambda: kmatching.projection_hamming_top2(*l_top2)),
+        ("local-map pose_lm", lambda: pose_lm.pose_lm(*l_lm)),
+        ("local-map stage", lambda: fused_local_map_track(
+            out[1], out[2], feat_state, *cands, lm_meta, config)),
+        ("pair", lambda: run_pair(config, motion, cands)),
+    )
+    time_stages("pair", stages, power)
+    profile_calls("pair", lambda: run_pair(config, motion, cands), power)
+
+
+def phase_kernel_timing(x, errs, counts, power):
     th_hi, th_lo = x["ths"]
     canvas, blur = x["canvas"], x["blur"]
     padded, hp, wp = level.pad_level(canvas)
@@ -348,7 +605,8 @@ def phase_timing(x, errs, counts, power):
         })
         log(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, library "
             f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-            f"{b_ms:.4f} ms by {b_by}; {n_bytes / 1e6:.2f} MB) on {power}")
+            f"{b_ms:.4f} ms by {b_by}; {n_bytes / 1e6:.3f} MB, "
+            f"{n_ops / 1e6:.2f} Mop) on {power}")
 
     # K1 (the function the main path calls) reads the canvas once and
     # writes three maps; ~300 float operations per pixel (26 for the blur,
@@ -399,31 +657,88 @@ def phase_timing(x, errs, counts, power):
         "orb_slam2_commit_tpu/ops/pallas_patches.py:81",
         both(patches.extract_patches), both(patches.extract_patches_plain),
         None, k4_bytes, 0)
+
+    # K5 needs the 81 window pixels of each patch and writes two offsets;
+    # ~2,700 float operations per keypoint (gradients, 2 x 49 weighted
+    # terms with their exp, the 2x2 solves).
+    p5, cy, cx = x["k5"]
+    row("corner_subpix", "orb_slam2_commit_tpu_torch/csrc/subpix.cu",
+        "orb_slam2_commit_tpu/ops/subpix.py:182",
+        lambda: subpix.corner_subpix_from_patches(p5, cy, cx),
+        lambda: subpix.corner_subpix_from_patches_plain(p5, cy, cx),
+        None, p5.shape[0] * (81 * 4 + 8), 2700 * p5.shape[0])
+
+    # K6, the pair's three launches: each reads its row and column tables
+    # once and writes 4 x M results; ~8 operations per (row, column) window
+    # test and 24 (8 XOR, 8 popcount, 8 adds) per candidate pair, counted
+    # from this run's masks.
+    k6_bytes = k6_ops = 0
+    for args in x["k6"]:
+        m_rows, n_cols = args[0].shape[0], args[6].shape[0]
+        mask = (args[5][:, None] & args[9][None, :]
+                & kmatching.matching.window_mask(args[1], args[7], args[2])
+                & kmatching.matching.octave_band_mask(args[8], args[3], args[4]))
+        k6_bytes += nbytes(*args) + 4 * m_rows * 4
+        k6_ops += 8 * m_rows * n_cols + 24 * int(mask.sum())
+
+    def all_k6(fn):
+        return lambda: [fn(*args) for args in x["k6"]]
+
+    row("projection_hamming_top2", "orb_slam2_commit_tpu_torch/csrc/matching.cu",
+        "orb_slam2_commit_tpu/ops/pallas_matching.py:246",
+        all_k6(kmatching.projection_hamming_top2),
+        all_k6(kmatching.projection_hamming_top2_plain), None, k6_bytes, k6_ops)
+
+    # K8, the pair's two launches: inputs read once, pose and inlier flags
+    # written; operations from the evaluations each launch ran on this
+    # input (the kernel reports them).
+    k8_bytes = k8_ops = 0
+    for args in x["k8"]:
+        n_evals, obs_evals, rounds = pose_lm.work_done(*args)
+        obs = args[3]
+        k8_bytes += nbytes(args[0], args[1], args[2], obs.uvr, obs.inv_sigma2,
+                           obs.is_stereo, obs.valid) + 48 + obs.valid.numel()
+        k8_ops += (pose_lm.OPS_PER_EVAL * obs_evals
+                   + pose_lm.OPS_PER_CLASSIFY * rounds * int(obs.valid.sum()))
+        log(f"K8 O={obs.valid.numel()}: {n_evals:.0f} evaluations over {rounds:.0f} "
+            f"rounds, {obs_evals:.0f} observation evaluations")
+
+    def all_k8(fn):
+        return lambda: [fn(*args) for args in x["k8"]]
+
+    row("pose_lm", "orb_slam2_commit_tpu_torch/csrc/pose_lm.cu",
+        "orb_slam2_commit_tpu/optim/pallas_pose_opt.py:381",
+        all_k8(pose_lm.pose_lm), all_k8(pose_opt.pose_optimization_plain),
+        None, k8_bytes, k8_ops, iters=50)
     return kernels
 
 
 def main() -> int:
-    name, count, smi = phase_device()
-    power = smi
-
+    name, count, power = phase_device()
     phase_build()
 
     t0 = time.perf_counter()
     config, args = interop.make_example(WIDTH, HEIGHT, N_FEATURES, N_POINTS, "cuda")
+    pair_config, motion, cands = interop.make_fused_example(
+        WIDTH, HEIGHT, N_FEATURES, N_POINTS, N_CANDIDATES, "cuda")
     torch.cuda.synchronize()
-    log(f"make_example {WIDTH}x{HEIGHT}, {N_FEATURES} features, {N_POINTS} "
-        f"points: {time.perf_counter() - t0:.1f} s, "
-        f"{int(args[5].sum())} bound map points")
+    log(f"examples {WIDTH}x{HEIGHT}, {N_FEATURES} features: "
+        f"{time.perf_counter() - t0:.1f} s; step: {int(args[5].sum())} bound of "
+        f"{N_POINTS} map points; pair: {int((motion[1][:, 5] > 0.5).sum())} of "
+        f"{N_POINTS} last-frame points, {int((cands[0][:, 8] > 0.5).sum())} of "
+        f"{N_CANDIDATES} candidates valid; subpixel refinement "
+        f"{config.orb.subpixel_refine}")
 
-    x = main_path_inputs(args[0])
+    x = main_path_inputs(args[0], pair_config, motion, cands)
     errs = phase_kernels(x)
-    counts = phase_main_path(config, args)
-    phase_fps(config, args, power)
-    phase_stages(config, args, power)
-    kernels = phase_timing(x, errs, counts, power)
+    counts = phase_pair(pair_config, motion, cands)
+    phase_step(config, args)
+    phase_step_timing(config, args, power)
+    phase_pair_timing(pair_config, motion, cands, x, power)
+    kernels = phase_kernel_timing(x, errs, counts, power)
 
     log(json.dumps({"kernels": kernels}))
-    log(smi)
+    log(power)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)
     return 0

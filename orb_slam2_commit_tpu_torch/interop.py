@@ -2,10 +2,17 @@
 
 - `map_from_numpy`: the tracking step's inputs as numpy arrays (the JAX
   package's layout: uint32 descriptors) -> tensors on a device.
-- `features_to_numpy`, `step_to_numpy`: the port's results -> numpy, with
-  descriptors as uint32 again.
-- `make_example`: a synthetic frame pair and a local map built with the
-  port's own extractor: the port's twin of the JAX package's
+- `packed_from_numpy`: the fused pair's packed inputs (`pt_f32 [M, 6]`,
+  `meta_f32 [13]`, `feat_state [N, 4]`, `cand_f32 [M, 9]`, descriptor
+  tables [M, 8], ...) -> tensors on a device, in the JAX package's layouts.
+- `local_map_args`: the local-map stage's arguments built on the device
+  from the motion stage's packed output, as the tracker's host code builds
+  them.
+- `features_to_numpy`, `step_to_numpy`, `packed_to_numpy`: the port's
+  results -> numpy, with descriptors as uint32 again.
+- `make_example`, `make_fused_example`: a synthetic frame pair, and the
+  last-frame points and local-map candidates built from frame 0 with the
+  port's own extractor: the port's twins of the JAX package's
   `__graft_entry__._make_example`.
 
 Every entry point that places tensors takes `device`, "cuda" by default;
@@ -14,7 +21,6 @@ without a card that default raises instead of falling back to the CPU.
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Dict, Tuple
 
 import numpy as np
@@ -24,12 +30,26 @@ from orb_slam2_commit_tpu_torch.ops import extractor as ext
 from orb_slam2_commit_tpu_torch.utils import synthetic
 from orb_slam2_commit_tpu_torch.utils.config import SLAMConfig, synthetic_config
 
+
 def resolve_device(device="cuda") -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: pass device='cpu' to run the plain versions")
     return dev
+
+
+def _put(a, dev) -> torch.Tensor:
+    """numpy -> tensor on dev: uint32 keeps its bits as int32, other
+    integers become int32, floats float32, bools stay bool."""
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    elif a.dtype.kind in "iu":
+        a = a.astype(np.int32)
+    elif a.dtype.kind == "f":
+        a = a.astype(np.float32)
+    return torch.from_numpy(np.array(a, order="C")).to(dev)
 
 
 def map_from_numpy(
@@ -48,16 +68,19 @@ def map_from_numpy(
     on `device`. Floats become float32; uint32 descriptors keep their bits
     as int32."""
     dev = resolve_device(device)
+    return tuple(_put(a, dev) for a in (
+        image, pt_pos, np.asarray(pt_desc, np.uint32), pt_octave, pt_angle,
+        np.asarray(pt_valid, bool), R_pred, t_pred))
 
-    def put(a, dtype):
-        return torch.from_numpy(np.array(a, dtype)).to(dev)
 
-    return (
-        put(image, np.float32), put(pt_pos, np.float32),
-        put(np.asarray(pt_desc, np.uint32).view(np.int32), np.int32),
-        put(pt_octave, np.int32), put(pt_angle, np.float32),
-        put(pt_valid, bool), put(R_pred, np.float32), put(t_pred, np.float32),
-    )
+def packed_from_numpy(*arrays: np.ndarray, device="cuda") -> Tuple[torch.Tensor, ...]:
+    """The fused pair's packed inputs as numpy (image, pt_f32, pt_desc,
+    meta_f32 for the motion stage; feat_dev, desc_dev, feat_state,
+    cand_f32, cand_desc, meta_f32 for the local-map stage) -> tensors on
+    `device`: float matrices as float32, uint32 descriptor tables as int32
+    bits."""
+    dev = resolve_device(device)
+    return tuple(_put(a, dev) for a in arrays)
 
 
 def features_to_numpy(feats: ext.Features) -> Dict[str, np.ndarray]:
@@ -68,6 +91,80 @@ def features_to_numpy(feats: ext.Features) -> Dict[str, np.ndarray]:
 
 def step_to_numpy(res) -> Dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy() for k, v in res._asdict().items()}
+
+
+def packed_to_numpy(*tensors: torch.Tensor) -> Tuple[np.ndarray, ...]:
+    """A packed result ((meta, feat, desc) of the motion stage, (meta,
+    perfeat, visible) of the local-map stage) -> numpy; int32 descriptor
+    tables [N, 8] become uint32 again."""
+    out = []
+    for t in tensors:
+        a = t.detach().cpu().numpy()
+        if a.dtype == np.int32 and a.ndim == 2 and a.shape[1] == 8:
+            a = a.view(np.uint32)
+        out.append(a)
+    return tuple(out)
+
+
+def local_map_args(motion_out, pt_f32: torch.Tensor, th: float):
+    """The local-map stage's (feat_state [N, 4], meta_f32 [13]) from the
+    motion stage's packed output, on its device and without waiting for
+    it: a feature stays bound to its last-frame point when the pose BA
+    kept it as an inlier (slam/tracking.py:412-419); the pose is the
+    motion stage's; th is the search radius."""
+    meta, feat, _ = motion_out
+    binding = feat[:, 10].to(torch.int64)
+    bound = (binding >= 0) & (feat[:, 11] > 0.5)
+    feat_state = torch.cat(
+        [pt_f32[torch.clamp_min(binding, 0), 0:3],
+         bound[:, None].to(torch.float32)], dim=1)
+    lm_meta = torch.cat([meta[0:12], torch.full((1,), th, device=meta.device)])
+    return feat_state, lm_meta
+
+
+def _frame0_associations(config: SLAMConfig, image0, pose0, points, dev):
+    """Frame 0 through the port's extractor on dev, and each feature's
+    nearest landmark projection: (features as numpy, nearest landmark [N],
+    pixel distance to it [N], associated [N] = within 4 px and valid)."""
+    feats0 = features_to_numpy(ext.extract_features(
+        torch.from_numpy(image0).to(dev), config.orb,
+        config.camera.height, config.camera.width))
+    cam = config.camera
+    R0, t0 = pose0
+    pc = points @ R0.T + t0
+    uv = np.stack([cam.fx * pc[:, 0] / pc[:, 2] + cam.cx,
+                   cam.fy * pc[:, 1] / pc[:, 2] + cam.cy], -1)
+    d = np.linalg.norm(feats0["xy"][:, None] - uv[None], axis=-1)
+    nearest, dmin = d.argmin(1), d.min(1)
+    return feats0, nearest, dmin, (dmin < 4.0) & feats0["valid"]
+
+
+def _scene(width, height, n_features, n_frames):
+    config = synthetic_config(width=width, height=height, n_features=n_features)
+    images, poses, scene = synthetic.render_sequence(
+        config.camera, n_frames=n_frames, n_points=200, seed=11, step=0.04)
+    return config, images, poses, scene
+
+
+def _last_frame_points(feats0, nearest, assoc, points, n_points):
+    """Up to n_points associated frame-0 features as the last frame's
+    points: (pos [M, 3], desc [M, 8] uint32, octave, angle, valid); empty
+    rows carry random descriptors and valid = False."""
+    rng = np.random.default_rng(0)
+    m = n_points
+    pt_pos = np.zeros((m, 3))
+    pt_desc = rng.integers(0, 2 ** 32, size=(m, 8), dtype=np.uint32)
+    pt_octave = np.zeros(m, np.int32)
+    pt_angle = np.zeros(m, np.float32)
+    pt_valid = np.zeros(m, bool)
+    rows = np.where(assoc)[0][:m]
+    k = rows.size
+    pt_pos[:k] = points[nearest[rows]]
+    pt_desc[:k] = feats0["desc"][rows]
+    pt_octave[:k] = feats0["octave"][rows]
+    pt_angle[:k] = feats0["angle"][rows]
+    pt_valid[:k] = True
+    return pt_pos, pt_desc, pt_octave, pt_angle, pt_valid
 
 
 def make_example(
@@ -84,45 +181,88 @@ def make_example(
     port's extractor on `device`, binds each valid feature within 4 px of
     a landmark's projection to that landmark, and packs up to n_points of
     them as the local map. args[0] is frame 1 and the pose prediction is
-    frame 1's ground truth, as in the JAX package's example. The config
-    runs without subpixel refinement, which the port does not have yet."""
+    frame 1's ground truth, as in the JAX package's example. The config is
+    the default one: subpixel refinement on."""
     dev = resolve_device(device)
-    config = synthetic_config(width=width, height=height, n_features=n_features)
-    config = dataclasses.replace(
-        config, orb=dataclasses.replace(config.orb, subpixel_refine=False))
-    images, poses, scene = synthetic.render_sequence(
-        config.camera, n_frames=n_frames, n_points=200, seed=11, step=0.04
-    )
-    feats0 = features_to_numpy(ext.extract_features(
-        torch.from_numpy(images[0]).to(dev), config.orb,
-        config.camera.height, config.camera.width))
-    xy0, valid0 = feats0["xy"], feats0["valid"]
-    cam = config.camera
-    R0, t0 = poses[0]
-    pc = scene.points @ R0.T + t0
-    uv = np.stack(
-        [cam.fx * pc[:, 0] / pc[:, 2] + cam.cx,
-         cam.fy * pc[:, 1] / pc[:, 2] + cam.cy], -1
-    )
-    d = np.linalg.norm(xy0[:, None] - uv[None], axis=-1)
-    nearest = d.argmin(1)
-    assoc = (d.min(1) < 4.0) & valid0
-
-    rng = np.random.default_rng(0)
-    m = n_points
-    pt_pos = np.zeros((m, 3))
-    pt_desc = rng.integers(0, 2 ** 32, size=(m, 8), dtype=np.uint32)
-    pt_octave = np.zeros(m, np.int32)
-    pt_angle = np.zeros(m, np.float32)
-    pt_valid = np.zeros(m, bool)
-    rows = np.where(assoc)[0][:m]
-    k = rows.size
-    pt_pos[:k] = scene.points[nearest[rows]]
-    pt_desc[:k] = feats0["desc"][rows]
-    pt_octave[:k] = feats0["octave"][rows]
-    pt_angle[:k] = feats0["angle"][rows]
-    pt_valid[:k] = True
+    config, images, poses, scene = _scene(width, height, n_features, n_frames)
+    feats0, nearest, _, assoc = _frame0_associations(
+        config, images[0], poses[0], scene.points, dev)
+    pts = _last_frame_points(feats0, nearest, assoc, scene.points, n_points)
     R_pred, t_pred = poses[1]
-    args = map_from_numpy(images[1], pt_pos, pt_desc, pt_octave, pt_angle,
-                          pt_valid, R_pred, t_pred, device=dev)
+    args = map_from_numpy(images[1], *pts, R_pred, t_pred, device=dev)
     return config, args
+
+
+def fused_example_arrays(
+    width: int = 320,
+    height: int = 240,
+    n_features: int = 400,
+    n_points: int = 256,
+    n_candidates: int = 512,
+    device="cuda",
+) -> Tuple[SLAMConfig, Dict[str, np.ndarray]]:
+    """The fused pair's inputs as numpy arrays in the JAX package's
+    layouts: image [H, W] (frame 1), pt_f32 [n_points, 6], pt_desc
+    [n_points, 8] uint32, meta_f32 [13] (the prediction is frame 1's ground
+    truth, tz_rel 0), cand_f32 [n_candidates, 9], cand_desc
+    [n_candidates, 8] uint32.
+
+    The last-frame points are make_example's. Each landmark with an
+    associated frame-0 feature (the nearest of them) is a local-map
+    candidate: normal = unit(X - C0) with C0 frame 0's camera centre,
+    max_dist = |X - C0| * 1.2^octave, min_dist = max_dist / 1.2^(L-1)
+    (MapPoint::UpdateNormalAndDepth), the feature's descriptor. Rows past
+    them stay zero with valid = 0, as the tracker pads its table
+    (slam/tracking.py:862-870)."""
+    dev = resolve_device(device)
+    config, images, poses, scene = _scene(width, height, n_features, 2)
+    feats0, nearest, dmin, assoc = _frame0_associations(
+        config, images[0], poses[0], scene.points, dev)
+    pt_pos, pt_desc, pt_octave, pt_angle, pt_valid = _last_frame_points(
+        feats0, nearest, assoc, scene.points, n_points)
+    pt_f32 = np.stack([*pt_pos.T, pt_octave, pt_angle, pt_valid], 1).astype(np.float32)
+    R_pred, t_pred = poses[1]
+    meta_f32 = np.concatenate([np.reshape(R_pred, -1), t_pred, [0.0]]).astype(np.float32)
+
+    orb = config.orb
+    R0, t0 = poses[0]
+    center = -np.asarray(R0).T @ np.asarray(t0)
+    cand_f32 = np.zeros((n_candidates, 9), np.float32)
+    cand_desc = np.zeros((n_candidates, 8), np.uint32)
+    row = 0
+    for j in range(scene.points.shape[0]):
+        feats = np.where(assoc & (nearest == j))[0]
+        if feats.size == 0 or row == n_candidates:
+            continue
+        f = feats[np.argmin(dmin[feats])]
+        po = scene.points[j] - center
+        dist = np.linalg.norm(po)
+        max_dist = dist * orb.scale_factor ** int(feats0["octave"][f])
+        cand_f32[row] = [*scene.points[j], *(po / dist),
+                         max_dist / orb.scale_factor ** (orb.n_levels - 1), max_dist, 1.0]
+        cand_desc[row] = feats0["desc"][f]
+        row += 1
+    return config, dict(image=images[1], pt_f32=pt_f32, pt_desc=pt_desc,
+                        meta_f32=meta_f32, cand_f32=cand_f32, cand_desc=cand_desc)
+
+
+def make_fused_example(
+    width: int = 320,
+    height: int = 240,
+    n_features: int = 400,
+    n_points: int = 256,
+    n_candidates: int = 512,
+    device="cuda",
+) -> Tuple[SLAMConfig, Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...]]:
+    """(config, motion_args, candidates) for the fused pair:
+    fused_motion_track_packed(*motion_args, config) with motion_args =
+    (image, pt_f32, pt_desc, meta_f32) on `device`, then
+    fused_local_map_track(feat, desc, *local_map_args(...), ...) with
+    candidates = (cand_f32, cand_desc). See fused_example_arrays."""
+    dev = resolve_device(device)
+    config, a = fused_example_arrays(width, height, n_features, n_points,
+                                     n_candidates, dev)
+    motion = packed_from_numpy(a["image"], a["pt_f32"], a["pt_desc"],
+                               a["meta_f32"], device=dev)
+    cands = packed_from_numpy(a["cand_f32"], a["cand_desc"], device=dev)
+    return config, motion, cands

@@ -28,7 +28,7 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("level", "select", "patches")
+SOURCES = ("level", "select", "patches", "subpix", "matching", "pose_lm")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -64,11 +64,28 @@ SIGNATURES = {
             _c_void_p, _c_int, _c_int, _c_void_p, _c_int, _c_int, _c_void_p,
             _c_void_p),
     },
+    "subpix": {
+        "corner_subpix_launch": (
+            _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_void_p, _c_void_p),
+    },
+    "matching": {
+        "projection_top2_launch": (
+            _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+            _c_int, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int,
+            _c_void_p, _c_void_p),
+    },
+    "pose_lm": {
+        "pose_lm_launch": (
+            _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+            _c_void_p, _c_int, _c_float, _c_float, _c_float, _c_float, _c_float,
+            _c_int, _c_int, _c_void_p, _c_void_p, _c_void_p),
+    },
 }
 
 launches: Dict[str, int] = {
     "level_preprocess": 0, "combine_nms": 0, "cell_topk": 0,
-    "extract_patches": 0,
+    "extract_patches": 0, "corner_subpix": 0, "projection_hamming_top2": 0,
+    "pose_lm": 0,
 }
 
 _libraries: Dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,98 @@
+"""K6 projection_hamming_top2: windowed, octave-banded Hamming top-2 per
+projected map point, with its plain version (PyTorch port of
+ops/pallas_matching.py:projection_hamming_top2; kernel in
+csrc/matching.cu).
+
+On a CUDA tensor the wrapper launches the kernel; on a CPU tensor it runs
+the plain version. Both give the same four outputs, the Pallas kernel's
+index fallbacks included.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from orb_slam2_commit_tpu_torch.kernels import _build
+from orb_slam2_commit_tpu_torch.ops import matching
+from orb_slam2_commit_tpu_torch.ops.matching import BIG_DIST
+
+COL_BITS = 23     # the kernel's packed key holds the column in 23 bits
+
+Top2 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def projection_hamming_top2_plain(
+    desc_a, proj, radius, oct_lo, oct_hi, valid_a,
+    desc_b, xy_b, octave_b, valid_b,
+) -> Top2:
+    """Plain version of K6, the dense route: the [M, N] distance matrix,
+    the window and octave masks, then the top-2 of _top2_reduce: ties to
+    the lowest column, BIG where there is no candidate, and the second
+    index the lowest column other than the best when the row has fewer
+    than two candidates."""
+    dist = matching.hamming_distance_matrix(desc_a, desc_b)
+    mask = (
+        valid_a[:, None]
+        & valid_b[None, :]
+        & matching.window_mask(proj, xy_b, radius)
+        & matching.octave_band_mask(octave_b, oct_lo, oct_hi)
+    )
+    d = torch.where(mask, dist, torch.full_like(dist, BIG_DIST))
+    best_idx = matching._first_argmin(d)
+    best = d.amin(dim=1)
+    cols = torch.arange(d.shape[1], dtype=torch.int32, device=d.device)[None, :]
+    # The best column drops below every other, candidate or not.
+    d2 = torch.where(cols == best_idx[:, None], torch.full_like(d, BIG_DIST + 1), d)
+    second_idx = matching._first_argmin(d2)
+    second = torch.clamp_max(d2.amin(dim=1), BIG_DIST)
+    return best, best_idx, second, second_idx
+
+
+def projection_hamming_top2(
+    desc_a: torch.Tensor,     # [M, 8] int32 (uint32 bits)
+    proj: torch.Tensor,       # [M, 2] float32 projected pixel (u, v)
+    radius: torch.Tensor,     # [M] float32 window half-size
+    oct_lo: torch.Tensor,     # [M] int32 inclusive octave band
+    oct_hi: torch.Tensor,     # [M] int32
+    valid_a: torch.Tensor,    # [M] bool
+    desc_b: torch.Tensor,     # [N, 8] int32
+    xy_b: torch.Tensor,       # [N, 2] float32 keypoint pixels
+    octave_b: torch.Tensor,   # [N] int32
+    valid_b: torch.Tensor,    # [N] bool
+) -> Top2:
+    """-> (best, best_idx, second, second_idx), each [M] int32; best and
+    second are BIG_DIST where the row has no (second) candidate."""
+    row_args = ((desc_a, "desc_a", torch.int32, 2), (proj, "proj", torch.float32, 2),
+                (radius, "radius", torch.float32, 1), (oct_lo, "oct_lo", torch.int32, 1),
+                (oct_hi, "oct_hi", torch.int32, 1), (valid_a, "valid_a", torch.bool, 1))
+    col_args = ((desc_b, "desc_b", torch.int32, 2), (xy_b, "xy_b", torch.float32, 2),
+                (octave_b, "octave_b", torch.int32, 1), (valid_b, "valid_b", torch.bool, 1))
+    m, n = desc_a.shape[0], desc_b.shape[0]
+    for args, rows in ((row_args, m), (col_args, n)):
+        for t, name, dtype, ndim in args:
+            _build.require(t, f"projection_hamming_top2 {name}", dtype, ndim)
+            if t.shape[0] != rows or t.device != desc_a.device:
+                raise ValueError(
+                    f"projection_hamming_top2 {name}: shape {tuple(t.shape)} on "
+                    f"{t.device}, expected {rows} rows on {desc_a.device}")
+    if desc_a.shape[1] != 8 or desc_b.shape[1] != 8 or proj.shape[1] != 2 \
+            or xy_b.shape[1] != 2 or not 1 <= n < (1 << COL_BITS):
+        raise ValueError(
+            f"projection_hamming_top2: descriptors {tuple(desc_a.shape)} x "
+            f"{tuple(desc_b.shape)}, proj {tuple(proj.shape)}, xy {tuple(xy_b.shape)}")
+    if not _build.on_card(desc_a, "projection_hamming_top2"):
+        return projection_hamming_top2_plain(
+            desc_a, proj, radius, oct_lo, oct_hi, valid_a,
+            desc_b, xy_b, octave_b, valid_b)
+    out = torch.empty((4, m), dtype=torch.int32, device=desc_a.device)
+    if m:
+        err = _build.library("matching").projection_top2_launch(
+            desc_a.data_ptr(), proj.data_ptr(), radius.data_ptr(),
+            oct_lo.data_ptr(), oct_hi.data_ptr(), valid_a.data_ptr(), m,
+            desc_b.data_ptr(), xy_b.data_ptr(), octave_b.data_ptr(),
+            valid_b.data_ptr(), n, out.data_ptr(), _build.stream_of(desc_a))
+        _build.check(err, "projection_hamming_top2")
+        _build.launches["projection_hamming_top2"] += 1
+    return out[0], out[1], out[2], out[3]

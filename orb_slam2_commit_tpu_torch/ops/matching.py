@@ -1,5 +1,5 @@
 """Hamming-distance descriptor matching primitives (PyTorch port of the
-parts of ops/matching.py the tracking step needs).
+parts of ops/matching.py the tracker's per-frame matchers need).
 
 A matcher is a dense masked [M, N] distance matrix, a best/second-best
 ratio test, a rotation-consistency histogram (30 bins, top-3 kept) and
@@ -78,7 +78,22 @@ def best_match_with_ratio(
     d2 = torch.where(cols == best_idx[:, None], big, d)
     second = d2.amin(dim=1)
     second_idx = _first_argmin(d2)
+    return match_from_top2(best, best_idx, second, second_idx, max_dist,
+                           ratio, octave_b)
 
+
+def match_from_top2(
+    best: torch.Tensor,
+    best_idx: torch.Tensor,
+    second: torch.Tensor,
+    second_idx: torch.Tensor,
+    max_dist: int,
+    ratio: float = 1.0,
+    octave_b: Optional[torch.Tensor] = None,
+) -> MatchResult:
+    """best_match_with_ratio's gating applied to precomputed row top-2
+    results (from the projection-matching kernel, K6). Identical
+    semantics."""
     ok = best <= max_dist
     if ratio < 1.0:
         ratio_ok = best.to(torch.float32) < ratio * second.to(torch.float32)

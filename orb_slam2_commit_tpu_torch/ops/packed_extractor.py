@@ -11,15 +11,15 @@ W0] and each stage runs once on it:
          -> per-level top-k                 (one stable sort)
          -> IC angle from 31x31 patches     (K4, kernels/patches.py)
          -> rotated BRIEF from 39x39 blurred patches (K4 again)
+         -> subpixel offsets from the 31x31 patches (K5, kernels/subpix.py,
+            when ORBConfig.subpixel_refine is on)
 
 Level start rows are aligned to the cell size, so the canvas cell grid
 restricted to a level is that level's own grid; the detection border
 (>= 22 px) keeps every selected keypoint's score, IC patch and BRIEF
 samples inside its own level. Integer outputs (positions, octaves,
-descriptor bits) equal the JAX package's packed route.
-
-Subpixel refinement (ORBConfig.subpixel_refine, the K5 kernel) is not
-ported yet: that configuration raises NotImplementedError.
+descriptor bits) equal the JAX package's packed route; refined
+coordinates agree with it within 1e-4 px.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from orb_slam2_commit_tpu_torch.kernels import level, patches, select
+from orb_slam2_commit_tpu_torch.kernels import level, patches, select, subpix
 from orb_slam2_commit_tpu_torch.ops import descriptors, fast, pyramid
 from orb_slam2_commit_tpu_torch.ops.extractor import Features, detection_border
 from orb_slam2_commit_tpu_torch.utils.config import ORBConfig
@@ -272,13 +272,14 @@ def select_flat(
 
 def describe(
     canvas: torch.Tensor, blur_c: torch.Tensor, yx: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor]:
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """IC angle from 31x31 canvas patches and BRIEF from 39x39 blurred
-    patches (K4, twice) -> (angle [N], desc [N, 8] int32)."""
+    patches (K4, twice) -> (angle [N], desc [N, 8] int32, the 31x31
+    patches, which subpixel refinement reuses)."""
     ic_patches = patches.extract_patches(canvas, yx, descriptors.PATCH_SIZE)
     angle = descriptors.ic_angle_from_patches(ic_patches)
     brief_patches = patches.extract_patches(blur_c, yx, descriptors.BRIEF_PATCH)
-    return angle, descriptors.brief_from_patches(brief_patches, angle)
+    return angle, descriptors.brief_from_patches(brief_patches, angle), ic_patches
 
 
 def extract_features_packed(
@@ -287,23 +288,31 @@ def extract_features_packed(
     """Packed-canvas ORB extraction of image[height, width] float32;
     output layout: level-major concatenation of the per-level budgets,
     coords rescaled to level 0."""
-    if config.subpixel_refine:
-        raise NotImplementedError(
-            "subpixel refinement (the corner_subpix kernel) is not ported "
-            "yet (ROADMAP.md); use ORBConfig(subpixel_refine=False)")
     plan = make_plan(config, height, width)
+    return features_from_canvas(build_canvas(image, plan), plan, config)
+
+
+def features_from_canvas(
+    canvas: torch.Tensor, plan: PackPlan, config: ORBConfig
+) -> Features:
+    """Everything after the pyramid: detection, selection, orientation,
+    BRIEF and refinement on a packed canvas."""
     budgets = config.features_per_level()
     scales = config.scale_factors()
-    dev = image.device
+    dev = canvas.device
 
-    canvas = build_canvas(image, plan)
     blur_c, score = detect(canvas, plan, config)
     yx, resp, valid = select_flat(score, plan, config)
-    angle, desc = describe(canvas, blur_c, yx)
+    angle, desc, ic_patches = describe(canvas, blur_c, yx)
 
     row_off = _per_slot_t(dev, plan.row_offsets, budgets, np.float32)
     scale = _per_slot_t(dev, scales, budgets, np.float32)
     xy_f = yx.to(torch.float32)
+    if config.subpixel_refine:
+        # Every keypoint sits >= border px inside its level's canvas rows,
+        # so the 9x9 refinement window never crosses a level boundary.
+        half = descriptors.PATCH_SIZE // 2
+        xy_f = xy_f + subpix.corner_subpix_from_patches(ic_patches, half, half)
     x0 = xy_f[:, 1] * scale
     y0 = (xy_f[:, 0] - row_off) * scale
     return Features(

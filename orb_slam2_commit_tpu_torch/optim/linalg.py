@@ -13,9 +13,8 @@ import torch
 def chol_solve_spd(H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve H x = b for SPD H[..., n, n], b[..., n].
 
-    Where H is not positive definite the factor fails and x is NaN: a
-    caller that keeps a step only when it lowers the cost rejects it, as
-    it rejects the huge step of the JAX package's clamped pivots."""
+    Where H is not positive definite the factor fails and x is NaN; the
+    pose LM rejects such a step explicitly (optim/pose_opt.py)."""
     L, info = torch.linalg.cholesky_ex(H)
     x = torch.cholesky_solve(b.unsqueeze(-1), L).squeeze(-1)
     return torch.where((info == 0).unsqueeze(-1), x, torch.nan)

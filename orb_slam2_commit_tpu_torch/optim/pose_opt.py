@@ -1,5 +1,9 @@
 """Pose-only bundle adjustment (PyTorch port of optim/pose_opt.py).
 
+`pose_optimization` launches the one-kernel LM (K8, kernels/pose_lm.py)
+on CUDA tensors and runs `pose_optimization_plain`, the masked PyTorch LM
+below, on CPU tensors. The plain version is K8's oracle.
+
 Replaces Optimizer::PoseOptimization (src/Optimizer.cc:287-528): unary
 reprojection edges, Huber kernels, 4 rounds x 10 Levenberg-Marquardt
 iterations with chi2 inlier reclassification between rounds (5.991 mono /
@@ -86,7 +90,9 @@ def _lm_rounds(R0, t0, points, obs, cam_params, active, use_robust, n_iters):
         R_new = dR @ R
         t_new = dR @ t + dt
         e_new, w_new, J_new, new_cost = full_eval(R_new, t_new)
-        accept = new_cost < cost
+        # A failed factor gives a NaN step, whose projections fail every
+        # depth gate and so cost nothing: reject it explicitly.
+        accept = (new_cost < cost) & torch.isfinite(delta).all()
         keep = running & accept
         R = torch.where(keep, R_new, R)
         t = torch.where(keep, t_new, t)
@@ -103,8 +109,29 @@ def _lm_rounds(R0, t0, points, obs, cam_params, active, use_robust, n_iters):
     return R, t, settled
 
 
-@full_float32
 def pose_optimization(
+    R0: torch.Tensor,
+    t0: torch.Tensor,
+    points: torch.Tensor,
+    obs: BAObservations,
+    fx: float,
+    fy: float,
+    cx: float,
+    cy: float,
+    bf: float,
+    n_rounds: int = 4,
+    iters_per_round: int = 10,
+) -> PoseOptResult:
+    """Optimize Tcw = (R0, t0) against world points [N, 3]: K8 on the
+    card, the plain version on the CPU (kernels/pose_lm.pose_lm)."""
+    from orb_slam2_commit_tpu_torch.kernels import pose_lm
+
+    return pose_lm.pose_lm(R0.contiguous(), t0.contiguous(), points.contiguous(),
+                           obs, fx, fy, cx, cy, bf, n_rounds, iters_per_round)
+
+
+@full_float32
+def pose_optimization_plain(
     R0: torch.Tensor,
     t0: torch.Tensor,
     points: torch.Tensor,

@@ -182,10 +182,18 @@ def test_other_combine_routes_match_jax_packed(monkeypatch, size, changes, min_v
 
 
 def test_subpixel_refinement_not_ported_yet():
+    """Refinement, once refused by the port, runs with the default
+    configuration and moves each keypoint by at most 1 px of its level
+    (tests/test_torch_subpix.py holds it against the JAX package)."""
     tc = synthetic_config(width=W, height=H, n_features=N_FEAT).orb
     assert tc.subpixel_refine
-    with pytest.raises(NotImplementedError):
-        extractor.extract_features(torch.zeros((H, W)), tc, H, W)
+    img = torch.from_numpy(_random_image())
+    got = extractor.extract_features(img, tc, H, W)
+    plain = extractor.extract_features(
+        img, dataclasses.replace(tc, subpixel_refine=False), H, W)
+    scale = torch.tensor(tc.scale_factors())[got.octave.long()][:, None]
+    moved = (got.xy - plain.xy).abs()
+    assert bool((moved <= scale + 1e-4).all()) and bool((moved > 0).any())
 
 
 def test_pyramid_products_ignore_a_tf32_setting(monkeypatch):

@@ -1,7 +1,9 @@
-"""The port's tracking step (extraction without subpixel refinement,
-projection matching, pose-only LM) on the CPU against the JAX package's
-step on the arrays of __graft_entry__._make_example(): equal match and
-inlier counts, pose within test_pallas_pose_opt.py's bounds.
+"""The port's tracking step (extraction, projection matching, pose-only
+LM) on the CPU against the JAX package's step on the arrays of
+__graft_entry__._make_example(), with subpixel refinement off and on (the
+default): equal match and inlier counts, pose within
+test_pallas_pose_opt.py's bounds, keypoints equal (refinement off) or
+within 1e-4 px (on).
 
 The JAX step runs with its packed extraction route forced on (the route
 the port takes) and in 32-bit mode: under the suite's x64 mode its
@@ -42,14 +44,17 @@ def example():
     return config, [np.asarray(a) for a in args]
 
 
-def test_tracking_step_matches_jax(monkeypatch, example):
+def _step_pair(monkeypatch, example, refine):
     config, np_args = example
+    tconfig = synthetic_config(width=320, height=240, n_features=400)
+    if not refine:
+        config, tconfig = _no_subpix(config), _no_subpix(tconfig)
+    assert config.orb.subpixel_refine == tconfig.orb.subpixel_refine == refine
     monkeypatch.setenv("ORB_TPU_FORCE_PACKED", "1")
     with jax.enable_x64(False):
-        ref = jax_step(*(jnp.asarray(a) for a in np_args), _no_subpix(config))
+        ref = jax_step(*(jnp.asarray(a) for a in np_args), config)
         ref = {k: np.asarray(v) for k, v in ref._asdict().items()}
 
-    tconfig = _no_subpix(synthetic_config(width=320, height=240, n_features=400))
     before = dict(_build.launches)
     got = interop.step_to_numpy(tracking_forward_step(
         *interop.map_from_numpy(*np_args, device="cpu"), tconfig))
@@ -57,14 +62,24 @@ def test_tracking_step_matches_jax(monkeypatch, example):
 
     assert int(got["n_matches"]) == int(ref["n_matches"]) > 50
     assert int(got["n_inliers"]) == int(ref["n_inliers"])
-    np.testing.assert_array_equal(got["feat_xy"], ref["feat_xy"])
     assert rot_angle(got["R"].astype(np.float64), ref["R"]) < 0.05
     assert np.linalg.norm(got["t"] - ref["t"]) < 2e-3
+    return got, ref
+
+
+def test_tracking_step_matches_jax(monkeypatch, example):
+    got, ref = _step_pair(monkeypatch, example, refine=False)
+    np.testing.assert_array_equal(got["feat_xy"], ref["feat_xy"])
+
+
+def test_tracking_step_with_refinement_matches_jax(monkeypatch, example):
+    got, ref = _step_pair(monkeypatch, example, refine=True)
+    np.testing.assert_allclose(got["feat_xy"], ref["feat_xy"], atol=1e-4, rtol=0)
 
 
 def test_make_example_and_step_on_cpu():
     config, args = interop.make_example(device="cpu")
-    assert not config.orb.subpixel_refine
+    assert config.orb.subpixel_refine            # the default configuration
     assert all(a.device.type == "cpu" for a in args)
     assert int(args[5].sum()) > 50                    # bound map points
     res = tracking_forward_step(*args, config)

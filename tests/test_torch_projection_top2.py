@@ -1,0 +1,199 @@
+"""Port's projection matching on the CPU against the JAX package: K6's
+plain version equal to the Pallas kernel in interpret mode (VPU and MXU
+bodies) in all four outputs, index fallbacks included; match_from_top2,
+frustum_check and match_local_map equal to the JAX functions."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from orb_slam2_commit_tpu.ops import matching as jmatching
+from orb_slam2_commit_tpu.ops import pallas_matching as jpm
+from orb_slam2_commit_tpu.slam import matchers as jmatchers
+from orb_slam2_commit_tpu_torch.kernels import _build
+from orb_slam2_commit_tpu_torch.kernels import matching as kmatching
+from orb_slam2_commit_tpu_torch.ops import matching
+from orb_slam2_commit_tpu_torch.slam import matchers
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _no_kernel_launches():
+    """On the CPU every wrapper runs its plain version: nothing launches."""
+    before = dict(_build.launches)
+    yield
+    assert _build.launches == before
+
+
+
+def _desc(rng, n):
+    return rng.integers(0, 2 ** 32, size=(n, 8), dtype=np.uint32)
+
+
+def _t(a):
+    a = np.ascontiguousarray(a)
+    return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
+
+
+def _top2_problem(seed, m, n, ties=False, masked_rows=0):
+    rng = np.random.default_rng(seed)
+    da, db = _desc(rng, m), _desc(rng, n)
+    if ties:
+        # Few distinct descriptors: many equal distances per row.
+        db = db[rng.integers(0, 4, n)]
+        da = da[rng.integers(0, 4, m)]
+    proj = rng.uniform(0, 640, (m, 2)).astype(np.float32)
+    xy = rng.uniform(0, 640, (n, 2)).astype(np.float32)
+    radius = rng.uniform(10, 120, m).astype(np.float32)
+    pt_oct = rng.integers(0, 8, m).astype(np.int32)
+    octave = rng.integers(0, 8, n).astype(np.int32)
+    valid_a = rng.random(m) < 0.9
+    valid_b = rng.random(n) < 0.9
+    if masked_rows:
+        radius[:masked_rows] = 0.25            # at most a lucky candidate
+        valid_a[masked_rows:2 * masked_rows] = False
+        # one row with a single candidate at column 0
+        proj[2 * masked_rows] = xy[0]
+        radius[2 * masked_rows] = 0.0
+        valid_b[0] = True
+        octave[0] = pt_oct[2 * masked_rows]
+    return (da, proj, radius, pt_oct - 1, pt_oct + 1, valid_a,
+            db, xy, octave, valid_b)
+
+
+CASES = {
+    "64x200": dict(seed=11, m=64, n=200),
+    "257x513": dict(seed=11, m=257, n=513),
+    "ties": dict(seed=4, m=96, n=300, ties=True),
+    "masked": dict(seed=5, m=40, n=150, masked_rows=8),
+    "one_column": dict(seed=6, m=20, n=1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("mxu", [False, True])
+def test_plain_top2_equals_pallas(case, mxu):
+    args = _top2_problem(**CASES[case])
+    ref = jpm.projection_hamming_top2(*(jnp.asarray(a) for a in args),
+                                      interpret=True, mxu=mxu)
+    got = kmatching.projection_hamming_top2(*(_t(a) for a in args))
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    if case == "masked":
+        assert (got[0].numpy() == matching.BIG_DIST).sum() >= 8
+
+
+def test_match_from_top2_equals_jax():
+    args = _top2_problem(9, 120, 300)
+    top2 = [np.array(x) for x in jpm.projection_hamming_top2(
+        *(jnp.asarray(a) for a in args), interpret=True, mxu=False)]
+    octave = args[8]
+    for ratio, rule in [(1.0, False), (0.9, False), (0.8, True)]:
+        for max_dist in (50, 100):
+            ref = jmatching.match_from_top2(
+                *(jnp.asarray(x) for x in top2), max_dist, ratio,
+                octave_b=jnp.asarray(octave) if rule else None)
+            got = matching.match_from_top2(
+                *(torch.from_numpy(x) for x in top2), max_dist, ratio,
+                octave_b=torch.from_numpy(octave) if rule else None)
+            np.testing.assert_array_equal(got.idx.numpy(), np.asarray(ref.idx))
+            np.testing.assert_array_equal(got.dist.numpy(), np.asarray(ref.dist))
+
+
+CAM = (256.0, 256.0, 160.0, 120.0, 320.0, 240.0)
+
+
+def _local_map_problem(seed, m=300, n=400):
+    """Map points seen from a camera near the origin, with normals and a
+    distance band from a first view, and a frame of noisy projections plus
+    clutter whose descriptors are near copies of the points'."""
+    rng = np.random.default_rng(seed)
+    fx, fy, cx, cy, w, h = CAM
+    X = np.stack([rng.uniform(-4, 4, m), rng.uniform(-3, 3, m),
+                  rng.uniform(2, 14, m)], -1).astype(np.float32)
+    c0 = np.array([0.1, -0.05, -0.2])
+    po = X - c0
+    dist = np.linalg.norm(po, axis=1)
+    normal = (po / dist[:, None]).astype(np.float32)
+    normal[::7] = -normal[::7]                       # facing away: fail the angle gate
+    oct_src = rng.integers(0, 8, m)
+    max_dist = (dist * 1.2 ** oct_src).astype(np.float32)
+    min_dist = (max_dist / 1.2 ** 7).astype(np.float32)
+    pt_valid = rng.random(m) < 0.95
+    w3 = np.array([0.01, -0.02, 0.015])
+    th = np.linalg.norm(w3)
+    K = np.array([[0, -w3[2], w3[1]], [w3[2], 0, -w3[0]], [-w3[1], w3[0], 0]]) / th
+    R = (np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K).astype(np.float32)
+    t = np.array([0.05, -0.02, 0.1], np.float32)
+    pc = X @ R.T + t
+    uv = np.stack([fx * pc[:, 0] / pc[:, 2] + cx, fy * pc[:, 1] / pc[:, 2] + cy], -1)
+    src = rng.choice(m, n // 2, replace=False)
+    xy = np.concatenate([uv[src] + rng.normal(0, 1.5, (n // 2, 2)),
+                         rng.uniform(0, [w, h], (n - n // 2, 2))]).astype(np.float32)
+    pt_desc = _desc(rng, m)
+    desc = _desc(rng, n)
+    flips = rng.integers(0, 2 ** 32, (n // 2, 8), dtype=np.uint32) & np.uint32(0x00010001)
+    desc[: n // 2] = pt_desc[src] ^ flips
+    octave = rng.integers(0, 8, n).astype(np.int32)
+    valid = rng.random(n) < 0.95
+    taken = rng.random(n) < 0.2
+    return (X, normal, min_dist, max_dist, pt_valid, R, t, pt_desc,
+            xy, desc, octave, valid, taken)
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_frustum_check_and_match_local_map_equal_jax(seed):
+    (X, normal, dmin, dmax, pt_valid, R, t, pt_desc,
+     xy, desc, octave, valid, taken) = _local_map_problem(seed)
+    fx, fy, cx, cy, w, h = CAM
+    th = np.float32(3.0)
+    with jax.enable_x64(False):
+        jinfo = jmatchers.frustum_check.__wrapped__(
+            *(jnp.asarray(a) for a in (X, normal, dmin, dmax, pt_valid, R, t)),
+            fx, fy, cx, cy, w, h)
+        jm = jmatchers.match_local_map.__wrapped__(
+            jinfo, jnp.asarray(pt_desc), jnp.asarray(xy), jnp.asarray(desc),
+            jnp.asarray(octave), jnp.asarray(valid), jnp.asarray(taken),
+            th=jnp.asarray(th))
+        jinfo = [np.asarray(x) for x in jinfo]
+        jm = [np.asarray(x) for x in jm]
+    info = matchers.frustum_check(
+        *(_t(a) for a in (X, normal, dmin, dmax, pt_valid, R, t)), fx, fy, cx, cy, w, h)
+    m = matchers.match_local_map(
+        info, _t(pt_desc), _t(xy), _t(desc), _t(octave), _t(valid), _t(taken),
+        th=torch.tensor(th))
+    np.testing.assert_array_equal(info.visible.numpy(), jinfo[0])
+    np.testing.assert_array_equal(info.proj.numpy(), jinfo[1])
+    np.testing.assert_array_equal(info.pred_octave.numpy(), jinfo[2])
+    np.testing.assert_array_equal(info.view_cos.numpy(), jinfo[3])
+    assert 50 < int(info.visible.sum()) < X.shape[0]
+    np.testing.assert_array_equal(m.idx.numpy(), jm[0])
+    np.testing.assert_array_equal(m.dist.numpy(), jm[1])
+    assert int((m.idx >= 0).sum()) > 20
+
+
+@pytest.mark.parametrize("tz_rel", [0.5, -0.5, 0.0])
+def test_stereo_octave_rule_equals_jax(tz_rel):
+    """match_projection_last_frame's forward/backward octave rule."""
+    (X, _, _, _, pt_valid, R, t, pt_desc,
+     xy, desc, octave, valid, _) = _local_map_problem(3)
+    rng = np.random.default_rng(3)
+    pt_oct = rng.integers(0, 8, X.shape[0]).astype(np.int32)
+    pt_angle = rng.uniform(-np.pi, np.pi, X.shape[0]).astype(np.float32)
+    angle = rng.uniform(-np.pi, np.pi, xy.shape[0]).astype(np.float32)
+    arrays = (X, pt_desc, pt_oct, pt_angle, pt_valid, R, t, xy, desc, angle,
+              octave, valid)
+    kw = dict(th=15.0, mono=False, baseline=0.3)
+    with jax.enable_x64(False):
+        ref = jmatchers.match_projection_last_frame.__wrapped__(
+            *(jnp.asarray(a) for a in arrays), *CAM, tz_rel=jnp.float32(tz_rel), **kw)
+        ref = [np.asarray(x) for x in ref]
+    got = matchers.match_projection_last_frame(
+        *(_t(a) for a in arrays), *CAM, tz_rel=torch.tensor(tz_rel), **kw)
+    np.testing.assert_array_equal(got.idx.numpy(), ref[0])
+    np.testing.assert_array_equal(got.dist.numpy(), ref[1])
+    assert int((got.idx >= 0).sum()) > 10
