@@ -5,26 +5,31 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-Two main paths run at full width (640x480, 1000 features): the tracking
-step (`tracking_forward_step`, 1024 local-map points) and the tracker's
-per-frame pair (`fused_motion_track_packed` against 1024 last-frame
-points, then `fused_local_map_track` against a 2048-row candidate table),
-both with the default configuration (subpixel refinement on).
+Four main paths run at full width (640x480, 1000 features), all with the
+default configuration (subpixel refinement on): the tracking step
+(`tracking_forward_step`, 1024 local-map points) and the tracker's
+per-frame pair for each sensor: the motion stage against 1024 last-frame
+points (`fused_motion_track_packed` for a monocular frame,
+`fused_stereo_motion_track_packed` for a stereo pair,
+`fused_rgbd_motion_track_packed` for an image and its depth map), then
+`fused_local_map_track` against a 2048-row candidate table.
 
 Phases (any failure exits non-zero and prints no result line):
   1. the card: name, count, torch/CUDA versions, nvidia-smi name + power limit;
   2. build every kernel's library from csrc/ (one nvcc per source, all at
      once) and print nvcc's register, stack and spill lines;
   3. each kernel against its plain PyTorch version on the card, on the
-     tensors the main paths give it (recorded from one run of each path);
+     tensors the main paths give it (recorded from one run of a path);
   4. each main path through the port's entry points, with the kernels'
      launch counts reset just before and read just after it, and its
-     result held against the same call on the CPU;
+     result held against the same call on the CPU; the stereo matcher
+     also on the card's own features and pyramids, on the card and the CPU;
   5. timing: throughput of each path by the bench recipe; per stage its
      synchronised wall time and device time; under torch.profiler the
      device's busy time, idle share and operations per call; per kernel its
-     time, its plain version's time, one library call's time where one
-     exists, and the least time the card could take (its bound).
+     device-busy time (and its CUDA-event time in a row), its plain
+     version's and one library call's where one exists, and the least time
+     the card could take (its bound).
 Then a `kernels` JSON line, the nvidia-smi line, and last the result line
 {"ok": true, "device": {...}}.
 """
@@ -44,18 +49,19 @@ try:
     from orb_slam2_commit_tpu_torch import interop
     from orb_slam2_commit_tpu_torch.kernels import (
         _build, level, matching as kmatching, patches, pose_lm, select, subpix)
-    from orb_slam2_commit_tpu_torch.ops import extractor
+    from orb_slam2_commit_tpu_torch.ops import extractor, pyramid, stereo
     from orb_slam2_commit_tpu_torch.ops import packed_extractor as pe
     from orb_slam2_commit_tpu_torch.optim import pose_opt
-    from orb_slam2_commit_tpu_torch.slam import matchers
+    from orb_slam2_commit_tpu_torch.slam import jit_frontend, matchers
     from orb_slam2_commit_tpu_torch.slam.jit_frontend import (
-        fused_local_map_track, fused_motion_track_packed, pose_inputs,
-        tracking_forward_step)
+        fused_local_map_track, fused_motion_track_packed,
+        fused_rgbd_motion_track_packed, fused_stereo_motion_track_packed,
+        pose_inputs, tracking_forward_step)
 except ImportError as e:   # the script was copied away from its repository
     raise SystemExit(f"chip_smoke: run it from the repository root ({e})")
 
 # The H100 SXM's published rates (NVIDIA data sheet), for the bounds.
-# Integer operations (K6) are counted at the float32 rate as well.
+# Integer operations (K6, K7) are counted at the float32 rate as well.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
@@ -64,6 +70,15 @@ LM_TH = 3.0        # TrackerConfig.search_radius_local_map
 # Pose bounds of the port's tests (rotation in degrees, translation).
 ROT_DEG_TOL, T_TOL = 0.05, 2e-3
 XY_TOL = 1e-4      # px, refined keypoints card vs CPU
+# px, stereo u_right against the CPU on the same features and pyramids
+# (tests/test_torch_stereo.py); depth = bf / (x - u_right) to DEPTH_RTOL.
+U_RIGHT_TOL, DEPTH_RTOL = 1e-3, 1e-5
+# px, RGB-D ur = u - bf / z card vs CPU: the keypoint's XY_TOL plus the
+# float32 rounding of the difference near 640 px.
+UR_TOL = 2e-4
+# Share of features whose stereo validity may differ card vs CPU end to
+# end (their descriptors above level 0 may differ, ROADMAP.md section 3).
+STEREO_FLIP_TOL = 0.01
 K5_TOL = 1e-5      # px, K5 vs its plain version (tests/test_subpix.py:69,82)
 K8_INLIER_TOL = 0.005   # share of observations whose inlier flag may differ
 # Calls traced by torch.profiler for the device's busy time and idle share.
@@ -71,8 +86,17 @@ PROFILE_CALLS = 5
 
 STEP_WANT = {"level_preprocess": 1, "combine_nms": 1, "cell_topk": 1,
              "extract_patches": 2, "corner_subpix": 1,
-             "projection_hamming_top2": 1, "pose_lm": 1}
+             "projection_hamming_top2": 1, "masked_hamming_top2": 0,
+             "pose_lm": 1}
 PAIR_WANT = dict(STEP_WANT, projection_hamming_top2=3, pose_lm=2)
+# Two extractions and the stereo matcher's two K7 launches.
+STEREO_WANT = dict(PAIR_WANT, level_preprocess=2, combine_nms=2, cell_topk=2,
+                   extract_patches=4, corner_subpix=2, masked_hamming_top2=2)
+WANT = {"monocular": PAIR_WANT, "stereo": STEREO_WANT, "rgbd": PAIR_WANT}
+MOTION = {"monocular": fused_motion_track_packed,
+          "stereo": fused_stereo_motion_track_packed,
+          "rgbd": fused_rgbd_motion_track_packed}
+PATH = {"monocular": "pair", "stereo": "stereo pair", "rgbd": "RGB-D pair"}
 
 
 def log(*parts):
@@ -97,6 +121,35 @@ def gpu_time_ms(fn, iters, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ops(prof):
+    """The device operations of a finished torch.profiler run -> (their
+    count, their summed durations in ms); raises if there are none."""
+    from torch.autograd import DeviceType
+
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ops:
+        raise AssertionError("the profiler saw no device operation")
+    return len(ops), sum(e.time_range.elapsed_us() for e in ops) / 1e3
+
+
+def device_busy_ms(fn, iters, warmup=3):
+    """Device time per call of fn(): the summed durations of the device
+    operations it ran, under torch.profiler over `iters` calls. The host's
+    gaps between them are not counted, so a call whose launches take less
+    device time than the host needs to issue them reads its device time
+    (CUDA events over calls in a row would read the host's issue rate)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return device_ops(prof)[1] / iters
 
 
 def bound_ms(n_bytes, n_ops):
@@ -162,9 +215,11 @@ def phase_build():
 
 def run_pair(config, motion, cands):
     """The tracker's per-frame pair through its entry points: the motion
-    stage, then the local-map stage on the features it left on the card."""
-    out = fused_motion_track_packed(*motion, config)
-    feat_state, lm_meta = interop.local_map_args(out, motion[1], LM_TH)
+    stage for config.sensor, then the local-map stage on the features it
+    left on the card. motion = (image[, image_r or depth], pt_f32,
+    pt_desc, meta_f32)."""
+    out = MOTION[config.sensor](*motion, config)
+    feat_state, lm_meta = interop.local_map_args(out, motion[-3], LM_TH)
     lm = fused_local_map_track(out[1], out[2], feat_state, *cands, lm_meta, config)
     return out, lm
 
@@ -196,6 +251,20 @@ def main_path_inputs(image, config, motion, cands):
         raise AssertionError(f"recorded {len(k5)} K5, {len(k6)} K6, {len(k8)} K8 calls")
     x.update(k5=k5[0][0], k6=[c[0] for c in k6], k8=[c[0] for c in k8])
     return x
+
+
+def stereo_path_inputs(config, motion, cands):
+    """The tensors K7 and K8 get on the stereo pair, from one recorded run
+    of it: K7's two launches (left -> right, right -> left) and K8's two
+    problems, now with stereo rows."""
+    k7, k8 = [], []
+    with recording(kmatching, "masked_hamming_top2", k7), \
+            recording(pose_lm, "pose_lm", k8):
+        run_pair(config, motion, cands)
+    torch.cuda.synchronize()
+    if (len(k7), len(k8)) != (2, 2):
+        raise AssertionError(f"recorded {len(k7)} K7, {len(k8)} K8 calls on the stereo pair")
+    return dict(k7=[c[0] for c in k7], k8_stereo=[c[0] for c in k8])
 
 
 # ---------------------------------------------------------------------------
@@ -269,20 +338,38 @@ def phase_kernels(x):
             f"exact in all four outputs ({int((got[0] <= 256).sum())} rows with a candidate)")
     rows["projection_hamming_top2"] = 0.0
 
-    worst = 0.0
-    for args in x["k8"]:
-        got = pose_lm.pose_lm(*args)
-        want = pose_opt.pose_optimization_plain(*args)
+    for args in x["k7"]:
+        got = kmatching.masked_hamming_top2(*args)
+        want = kmatching.masked_hamming_top2_plain(*args)
         torch.cuda.synchronize()
-        d_rot = rot_angle_deg(got.R.cpu(), want.R.cpu())
-        d_t = float((got.t - want.t).norm())
-        n_obs = args[2].shape[0]
-        differ = int((got.inliers != want.inliers).sum())
-        log(f"K8 pose_lm O={n_obs}: rot {d_rot:.6f} deg, |dt| {d_t:.3g}, inliers "
-            f"{int(got.n_inliers)} vs {int(want.n_inliers)}, {differ} flags differ")
-        if not (d_rot < ROT_DEG_TOL and d_t < T_TOL and differ <= K8_INLIER_TOL * n_obs):
-            raise AssertionError("K8 differs from its plain version beyond the bounds")
-        worst = max(worst, max_abs(got.R, want.R), max_abs(got.t, want.t))
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(
+                "K7 differs: " + ", ".join(f"{max_abs(g, w):g}" for g, w in zip(got, want)))
+        mask = args[2]
+        log(f"K7 masked_hamming_top2 {tuple(mask.shape)}: exact in all four outputs "
+            f"({int(mask.sum())} candidate pairs, {int(mask.any(dim=1).sum())} rows "
+            f"with a candidate)")
+    rows["masked_hamming_top2"] = 0.0
+
+    worst = 0.0
+    for path, problems in (("pair", x["k8"]), ("stereo pair", x["k8_stereo"])):
+        for args in problems:
+            got = pose_lm.pose_lm(*args)
+            want = pose_opt.pose_optimization_plain(*args)
+            torch.cuda.synchronize()
+            d_rot = rot_angle_deg(got.R.cpu(), want.R.cpu())
+            d_t = float((got.t - want.t).norm())
+            obs = args[3]
+            n_obs = obs.valid.shape[0]
+            differ = int((got.inliers != want.inliers).sum())
+            log(f"K8 pose_lm on the {path}, O={n_obs} ({int((obs.is_stereo & obs.valid).sum())} "
+                f"stereo rows): rot {d_rot:.6f} deg, |dt| {d_t:.3g}, inliers "
+                f"{int(got.n_inliers)} vs {int(want.n_inliers)}, {differ} flags differ")
+            if not (d_rot < ROT_DEG_TOL and d_t < T_TOL and differ <= K8_INLIER_TOL * n_obs):
+                raise AssertionError("K8 differs from its plain version beyond the bounds")
+            worst = max(worst, max_abs(got.R, want.R), max_abs(got.t, want.t))
+    if not int((x["k8_stereo"][0][3].is_stereo & x["k8_stereo"][0][3].valid).sum()):
+        raise AssertionError("the stereo pair gave K8 no stereo row")
     # With no valid observation every step is rejected: the pose stays put.
     R0, t0, points, obs, *cam = x["k8"][0]
     none = obs._replace(valid=torch.zeros_like(obs.valid),
@@ -416,14 +503,86 @@ def _packed_features(feat, desc):
                 valid=feat[:, 7] > 0.5, desc=desc)
 
 
+def check_stereo_columns(what, f, cf, bf):
+    """The stereo pair's depth and ur columns, card vs CPU end to end: at
+    most STEREO_FLIP_TOL of the features differ in stereo validity, and on
+    each device depth = bf / (x - ur) to DEPTH_RTOL."""
+    ok, c_ok = f[:, 9] >= 0, cf[:, 9] >= 0
+    both = ok & c_ok
+    log(f"{what} stereo matches: card {int(ok.sum())}, cpu {int(c_ok.sum())}, "
+        f"{int((ok != c_ok).sum())} differ; u_right max|d| where both "
+        f"{float(np.abs(f[both, 9] - cf[both, 9]).max()):.3g} px")
+    if (ok != c_ok).mean() > STEREO_FLIP_TOL or ok.sum() < 0.3 * len(ok):
+        raise AssertionError(f"{what}: stereo matches differ between card and CPU")
+    for side in (f, cf):
+        v = side[:, 9] >= 0
+        if not ((side[~v, 8:10] == -1).all() and np.allclose(
+                side[v, 8], bf / (side[v, 2] - side[v, 9]), rtol=DEPTH_RTOL, atol=0)):
+            raise AssertionError(f"{what}: depth is not bf / (x - u_right)")
+
+
+def stereo_match_args(config, image_l, image_r):
+    """stereo_match's arguments as stereo_frontend builds them: both
+    images' features and pyramid stacks, bf, the baseline, the scale
+    factors."""
+    cam, orb = config.camera, config.orb
+    shapes = orb.level_shapes(cam.height, cam.width)
+    fl, fr = (extractor.extract_features(im, orb, cam.height, cam.width)
+              for im in (image_l, image_r))
+    stacks = [stereo.pyramid_stack(pyramid.build_pyramid(im, shapes))
+              for im in (image_l, image_r)]
+    return (fl.xy, fl.octave, fl.desc, fl.valid, fr.xy, fr.octave, fr.desc,
+            fr.valid, *stacks, cam.bf, cam.baseline,
+            stereo._scale_factors(image_l.device, orb))
+
+
+def check_same_canvas_stereo(config, image_l, image_r):
+    """The stereo matcher (K7 twice, SAD scan, median cut) on the card's
+    own features and pyramid stacks, run on the card and on the CPU: valid
+    flags equal, u_right within U_RIGHT_TOL, depth = bf / (x - u_right)."""
+    cam = config.camera
+    args = stereo_match_args(config, image_l, image_r)
+    card = stereo.stereo_match(*args)
+    cpu = stereo.stereo_match(*(a.cpu() if torch.is_tensor(a) else a for a in args))
+    card = [t.cpu().numpy() for t in card]
+    cpu = [t.numpy() for t in cpu]
+    v = cpu[2]
+    d_u = float(np.abs(card[0] - cpu[0])[v].max()) if v.any() else 0.0
+    log(f"stereo match on the card's features and pyramids, card vs cpu: "
+        f"{int(card[2].sum())} / {int(v.sum())} valid, u_right max|d| {d_u:.3g} px "
+        f"(bit-exact: {np.array_equal(card[0], cpu[0])}), depth bit-exact: "
+        f"{np.array_equal(card[1], cpu[1])}")
+    if not np.array_equal(card[2], v) or not d_u <= U_RIGHT_TOL or v.sum() < 0.3 * len(v):
+        raise AssertionError("stereo match differs between card and CPU")
+    x = args[0][:, 0].cpu().numpy()
+    for u_right, depth, valid in (card, cpu):
+        if not np.allclose(depth[valid], cam.bf / (x[valid] - u_right[valid]),
+                           rtol=DEPTH_RTOL, atol=0):
+            raise AssertionError("stereo depth is not bf / (x - u_right)")
+
+
+def check_rgbd_columns(what, f, cf):
+    """The RGB-D pair's depth and ur columns, card vs CPU: depth bit for
+    bit wherever both devices round the raw keypoint to the same pixel, ur
+    within UR_TOL there."""
+    same_px = np.all(np.round(f[:, 2:4]) == np.round(cf[:, 2:4]), axis=1)
+    d_ur = float(np.abs(f[same_px, 9] - cf[same_px, 9]).max())
+    log(f"{what}: {int((f[:, 8] > 0).sum())} features with depth (cpu "
+        f"{int((cf[:, 8] > 0).sum())}); {int((~same_px).sum())} keypoints round to "
+        f"another pixel; ur max|d| {d_ur:.3g} px")
+    if not np.array_equal(f[same_px, 8], cf[same_px, 8]) or not d_ur <= UR_TOL:
+        raise AssertionError(f"{what}: depth or ur differs between card and CPU")
+
+
 def phase_pair(config, motion, cands):
-    """The pair on the card through the entry points, the launch counts
-    read around it, and the same calls on the CPU."""
+    """A pair on the card through the entry points, the launch counts read
+    around it, and the same calls on the CPU."""
+    what = PATH[config.sensor]
     _build.reset_launches()
     out, lm = run_pair(config, motion, cands)
     torch.cuda.synchronize()
     counts = dict(_build.launches)
-    check_counts("pair", counts, PAIR_WANT)
+    check_counts(what, counts, WANT[config.sensor])
 
     cpu_out, cpu_lm = run_pair(config, tuple(a.cpu() for a in motion),
                                tuple(a.cpu() for a in cands))
@@ -431,26 +590,33 @@ def phase_pair(config, motion, cands):
     (lmm, lmf, lmv), (clm, clf, clv) = (interop.packed_to_numpy(*o) for o in (lm, cpu_lm))
     for name, a in (("motion meta", m), ("motion features", f), ("local-map meta", lmm)):
         if not np.isfinite(a).all():
-            raise AssertionError(f"pair: non-finite {name}")
+            raise AssertionError(f"{what}: non-finite {name}")
     if f.shape != (N_FEATURES, 12) or lmf.shape != (N_FEATURES, 2) \
             or lmv.shape != (N_CANDIDATES,):
-        raise AssertionError("pair: wrong output shapes")
-    check_features("pair extraction", _packed_features(f, d), _packed_features(cf, cd))
-    check_same_canvas("pair extraction", motion[0], config)
-    check_pose_and_counts("motion stage", (m[0:9].reshape(3, 3), m[9:12], int(m[12]), int(m[13])),
+        raise AssertionError(f"{what}: wrong output shapes")
+    check_features(f"{what} extraction", _packed_features(f, d), _packed_features(cf, cd))
+    check_same_canvas(f"{what} extraction", motion[0], config)
+    if config.sensor == "stereo":
+        check_stereo_columns(what, f, cf, config.camera.bf)
+        check_same_canvas_stereo(config, motion[0], motion[1])
+    elif config.sensor == "rgbd":
+        check_rgbd_columns(what, f, cf)
+    check_pose_and_counts(f"{what} motion stage",
+                          (m[0:9].reshape(3, 3), m[9:12], int(m[12]), int(m[13])),
                           (cm[0:9].reshape(3, 3), cm[9:12], int(cm[12]), int(cm[13])))
     # The local-map stage's matches: the features bound after it, kept
     # from the motion stage or newly bound to a candidate.
     new, c_new = lmf[:, 0] >= 0, clf[:, 0] >= 0
     bound = new | ((f[:, 10] >= 0) & (f[:, 11] > 0.5))
     c_bound = c_new | ((cf[:, 10] >= 0) & (cf[:, 11] > 0.5))
-    log(f"local-map stage: {int(lmv.sum())} candidates visible (cpu {int(clv.sum())}), "
-        f"{int(new.sum())} new bindings (cpu {int(c_new.sum())})")
+    log(f"{what} local-map stage: {int(lmv.sum())} candidates visible (cpu "
+        f"{int(clv.sum())}), {int(new.sum())} new bindings (cpu {int(c_new.sum())})")
     check_pose_and_counts(
-        "local-map stage", (lmm[0:9].reshape(3, 3), lmm[9:12], int(bound.sum()), int(lmm[12])),
+        f"{what} local-map stage",
+        (lmm[0:9].reshape(3, 3), lmm[9:12], int(bound.sum()), int(lmm[12])),
         (clm[0:9].reshape(3, 3), clm[9:12], int(c_bound.sum()), int(clm[12])))
     if int(m[12]) < 100 or int(m[13]) < 0.8 * int(m[12]) or int(lmm[12]) < int(m[13]):
-        raise AssertionError("pair: too few matches or inliers on the card")
+        raise AssertionError(f"{what}: too few matches or inliers on the card")
     return counts
 
 
@@ -502,7 +668,6 @@ def profile_calls(name, fn, power):
     """Under torch.profiler over PROFILE_CALLS calls: the device's busy
     time per call, its idle share of the wall time, the device operations
     per call, and the kernels by device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -512,13 +677,11 @@ def profile_calls(name, fn, power):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / PROFILE_CALLS * 1e3
-    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not ops:
-        raise AssertionError("the profiler saw no device operation")
-    busy = sum(e.time_range.elapsed_us() for e in ops) / 1e3 / PROFILE_CALLS
+    n_ops, busy = device_ops(prof)
+    busy /= PROFILE_CALLS
     log(f"profiled {name} ({PROFILE_CALLS} calls): {wall:.3f} ms wall, {busy:.3f} ms "
         f"device busy, idle share {1.0 - busy / wall:.4f}, "
-        f"{len(ops) / PROFILE_CALLS:.0f} device operations per call, on {power}")
+        f"{n_ops / PROFILE_CALLS:.0f} device operations per call, on {power}")
     log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=12))
 
 
@@ -585,6 +748,50 @@ def phase_pair_timing(config, motion, cands, x, power):
     profile_calls("pair", lambda: run_pair(config, motion, cands), power)
 
 
+def phase_sensor_timing(config, motion, cands, x, power):
+    """The stereo or RGB-D pair: throughput by the bench recipe (noise on
+    the left image), stage times, profile. The stereo pair's stages split
+    the motion stage into both extractions, the stereo matcher (with its
+    two K7 launches alone), the motion matching with its LM, and the LM
+    alone on its stereo rows."""
+    what = PATH[config.sensor]
+    image, second, pt_f32, pt_desc, meta = motion
+    phase_fps(what, lambda im, fb: run_pair(
+        config, (im, second, pt_f32, pt_desc, meta + 0.0 * fb), cands)[1][0][12],
+        image, power)
+
+    entry = MOTION[config.sensor]
+    out = entry(*motion, config)
+    feat_state, lm_meta = interop.local_map_args(out, pt_f32, LM_TH)
+    stages = []
+    if config.sensor == "stereo":
+        cam, orb = config.camera, config.orb
+        match_args = stereo_match_args(config, image, second)
+        feats = extractor.extract_features(image, orb, cam.height, cam.width)
+        smatch = stereo.stereo_match(*match_args)
+        ur = torch.where(smatch.valid, smatch.u_right, -1.0)
+        pt_pos, pt_octave, pt_angle, pt_valid, R, t, tz = jit_frontend._unpack_inputs(
+            pt_f32, meta)
+        stages += [
+            ("extraction x2", lambda: [extractor.extract_features(
+                im, orb, cam.height, cam.width) for im in (image, second)]),
+            ("stereo match (K7 x2, SAD, median)", lambda: stereo.stereo_match(*match_args)),
+            ("stereo K7 x2", lambda: [kmatching.masked_hamming_top2(*a) for a in x["k7"]]),
+            ("motion matching (K6 x2) + pose_lm", lambda: jit_frontend._fused_match_and_pose(
+                feats, feats.xy, ur, pt_pos, pt_desc, pt_octave, pt_angle, pt_valid,
+                R, t, config, tz_rel=tz)),
+            ("motion pose_lm (stereo rows)", lambda: pose_lm.pose_lm(*x["k8_stereo"][0])),
+        ]
+    stages += [
+        ("motion stage", lambda: entry(*motion, config)),
+        ("local-map stage", lambda: fused_local_map_track(
+            out[1], out[2], feat_state, *cands, lm_meta, config)),
+        ("pair", lambda: run_pair(config, motion, cands)),
+    ]
+    time_stages(what, stages, power)
+    profile_calls(what, lambda: run_pair(config, motion, cands), power)
+
+
 def phase_kernel_timing(x, errs, counts, power):
     th_hi, th_lo = x["ths"]
     canvas, blur = x["canvas"], x["blur"]
@@ -593,9 +800,13 @@ def phase_kernel_timing(x, errs, counts, power):
     kernels = []
 
     def row(name, src, replaces, fn, plain, library, n_bytes, n_ops, iters=100):
-        ms = gpu_time_ms(fn, iters)
-        plain_ms = gpu_time_ms(plain, max(iters // 10, 5))
-        lib_ms = gpu_time_ms(library, iters) if library is not None else None
+        """One kernel's line: ms, plain_ms and library_ms are device busy
+        times per call; the CUDA-event time of the same calls in a row is
+        logged beside ms."""
+        ms = device_busy_ms(fn, iters)
+        events_ms = gpu_time_ms(fn, iters)
+        plain_ms = device_busy_ms(plain, max(iters // 10, 5))
+        lib_ms = device_busy_ms(library, iters) if library is not None else None
         b_ms, b_by = bound_ms(n_bytes, n_ops)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -603,7 +814,8 @@ def phase_kernel_timing(x, errs, counts, power):
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms,
         })
-        log(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, library "
+        log(f"{name}: {ms:.4f} ms device busy, {events_ms:.4f} ms by events in a row "
+            f"(plain {plain_ms:.4f} ms, library "
             f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
             f"{b_ms:.4f} ms by {b_by}; {n_bytes / 1e6:.3f} MB, "
             f"{n_ops / 1e6:.2f} Mop) on {power}")
@@ -689,6 +901,21 @@ def phase_kernel_timing(x, errs, counts, power):
         all_k6(kmatching.projection_hamming_top2),
         all_k6(kmatching.projection_hamming_top2_plain), None, k6_bytes, k6_ops)
 
+    # K7, the stereo pair's two launches: each reads its two descriptor
+    # tables and its mask once and writes 4 x M results; one operation per
+    # mask entry and 24 (8 XOR, 8 popcount, 8 adds) per candidate pair,
+    # counted from this run's masks.
+    k7_bytes = sum(nbytes(*args) + 4 * args[0].shape[0] * 4 for args in x["k7"])
+    k7_ops = sum(args[2].numel() + 24 * int(args[2].sum()) for args in x["k7"])
+
+    def all_k7(fn):
+        return lambda: [fn(*args) for args in x["k7"]]
+
+    row("masked_hamming_top2", "orb_slam2_commit_tpu_torch/csrc/matching.cu",
+        "orb_slam2_commit_tpu/ops/pallas_matching.py:113",
+        all_k7(kmatching.masked_hamming_top2),
+        all_k7(kmatching.masked_hamming_top2_plain), None, k7_bytes, k7_ops)
+
     # K8, the pair's two launches: inputs read once, pose and inlier flags
     # written; operations from the evaluations each launch ran on this
     # input (the kernel reports them).
@@ -719,23 +946,32 @@ def main() -> int:
 
     t0 = time.perf_counter()
     config, args = interop.make_example(WIDTH, HEIGHT, N_FEATURES, N_POINTS, "cuda")
-    pair_config, motion, cands = interop.make_fused_example(
-        WIDTH, HEIGHT, N_FEATURES, N_POINTS, N_CANDIDATES, "cuda")
+    pairs = {sensor: interop.make_fused_example(
+        WIDTH, HEIGHT, N_FEATURES, N_POINTS, N_CANDIDATES, "cuda", sensor=sensor)
+        for sensor in ("monocular", "stereo", "rgbd")}
     torch.cuda.synchronize()
+    _, motion, cands = pairs["monocular"]
     log(f"examples {WIDTH}x{HEIGHT}, {N_FEATURES} features: "
         f"{time.perf_counter() - t0:.1f} s; step: {int(args[5].sum())} bound of "
-        f"{N_POINTS} map points; pair: {int((motion[1][:, 5] > 0.5).sum())} of "
+        f"{N_POINTS} map points; pairs: {int((motion[1][:, 5] > 0.5).sum())} of "
         f"{N_POINTS} last-frame points, {int((cands[0][:, 8] > 0.5).sum())} of "
-        f"{N_CANDIDATES} candidates valid; subpixel refinement "
-        f"{config.orb.subpixel_refine}")
+        f"{N_CANDIDATES} candidates valid, tz_rel {float(motion[-1][12]):.4f}; "
+        f"subpixel refinement {config.orb.subpixel_refine}")
 
-    x = main_path_inputs(args[0], pair_config, motion, cands)
+    x = main_path_inputs(args[0], *pairs["monocular"])
+    x.update(stereo_path_inputs(*pairs["stereo"]))
     errs = phase_kernels(x)
-    counts = phase_pair(pair_config, motion, cands)
+    counts = {sensor: phase_pair(*pair) for sensor, pair in pairs.items()}
     phase_step(config, args)
     phase_step_timing(config, args, power)
-    phase_pair_timing(pair_config, motion, cands, x, power)
-    kernels = phase_kernel_timing(x, errs, counts, power)
+    phase_pair_timing(*pairs["monocular"], x, power)
+    for sensor in ("stereo", "rgbd"):
+        phase_sensor_timing(*pairs[sensor], x, power)
+    # Launches per call: K1-K6 and K8 on the monocular pair (their timed
+    # inputs), K7 on the stereo pair.
+    kernels = phase_kernel_timing(x, errs, dict(
+        counts["monocular"],
+        masked_hamming_top2=counts["stereo"]["masked_hamming_top2"]), power)
 
     log(json.dumps({"kernels": kernels}))
     log(power)

@@ -13,7 +13,9 @@
 - `make_example`, `make_fused_example`: a synthetic frame pair, and the
   last-frame points and local-map candidates built from frame 0 with the
   port's own extractor: the port's twins of the JAX package's
-  `__graft_entry__._make_example`.
+  `__graft_entry__._make_example`. `make_fused_example` takes the sensor:
+  monocular, stereo (frame 1's right image too) or RGB-D (frame 1's depth
+  map too).
 
 Every entry point that places tensors takes `device`, "cuda" by default;
 without a card that default raises instead of falling back to the CPU.
@@ -139,8 +141,9 @@ def _frame0_associations(config: SLAMConfig, image0, pose0, points, dev):
     return feats0, nearest, dmin, (dmin < 4.0) & feats0["valid"]
 
 
-def _scene(width, height, n_features, n_frames):
-    config = synthetic_config(width=width, height=height, n_features=n_features)
+def _scene(width, height, n_features, n_frames, sensor="monocular"):
+    config = synthetic_config(width=width, height=height, n_features=n_features,
+                              sensor=sensor)
     images, poses, scene = synthetic.render_sequence(
         config.camera, n_frames=n_frames, n_points=200, seed=11, step=0.04)
     return config, images, poses, scene
@@ -200,14 +203,20 @@ def fused_example_arrays(
     n_points: int = 256,
     n_candidates: int = 512,
     device="cuda",
+    sensor: str = "monocular",
 ) -> Tuple[SLAMConfig, Dict[str, np.ndarray]]:
     """The fused pair's inputs as numpy arrays in the JAX package's
-    layouts: image [H, W] (frame 1), pt_f32 [n_points, 6], pt_desc
-    [n_points, 8] uint32, meta_f32 [13] (the prediction is frame 1's ground
-    truth, tz_rel 0), cand_f32 [n_candidates, 9], cand_desc
-    [n_candidates, 8] uint32.
+    layouts: image [H, W] (frame 1, the left image of a stereo pair),
+    pt_f32 [n_points, 6], pt_desc [n_points, 8] uint32, meta_f32 [13],
+    cand_f32 [n_candidates, 9], cand_desc [n_candidates, 8] uint32; for
+    sensor "stereo" also image_r [H, W], frame 1's right image (the camera
+    displaced by the baseline along its x-axis); for "rgbd" also depth
+    [H, W], frame 1's depth map. The prediction in meta_f32 is frame 1's
+    ground truth, and meta_f32[12] = tz_rel, the z of frame 1's camera
+    centre in frame 0's camera coordinates.
 
-    The last-frame points are make_example's. Each landmark with an
+    The last-frame points are make_example's, from the (left) image of
+    frame 0. Each landmark with an
     associated frame-0 feature (the nearest of them) is a local-map
     candidate: normal = unit(X - C0) with C0 frame 0's camera centre,
     max_dist = |X - C0| * 1.2^octave, min_dist = max_dist / 1.2^(L-1)
@@ -215,17 +224,26 @@ def fused_example_arrays(
     them stay zero with valid = 0, as the tracker pads its table
     (slam/tracking.py:862-870)."""
     dev = resolve_device(device)
-    config, images, poses, scene = _scene(width, height, n_features, 2)
+    config, images, poses, scene = _scene(width, height, n_features, 2, sensor)
     feats0, nearest, dmin, assoc = _frame0_associations(
         config, images[0], poses[0], scene.points, dev)
     pt_pos, pt_desc, pt_octave, pt_angle, pt_valid = _last_frame_points(
         feats0, nearest, assoc, scene.points, n_points)
     pt_f32 = np.stack([*pt_pos.T, pt_octave, pt_angle, pt_valid], 1).astype(np.float32)
+    R0, t0 = poses[0]
     R_pred, t_pred = poses[1]
-    meta_f32 = np.concatenate([np.reshape(R_pred, -1), t_pred, [0.0]]).astype(np.float32)
+    tz_rel = (R0 @ (-R_pred.T @ t_pred) + t0)[2]
+    meta_f32 = np.concatenate([np.reshape(R_pred, -1), t_pred, [tz_rel]]).astype(np.float32)
+    sensor_arrays = {}
+    if sensor == "stereo":
+        sensor_arrays["image_r"] = synthetic.render(
+            scene, *synthetic.right_pose(R_pred, t_pred, config.camera.baseline),
+            config.camera)
+    elif sensor == "rgbd":
+        sensor_arrays["depth"] = synthetic.render(
+            scene, R_pred, t_pred, config.camera, with_depth=True)[1]
 
     orb = config.orb
-    R0, t0 = poses[0]
     center = -np.asarray(R0).T @ np.asarray(t0)
     cand_f32 = np.zeros((n_candidates, 9), np.float32)
     cand_desc = np.zeros((n_candidates, 8), np.uint32)
@@ -243,7 +261,8 @@ def fused_example_arrays(
         cand_desc[row] = feats0["desc"][f]
         row += 1
     return config, dict(image=images[1], pt_f32=pt_f32, pt_desc=pt_desc,
-                        meta_f32=meta_f32, cand_f32=cand_f32, cand_desc=cand_desc)
+                        meta_f32=meta_f32, cand_f32=cand_f32, cand_desc=cand_desc,
+                        **sensor_arrays)
 
 
 def make_fused_example(
@@ -253,16 +272,21 @@ def make_fused_example(
     n_points: int = 256,
     n_candidates: int = 512,
     device="cuda",
+    sensor: str = "monocular",
 ) -> Tuple[SLAMConfig, Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...]]:
-    """(config, motion_args, candidates) for the fused pair:
+    """(config, motion_args, candidates) for the fused pair on `device`:
+    the motion stage's packed entry point for the sensor,
     fused_motion_track_packed(*motion_args, config) with motion_args =
-    (image, pt_f32, pt_desc, meta_f32) on `device`, then
-    fused_local_map_track(feat, desc, *local_map_args(...), ...) with
-    candidates = (cand_f32, cand_desc). See fused_example_arrays."""
+    (image, pt_f32, pt_desc, meta_f32), fused_stereo_motion_track_packed
+    with (image, image_r, ...) or fused_rgbd_motion_track_packed with
+    (image, depth, ...); then fused_local_map_track(feat, desc,
+    *local_map_args(...), ...) with candidates = (cand_f32, cand_desc).
+    See fused_example_arrays."""
     dev = resolve_device(device)
     config, a = fused_example_arrays(width, height, n_features, n_points,
-                                     n_candidates, dev)
-    motion = packed_from_numpy(a["image"], a["pt_f32"], a["pt_desc"],
+                                     n_candidates, dev, sensor)
+    images = [a["image"]] + [a[k] for k in ("image_r", "depth") if k in a]
+    motion = packed_from_numpy(*images, a["pt_f32"], a["pt_desc"],
                                a["meta_f32"], device=dev)
     cands = packed_from_numpy(a["cand_f32"], a["cand_desc"], device=dev)
     return config, motion, cands

@@ -73,6 +73,9 @@ SIGNATURES = {
             _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
             _c_int, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int,
             _c_void_p, _c_void_p),
+        "masked_top2_launch": (
+            _c_void_p, _c_int, _c_void_p, _c_int, _c_void_p, _c_void_p,
+            _c_void_p),
     },
     "pose_lm": {
         "pose_lm_launch": (
@@ -85,7 +88,7 @@ SIGNATURES = {
 launches: Dict[str, int] = {
     "level_preprocess": 0, "combine_nms": 0, "cell_topk": 0,
     "extract_patches": 0, "corner_subpix": 0, "projection_hamming_top2": 0,
-    "pose_lm": 0,
+    "masked_hamming_top2": 0, "pose_lm": 0,
 }
 
 _libraries: Dict[str, ctypes.CDLL] = {}

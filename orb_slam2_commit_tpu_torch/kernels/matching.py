@@ -1,10 +1,13 @@
-"""K6 projection_hamming_top2: windowed, octave-banded Hamming top-2 per
-projected map point, with its plain version (PyTorch port of
-ops/pallas_matching.py:projection_hamming_top2; kernel in
-csrc/matching.cu).
+"""Hamming top-2 per row, with plain versions (PyTorch port of
+ops/pallas_matching.py; kernels in csrc/matching.cu):
 
-On a CUDA tensor the wrapper launches the kernel; on a CPU tensor it runs
-the plain version. Both give the same four outputs, the Pallas kernel's
+- K6 projection_hamming_top2: windowed, octave-banded top-2 per projected
+  map point;
+- K7 masked_hamming_top2: top-2 under a caller-supplied [M, N] candidate
+  mask (the stereo matcher's, ops/stereo.py).
+
+On a CUDA tensor a wrapper launches its kernel; on a CPU tensor it runs
+the plain version. Both give the same four outputs, the Pallas kernels'
 index fallbacks included.
 """
 
@@ -23,22 +26,13 @@ COL_BITS = 23     # the kernel's packed key holds the column in 23 bits
 Top2 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def projection_hamming_top2_plain(
-    desc_a, proj, radius, oct_lo, oct_hi, valid_a,
-    desc_b, xy_b, octave_b, valid_b,
-) -> Top2:
-    """Plain version of K6, the dense route: the [M, N] distance matrix,
-    the window and octave masks, then the top-2 of _top2_reduce: ties to
-    the lowest column, BIG where there is no candidate, and the second
-    index the lowest column other than the best when the row has fewer
-    than two candidates."""
+def masked_hamming_top2_plain(desc_a, desc_b, mask) -> Top2:
+    """Plain version of K7, the dense route: the [M, N] distance matrix
+    under the mask, then the top-2 of the Pallas kernels' _top2_reduce:
+    ties to the lowest column, BIG where there is no candidate, and the
+    second index the lowest column other than the best when the row has
+    fewer than two candidates."""
     dist = matching.hamming_distance_matrix(desc_a, desc_b)
-    mask = (
-        valid_a[:, None]
-        & valid_b[None, :]
-        & matching.window_mask(proj, xy_b, radius)
-        & matching.octave_band_mask(octave_b, oct_lo, oct_hi)
-    )
     d = torch.where(mask, dist, torch.full_like(dist, BIG_DIST))
     best_idx = matching._first_argmin(d)
     best = d.amin(dim=1)
@@ -48,6 +42,21 @@ def projection_hamming_top2_plain(
     second_idx = matching._first_argmin(d2)
     second = torch.clamp_max(d2.amin(dim=1), BIG_DIST)
     return best, best_idx, second, second_idx
+
+
+def projection_hamming_top2_plain(
+    desc_a, proj, radius, oct_lo, oct_hi, valid_a,
+    desc_b, xy_b, octave_b, valid_b,
+) -> Top2:
+    """Plain version of K6: the window and octave masks, then K7's plain
+    version."""
+    mask = (
+        valid_a[:, None]
+        & valid_b[None, :]
+        & matching.window_mask(proj, xy_b, radius)
+        & matching.octave_band_mask(octave_b, oct_lo, oct_hi)
+    )
+    return masked_hamming_top2_plain(desc_a, desc_b, mask)
 
 
 def projection_hamming_top2(
@@ -95,4 +104,36 @@ def projection_hamming_top2(
             valid_b.data_ptr(), n, out.data_ptr(), _build.stream_of(desc_a))
         _build.check(err, "projection_hamming_top2")
         _build.launches["projection_hamming_top2"] += 1
+    return out[0], out[1], out[2], out[3]
+
+
+def masked_hamming_top2(
+    desc_a: torch.Tensor,     # [M, 8] int32 (uint32 bits)
+    desc_b: torch.Tensor,     # [N, 8] int32
+    mask: torch.Tensor,       # [M, N] bool candidate pairs
+) -> Top2:
+    """-> (best, best_idx, second, second_idx), each [M] int32; best and
+    second are BIG_DIST where the row has no (second) candidate, and a row
+    with no candidate has best_idx 0, as jnp.argmin gives over a BIG row."""
+    m, n = desc_a.shape[0], desc_b.shape[0]
+    for t, name, dtype in ((desc_a, "desc_a", torch.int32),
+                           (desc_b, "desc_b", torch.int32), (mask, "mask", torch.bool)):
+        _build.require(t, f"masked_hamming_top2 {name}", dtype, 2)
+        if t.device != desc_a.device:
+            raise ValueError(f"masked_hamming_top2 {name}: on {t.device}, "
+                             f"expected {desc_a.device}")
+    if desc_a.shape[1] != 8 or desc_b.shape[1] != 8 or tuple(mask.shape) != (m, n) \
+            or not 1 <= n < (1 << COL_BITS):
+        raise ValueError(
+            f"masked_hamming_top2: descriptors {tuple(desc_a.shape)} x "
+            f"{tuple(desc_b.shape)}, mask {tuple(mask.shape)}")
+    if not _build.on_card(desc_a, "masked_hamming_top2"):
+        return masked_hamming_top2_plain(desc_a, desc_b, mask)
+    out = torch.empty((4, m), dtype=torch.int32, device=desc_a.device)
+    if m:
+        err = _build.library("matching").masked_top2_launch(
+            desc_a.data_ptr(), m, desc_b.data_ptr(), n, mask.data_ptr(),
+            out.data_ptr(), _build.stream_of(desc_a))
+        _build.check(err, "masked_hamming_top2")
+        _build.launches["masked_hamming_top2"] += 1
     return out[0], out[1], out[2], out[3]

@@ -104,3 +104,17 @@ def direct_pyramid_stack(
     shapes = tuple(level_shapes)
     t = torch.matmul(_row_ops(image.device, shapes), image.to(torch.float32))
     return torch.matmul(t, _col_ops(image.device, shapes))
+
+
+def build_pyramid(
+    image: torch.Tensor, level_shapes: Tuple[Tuple[int, int], ...]
+) -> Tuple[torch.Tensor, ...]:
+    """The scale pyramid of image[H, W] float32: level 0 is the input
+    itself, levels 1+ the top-left crops of direct_pyramid_stack."""
+    if len(level_shapes) == 1:
+        return (image,)
+    stack = direct_pyramid_stack(image, tuple(level_shapes))
+    levels = [image]
+    for i, (h, w) in enumerate(level_shapes[1:]):
+        levels.append(stack[i, :h, :w])
+    return tuple(levels)

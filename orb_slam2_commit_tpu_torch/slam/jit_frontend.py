@@ -7,6 +7,10 @@ src/Tracking.cc:275-587):
 - `fused_motion_track` and its packed-transfer twin
   `fused_motion_track_packed`: extraction, undistortion, motion-model
   matching with the widen-on-failure retry, pose-only BA;
+- `fused_stereo_motion_track` / `fused_rgbd_motion_track` and their
+  packed twins: the same stage for a stereo pair (both extractions and the
+  stereo matcher, ops/stereo.py) or an image with its depth map, with
+  stereo observations (u, v, u_right) in the pose-only BA;
 - `fused_local_map_track`: TrackLocalMap's device part (frustum gates,
   projection matching, the final pose-only BA) on the features the motion
   stage left on the device.
@@ -24,6 +28,7 @@ import torch
 
 from orb_slam2_commit_tpu_torch.ops import camera as cam_ops
 from orb_slam2_commit_tpu_torch.ops import extractor as ext
+from orb_slam2_commit_tpu_torch.ops import stereo as stereo_ops
 from orb_slam2_commit_tpu_torch.optim import pose_opt
 from orb_slam2_commit_tpu_torch.optim.residuals import BAObservations
 from orb_slam2_commit_tpu_torch.slam import matchers
@@ -228,13 +233,92 @@ def fused_motion_track(
         feats, xy_und, no_ur, pt_pos, pt_desc, pt_octave, pt_angle,
         pt_valid, R_pred, t_pred, config,
     )
+    return _motion_result(res, binding, n_matches, feats, xy_und, no_ur, no_ur)
+
+
+def _motion_result(res, binding, n_matches, feats, xy_und, depth, ur):
     return FusedMotionResult(
         R=res.R, t=res.t, n_matches=n_matches, n_inliers=res.n_inliers,
         binding=binding, inliers=res.inliers,
         xy_und=xy_und, xy_raw=feats.xy, response=feats.response,
         angle=feats.angle, octave=feats.octave, desc=feats.desc,
-        valid=feats.valid, depth=no_ur, ur=no_ur,
+        valid=feats.valid, depth=depth, ur=ur,
     )
+
+
+def fused_stereo_motion_track(
+    image_l: torch.Tensor,
+    image_r: torch.Tensor,
+    pt_pos: torch.Tensor,
+    pt_desc: torch.Tensor,
+    pt_octave: torch.Tensor,
+    pt_angle: torch.Tensor,
+    pt_valid: torch.Tensor,
+    R_pred: torch.Tensor,
+    t_pred: torch.Tensor,
+    tz_rel: torch.Tensor,
+    config: SLAMConfig,
+) -> FusedMotionResult:
+    """Stereo counterpart of fused_motion_track: both extractions and the
+    epipolar stereo matcher (ops/stereo.stereo_frontend; the reference's
+    dual extraction threads + ComputeStereoMatches), projective last-frame
+    matching with the stereo octave rule, and mixed mono/stereo pose BA.
+    tz_rel: z of the current camera centre in the last frame's camera
+    coordinates."""
+    cam = config.camera
+    feats, _, smatch = stereo_ops.stereo_frontend(
+        image_l, image_r, config.orb, cam.height, cam.width,
+        cam.bf, cam.baseline,
+    )
+    xy_und = cam_ops.undistort_pixels(feats.xy, cam)
+    ur = torch.where(smatch.valid, smatch.u_right, -1.0)
+
+    res, binding, n_matches = _fused_match_and_pose(
+        feats, xy_und, ur, pt_pos, pt_desc, pt_octave, pt_angle,
+        pt_valid, R_pred, t_pred, config, tz_rel=tz_rel,
+    )
+    depth = torch.where(smatch.valid, smatch.depth, -1.0)
+    return _motion_result(res, binding, n_matches, feats, xy_und, depth, ur)
+
+
+def fused_rgbd_motion_track(
+    image: torch.Tensor,
+    depth_image: torch.Tensor,   # [H, W] float32 raw depth map
+    pt_pos: torch.Tensor,
+    pt_desc: torch.Tensor,
+    pt_octave: torch.Tensor,
+    pt_angle: torch.Tensor,
+    pt_valid: torch.Tensor,
+    R_pred: torch.Tensor,
+    t_pred: torch.Tensor,
+    tz_rel: torch.Tensor,
+    config: SLAMConfig,
+) -> FusedMotionResult:
+    """RGB-D counterpart of fused_motion_track: each keypoint's depth read
+    from the depth map at its rounded raw position, and the virtual right
+    coordinate ur = u - bf / z (reference Frame::ComputeStereoFromRGBD,
+    src/Frame.cc:791-816), on the device."""
+    cam = config.camera
+    feats = ext.extract_features(image, config.orb, cam.height, cam.width)
+    xy_und = cam_ops.undistort_pixels(feats.xy, cam)
+
+    u = torch.clamp(torch.round(feats.xy[:, 0]), 0, cam.width - 1).long()
+    v = torch.clamp(torch.round(feats.xy[:, 1]), 0, cam.height - 1).long()
+    d = depth_image[v, u].to(xy_und.dtype)
+    if cam.depth_map_factor not in (0.0, 1.0):
+        d = d / torch.full_like(d, cam.depth_map_factor)
+    has = d > 0
+    depth = torch.where(has, d, -1.0)
+    # bf / d rounded once, as in the JAX package (a Python number over a
+    # tensor is reciprocal-then-multiply in PyTorch).
+    bf_over_d = torch.full_like(d, cam.bf) / torch.where(has, d, 1.0)
+    ur = torch.where(has, xy_und[:, 0] - bf_over_d, -1.0)
+
+    res, binding, n_matches = _fused_match_and_pose(
+        feats, xy_und, ur, pt_pos, pt_desc, pt_octave, pt_angle,
+        pt_valid, R_pred, t_pred, config, tz_rel=tz_rel,
+    )
+    return _motion_result(res, binding, n_matches, feats, xy_und, depth, ur)
 
 
 # Packed-transfer layout: the host packs the per-frame point inputs into
@@ -293,6 +377,28 @@ def fused_motion_track_packed(image, pt_f32, pt_desc, meta_f32, config: SLAMConf
     return _pack_result(fused_motion_track(
         image, pt_pos, pt_desc, pt_octave, pt_angle, pt_valid,
         R_pred, t_pred, config))
+
+
+def fused_stereo_motion_track_packed(image_l, image_r, pt_f32, pt_desc, meta_f32,
+                                     config: SLAMConfig):
+    """fused_stereo_motion_track on the packed layout (the twin of
+    fused_stereo_motion_track_packed_jit); tz_rel is meta_f32[12]."""
+    pt_pos, pt_octave, pt_angle, pt_valid, R_pred, t_pred, tz_rel = (
+        _unpack_inputs(pt_f32, meta_f32))
+    return _pack_result(fused_stereo_motion_track(
+        image_l, image_r, pt_pos, pt_desc, pt_octave, pt_angle, pt_valid,
+        R_pred, t_pred, tz_rel, config))
+
+
+def fused_rgbd_motion_track_packed(image, depth_image, pt_f32, pt_desc, meta_f32,
+                                   config: SLAMConfig):
+    """fused_rgbd_motion_track on the packed layout (the twin of
+    fused_rgbd_motion_track_packed_jit); tz_rel is meta_f32[12]."""
+    pt_pos, pt_octave, pt_angle, pt_valid, R_pred, t_pred, tz_rel = (
+        _unpack_inputs(pt_f32, meta_f32))
+    return _pack_result(fused_rgbd_motion_track(
+        image, depth_image, pt_pos, pt_desc, pt_octave, pt_angle, pt_valid,
+        R_pred, t_pred, tz_rel, config))
 
 
 # Fused local-map tracking: frustum check -> projection matching -> pose

@@ -1,10 +1,11 @@
 """Synthetic scene rendering (host-side numpy) for the port's examples.
 
 A copy of the parts of the JAX package's renderer that `render_sequence`
-needs for its default forward motion without photometric degradation: a
-cloud of 3D landmarks, each splatted as a small random-texture patch with
-bilinear subpixel accuracy along a known trajectory. The same seed gives
-the same images, poses and scene as the JAX package's renderer.
+(with or without depth maps) and `render_stereo_sequence` need for their
+default forward motion without photometric degradation: a cloud of 3D
+landmarks, each splatted as a small random-texture patch with bilinear
+subpixel accuracy along a known trajectory. The same seed gives the same
+images, depth maps, poses and scene as the JAX package's renderer.
 """
 
 from __future__ import annotations
@@ -79,13 +80,17 @@ def render(
     t_cw: np.ndarray,
     cam: CameraConfig,
     background: float = 96.0,
-) -> np.ndarray:
+    with_depth: bool = False,
+):
     """Render image [H, W] float32 from camera pose (world -> camera) of a
-    distortion-free pinhole camera."""
+    distortion-free pinhole camera. With with_depth=True also returns a
+    depth map [H, W] float32: the z of the landmark drawn at each pixel, 0
+    where none is (TUM RGB-D's invalid-depth convention)."""
     if cam.has_distortion:
         raise ValueError("the port's renderer draws undistorted images only")
     h, w = cam.height, cam.width
     img = np.full((h, w), background, dtype=np.float32)
+    depth = np.zeros((h, w), dtype=np.float32)
     pc = scene.points @ R_cw.T + t_cw
     z = pc[:, 2]
     order = np.where(z >= 0.5)[0]
@@ -120,7 +125,11 @@ def render(
         wgt[1:, 1:] += w11
         mask = wgt > 1e-6
         block[mask] = acc[mask] / np.maximum(wgt[mask], 1e-6)
-    return _aa_blur(img)
+        depth[top : top + s + 1, left : left + s + 1][mask] = z[i]
+    img = _aa_blur(img)
+    if with_depth:
+        return img, depth
+    return img
 
 
 def look_ahead_trajectory(
@@ -155,11 +164,41 @@ def render_sequence(
     n_points: int = 500,
     seed: int = 0,
     step: float = 0.06,
+    with_depth: bool = False,
 ):
-    """Images [T, H, W] float32 + ground-truth (R_cw, t_cw) poses + scene,
-    along the forward trajectory."""
+    """Images [T, H, W] float32 + ground-truth (R_cw, t_cw) poses + scene
+    (+ depth maps [T, H, W] when with_depth), along the forward
+    trajectory."""
     rng = np.random.default_rng(seed)
     scene = make_scene(rng, n_points=n_points)
     poses = look_ahead_trajectory(n_frames, step=step)
+    if with_depth:
+        rendered = [render(scene, R, t, cam, with_depth=True) for R, t in poses]
+        images = np.stack([r[0] for r in rendered])
+        depths = np.stack([r[1] for r in rendered])
+        return images, poses, scene, depths
     images = np.stack([render(scene, R, t, cam) for R, t in poses])
     return images, poses, scene
+
+
+def right_pose(R_cw: np.ndarray, t_cw: np.ndarray, baseline: float):
+    """The right camera of a rectified pair: displaced by the baseline
+    along the left camera's x-axis (t_right = t_left - [b, 0, 0])."""
+    return R_cw, t_cw - np.array([baseline, 0.0, 0.0])
+
+
+def render_stereo_sequence(
+    cam: CameraConfig,
+    n_frames: int = 30,
+    n_points: int = 500,
+    seed: int = 0,
+    step: float = 0.06,
+):
+    """Rectified stereo pairs along the forward trajectory: left images
+    [T, H, W], right images [T, H, W], the left camera's poses, scene."""
+    rng = np.random.default_rng(seed)
+    scene = make_scene(rng, n_points=n_points)
+    poses = look_ahead_trajectory(n_frames, step=step)
+    lefts = [render(scene, R, t, cam) for R, t in poses]
+    rights = [render(scene, *right_pose(R, t, cam.baseline), cam) for R, t in poses]
+    return np.stack(lefts), np.stack(rights), poses, scene
