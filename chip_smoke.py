@@ -19,7 +19,9 @@ Phases (any failure exits non-zero and prints no result line):
   2. build every kernel's library from csrc/ (one nvcc per source, all at
      once) and print nvcc's register, stack and spill lines;
   3. each kernel against its plain PyTorch version on the card, on the
-     tensors the main paths give it (recorded from one run of a path);
+     tensors the main paths give it (recorded from one run of a path),
+     K1 also on a canvas with pad rows and columns and K8 also on a
+     problem tiled past 1024 and past 7000 rows, launched twice;
   4. each main path through the port's entry points, with the kernels'
      launch counts reset just before and read just after it, and its
      result held against the same call on the CPU; the stereo matcher
@@ -81,6 +83,9 @@ UR_TOL = 2e-4
 STEREO_FLIP_TOL = 0.01
 K5_TOL = 1e-5      # px, K5 vs its plain version (tests/test_subpix.py:69,82)
 K8_INLIER_TOL = 0.005   # share of observations whose inlier flag may differ
+# Rows of the tiled K8 problems: past one row per thread (the kernel runs
+# 512 threads) and past the rows it stages in shared memory (7000).
+K8_TILED_ROWS = (2048, 8192)
 # Calls traced by torch.profiler for the device's busy time and idle share.
 PROFILE_CALLS = 5
 
@@ -104,9 +109,10 @@ def log(*parts):
 
 
 def rot_angle_deg(Ra, Rb):
-    Ra, Rb = np.asarray(Ra, np.float64), np.asarray(Rb, np.float64)
-    c = (np.trace(Ra.T @ Rb) - 1) / 2
-    return float(np.degrees(np.arccos(np.clip(c, -1, 1))))
+    """Angle between two rotations, from |Ra - Rb|_F = 2 sqrt(2) sin(angle / 2)
+    (the arccos of the trace loses ~0.03 deg to float32 rounding near 0)."""
+    d = np.linalg.norm(np.asarray(Ra, np.float64) - np.asarray(Rb, np.float64))
+    return float(np.degrees(2 * np.arcsin(min(1.0, d / (2 * np.sqrt(2))))))
 
 
 def gpu_time_ms(fn, iters, warmup=3):
@@ -136,10 +142,12 @@ def device_ops(prof):
 
 def device_busy_ms(fn, iters, warmup=3):
     """Device time per call of fn(): the summed durations of the device
-    operations it ran, under torch.profiler over `iters` calls. The host's
-    gaps between them are not counted, so a call whose launches take less
-    device time than the host needs to issue them reads its device time
-    (CUDA events over calls in a row would read the host's issue rate)."""
+    operations it ran, under torch.profiler over `iters` calls, and the
+    same per operation name. The host's gaps between them are not counted,
+    so a call whose launches take less device time than the host needs to
+    issue them reads its device time (CUDA events over calls in a row would
+    read the host's issue rate)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -149,7 +157,12 @@ def device_busy_ms(fn, iters, warmup=3):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return device_ops(prof)[1] / iters
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "").split("(")[0][:48]
+            by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+    return device_ops(prof)[1] / iters, by_name
 
 
 def bound_ms(n_bytes, n_ops):
@@ -239,7 +252,8 @@ def main_path_inputs(image, config, motion, cands):
     yx, _, _ = pe.select_flat(score, plan, orb)
     x = dict(canvas=canvas, blur=blur_c, hi=hi_c, lo=lo_c, bounds=bounds,
              cells=cells, k=orb.cell_top_k, yx=yx,
-             ths=(float(orb.ini_th_fast), float(orb.min_th_fast)))
+             ths=(float(orb.ini_th_fast), float(orb.min_th_fast)),
+             small_canvas=padded_canvas(image.device))
 
     k5, k6, k8 = [], [], []
     with recording(subpix, "corner_subpix_from_patches", k5), \
@@ -251,6 +265,26 @@ def main_path_inputs(image, config, motion, cands):
         raise AssertionError(f"recorded {len(k5)} K5, {len(k6)} K6, {len(k8)} K8 calls")
     x.update(k5=k5[0][0], k6=[c[0] for c in k6], k8=[c[0] for c in k8])
     return x
+
+
+def padded_canvas(device):
+    """The packed canvas of frame 1 at 320x240 and 400 features (the JAX
+    package's example size): [1248, 320], whose outputs are [1280, 384], so
+    K1 reads pad rows and columns through its tables."""
+    config, images, _, _ = interop._scene(320, 240, 400, 2)
+    plan = pe.make_plan(config.orb, 240, 320)
+    return pe.build_canvas(torch.as_tensor(images[1], dtype=torch.float32, device=device), plan)
+
+
+def tiled_problem(args, rows):
+    """A K8 problem with its observation rows repeated up to `rows`."""
+    R0, t0, points, obs, *cam = args
+    reps = -(-rows // points.shape[0])
+
+    def tile(a):
+        return a.repeat(reps, *([1] * (a.dim() - 1)))[:rows].contiguous()
+
+    return (R0, t0, tile(points), type(obs)(*(tile(a) for a in obs)), *cam)
 
 
 def stereo_path_inputs(config, motion, cands):
@@ -278,17 +312,19 @@ def phase_kernels(x):
     th_hi, th_lo = x["ths"]
     canvas = x["canvas"]
 
-    got = level.level_preprocess(canvas, th_hi, th_lo)
-    padded, hp, wp = level.pad_level(canvas)
-    want = level.level_preprocess_plain(padded, hp, wp, th_hi, th_lo)
-    torch.cuda.synchronize()
-    err = max(max_abs(g, w) for g, w in zip(got, want))
-    exact = all(torch.equal(g, w) for g, w in zip(got, want))
-    log(f"K1 level_preprocess {tuple(canvas.shape)} -> 3x{tuple(got[0].shape)}: "
-        f"max|d| = {err:g} (bit-exact: {exact})")
-    if not err <= 1e-4:
-        raise AssertionError(f"K1 differs from its plain version by {err}")
-    rows["level_preprocess"] = err
+    # K1 bit for bit against the plain version on the padded canvas: the
+    # main path's canvas (no pad rows or columns) and a smaller one with both.
+    for image in (canvas, x["small_canvas"]):
+        got = level.level_preprocess(image, th_hi, th_lo)
+        padded, hp, wp = level.pad_level(image)
+        want = level.level_preprocess_plain(padded, hp, wp, th_hi, th_lo)
+        torch.cuda.synchronize()
+        err = max(max_abs(g, w) for g, w in zip(got, want))
+        log(f"K1 level_preprocess {tuple(image.shape)} -> 3x{tuple(got[0].shape)}: "
+            f"max|d| = {err:g}")
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"K1 is not bit-exact: it differs by up to {err}")
+    rows["level_preprocess"] = 0.0
 
     got = level.combine_nms(x["hi"], x["lo"], x["bounds"])
     want = level.combine_nms_plain(x["hi"], x["lo"], x["bounds"])
@@ -351,23 +387,36 @@ def phase_kernels(x):
             f"with a candidate)")
     rows["masked_hamming_top2"] = 0.0
 
+    # K8 on the pairs' four problems and on one stereo problem tiled past
+    # 1024 rows; each launched twice, which must give the same bits.
     worst = 0.0
-    for path, problems in (("pair", x["k8"]), ("stereo pair", x["k8_stereo"])):
-        for args in problems:
-            got = pose_lm.pose_lm(*args)
-            want = pose_opt.pose_optimization_plain(*args)
-            torch.cuda.synchronize()
-            d_rot = rot_angle_deg(got.R.cpu(), want.R.cpu())
-            d_t = float((got.t - want.t).norm())
-            obs = args[3]
-            n_obs = obs.valid.shape[0]
-            differ = int((got.inliers != want.inliers).sum())
-            log(f"K8 pose_lm on the {path}, O={n_obs} ({int((obs.is_stereo & obs.valid).sum())} "
-                f"stereo rows): rot {d_rot:.6f} deg, |dt| {d_t:.3g}, inliers "
-                f"{int(got.n_inliers)} vs {int(want.n_inliers)}, {differ} flags differ")
-            if not (d_rot < ROT_DEG_TOL and d_t < T_TOL and differ <= K8_INLIER_TOL * n_obs):
-                raise AssertionError("K8 differs from its plain version beyond the bounds")
-            worst = max(worst, max_abs(got.R, want.R), max_abs(got.t, want.t))
+    problems = [("pair", a) for a in x["k8"]] + [("stereo pair", a) for a in x["k8_stereo"]]
+    problems += [("stereo pair, tiled", tiled_problem(x["k8_stereo"][0], n))
+                 for n in K8_TILED_ROWS]
+    for path, args in problems:
+        got = pose_lm.pose_lm(*args)
+        again = pose_lm.pose_lm(*args)
+        want = pose_opt.pose_optimization_plain(*args)
+        torch.cuda.synchronize()
+        d_rot = rot_angle_deg(got.R.cpu(), want.R.cpu())
+        d_t = float((got.t - want.t).norm())
+        obs = args[3]
+        n_obs = obs.valid.shape[0]
+        differ = int((got.inliers != want.inliers).sum())
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"K8 pose_lm on the {path}, O={n_obs} ({int((obs.is_stereo & obs.valid).sum())} "
+            f"stereo rows): rot {d_rot:.3g} deg, |dt| {d_t:.3g}, max|dR| "
+            f"{max_abs(got.R, want.R):.3g}, inliers {int(got.n_inliers)} vs "
+            f"{int(want.n_inliers)}, {differ} flags differ; repeat bit-identical: {same}")
+        if not (d_rot < ROT_DEG_TOL and d_t < T_TOL and differ <= K8_INLIER_TOL * n_obs):
+            raise AssertionError("K8 differs from its plain version beyond the bounds")
+        if not same:
+            raise AssertionError("two K8 launches on one input differ")
+        n = got.n_inliers
+        if n.dtype != torch.int64 or n.dim() != 0 or n.device != args[2].device \
+                or int(n) != int(got.inliers.sum()):
+            raise AssertionError(f"K8 n_inliers {n!r} is not the inliers' int64 count")
+        worst = max(worst, max_abs(got.R, want.R), max_abs(got.t, want.t))
     if not int((x["k8_stereo"][0][3].is_stereo & x["k8_stereo"][0][3].valid).sum()):
         raise AssertionError("the stereo pair gave K8 no stereo row")
     # With no valid observation every step is rejected: the pose stays put.
@@ -801,12 +850,13 @@ def phase_kernel_timing(x, errs, counts, power):
 
     def row(name, src, replaces, fn, plain, library, n_bytes, n_ops, iters=100):
         """One kernel's line: ms, plain_ms and library_ms are device busy
-        times per call; the CUDA-event time of the same calls in a row is
-        logged beside ms."""
-        ms = device_busy_ms(fn, iters)
+        times per call; the CUDA-event time of the same calls in a row, and
+        the device time of each operation the call ran, are logged beside
+        ms."""
+        ms, by_name = device_busy_ms(fn, iters)
         events_ms = gpu_time_ms(fn, iters)
-        plain_ms = device_busy_ms(plain, max(iters // 10, 5))
-        lib_ms = device_busy_ms(library, iters) if library is not None else None
+        plain_ms = device_busy_ms(plain, max(iters // 10, 5))[0]
+        lib_ms = device_busy_ms(library, iters)[0] if library is not None else None
         b_ms, b_by = bound_ms(n_bytes, n_ops)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -819,16 +869,20 @@ def phase_kernel_timing(x, errs, counts, power):
             f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
             f"{b_ms:.4f} ms by {b_by}; {n_bytes / 1e6:.3f} MB, "
             f"{n_ops / 1e6:.2f} Mop) on {power}")
+        log("    device ms per call by operation: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])))
+        return ms
 
-    # K1 (the function the main path calls) reads the canvas once and
-    # writes three maps; ~300 float operations per pixel (26 for the blur,
-    # 17 per circle bit x 16).
+    # K1 (the function the main path calls) reads the canvas and its two
+    # pad-index tables once and writes three maps; ~300 float operations
+    # per pixel (26 for the blur, 17 per circle bit x 16). Its row is the
+    # wrapper's time; the log line beside it gives the kernel's own.
     n_px = hp * wp
     row("level_preprocess", "orb_slam2_commit_tpu_torch/csrc/level.cu",
         "orb_slam2_commit_tpu/ops/pallas_level.py:143",
         lambda: level.level_preprocess(canvas, th_hi, th_lo),
         lambda: level.level_preprocess_plain(padded, hp, wp, th_hi, th_lo),
-        None, canvas.numel() * 4 + 3 * n_px * 4, 300 * n_px)
+        None, canvas.numel() * 4 + (hp + wp + 12) * 4 + 3 * n_px * 4, 300 * n_px)
     # K2 reads two maps and the two bound columns it uses, writes one map.
     hi, lo, bounds = x["hi"], x["lo"], x["bounds"]
     row("combine_nms", "orb_slam2_commit_tpu_torch/csrc/level.cu",
@@ -919,12 +973,13 @@ def phase_kernel_timing(x, errs, counts, power):
     # K8, the pair's two launches: inputs read once, pose and inlier flags
     # written; operations from the evaluations each launch ran on this
     # input (the kernel reports them).
-    k8_bytes = k8_ops = 0
+    k8_bytes = k8_ops = k8_evals = 0
     for args in x["k8"]:
         n_evals, obs_evals, rounds = pose_lm.work_done(*args)
         obs = args[3]
         k8_bytes += nbytes(args[0], args[1], args[2], obs.uvr, obs.inv_sigma2,
-                           obs.is_stereo, obs.valid) + 48 + obs.valid.numel()
+                           obs.is_stereo, obs.valid) + 48 + 8 + obs.valid.numel()
+        k8_evals += n_evals
         k8_ops += (pose_lm.OPS_PER_EVAL * obs_evals
                    + pose_lm.OPS_PER_CLASSIFY * rounds * int(obs.valid.sum()))
         log(f"K8 O={obs.valid.numel()}: {n_evals:.0f} evaluations over {rounds:.0f} "
@@ -933,10 +988,12 @@ def phase_kernel_timing(x, errs, counts, power):
     def all_k8(fn):
         return lambda: [fn(*args) for args in x["k8"]]
 
-    row("pose_lm", "orb_slam2_commit_tpu_torch/csrc/pose_lm.cu",
-        "orb_slam2_commit_tpu/optim/pallas_pose_opt.py:381",
-        all_k8(pose_lm.pose_lm), all_k8(pose_opt.pose_optimization_plain),
-        None, k8_bytes, k8_ops, iters=50)
+    ms = row("pose_lm", "orb_slam2_commit_tpu_torch/csrc/pose_lm.cu",
+             "orb_slam2_commit_tpu/optim/pallas_pose_opt.py:381",
+             all_k8(pose_lm.pose_lm), all_k8(pose_opt.pose_optimization_plain),
+             None, k8_bytes, k8_ops, iters=50)
+    log(f"pose_lm: {ms / k8_evals * 1e3:.3f} us per evaluation ({k8_evals:.0f} "
+        f"evaluations in the pair's two launches) on {power}")
     return kernels
 
 

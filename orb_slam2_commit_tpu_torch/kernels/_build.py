@@ -3,7 +3,8 @@
 Each source in `csrc/` is compiled by `nvcc` for sm_90a into its own
 shared library with a plain C interface, at first use, into `_build/`
 beside the package (a directory git ignores); the library's file name
-carries a hash of its source, so an edited source is rebuilt. Libraries
+carries a hash of its source and its flags, so an edited source, or a
+source whose flags changed, is rebuilt. Libraries
 are loaded with ctypes: pointers and the CUDA stream travel as
 `c_void_p`, and every C entry point returns `cudaGetLastError()`, which
 `check` turns into an exception.
@@ -33,12 +34,16 @@ SOURCES = ("level", "select", "patches", "subpix", "matching", "pose_lm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3",
-    # No multiply-add contraction: the blur must round like its plain
-    # version (see csrc/level.cu).
-    "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+# No multiply-add contraction where a kernel must round like its plain
+# version (the blur, csrc/level.cu; the subpixel terms, csrc/subpix.cu);
+# the integer and compare kernels keep the flag they were measured with.
+# The pose LM agrees to float32 rounding only and contracts freely.
+NO_FMA = ("-fmad=false",)
+SOURCE_FLAGS = {"level": NO_FMA, "select": NO_FMA, "patches": NO_FMA,
+                "subpix": NO_FMA, "matching": NO_FMA, "pose_lm": ()}
 
 _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
@@ -48,8 +53,9 @@ _c_float = ctypes.c_float
 SIGNATURES = {
     "level": {
         "level_preprocess_launch": (
-            _c_void_p, _c_int, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_int,
-            _c_float, _c_float, ctypes.POINTER(_c_float), _c_void_p),
+            _c_void_p, _c_int, _c_int, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+            _c_void_p, _c_int, _c_int, _c_float, _c_float,
+            ctypes.POINTER(_c_float), _c_void_p),
         "combine_nms_launch": (
             _c_void_p, _c_void_p, _c_void_p, _c_int, _c_void_p, _c_void_p,
             _c_int, _c_int, _c_void_p),
@@ -81,7 +87,7 @@ SIGNATURES = {
         "pose_lm_launch": (
             _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
             _c_void_p, _c_int, _c_float, _c_float, _c_float, _c_float, _c_float,
-            _c_int, _c_int, _c_void_p, _c_void_p, _c_void_p),
+            _c_int, _c_int, _c_void_p, _c_void_p, _c_void_p, _c_void_p),
     },
 }
 
@@ -106,9 +112,14 @@ def _nvcc() -> str:
     return path
 
 
+def nvcc_flags(name: str) -> Tuple[str, ...]:
+    """nvcc's flags for csrc/<name>.cu."""
+    return (*NVCC_FLAGS, *SOURCE_FLAGS[name])
+
+
 def _library_path(name: str) -> Path:
     digest = hashlib.sha1((CSRC_DIR / f"{name}.cu").read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(nvcc_flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
@@ -124,7 +135,7 @@ def build(names=SOURCES) -> Dict[str, Tuple[float, str]]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = [nvcc, *nvcc_flags(name), "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             time.perf_counter(), tmp, out)

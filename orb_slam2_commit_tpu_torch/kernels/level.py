@@ -3,6 +3,10 @@ versions (PyTorch port of ops/pallas_level.py; kernels in csrc/level.cu).
 
 On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it
 runs the plain version. Both produce the same bits.
+
+K1's plain version reads the canvas padded in memory by `pad_level`; the
+kernel reads the unpadded canvas and finds each padded pixel through
+`pad_index`'s tables, which gather the same values.
 """
 
 from __future__ import annotations
@@ -10,11 +14,13 @@ from __future__ import annotations
 import ctypes
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from orb_slam2_commit_tpu_torch.kernels import _build
 from orb_slam2_commit_tpu_torch.ops import fast, pyramid
+from orb_slam2_commit_tpu_torch.utils.device_cache import device_table
 
 HALO = 3          # blur radius 3, FAST circle radius 3
 STRIPE = 64       # canvas rows are padded to a multiple of this
@@ -41,6 +47,18 @@ def pad_level(image: torch.Tensor) -> Tuple[torch.Tensor, int, int]:
     return x[0, 0].contiguous(), hp, wp
 
 
+def pad_index(n: int, n_padded: int) -> np.ndarray:
+    """[n_padded] int32: padded index -> image index along an axis of n
+    pixels, as `pad_level` pads it (reflect-101 by HALO, then the last
+    entry repeated). So pad_level(image)[0] equals
+    image[pad_index(h, hp + 9)][:, pad_index(w, wp + 128)]."""
+    idx = np.pad(np.arange(n, dtype=np.int32), HALO, mode="reflect")
+    return np.pad(idx, (0, n_padded - n - 2 * HALO), mode="edge")
+
+
+_pad_index_table = device_table(pad_index)
+
+
 def level_preprocess_plain(
     padded: torch.Tensor, hp: int, wp: int, th_hi: float, th_lo: float
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -59,17 +77,24 @@ def level_preprocess(
     [:H, :W] is the image): 7x7 sigma=2 blur and FAST-9/16 V-scores at
     both thresholds, with reflect-101 borders."""
     _build.require(image, "level_preprocess", torch.float32, 2)
-    padded, hp, wp = pad_level(image)
     if not _build.on_card(image, "level_preprocess"):
+        padded, hp, wp = pad_level(image)
         return level_preprocess_plain(padded, hp, wp, th_hi, th_lo)
+    h, w = image.shape
+    if min(h, w) <= HALO:
+        raise ValueError(f"level_preprocess: reflect-101 by {HALO} needs more "
+                         f"than {HALO} rows and columns, got {tuple(image.shape)}")
+    hp, wp = _round_up(h, STRIPE), _round_up(w, 128)
+    rows = _pad_index_table(image.device, h, hp + 2 * HALO)
+    cols = _pad_index_table(image.device, w, wp + 2 * HALO)
     lib = _build.library("level")
     blur = torch.empty((hp, wp), dtype=torch.float32, device=image.device)
     hi = torch.empty_like(blur)
     lo = torch.empty_like(blur)
     taps = (ctypes.c_float * 7)(*pyramid.gaussian_kernel_1d(7, 2.0).tolist())
     err = lib.level_preprocess_launch(
-        padded.data_ptr(), padded.shape[1], blur.data_ptr(), hi.data_ptr(),
-        lo.data_ptr(), hp, wp, float(th_hi), float(th_lo), taps,
+        image.data_ptr(), h, w, rows.data_ptr(), cols.data_ptr(), blur.data_ptr(),
+        hi.data_ptr(), lo.data_ptr(), hp, wp, float(th_hi), float(th_lo), taps,
         _build.stream_of(image))
     _build.check(err, "level_preprocess")
     _build.launches["level_preprocess"] += 1

@@ -5,7 +5,8 @@ optim/pose_opt.pose_optimization_plain.
 
 On CUDA tensors the wrapper launches the kernel; on CPU tensors it runs
 the plain version. They sum in different orders, so poses agree to float32
-rounding and inlier masks up to observations on the chi2 boundary.
+rounding and inlier masks up to observations on the chi2 boundary. The
+kernel counts the inliers itself, so a call is one device operation.
 """
 
 from __future__ import annotations
@@ -42,20 +43,22 @@ def _check(R0, t0, points, obs) -> None:
 
 
 def _launch(R0, t0, points, obs, fx, fy, cx, cy, bf, n_rounds, iters_per_round
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One launch -> (pose [15]: R row-major, t, then the work done:
     evaluations, active observations summed over them, rounds run;
-    inliers [O] bool)."""
+    inliers [O] bool; their count, int64 0-dim)."""
     pose = torch.empty(15, dtype=torch.float32, device=points.device)
     inliers = torch.empty(points.shape[0], dtype=torch.bool, device=points.device)
+    n_inliers = torch.empty((), dtype=torch.int64, device=points.device)
     err = _build.library("pose_lm").pose_lm_launch(
         R0.data_ptr(), t0.data_ptr(), points.data_ptr(), obs.uvr.data_ptr(),
         obs.inv_sigma2.data_ptr(), obs.is_stereo.data_ptr(), obs.valid.data_ptr(),
         points.shape[0], fx, fy, cx, cy, bf, n_rounds, iters_per_round,
-        pose.data_ptr(), inliers.data_ptr(), _build.stream_of(points))
+        pose.data_ptr(), inliers.data_ptr(), n_inliers.data_ptr(),
+        _build.stream_of(points))
     _build.check(err, "pose_lm")
     _build.launches["pose_lm"] += 1
-    return pose, inliers
+    return pose, inliers, n_inliers
 
 
 def pose_lm(
@@ -75,11 +78,10 @@ def pose_lm(
     if not _build.on_card(points, "pose_lm"):
         return pose_opt.pose_optimization_plain(
             R0, t0, points, obs, fx, fy, cx, cy, bf, n_rounds, iters_per_round)
-    pose, inliers = _launch(R0, t0, points, obs, fx, fy, cx, cy, bf,
-                            n_rounds, iters_per_round)
+    pose, inliers, n_inliers = _launch(R0, t0, points, obs, fx, fy, cx, cy, bf,
+                                       n_rounds, iters_per_round)
     return pose_opt.PoseOptResult(
-        R=pose[:9].reshape(3, 3), t=pose[9:12], inliers=inliers,
-        n_inliers=torch.sum(inliers))
+        R=pose[:9].reshape(3, 3), t=pose[9:12], inliers=inliers, n_inliers=n_inliers)
 
 
 def work_done(R0, t0, points, obs, fx, fy, cx, cy, bf,
@@ -91,6 +93,7 @@ def work_done(R0, t0, points, obs, fx, fy, cx, cy, bf,
     _check(R0, t0, points, obs)
     if not _build.on_card(points, "pose_lm"):
         raise ValueError("pose_lm work_done: the kernel runs only on the card")
-    pose, _ = _launch(R0, t0, points, obs, fx, fy, cx, cy, bf, n_rounds, iters_per_round)
+    pose, _, _ = _launch(R0, t0, points, obs, fx, fy, cx, cy, bf, n_rounds,
+                         iters_per_round)
     n_evals, obs_evals, rounds = pose[12:].cpu().tolist()
     return n_evals, obs_evals, rounds

@@ -5,7 +5,9 @@ K1 is held against the Pallas kernel run by its interpreter and against
 the XLA blur and FAST maps, with the tolerances of test_pallas_level.py
 (the interpreter under jax_enable_x64 contracts and reorders float32
 arithmetic, so it is not bit-exact even against its own XLA route; the
-port's plain blur equals the XLA blur bit for bit). K2 is exact.
+port's plain blur equals the XLA blur bit for bit). K2 is exact. The
+kernel reads the unpadded canvas through two index tables; gathered on
+the CPU, they give pad_level's padded canvas exactly.
 """
 
 import jax.numpy as jnp
@@ -17,6 +19,8 @@ from orb_slam2_commit_tpu.ops import fast as jfast
 from orb_slam2_commit_tpu.ops import pallas_level, pyramid as jpyramid
 from orb_slam2_commit_tpu_torch.kernels import _build, level
 from orb_slam2_commit_tpu_torch.ops import fast, pyramid
+from orb_slam2_commit_tpu_torch.ops import packed_extractor as pe
+from orb_slam2_commit_tpu_torch.utils.config import ORBConfig
 
 torch.set_num_threads(1)
 
@@ -59,6 +63,30 @@ def test_level_preprocess_matches_xla(hw):
         t_corner, t_score = fast.fast_score_map(torch.from_numpy(img), th)
         np.testing.assert_array_equal(got, t_score.numpy())
         np.testing.assert_array_equal(t_corner.numpy(), corner)
+
+
+def _canvas(shape):
+    """A random image of shape (h, w), or the packed 640x480 canvas."""
+    rng = np.random.default_rng(7)
+    if shape == "packed 640x480":
+        image = torch.from_numpy(rng.uniform(0, 255, (480, 640)).astype(np.float32))
+        return pe.build_canvas(image, pe.make_plan(ORBConfig(), 480, 640))
+    return torch.from_numpy(rng.uniform(0, 255, shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("shape", [(96, 130), (70, 100), (64, 129), (240, 320),
+                                   "packed 640x480"])
+def test_pad_tables_gather_pad_level(shape):
+    """K1's row and column tables, used as a gather on the unpadded canvas,
+    give pad_level's output bit for bit (the kernel reads the first
+    hp + 6 rows and wp + 6 columns of them)."""
+    canvas = _canvas(shape)
+    h, w = canvas.shape
+    padded, hp, wp = level.pad_level(canvas)
+    rows = torch.from_numpy(level.pad_index(h, padded.shape[0])).long()
+    cols = torch.from_numpy(level.pad_index(w, padded.shape[1])).long()
+    assert padded.shape[0] >= hp + 6 and padded.shape[1] >= wp + 6
+    assert torch.equal(canvas[rows][:, cols], padded)
 
 
 def _score_maps(rng, hp, wp):

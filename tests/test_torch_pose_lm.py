@@ -3,7 +3,8 @@ plain masked LM) on the CPU against the JAX package's one-kernel LM
 (pose_optimization_pallas, in interpret mode) and its XLA route, on the
 clean, outlier and stereo problems of tests/test_pallas_pose_opt.py, with
 masked rows, and with no valid observation: rotation < 0.05 deg,
-|dt| < 2e-3, equal inlier counts."""
+|dt| < 2e-3, equal inlier counts; the same past 1024 rows against the XLA
+route. Also the build flags: K8 alone is compiled with FMA contraction."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -109,6 +110,41 @@ def test_pose_lm_route_matches_jax_kernel_and_xla(case):
         assert int(r.n_inliers) == 0
     else:
         assert rot_angle(R, R_true) < (0.1 if len(out_idx) else 0.05)
+
+
+def test_plain_lm_past_1024_rows_matches_xla():
+    """The outlier problem's rows tiled to 1120 (more rows than the kernel
+    has threads): the plain LM still agrees with the JAX XLA route."""
+    X, uvr, valid, stereo, R0, t0, bf, R_true, _, out_idx = _problem(**CASES["outliers"])
+    reps = 7
+    X, uvr, valid, stereo = (np.concatenate([a] * reps) for a in (X, uvr, valid, stereo))
+    assert X.shape[0] > 1024
+    r = _port(X, uvr, valid, stereo, R0, t0, bf)
+    n = X.shape[0]
+    obs = JObs(jnp.zeros(n, jnp.int32), jnp.arange(n, dtype=jnp.int32), jnp.asarray(uvr),
+               jnp.ones(n, jnp.float32), jnp.asarray(stereo), jnp.asarray(valid))
+    ref = jpose_opt.pose_optimization_jit(jnp.asarray(R0), jnp.asarray(t0), jnp.asarray(X),
+                                          obs, FX, FY, CX, CY, bf)
+    assert rot_angle(r.R.numpy(), ref.R) < 0.05
+    assert np.linalg.norm(r.t.numpy() - np.asarray(ref.t)) < 2e-3
+    assert int(r.n_inliers) == int(ref.n_inliers) == reps * (160 - len(out_idx))
+    assert rot_angle(r.R.numpy(), R_true) < 0.1
+
+
+def test_build_flags_per_source(monkeypatch):
+    """Every source but pose_lm.cu is built without FMA contraction (the
+    kernels that must round like their plain versions), and each library's
+    file name hashes its own flags."""
+    assert "-fmad=false" not in _build.nvcc_flags("pose_lm")
+    for name in _build.SOURCES:
+        if name != "pose_lm":
+            assert "-fmad=false" in _build.nvcc_flags(name)
+    paths = {name: _build._library_path(name) for name in _build.SOURCES}
+    for name in ("level", "pose_lm"):
+        monkeypatch.setitem(_build.SOURCE_FLAGS, name, (*_build.SOURCE_FLAGS[name], "-lineinfo"))
+        changed = {n for n in _build.SOURCES if _build._library_path(n) != paths[n]}
+        assert changed == {name}
+        monkeypatch.undo()
 
 
 def test_failed_factor_is_rejected(monkeypatch):
