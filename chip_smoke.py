@@ -20,8 +20,12 @@ Phases (any failure exits non-zero and prints no result line):
      once) and print nvcc's register, stack and spill lines;
   3. each kernel against its plain PyTorch version on the card, on the
      tensors the main paths give it (recorded from one run of a path),
-     K1 also on a canvas with pad rows and columns and K8 also on a
-     problem tiled past 1024 and past 7000 rows, launched twice;
+     K1 and K2 also on a canvas with pad rows and columns (K2 also with
+     every cell low), K6 also on the CPU tests' cases with one window and
+     with two, with a narrower second window, with every row invalid and
+     past one shared-memory chunk,
+     and K8 also on a problem tiled past 1024 and past 7000 rows,
+     launched twice;
   4. each main path through the port's entry points, with the kernels'
      launch counts reset just before and read just after it, and its
      result held against the same call on the CPU; the stereo matcher
@@ -84,16 +88,20 @@ STEREO_FLIP_TOL = 0.01
 K5_TOL = 1e-5      # px, K5 vs its plain version (tests/test_subpix.py:69,82)
 K8_INLIER_TOL = 0.005   # share of observations whose inlier flag may differ
 # Rows of the tiled K8 problems: past one row per thread (the kernel runs
-# 512 threads) and past the rows it stages in shared memory (7000).
+# 256 threads) and past the rows it stages in shared memory (7000).
 K8_TILED_ROWS = (2048, 8192)
 # Calls traced by torch.profiler for the device's busy time and idle share.
 PROFILE_CALLS = 5
+
+# A K6 problem past one shared-memory chunk of the kernel (2048 columns).
+K6_CHUNKED = dict(seed=8, m=256, n=20000)
 
 STEP_WANT = {"level_preprocess": 1, "combine_nms": 1, "cell_topk": 1,
              "extract_patches": 2, "corner_subpix": 1,
              "projection_hamming_top2": 1, "masked_hamming_top2": 0,
              "pose_lm": 1}
-PAIR_WANT = dict(STEP_WANT, projection_hamming_top2=3, pose_lm=2)
+# The motion stage's two searches (th, 2 th) share one K6 launch.
+PAIR_WANT = dict(STEP_WANT, projection_hamming_top2=2, pose_lm=2)
 # Two extractions and the stereo matcher's two K7 launches.
 STEREO_WANT = dict(PAIR_WANT, level_preprocess=2, combine_nms=2, cell_topk=2,
                    extract_patches=4, corner_subpix=2, masked_hamming_top2=2)
@@ -165,6 +173,13 @@ def device_busy_ms(fn, iters, warmup=3):
     return device_ops(prof)[1] / iters, by_name
 
 
+def smi_clocks():
+    """The card's SM clock and power draw now, from nvidia-smi."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
 def bound_ms(n_bytes, n_ops):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
@@ -177,6 +192,13 @@ def max_abs(a, b):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def as_tensors(arrays, device):
+    """numpy arrays -> tensors on device, uint32 as int32 bits."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(a).view(np.int32)
+                                  if a.dtype == np.uint32 else np.ascontiguousarray(a)
+                                  ).to(device) for a in arrays)
 
 
 @contextlib.contextmanager
@@ -250,18 +272,20 @@ def main_path_inputs(image, config, motion, cands):
     score = level.combine_nms(hi_c, lo_c, bounds)
     cells = pe.cell_matrix(score, orb.cell_size)
     yx, _, _ = pe.select_flat(score, plan, orb)
+    small, small_bounds = padded_canvas(image.device)
     x = dict(canvas=canvas, blur=blur_c, hi=hi_c, lo=lo_c, bounds=bounds,
              cells=cells, k=orb.cell_top_k, yx=yx,
              ths=(float(orb.ini_th_fast), float(orb.min_th_fast)),
-             small_canvas=padded_canvas(image.device))
+             small_canvas=small, small_bounds=small_bounds)
 
+    # K6: the motion stage's two-window call and the local-map stage's.
     k5, k6, k8 = [], [], []
     with recording(subpix, "corner_subpix_from_patches", k5), \
             recording(kmatching, "projection_hamming_top2", k6), \
             recording(pose_lm, "pose_lm", k8):
         run_pair(config, motion, cands)
     torch.cuda.synchronize()
-    if (len(k5), len(k6), len(k8)) != (1, 3, 2):
+    if (len(k5), len(k6), len(k8)) != (1, 2, 2) or len(k6[0][0][2]) != 2:
         raise AssertionError(f"recorded {len(k5)} K5, {len(k6)} K6, {len(k8)} K8 calls")
     x.update(k5=k5[0][0], k6=[c[0] for c in k6], k8=[c[0] for c in k8])
     return x
@@ -270,10 +294,14 @@ def main_path_inputs(image, config, motion, cands):
 def padded_canvas(device):
     """The packed canvas of frame 1 at 320x240 and 400 features (the JAX
     package's example size): [1248, 320], whose outputs are [1280, 384], so
-    K1 reads pad rows and columns through its tables."""
+    K1 reads pad rows and columns through its tables; and the row bounds
+    of those outputs."""
     config, images, _, _ = interop._scene(320, 240, 400, 2)
     plan = pe.make_plan(config.orb, 240, 320)
-    return pe.build_canvas(torch.as_tensor(images[1], dtype=torch.float32, device=device), plan)
+    canvas = pe.build_canvas(torch.as_tensor(images[1], dtype=torch.float32, device=device),
+                             plan)
+    hp = level._round_up(canvas.shape[0], level.STRIPE)
+    return canvas, torch.from_numpy(pe._bounds_np(plan, hp)).to(device)
 
 
 def tiled_problem(args, rows):
@@ -305,6 +333,46 @@ def stereo_path_inputs(config, motion, cands):
 # Phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
+def k6_problems(x):
+    """(what, args) of K6's phase-3 cases: the pair's two recorded calls,
+    each CPU-test case with one window and with two (r, 2r), one with a
+    second window narrower than the first, one with every row invalid, and
+    one past a shared-memory chunk."""
+    dev = x["canvas"].device
+
+    def windows(args, *radii):
+        return (*args[:2], radii, *args[3:])
+
+    motion, local_map = x["k6"]
+    yield "motion stage, two windows", motion
+    yield "local-map stage", local_map
+    for name, case in interop.TOP2_CASES.items():
+        args = as_tensors(interop.top2_problem(**case), dev)
+        yield name, windows(args, args[2])
+        yield f"{name}, two windows", windows(args, args[2], 2 * args[2])
+    args = as_tensors(interop.top2_problem(**interop.TOP2_CASES["257x513"]), dev)
+    yield "257x513, second window narrower", windows(args, args[2], 0.5 * args[2])
+    args = (*args[:5], torch.zeros_like(args[5]), *args[6:])
+    yield "257x513, every row invalid, two windows", windows(args, args[2], 2 * args[2])
+    args = as_tensors(interop.top2_problem(**K6_CHUNKED), dev)
+    yield "past one chunk, two windows", windows(args, args[2], 2 * args[2])
+
+
+def check_k6(what, args):
+    """K6 against its plain version (each window on its own): all four
+    outputs of each window bit for bit."""
+    got = kmatching.projection_hamming_top2(*args)
+    want = kmatching.projection_hamming_top2_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        if not all(torch.equal(a, b) for a, b in zip(g, w)):
+            raise AssertionError(f"K6 differs on {what}: " + ", ".join(
+                f"{max_abs(a, b):g}" for a, b in zip(g, w)))
+    log(f"K6 projection_hamming_top2, {what} [{args[0].shape[0]}, {args[6].shape[0]}]: "
+        f"exact in all four outputs (rows with a candidate: "
+        f"{[int((g[0] <= 256).sum()) for g in got]})")
+
+
 def phase_kernels(x):
     """Each kernel against its plain version on the card (not counted as
     main-path launches: the counts are reset before each main path)."""
@@ -326,13 +394,20 @@ def phase_kernels(x):
             raise AssertionError(f"K1 is not bit-exact: it differs by up to {err}")
     rows["level_preprocess"] = 0.0
 
-    got = level.combine_nms(x["hi"], x["lo"], x["bounds"])
-    want = level.combine_nms_plain(x["hi"], x["lo"], x["bounds"])
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError(f"K2 differs: max|d| = {max_abs(got, want)}")
-    log(f"K2 combine_nms {tuple(x['hi'].shape)}: exact "
-        f"({int((got > 0).sum())} maxima)")
+    # K2 bit for bit on the main canvas's maps, on the 320x240 canvas's
+    # (pad rows and columns, another width) and with every cell low.
+    _, s_hi, s_lo = level.level_preprocess(x["small_canvas"], th_hi, th_lo)
+    for what, hi, lo, bounds in (
+            ("main canvas", x["hi"], x["lo"], x["bounds"]),
+            ("320x240 canvas", s_hi, s_lo, x["small_bounds"]),
+            ("every cell low", torch.zeros_like(x["hi"]), x["lo"], x["bounds"])):
+        got = level.combine_nms(hi, lo, bounds)
+        want = level.combine_nms_plain(hi, lo, bounds)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K2 differs on the {what}: max|d| = {max_abs(got, want)}")
+        log(f"K2 combine_nms, {what} {tuple(hi.shape)}: exact "
+            f"({int((got > 0).sum())} maxima)")
     rows["combine_nms"] = 0.0
 
     gv, ga = select.cell_topk(x["cells"], x["k"])
@@ -363,15 +438,8 @@ def phase_kernels(x):
         raise AssertionError(f"K5 differs from its plain version by {err} px")
     rows["corner_subpix"] = err
 
-    for args in x["k6"]:
-        got = kmatching.projection_hamming_top2(*args)
-        want = kmatching.projection_hamming_top2_plain(*args)
-        torch.cuda.synchronize()
-        if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            raise AssertionError(
-                "K6 differs: " + ", ".join(f"{max_abs(g, w):g}" for g, w in zip(got, want)))
-        log(f"K6 projection_hamming_top2 [{args[0].shape[0]}, {args[6].shape[0]}]: "
-            f"exact in all four outputs ({int((got[0] <= 256).sum())} rows with a candidate)")
+    for what, args in k6_problems(x):
+        check_k6(what, args)
     rows["projection_hamming_top2"] = 0.0
 
     for args in x["k7"]:
@@ -778,13 +846,12 @@ def phase_pair_timing(config, motion, cands, x, power):
 
     out = fused_motion_track_packed(*motion, config)
     feat_state, lm_meta = interop.local_map_args(out, pt_f32, LM_TH)
-    (m_top2, m_top2_wide, l_top2), (m_lm, l_lm) = x["k6"], x["k8"]
+    (m_top2, l_top2), (m_lm, l_lm) = x["k6"], x["k8"]
     cam = config.camera
     stages = (
         ("extraction", lambda: extractor.extract_features(
             image, config.orb, cam.height, cam.width)),
-        ("motion K6 x2", lambda: (kmatching.projection_hamming_top2(*m_top2),
-                                  kmatching.projection_hamming_top2(*m_top2_wide))),
+        ("motion K6 (two windows)", lambda: kmatching.projection_hamming_top2(*m_top2)),
         ("motion pose_lm", lambda: pose_lm.pose_lm(*m_lm)),
         ("motion stage", lambda: fused_motion_track_packed(*motion, config)),
         ("local-map K6", lambda: kmatching.projection_hamming_top2(*l_top2)),
@@ -826,7 +893,7 @@ def phase_sensor_timing(config, motion, cands, x, power):
                 im, orb, cam.height, cam.width) for im in (image, second)]),
             ("stereo match (K7 x2, SAD, median)", lambda: stereo.stereo_match(*match_args)),
             ("stereo K7 x2", lambda: [kmatching.masked_hamming_top2(*a) for a in x["k7"]]),
-            ("motion matching (K6 x2) + pose_lm", lambda: jit_frontend._fused_match_and_pose(
+            ("motion matching (K6) + pose_lm", lambda: jit_frontend._fused_match_and_pose(
                 feats, feats.xy, ur, pt_pos, pt_desc, pt_octave, pt_angle, pt_valid,
                 R, t, config, tz_rel=tz)),
             ("motion pose_lm (stereo rows)", lambda: pose_lm.pose_lm(*x["k8_stereo"][0])),
@@ -854,6 +921,7 @@ def phase_kernel_timing(x, errs, counts, power):
         the device time of each operation the call ran, are logged beside
         ms."""
         ms, by_name = device_busy_ms(fn, iters)
+        clocks = smi_clocks()
         events_ms = gpu_time_ms(fn, iters)
         plain_ms = device_busy_ms(plain, max(iters // 10, 5))[0]
         lib_ms = device_busy_ms(library, iters)[0] if library is not None else None
@@ -871,6 +939,7 @@ def phase_kernel_timing(x, errs, counts, power):
             f"{n_ops / 1e6:.2f} Mop) on {power}")
         log("    device ms per call by operation: " + ", ".join(
             f"{k} {v:.4f}" for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])))
+        log(f"    right after the device-busy timing: {clocks}")
         return ms
 
     # K1 (the function the main path calls) reads the canvas and its two
@@ -883,13 +952,26 @@ def phase_kernel_timing(x, errs, counts, power):
         lambda: level.level_preprocess(canvas, th_hi, th_lo),
         lambda: level.level_preprocess_plain(padded, hp, wp, th_hi, th_lo),
         None, canvas.numel() * 4 + (hp + wp + 12) * 4 + 3 * n_px * 4, 300 * n_px)
-    # K2 reads two maps and the two bound columns it uses, writes one map.
+    # K2 needs score_hi inside each row's bounds (for the cell flags and
+    # the high cells), score_lo inside the bounds of the low cells (flags
+    # from the plain version's masked maps), the two bound columns, and
+    # writes one map; counted from this run's maps.
     hi, lo, bounds = x["hi"], x["lo"], x["bounds"]
+    h2, w2 = hi.shape
+    inside = level.bounds_mask(bounds, w2)
+    has_hi = (torch.where(inside, hi, 0.0).reshape(h2 // level.CELL, level.CELL, -1, level.CELL)
+              .amax(dim=(1, 3)) > 0)
+    low_inside = inside & ~has_hi.repeat_interleave(level.CELL, 0).repeat_interleave(
+        level.CELL, 1)
+    k2_bytes = 4 * (int(inside.sum()) + int(low_inside.sum()) + hi.numel() + 2 * h2)
+    log(f"K2 reads {int(inside.sum())} score_hi and {int(low_inside.sum())} score_lo "
+        f"pixels inside the bounds of the [{h2}, {w2}] maps ({int(has_hi.sum())} of "
+        f"{has_hi.numel()} cells high)")
     row("combine_nms", "orb_slam2_commit_tpu_torch/csrc/level.cu",
         "orb_slam2_commit_tpu/ops/pallas_level.py:327",
         lambda: level.combine_nms(hi, lo, bounds),
         lambda: level.combine_nms_plain(hi, lo, bounds),
-        None, 3 * hi.numel() * 4 + bounds.shape[0] * 2 * 4, 20 * hi.numel())
+        None, k2_bytes, 20 * hi.numel())
     # K3 reads the cell matrix once, writes k values and indices per row;
     # k rounds of one compare per entry.
     cells, k = x["cells"], x["k"]
@@ -934,18 +1016,24 @@ def phase_kernel_timing(x, errs, counts, power):
         lambda: subpix.corner_subpix_from_patches_plain(p5, cy, cx),
         None, p5.shape[0] * (81 * 4 + 8), 2700 * p5.shape[0])
 
-    # K6, the pair's three launches: each reads its row and column tables
-    # once and writes 4 x M results; ~8 operations per (row, column) window
-    # test and 24 (8 XOR, 8 popcount, 8 adds) per candidate pair, counted
-    # from this run's masks.
-    k6_bytes = k6_ops = 0
+    # K6, the pair's two launches (the motion stage's with two windows):
+    # each reads its row and column tables once and writes 4 x M results
+    # per window; ~8 operations per window test of a valid row (an invalid
+    # row needs none) and 24 (8 XOR, 8 popcount, 8 adds) per candidate
+    # pair of either window, counted from this run's masks.
+    k6_bytes = k6_ops = k6_ops_all_rows = 0
     for args in x["k6"]:
         m_rows, n_cols = args[0].shape[0], args[6].shape[0]
+        r_any = torch.stack(args[2]).amax(dim=0)
         mask = (args[5][:, None] & args[9][None, :]
-                & kmatching.matching.window_mask(args[1], args[7], args[2])
+                & kmatching.matching.window_mask(args[1], args[7], r_any)
                 & kmatching.matching.octave_band_mask(args[8], args[3], args[4]))
-        k6_bytes += nbytes(*args) + 4 * m_rows * 4
-        k6_ops += 8 * m_rows * n_cols + 24 * int(mask.sum())
+        k6_bytes += nbytes(*args[:2], *args[2], *args[3:]) + len(args[2]) * 4 * m_rows * 4
+        k6_ops += 8 * int(args[5].sum()) * n_cols + 24 * int(mask.sum())
+        k6_ops_all_rows += 8 * m_rows * n_cols + 24 * int(mask.sum())
+    log(f"K6 operations in the pair's launches: {k6_ops / 1e6:.2f} M with window tests "
+        f"of valid rows only (the bound's count), {k6_ops_all_rows / 1e6:.2f} M with "
+        f"every row's")
 
     def all_k6(fn):
         return lambda: [fn(*args) for args in x["k6"]]

@@ -8,7 +8,9 @@
 // projection_hamming_top2 (_projection_kernel, VPU popcount, and
 // _projection_mxu_kernel, +-1 bf16 matmul; both give the same outputs).
 // A column is a candidate when |u - x| <= r and |v - y| <= r (float32),
-// lo <= octave <= hi, and both valid flags are set.
+// lo <= octave <= hi, and both valid flags are set. K6 may take a second
+// radius per row (the motion stage's widened retry window) and then gives
+// both windows' top-2 from one scan.
 //
 // K7: over the candidates of a caller-supplied [M, N] bool mask. Replaces
 // the Pallas kernel orb_slam2_commit_tpu/ops/pallas_matching.py:
@@ -27,25 +29,60 @@
 // 4096-column limit to 8M columns.
 //
 // What bounds them on the H100: neither memory nor arithmetic. K6 moves
-// ~0.2 MB in and out at [2048, 1000] and does ~2M window tests and ~30
-// integer operations per candidate pair. K7 reads ~1 MB of mask at the
-// stereo path's [1000, 1000] (~0.3 us at 3.35 TB/s) and pays ~24 integer
-// operations per candidate pair. Each is a few microseconds of
+// ~0.2 MB in and out at [2048, 1000] and does ~8 operations per window
+// test of a valid row and ~24 per candidate pair. K7 reads ~1 MB of mask
+// at the stereo path's [1000, 1000] (~0.3 us at 3.35 TB/s) and pays ~24
+// integer operations per candidate pair. Each is a few microseconds of
 // latency-bound work.
-// Design: one warp per row, 8 rows per block. The row's descriptor (and
-// K6's window) live in registers; lanes stride over the N columns, so each
-// column's position, octave and flag (K6) or the row's mask bytes (K7)
-// are read coalesced, and a column's 32 descriptor bytes are read only
-// when it is a candidate (__popc on the 8 XORed words). Each lane keeps
-// its two smallest keys; five shuffle rounds merge them across the warp.
-// Only the 4 x M results reach memory.
+//
+// K6's design. A block of ROWS rows, WPR warps each, stages the column
+// table in dynamic shared memory, CHUNK columns at a time (one pass at the
+// main paths' N = 1000, 45 KB; larger N loops over chunks with the same
+// code), as structure of arrays: positions with the valid flag folded into
+// x (an invalid column's x is NaN, which no window holds, so no octave
+// sentinel can collide with a caller's band), octaves, and the descriptors
+// word-major with a row stride of cap + 4 words, so that the 16-byte
+// loads of a column's descriptor store without bank conflicts and
+// consecutive lanes read consecutive columns without them. A thread
+// issues all its staging loads before its stores (one trip to L2 for up
+// to 1024 columns). The warps of a row then test alternate runs of 32
+// columns from shared memory and read a descriptor only for a candidate;
+// a lane keeps candidate keys only, the warps merge theirs through shared
+// memory, and the index fallbacks are filled in after the merge. A row
+// whose valid flag is clear scans nothing and writes (BIG, 0, BIG,
+// min(1, N - 1)); a block none of whose rows is valid stages nothing. Two
+// windows share the scan: the wider of the two radii filters, then each
+// window's own test picks the lane's (k1, k2) pair it goes to, so each
+// window is exact for any two radii. On an H100 80GB HBM3 at 700 W
+// (scripts/kernel_variants.py matching-k6) the monocular pair's two
+// launches take 0.0093 ms: 5.7 us with two windows over 1024 rows, 3.6 us
+// over 2048 rows of which 118 are valid, 1.8 us when no row is valid.
+// The earlier design, one warp per row striding over the columns in
+// global memory, waited on a chain of dependent loads in every iteration
+// and ran its whole loop for invalid rows: 0.0310 ms for its three
+// launches. 1 or 4 warps per row, 4 or 16 rows per block, 512-column
+// chunks, staging by the bulk-copy engine (0.0105-0.0110 ms) and staging
+// no descriptors, reading a candidate's from L2 (0.0100-0.0103 ms), were
+// slower.
+//
+// K7's design: one warp per row, 8 rows per block. The row's descriptor
+// lives in registers; lanes stride over the N columns, so the row's mask
+// bytes are read coalesced, and a column's 32 descriptor bytes are read
+// only when it is a candidate (__popc on the 8 XORed words). Each lane
+// keeps its two smallest keys; five shuffle rounds merge them across the
+// warp. Only the 4 x M results reach memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int WARPS = 8;
+constexpr int WARPS = 8;                  // K7's rows per block
+constexpr int ROWS = 8;                   // K6's rows per block
+constexpr int WPR = 2;                    // K6's warps per row
+constexpr int THREADS = ROWS * WPR * 32;  // K6's block
+constexpr int CHUNK = 2048;               // K6's columns staged per pass
+constexpr int ROUND = 1024;               // K6's columns staged per round of loads
 constexpr int WORDS = 8;                  // 256-bit descriptor
 constexpr int COL_BITS = 23;
 constexpr unsigned COL_MASK = (1u << COL_BITS) - 1u;
@@ -62,10 +99,9 @@ __device__ __forceinline__ void insert(unsigned key, unsigned& k1, unsigned& k2)
   }
 }
 
-// Merge each lane's two smallest keys across the warp; lane 0 decodes
-// them into out[0..3][row].
-__device__ __forceinline__ void reduce_and_store(
-    unsigned k1, unsigned k2, int lane, int row, int m, int n, int* out) {
+// Merge each lane's two smallest keys across the warp (every lane ends
+// with the warp's two).
+__device__ __forceinline__ void warp_merge(unsigned& k1, unsigned& k2) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     const unsigned o1 = __shfl_xor_sync(0xffffffffu, k1, off);
@@ -75,54 +111,161 @@ __device__ __forceinline__ void reduce_and_store(
     k2 = min(hi1, min(k2, o2));
     k1 = lo1;
   }
-  if (lane == 0) {
-    const unsigned d1 = k1 >> COL_BITS, d2 = k2 >> COL_BITS;
-    out[row] = d1 >= EMPTY ? BIG : (int)d1;
-    out[m + row] = min((int)(k1 & COL_MASK), n - 1);
-    out[2 * m + row] = d2 >= EMPTY ? BIG : (int)d2;
-    out[3 * m + row] = min((int)(k2 & COL_MASK), n - 1);
+}
+
+// Decode a row's two keys into out[0..3][row] of an out with m rows.
+__device__ __forceinline__ void store_top2(unsigned k1, unsigned k2, int row, int m,
+                                           int n, int* out) {
+  const unsigned d1 = k1 >> COL_BITS, d2 = k2 >> COL_BITS;
+  out[row] = d1 >= EMPTY ? BIG : (int)d1;
+  out[m + row] = min((int)(k1 & COL_MASK), n - 1);
+  out[2 * m + row] = d2 >= EMPTY ? BIG : (int)d2;
+  out[3 * m + row] = min((int)(k2 & COL_MASK), n - 1);
+}
+
+// Copy columns [c0, c0 + cw) of the column table into shared memory,
+// ROUND columns per round: a thread issues every load of a round before
+// its first store, so a round costs one trip to L2 (a strided loop whose
+// trip count differs between threads left its last warps several trips).
+__device__ __forceinline__ void stage_columns(
+    const uint4* __restrict__ desc_b, const float2* __restrict__ xy_b,
+    const int* __restrict__ octave_b, const uint8_t* __restrict__ valid_b,
+    int c0, int cw, int stride, float2* sxy, int* soct, unsigned* sdesc) {
+  constexpr int DPT = 2 * ROUND / THREADS, CPT = ROUND / THREADS;
+  const uint4* d = desc_b + 2 * (size_t)c0;
+  for (int base = 0; base < cw; base += ROUND) {
+    uint4 w[DPT];
+    float2 p[CPT];
+    int oc[CPT];
+    bool ok[CPT];
+#pragma unroll
+    for (int k = 0; k < DPT; ++k) {
+      const int q = 2 * base + threadIdx.x + k * THREADS;
+      if (q < 2 * cw) w[k] = __ldg(d + q);
+    }
+#pragma unroll
+    for (int k = 0; k < CPT; ++k) {
+      const int c = base + threadIdx.x + k * THREADS;
+      if (c < cw) {
+        p[k] = __ldg(xy_b + c0 + c);
+        oc[k] = __ldg(octave_b + c0 + c);
+        ok[k] = __ldg(valid_b + c0 + c) != 0;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < DPT; ++k) {
+      const int q = 2 * base + threadIdx.x + k * THREADS;
+      if (q < 2 * cw) {
+        unsigned* s = sdesc + (q & 1) * 4 * stride + (q >> 1);
+        s[0] = w[k].x;
+        s[stride] = w[k].y;
+        s[2 * stride] = w[k].z;
+        s[3 * stride] = w[k].w;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < CPT; ++k) {
+      const int c = base + threadIdx.x + k * THREADS;
+      if (c < cw) {
+        sxy[c] = make_float2(ok[k] ? p[k].x : __int_as_float(0x7fc00000), p[k].y);
+        soct[c] = oc[k];
+      }
+    }
   }
 }
 
-__global__ void projection_top2_kernel(
-    const int* __restrict__ desc_a, const float* __restrict__ proj,
-    const float* __restrict__ radius, const int* __restrict__ oct_lo,
-    const int* __restrict__ oct_hi, const uint8_t* __restrict__ valid_a, int m,
-    const int* __restrict__ desc_b, const float* __restrict__ xy_b,
-    const int* __restrict__ octave_b, const uint8_t* __restrict__ valid_b,
-    int n, int* __restrict__ out) {
-  const int warp = threadIdx.x / 32;
+// NW windows: radius (and radius2 when NW == 2). out: [NW, 4, m].
+template <int NW>
+__global__ void __launch_bounds__(THREADS) projection_top2_kernel(
+    const int* __restrict__ desc_a, const float2* __restrict__ proj,
+    const float* __restrict__ radius, const float* __restrict__ radius2,
+    const int* __restrict__ oct_lo, const int* __restrict__ oct_hi,
+    const uint8_t* __restrict__ valid_a, int m, const uint4* __restrict__ desc_b,
+    const float2* __restrict__ xy_b, const int* __restrict__ octave_b,
+    const uint8_t* __restrict__ valid_b, int n, int cap, int* __restrict__ out) {
+  extern __shared__ uint4 smem[];
+  float2* sxy = reinterpret_cast<float2*>(smem);
+  int* soct = reinterpret_cast<int*>(sxy + cap);
+  unsigned* sdesc = reinterpret_cast<unsigned*>(soct + cap);
+  const int stride = cap + 4;
+  // Each row's part (one warp's) two smallest keys per window.
+  __shared__ uint2 parts[ROWS][WPR][NW];
+
   const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * WARPS + warp;
-  if (row >= m) return;
+  const int warp = threadIdx.x / 32;
+  const int part = warp % WPR;
+  const int row = blockIdx.x * ROWS + warp / WPR;
+  const bool active = row < m && valid_a[row] != 0;
 
-  unsigned a[WORDS];
+  unsigned k1[NW], k2[NW];
 #pragma unroll
-  for (int w = 0; w < WORDS; ++w) a[w] = (unsigned)__ldg(desc_a + (size_t)row * WORDS + w);
-  const float u = __ldg(proj + 2 * row);
-  const float v = __ldg(proj + 2 * row + 1);
-  const float r = __ldg(radius + row);
-  const int lo = __ldg(oct_lo + row);
-  const int hi = __ldg(oct_hi + row);
-  const bool va = valid_a[row] != 0;
+  for (int w = 0; w < NW; ++w) k1[w] = k2[w] = NO_KEY;
 
-  unsigned k1 = NO_KEY, k2 = NO_KEY;
-  for (int j = lane; j < n; j += 32) {
-    const float x = __ldg(xy_b + 2 * j);
-    const float y = __ldg(xy_b + 2 * j + 1);
-    const int oc = __ldg(octave_b + j);
-    const bool cand = va && valid_b[j] != 0 && fabsf(u - x) <= r &&
-                      fabsf(v - y) <= r && oc >= lo && oc <= hi;
-    unsigned d = EMPTY;
-    if (cand) {
-      d = 0;
-      const int* b = desc_b + (size_t)j * WORDS;
+  if (__syncthreads_or(active)) {
+    unsigned a[WORDS] = {};
+    float2 uv = make_float2(0.f, 0.f);
+    float r[NW] = {};
+    int lo = 0, hi = 0;
+    if (active) {
 #pragma unroll
-      for (int w = 0; w < WORDS; ++w) d += __popc(a[w] ^ (unsigned)__ldg(b + w));
+      for (int w = 0; w < WORDS; ++w) a[w] = (unsigned)__ldg(desc_a + (size_t)row * WORDS + w);
+      uv = __ldg(proj + row);
+      r[0] = __ldg(radius + row);
+      if constexpr (NW == 2) r[1] = __ldg(radius2 + row);
+      lo = __ldg(oct_lo + row);
+      hi = __ldg(oct_hi + row);
     }
-    insert((d << COL_BITS) | (unsigned)j, k1, k2);
+    // A column in either window passes this test (fmaxf drops a NaN radius,
+    // whose window holds nothing).
+    float r_any = r[0];
+    if constexpr (NW == 2) r_any = fmaxf(r[0], r[1]);
+
+    for (int c0 = 0; c0 < n; c0 += cap) {
+      const int cw = min(cap, n - c0);
+      if (c0) __syncthreads();   // every warp is done with the last chunk
+      stage_columns(desc_b, xy_b, octave_b, valid_b, c0, cw, stride, sxy, soct, sdesc);
+      __syncthreads();
+      if (!active) continue;
+#pragma unroll 4
+      for (int j = part * 32 + lane; j < cw; j += WPR * 32) {
+        const float2 p = sxy[j];
+        const float dx = fabsf(uv.x - p.x), dy = fabsf(uv.y - p.y);
+        const int oc = soct[j];
+        if (dx <= r_any && dy <= r_any && oc >= lo && oc <= hi) {
+          unsigned d = 0;
+#pragma unroll
+          for (int w = 0; w < WORDS; ++w) d += __popc(a[w] ^ sdesc[w * stride + j]);
+          const unsigned key = (d << COL_BITS) | (unsigned)(c0 + j);
+#pragma unroll
+          for (int w = 0; w < NW; ++w) {
+            if (NW == 1 || (dx <= r[w] && dy <= r[w])) insert(key, k1[w], k2[w]);
+          }
+        }
+      }
+    }
   }
-  reduce_and_store(k1, k2, lane, row, m, n, out);
+  // Merge the warp's keys, then the row's parts into part 0.
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    warp_merge(k1[w], k2[w]);
+    if (lane == 0) parts[warp / WPR][part][w] = make_uint2(k1[w], k2[w]);
+  }
+  __syncthreads();
+  if (row >= m || part != 0) return;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+#pragma unroll
+    for (int p = 1; p < WPR; ++p) {
+      const uint2 o = parts[warp / WPR][p][w];
+      insert(o.x, k1[w], k2[w]);
+      insert(o.y, k1[w], k2[w]);
+    }
+    // Fewer than two candidates: the lowest non-candidate columns, as the
+    // Pallas kernels' reduction over every column gives them.
+    if (k1[w] == NO_KEY) k1[w] = EMPTY << COL_BITS;
+    if (k2[w] == NO_KEY) k2[w] = (EMPTY << COL_BITS) | ((k1[w] & COL_MASK) == 0u ? 1u : 0u);
+    if (lane == 0) store_top2(k1[w], k2[w], row, m, n, out + (size_t)w * 4 * m);
+  }
 }
 
 __global__ void masked_top2_kernel(
@@ -149,22 +292,35 @@ __global__ void masked_top2_kernel(
     }
     insert((d << COL_BITS) | (unsigned)j, k1, k2);
   }
-  reduce_and_store(k1, k2, lane, row, m, n, out);
+  warp_merge(k1, k2);
+  if (lane == 0) store_top2(k1, k2, row, m, n, out);
 }
 
 }  // namespace
 
+// radius2: null for one window (out [4, m]), else the second window's
+// radii (out [2, 4, m]). desc_b must be 16-byte and proj, xy_b 8-byte
+// aligned.
 extern "C" int projection_top2_launch(
-    const void* desc_a, const void* proj, const void* radius,
+    const void* desc_a, const void* proj, const void* radius, const void* radius2,
     const void* oct_lo, const void* oct_hi, const void* valid_a, int m,
     const void* desc_b, const void* xy_b, const void* octave_b,
     const void* valid_b, int n, void* out, void* stream) {
-  const int blocks = (m + WARPS - 1) / WARPS;
-  projection_top2_kernel<<<blocks, WARPS * 32, 0, (cudaStream_t)stream>>>(
-      (const int*)desc_a, (const float*)proj, (const float*)radius,
-      (const int*)oct_lo, (const int*)oct_hi, (const uint8_t*)valid_a, m,
-      (const int*)desc_b, (const float*)xy_b, (const int*)octave_b,
-      (const uint8_t*)valid_b, n, (int*)out);
+  const int cap = min((n + 31) / 32 * 32, CHUNK);
+  const size_t smem = (size_t)cap * (sizeof(float2) + sizeof(int)) +
+                      (size_t)(cap + 4) * WORDS * sizeof(unsigned);
+  auto kernel = radius2 ? projection_top2_kernel<2> : projection_top2_kernel<1>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int blocks = (m + ROWS - 1) / ROWS;
+  kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      (const int*)desc_a, (const float2*)proj, (const float*)radius,
+      (const float*)radius2, (const int*)oct_lo, (const int*)oct_hi,
+      (const uint8_t*)valid_a, m, (const uint4*)desc_b, (const float2*)xy_b,
+      (const int*)octave_b, (const uint8_t*)valid_b, n, cap, (int*)out);
   return (int)cudaGetLastError();
 }
 

@@ -16,6 +16,10 @@
   `__graft_entry__._make_example`. `make_fused_example` takes the sensor:
   monocular, stereo (frame 1's right image too) or RGB-D (frame 1's depth
   map too).
+- `top2_problem`, `TOP2_CASES`: K6 (projection Hamming top-2) problems from
+  a seed, in the JAX kernel's argument order; the CPU tests hold the port
+  to the JAX package on them and `chip_smoke.py` holds the kernel to its
+  plain version on them.
 
 Every entry point that places tensors takes `device`, "cuda" by default;
 without a card that default raises instead of falling back to the CPU.
@@ -290,3 +294,44 @@ def make_fused_example(
                                a["meta_f32"], device=dev)
     cands = packed_from_numpy(a["cand_f32"], a["cand_desc"], device=dev)
     return config, motion, cands
+
+
+# K6 cases: a square-ish one, one past 256 rows and 512 columns, ties,
+# masked rows (a row with a single candidate at column 0 among them), one
+# column.
+TOP2_CASES = {
+    "64x200": dict(seed=11, m=64, n=200),
+    "257x513": dict(seed=11, m=257, n=513),
+    "ties": dict(seed=4, m=96, n=300, ties=True),
+    "masked": dict(seed=5, m=40, n=150, masked_rows=8),
+    "one_column": dict(seed=6, m=20, n=1),
+}
+
+
+def top2_problem(seed, m, n, ties=False, masked_rows=0):
+    """A K6 problem in numpy: (desc_a, proj, radius, oct_lo, oct_hi,
+    valid_a, desc_b, xy_b, octave_b, valid_b), descriptors uint32."""
+    rng = np.random.default_rng(seed)
+    da = rng.integers(0, 2 ** 32, size=(m, 8), dtype=np.uint32)
+    db = rng.integers(0, 2 ** 32, size=(n, 8), dtype=np.uint32)
+    if ties:
+        # Few distinct descriptors: many equal distances per row.
+        db = db[rng.integers(0, 4, n)]
+        da = da[rng.integers(0, 4, m)]
+    proj = rng.uniform(0, 640, (m, 2)).astype(np.float32)
+    xy = rng.uniform(0, 640, (n, 2)).astype(np.float32)
+    radius = rng.uniform(10, 120, m).astype(np.float32)
+    pt_oct = rng.integers(0, 8, m).astype(np.int32)
+    octave = rng.integers(0, 8, n).astype(np.int32)
+    valid_a = rng.random(m) < 0.9
+    valid_b = rng.random(n) < 0.9
+    if masked_rows:
+        radius[:masked_rows] = 0.25            # at most a lucky candidate
+        valid_a[masked_rows:2 * masked_rows] = False
+        # one row with a single candidate at column 0
+        proj[2 * masked_rows] = xy[0]
+        radius[2 * masked_rows] = 0.0
+        valid_b[0] = True
+        octave[0] = pt_oct[2 * masked_rows]
+    return (da, proj, radius, pt_oct - 1, pt_oct + 1, valid_a,
+            db, xy, octave, valid_b)

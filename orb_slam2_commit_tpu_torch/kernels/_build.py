@@ -77,8 +77,8 @@ SIGNATURES = {
     "matching": {
         "projection_top2_launch": (
             _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-            _c_int, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int,
-            _c_void_p, _c_void_p),
+            _c_void_p, _c_int, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+            _c_int, _c_void_p, _c_void_p),
         "masked_top2_launch": (
             _c_void_p, _c_int, _c_void_p, _c_int, _c_void_p, _c_void_p,
             _c_void_p),
@@ -185,6 +185,12 @@ def on_card(t, name: str) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"{name}: no kernel or plain version for {t.device}")
+
+
+def aligned(t: torch.Tensor, n_bytes: int = 16) -> torch.Tensor:
+    """t where its data starts on an n_bytes boundary, else a copy (a new
+    allocation is aligned far beyond that), for kernels that load vectors."""
+    return t if t.data_ptr() % n_bytes == 0 else t.clone()
 
 
 def require(t, name: str, dtype, ndim: int) -> None:

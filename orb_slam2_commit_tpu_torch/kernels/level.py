@@ -138,6 +138,8 @@ def combine_nms(
             f"{score_hi.device}, {score_lo.device}, {bounds.device}")
     if not _build.on_card(score_hi, "combine_nms"):
         return combine_nms_plain(score_hi, score_lo, bounds)
+    # The kernels read the maps 16 bytes at a time.
+    score_hi, score_lo = _build.aligned(score_hi), _build.aligned(score_lo)
     lib = _build.library("level")
     out = torch.empty_like(score_hi)
     flags = torch.empty((hp // CELL, wp // CELL), dtype=torch.uint8,

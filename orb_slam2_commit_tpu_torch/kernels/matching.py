@@ -2,7 +2,7 @@
 ops/pallas_matching.py; kernels in csrc/matching.cu):
 
 - K6 projection_hamming_top2: windowed, octave-banded top-2 per projected
-  map point;
+  map point, in one window or in two from one scan;
 - K7 masked_hamming_top2: top-2 under a caller-supplied [M, N] candidate
   mask (the stereo matcher's, ops/stereo.py).
 
@@ -45,24 +45,25 @@ def masked_hamming_top2_plain(desc_a, desc_b, mask) -> Top2:
 
 
 def projection_hamming_top2_plain(
-    desc_a, proj, radius, oct_lo, oct_hi, valid_a,
+    desc_a, proj, radii, oct_lo, oct_hi, valid_a,
     desc_b, xy_b, octave_b, valid_b,
-) -> Top2:
-    """Plain version of K6: the window and octave masks, then K7's plain
-    version."""
-    mask = (
+) -> Tuple[Top2, ...]:
+    """Plain version of K6: per radius, the window and octave masks, then
+    K7's plain version."""
+    band = (
         valid_a[:, None]
         & valid_b[None, :]
-        & matching.window_mask(proj, xy_b, radius)
         & matching.octave_band_mask(octave_b, oct_lo, oct_hi)
     )
-    return masked_hamming_top2_plain(desc_a, desc_b, mask)
+    return tuple(
+        masked_hamming_top2_plain(desc_a, desc_b, band & matching.window_mask(proj, xy_b, r))
+        for r in radii)
 
 
 def projection_hamming_top2(
     desc_a: torch.Tensor,     # [M, 8] int32 (uint32 bits)
     proj: torch.Tensor,       # [M, 2] float32 projected pixel (u, v)
-    radius: torch.Tensor,     # [M] float32 window half-size
+    radii: Tuple[torch.Tensor, ...],   # one or two [M] float32 window half-sizes
     oct_lo: torch.Tensor,     # [M] int32 inclusive octave band
     oct_hi: torch.Tensor,     # [M] int32
     valid_a: torch.Tensor,    # [M] bool
@@ -70,12 +71,18 @@ def projection_hamming_top2(
     xy_b: torch.Tensor,       # [N, 2] float32 keypoint pixels
     octave_b: torch.Tensor,   # [N] int32
     valid_b: torch.Tensor,    # [N] bool
-) -> Top2:
-    """-> (best, best_idx, second, second_idx), each [M] int32; best and
-    second are BIG_DIST where the row has no (second) candidate."""
+) -> Tuple[Top2, ...]:
+    """-> one (best, best_idx, second, second_idx) per window, each [M]
+    int32; best and second are BIG_DIST where the row has no (second)
+    candidate. Two windows per row (the motion stage's search and its
+    widened retry) come from one kernel launch, exact for any two radii;
+    the plain version takes each window on its own."""
+    if not 1 <= len(radii) <= 2:
+        raise ValueError(f"projection_hamming_top2: one or two radii, got {len(radii)}")
     row_args = ((desc_a, "desc_a", torch.int32, 2), (proj, "proj", torch.float32, 2),
-                (radius, "radius", torch.float32, 1), (oct_lo, "oct_lo", torch.int32, 1),
-                (oct_hi, "oct_hi", torch.int32, 1), (valid_a, "valid_a", torch.bool, 1))
+                *((r, f"radii[{i}]", torch.float32, 1) for i, r in enumerate(radii)),
+                (oct_lo, "oct_lo", torch.int32, 1), (oct_hi, "oct_hi", torch.int32, 1),
+                (valid_a, "valid_a", torch.bool, 1))
     col_args = ((desc_b, "desc_b", torch.int32, 2), (xy_b, "xy_b", torch.float32, 2),
                 (octave_b, "octave_b", torch.int32, 1), (valid_b, "valid_b", torch.bool, 1))
     m, n = desc_a.shape[0], desc_b.shape[0]
@@ -93,18 +100,21 @@ def projection_hamming_top2(
             f"{tuple(desc_b.shape)}, proj {tuple(proj.shape)}, xy {tuple(xy_b.shape)}")
     if not _build.on_card(desc_a, "projection_hamming_top2"):
         return projection_hamming_top2_plain(
-            desc_a, proj, radius, oct_lo, oct_hi, valid_a,
+            desc_a, proj, radii, oct_lo, oct_hi, valid_a,
             desc_b, xy_b, octave_b, valid_b)
-    out = torch.empty((4, m), dtype=torch.int32, device=desc_a.device)
+    # The kernel reads desc_b 16 bytes and proj, xy_b 8 bytes at a time.
+    desc_b, proj, xy_b = (_build.aligned(t) for t in (desc_b, proj, xy_b))
+    out = torch.empty((len(radii), 4, m), dtype=torch.int32, device=desc_a.device)
     if m:
         err = _build.library("matching").projection_top2_launch(
-            desc_a.data_ptr(), proj.data_ptr(), radius.data_ptr(),
+            desc_a.data_ptr(), proj.data_ptr(), radii[0].data_ptr(),
+            radii[1].data_ptr() if len(radii) == 2 else None,
             oct_lo.data_ptr(), oct_hi.data_ptr(), valid_a.data_ptr(), m,
             desc_b.data_ptr(), xy_b.data_ptr(), octave_b.data_ptr(),
             valid_b.data_ptr(), n, out.data_ptr(), _build.stream_of(desc_a))
         _build.check(err, "projection_hamming_top2")
         _build.launches["projection_hamming_top2"] += 1
-    return out[0], out[1], out[2], out[3]
+    return tuple(tuple(o) for o in out)
 
 
 def masked_hamming_top2(

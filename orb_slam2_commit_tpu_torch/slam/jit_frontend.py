@@ -173,29 +173,24 @@ def _fused_match_and_pose(
 
     The JAX package decides the retry with lax.cond on the device; reading
     the first count on the host would stall it, so both searches run (at
-    th and 2 th) and torch.where keeps the second when the first found
-    fewer than 20 matches."""
+    th and 2 th, from one projection and one K6 launch) and torch.where
+    keeps the second when the first found fewer than 20 matches."""
     cam = config.camera
     th0 = float(config.tracker.search_radius_motion)
-
-    def run_match(th):
-        return matchers.match_projection_last_frame(
-            pt_pos, pt_desc, pt_octave, pt_angle, pt_valid,
-            R_pred, t_pred,
-            xy_und, feats.desc, feats.angle, feats.octave, feats.valid,
-            cam.fx, cam.fy, cam.cx, cam.cy,
-            float(cam.width), float(cam.height),
-            th=th,
-            tz_rel=tz_rel,
-            mono=config.sensor == "monocular",
-            baseline=float(cam.baseline),
-            n_levels=config.orb.n_levels,
-            scale=config.orb.scale_factor,
-        ).idx
-
-    idx1 = run_match(th0)
-    idx2 = run_match(2.0 * th0)
-    idx = torch.where(torch.sum(idx1 >= 0) >= 20, idx1, idx2)
+    m1, m2 = matchers.match_projection_last_frame(
+        pt_pos, pt_desc, pt_octave, pt_angle, pt_valid,
+        R_pred, t_pred,
+        xy_und, feats.desc, feats.angle, feats.octave, feats.valid,
+        cam.fx, cam.fy, cam.cx, cam.cy,
+        float(cam.width), float(cam.height),
+        th=(th0, 2.0 * th0),
+        tz_rel=tz_rel,
+        mono=config.sensor == "monocular",
+        baseline=float(cam.baseline),
+        n_levels=config.orb.n_levels,
+        scale=config.orb.scale_factor,
+    )
+    idx = torch.where(torch.sum(m1.idx >= 0) >= 20, m1.idx, m2.idx)
     n_matches = torch.sum(idx >= 0)
 
     binding = bind_last_write(idx, feats.xy.shape[0])

@@ -5,7 +5,7 @@ histogram -> duplicate resolution, over fixed-shape padded tensors."""
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple, Union
 
 import numpy as np
 import torch
@@ -18,25 +18,25 @@ from orb_slam2_commit_tpu_torch.utils.precision import full_float32
 
 
 def _projection_match(
-    pt_desc, proj, radius, oct_lo, oct_hi, valid_a,
+    pt_desc, proj, radii, oct_lo, oct_hi, valid_a,
     xy, desc, octave, valid_b,
     max_dist, ratio=1.0, ratio_octave_rule=False,
-) -> MatchResult:
+) -> Tuple[MatchResult, ...]:
     """Window + octave-band projection matching through K6 (its plain
-    version on the CPU), then the ratio gating. Shared by the
-    SearchByProjection family."""
+    version on the CPU), then the ratio gating, for each window of radii
+    (one or two [M] radii; two come from one K6 launch) -> one MatchResult
+    per window. Shared by the SearchByProjection family."""
     i32, f32 = torch.int32, torch.float32
-    best, bidx, second, sidx = matching_kernel.projection_hamming_top2(
+    tops = matching_kernel.projection_hamming_top2(
         pt_desc.contiguous(), proj.to(f32).contiguous(),
-        radius.to(f32).contiguous(), oct_lo.to(i32).contiguous(),
+        tuple(r.to(f32).contiguous() for r in radii), oct_lo.to(i32).contiguous(),
         oct_hi.to(i32).contiguous(), valid_a.contiguous(),
         desc.contiguous(), xy.to(f32).contiguous(),
         octave.to(i32).contiguous(), valid_b.contiguous(),
     )
-    return matching.match_from_top2(
-        best, bidx, second, sidx, max_dist, ratio,
-        octave_b=octave if ratio_octave_rule else None,
-    )
+    return tuple(matching.match_from_top2(
+        *top, max_dist, ratio, octave_b=octave if ratio_octave_rule else None)
+        for top in tops)
 
 
 _scale_sigmas = device_table(
@@ -74,14 +74,17 @@ def match_projection_last_frame(
     baseline: float = 0.0,
     n_levels: int = 8,
     scale: float = 1.2,
-) -> MatchResult:
+) -> Union[MatchResult, Tuple[MatchResult, MatchResult]]:
     """Motion-model tracking: project the last frame's points with the
     predicted pose and search a window of th * sigma(octave) around each
     (SearchByProjection(Frame&, const Frame&, th, bMono),
     src/ORBmatcher.cc:1489-1646). Octaves [oct-1, oct+1] for mono; for
     stereo/RGB-D the forward/backward rule (:1522-1529, :1555-1570): a
     camera that moved forward by more than the baseline searches octaves
-    >= the last one, backward <= it. th may be a float or a 0-d tensor."""
+    >= the last one, backward <= it. th may be a float or a 0-d tensor,
+    or a pair (th, th_wide): then both searches share the projection and
+    one K6 launch, and each gives its own MatchResult (the motion stage's
+    widen-on-failure retry)."""
     sigmas = _scale_sigmas(pt_pos.device, n_levels, scale)
     pc, proj = _project(R, t, pt_pos, fx, fy, cx, cy)
     z, u, v = pc[:, 2], proj[:, 0], proj[:, 1]
@@ -98,13 +101,15 @@ def match_projection_last_frame(
         oct_hi = torch.where(fwd, torch.full_like(pt_octave, 127),
                              torch.where(bwd, pt_octave, pt_octave + 1))
 
-    radius = th * sigmas[torch.clamp(pt_octave, 0, sigmas.shape[0] - 1).long()]
-    m = _projection_match(
-        pt_desc, proj, radius, oct_lo, oct_hi,
-        pt_valid & in_img, xy, desc, octave, valid, TH_HIGH,
-    )
-    m = matching.rotation_consistency_filter(m, pt_angle, angle)
-    return matching.resolve_duplicate_targets(m, desc.shape[0])
+    sigma = sigmas[torch.clamp(pt_octave, 0, sigmas.shape[0] - 1).long()]
+    ths = th if isinstance(th, tuple) else (th,)
+    found = tuple(
+        matching.resolve_duplicate_targets(
+            matching.rotation_consistency_filter(m, pt_angle, angle), desc.shape[0])
+        for m in _projection_match(
+            pt_desc, proj, tuple(th_i * sigma for th_i in ths), oct_lo, oct_hi,
+            pt_valid & in_img, xy, desc, octave, valid, TH_HIGH))
+    return found if isinstance(th, tuple) else found[0]
 
 
 class FrustumInfo(NamedTuple):
@@ -173,9 +178,9 @@ def match_local_map(
     base_r = torch.where(info.view_cos > 0.998, 2.5, 4.0).to(sigmas.dtype)
     radius = base_r * th * sigmas[info.pred_octave.long()]
     m = _projection_match(
-        pt_desc, info.proj, radius,
+        pt_desc, info.proj, (radius,),
         info.pred_octave - 1, info.pred_octave,
         info.visible, xy, desc, octave, valid & ~feat_taken,
         TH_HIGH, ratio, ratio_octave_rule=True,
-    )
+    )[0]
     return matching.resolve_duplicate_targets(m, desc.shape[0])

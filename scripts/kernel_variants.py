@@ -1,30 +1,43 @@
 #!/usr/bin/env python3
-"""Compare design variants of the port's K1 and K8 kernels on one card.
+"""Compare design variants of the port's K1, K2, K6 and K8 kernels on one card.
 
-A variant is csrc/<lib>.cu with a few text substitutions. Every variant of a
-set is built with the library's own nvcc flags (one nvcc each, all at once;
-`-Xptxas -v` lines and instruction counts from cuobjdump are printed, the
-SASS is written to chiprun_out/), held against its plain version on the
-main paths' inputs (K1 bit for bit on chip_smoke.py's two canvases; K8
-within chip_smoke.py's bounds on its six problems, two launches
-bit-identical), and timed by device-busy time under torch.profiler in the
-order A B .. B A twice. K8 variants also report their evaluations, which
-differ between builds because the LM's path depends on float rounding, and
-the time per evaluation; the `-clock` variants add clock64() counters
-around the solve, the SE3 update, the pass and the block reduction of
-every trial evaluation and print cycles per evaluation.
+A variant is csrc/<lib>.cu with a few text substitutions, or, under the tag
+`previous`, the source of an earlier design read from --previous DIR (write
+it there first, for example with
+`git show <commit>:orb_slam2_commit_tpu_torch/csrc/matching.cu`). Every
+variant of a set is built with the library's own nvcc flags (one nvcc each,
+all at once; `-Xptxas -v` lines and instruction counts from cuobjdump are
+printed, the sources, libraries and SASS are written to OUT), held against
+its plain version on the main paths' inputs, and timed by device-busy time
+under torch.profiler in the order A B .. B A twice:
+- K1 bit for bit on chip_smoke.py's two canvases;
+- K2 bit for bit on chip_smoke.py's three pairs of maps, timed per launch
+  on the main canvas's, with the time of each of its two kernels;
+- K6 bit for bit on every case of chip_smoke.py's phase 3, timed over the
+  monocular pair's searches (the previous design runs the motion stage's
+  two windows as two launches) and on a call with every row invalid; K7,
+  which shares the library, exact on the stereo pair's two launches and
+  timed beside it; the `-clock` variant prints the cycles of block 0's
+  staging, scan and merge;
+- K8 within chip_smoke.py's bounds on its six problems, two launches
+  bit-identical. K8 variants also report their evaluations, which differ
+  between builds because the LM's path depends on float rounding, and the
+  time per evaluation; the `-clock` variants add clock64() counters around
+  the solve, the SE3 update, the pass and the block reduction of every
+  trial evaluation and print cycles per evaluation.
 
 Run from the repository root on a machine with the card:
 
     python3 scripts/kernel_variants.py pose_lm-threads
     python3 scripts/kernel_variants.py level-tile
+    python3 scripts/kernel_variants.py level-combine --previous DIR
+    python3 scripts/kernel_variants.py matching-k6 --previous DIR
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
-import os
 import re
 import subprocess
 import sys
@@ -37,10 +50,20 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from orb_slam2_commit_tpu_torch import interop  # noqa: E402
-from orb_slam2_commit_tpu_torch.kernels import _build, level, pose_lm  # noqa: E402
+from orb_slam2_commit_tpu_torch.kernels import (  # noqa: E402
+    _build, level, matching as kmatching, pose_lm)
 from orb_slam2_commit_tpu_torch.optim import pose_opt  # noqa: E402
 
 OUT = Path("chiprun_out")
+PREVIOUS = "previous"
+_c_void_p, _c_int = ctypes.c_void_p, ctypes.c_int
+# The previous K6 design's entry point: one window, no radius2.
+PREVIOUS_SIGNATURES = {"matching": {
+    "projection_top2_launch": (
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int,
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_void_p, _c_void_p),
+    "masked_top2_launch": _build.SIGNATURES["matching"]["masked_top2_launch"],
+}}
 
 _THREADS = "constexpr int THREADS = 256;"
 # clock64() counters around the phases of a trial evaluation, read back by
@@ -78,23 +101,241 @@ _CLOCK = [
      "}  // namespace\n\nextern \"C\" int clock_read(void* host) {\n"
      "  return (int)cudaMemcpyFromSymbol(host, clock_counts, sizeof(clock_counts));\n}\n"),
 ]
+_NT_W, _NT_H = "constexpr int NT_W = 128;", "constexpr int NT_H = 32;"
+_ROWS, _CHUNK = "constexpr int ROWS = 8;", "constexpr int CHUNK = 2048;"
+_WPR = "constexpr int WPR = 2;"
+# clock64() counters in K6's block 0, thread 0, per window count: staging
+# of the first chunk, the scan, the merge and store, the whole block.
+_K6_CLOCK = [
+    ("constexpr unsigned NO_KEY = 0xffffffffu;  // \"no column\": above every key",
+     "constexpr unsigned NO_KEY = 0xffffffffu;\n__device__ long long k6_clocks[2][4];"),
+    ("  const bool active = row < m && valid_a[row] != 0;\n",
+     "  const bool active = row < m && valid_a[row] != 0;\n"
+     "  const long long t_start = clock64();\n  long long t_staged = 0;\n"),
+    ("      stage_columns(desc_b, xy_b, octave_b, valid_b, c0, cw, stride, sxy, soct, sdesc);\n"
+     "      __syncthreads();\n",
+     "      stage_columns(desc_b, xy_b, octave_b, valid_b, c0, cw, stride, sxy, soct, sdesc);\n"
+     "      __syncthreads();\n      if (!t_staged) t_staged = clock64();\n"),
+    ("  // Merge the warp's keys, then the row's parts into part 0.\n",
+     "  const long long t_scanned = clock64();\n"),
+    ("    if (lane == 0) store_top2(k1[w], k2[w], row, m, n, out + (size_t)w * 4 * m);\n  }\n",
+     "    if (lane == 0) store_top2(k1[w], k2[w], row, m, n, out + (size_t)w * 4 * m);\n  }\n"
+     "  if (blockIdx.x == 0 && threadIdx.x == 0) {\n"
+     "    const long long t_end = clock64();\n"
+     "    k6_clocks[NW - 1][0] = t_staged - t_start;\n"
+     "    k6_clocks[NW - 1][1] = t_scanned - t_staged;\n"
+     "    k6_clocks[NW - 1][2] = t_end - t_scanned;\n"
+     "    k6_clocks[NW - 1][3] = t_end - t_start;\n  }\n"),
+    ("}  // namespace\n",
+     "}  // namespace\n\nextern \"C\" int clock_read(void* host) {\n"
+     "  return (int)cudaMemcpyFromSymbol(host, k6_clocks, sizeof(k6_clocks));\n}\n"),
+]
+# K6 staged by the bulk-copy engine: one thread asks for the chunk's
+# descriptors [cw, 8] and positions [cw, 2] as they lie in device memory
+# (an odd last position by a load) and the block waits on an mbarrier,
+# while every thread loads its columns' octaves and valid flags; an
+# invalid column's x becomes NaN once the copy has landed. The scan reads
+# a candidate's descriptor as two 16-byte words of that copy, in which a
+# column's eight words lie together.
+_K6_BULK = [
+    ("// NW windows: radius (and radius2 when NW == 2). out: [NW, 4, m].\n",
+     """__device__ __forceinline__ void stage_columns_bulk(
+    const uint4* __restrict__ desc_b, const float2* __restrict__ xy_b,
+    const int* __restrict__ octave_b, const uint8_t* __restrict__ valid_b,
+    int c0, int cw, float2* sxy, int* soct, unsigned* sdesc, uint64_t* bar,
+    unsigned& phase) {
+  constexpr int CPT = CHUNK / THREADS;
+  const unsigned b = (unsigned)__cvta_generic_to_shared(bar);
+  const int even = cw & ~1;
+  if (threadIdx.x == 0) {
+    const unsigned d_bytes = 32u * cw, p_bytes = 8u * even;
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(b), "r"(d_bytes + p_bytes) : "memory");
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+                 " [%0], [%1], %2, [%3];"
+                 :: "r"((unsigned)__cvta_generic_to_shared(sdesc)),
+                    "l"(desc_b + 2 * (size_t)c0), "r"(d_bytes), "r"(b) : "memory");
+    if (p_bytes)
+      asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+                   " [%0], [%1], %2, [%3];"
+                   :: "r"((unsigned)__cvta_generic_to_shared(sxy)),
+                      "l"(xy_b + c0), "r"(p_bytes), "r"(b) : "memory");
+  }
+  int oc[CPT];
+  bool ok[CPT];
+  float2 last = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int k = 0; k < CPT; ++k) {
+    const int c = threadIdx.x + k * THREADS;
+    if (c < cw) {
+      oc[k] = __ldg(octave_b + c0 + c);
+      ok[k] = __ldg(valid_b + c0 + c) != 0;
+      if (c >= even) last = __ldg(xy_b + c0 + c);
+    }
+  }
+  unsigned done = 0;
+  while (!done) {
+    asm volatile("{\\n .reg .pred ready;\\n"
+                 " mbarrier.try_wait.parity.shared::cta.b64 ready, [%1], %2;\\n"
+                 " selp.u32 %0, 1, 0, ready;\\n}"
+                 : "=r"(done) : "r"(b), "r"(phase) : "memory");
+  }
+  phase ^= 1u;
+#pragma unroll
+  for (int k = 0; k < CPT; ++k) {
+    const int c = threadIdx.x + k * THREADS;
+    if (c < cw) {
+      soct[c] = oc[k];
+      if (c >= even) sxy[c] = last;
+      if (!ok[k]) sxy[c].x = __int_as_float(0x7fc00000);
+    }
+  }
+}
 
+// NW windows: radius (and radius2 when NW == 2). out: [NW, 4, m].
+"""),
+    ("    for (int c0 = 0; c0 < n; c0 += cap) {\n",
+     "    __shared__ uint64_t bar;\n    unsigned phase = 0;\n"
+     "    if (threadIdx.x == 0) {\n"
+     "      asm volatile(\"mbarrier.init.shared::cta.b64 [%0], 1;\"\n"
+     "                   :: \"r\"((unsigned)__cvta_generic_to_shared(&bar)) : \"memory\");\n"
+     "      asm volatile(\"fence.mbarrier_init.release.cluster;\" ::: \"memory\");\n"
+     "    }\n    __syncthreads();\n"
+     "    for (int c0 = 0; c0 < n; c0 += cap) {\n"),
+    ("      stage_columns(desc_b, xy_b, octave_b, valid_b, c0, cw, stride, sxy, soct, sdesc);\n",
+     "      stage_columns_bulk(desc_b, xy_b, octave_b, valid_b, c0, cw, sxy, soct, sdesc,\n"
+     "                         &bar, phase);\n"),
+    ("#pragma unroll\n"
+     "          for (int w = 0; w < WORDS; ++w) d += __popc(a[w] ^ sdesc[w * stride + j]);\n",
+     "          const uint4* q = reinterpret_cast<const uint4*>(sdesc) + 2 * j;\n"
+     "          const uint4 q0 = q[0], q1 = q[1];\n"
+     "          const unsigned bw[WORDS] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};\n"
+     "#pragma unroll\n"
+     "          for (int w = 0; w < WORDS; ++w) d += __popc(a[w] ^ bw[w]);\n"),
+]
+# K6 staging positions, octaves and valid flags only (13 of the 45 bytes a
+# column): a candidate's descriptor comes from L2 as two 16-byte loads.
+_K6_DESC_L2 = [
+    ("      if (q < 2 * cw) w[k] = __ldg(d + q);\n", "      if (false) w[k] = __ldg(d + q);\n"),
+    ("      if (q < 2 * cw) {\n        unsigned* s", "      if (false) {\n        unsigned* s"),
+    ("#pragma unroll\n"
+     "          for (int w = 0; w < WORDS; ++w) d += __popc(a[w] ^ sdesc[w * stride + j]);\n",
+     "          const uint4 q0 = __ldg(desc_b + 2 * (size_t)(c0 + j));\n"
+     "          const uint4 q1 = __ldg(desc_b + 2 * (size_t)(c0 + j) + 1);\n"
+     "          const unsigned bw[WORDS] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};\n"
+     "#pragma unroll\n"
+     "          for (int w = 0; w < WORDS; ++w) d += __popc(a[w] ^ bw[w]);\n"),
+]
+# K2 in one launch: each per-pixel block finds the flags of the 3 x 6
+# cells its staged pixels lie in from score_hi inside the bounds (every
+# row of those cells, 18 float4 loads a thread, all in flight), in place
+# of the flag pass and its launch.
+_K2_ONE_LAUNCH = [
+    ("""  for (int k = tid; k < FR * FC; k += 32 * NMS_BY) {
+    const int cy = y0 / CELL - 1 + k / FC, cx = x0 / CELL - 1 + k % FC;
+    cell_hi[k / FC][k % FC] =
+        cy >= 0 && cy < hp / CELL && cx >= 0 && cx < n_cx ? flags[cy * n_cx + cx] : 0;
+  }
+  __syncthreads();
+""", """  __shared__ int2 cell_bounds[FR * CELL];
+  __shared__ unsigned cell_bits;
+  if (tid == 0) cell_bits = 0;
+  for (int r = tid; r < FR * CELL; r += 32 * NMS_BY) {
+    const int y = y0 - CELL + r;
+    cell_bounds[r] = y >= 0 && y < hp
+        ? make_int2(__ldg(bounds + (size_t)y * bounds_stride),
+                    __ldg(bounds + (size_t)y * bounds_stride + 1))
+        : make_int2(0, 0);
+  }
+  __syncthreads();
+  {
+    constexpr int Q = FC * CELL / 4;
+    constexpr int PER = FR * CELL * Q / (32 * NMS_BY);
+    static_assert(PER * 32 * NMS_BY == FR * CELL * Q, "cells split evenly");
+    unsigned bits = 0;
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int i = tid + k * 32 * NMS_BY;
+      const int r = i / Q, q = i % Q;
+      const int y = y0 - CELL + r, x = x0 - CELL + 4 * q;
+      const int2 b = cell_bounds[r];
+      if (x >= 0 && x < wp && x + 4 > b.x && x < b.y) {
+        const float4 s = __ldg(reinterpret_cast<const float4*>(score_hi + (size_t)y * wp + x));
+        const float v[4] = {s.x, s.y, s.z, s.w};
+        bool f = false;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) f |= v[e] > 0.f && x + e >= b.x && x + e < b.y;
+        if (f) bits |= 1u << ((r / CELL) * FC + q / (CELL / 4));
+      }
+    }
+    bits = __reduce_or_sync(0xffffffffu, bits);
+    if (tx == 0 && bits) atomicOr(&cell_bits, bits);
+  }
+  __syncthreads();
+  if (tid < FR * FC) cell_hi[tid / FC][tid % FC] = (cell_bits >> tid) & 1u;
+  __syncthreads();
+"""),
+    ("""  const int strips = (hp / CELL) * (wp / FLAG_W);
+  cell_flag_kernel<<<strips, FLAG_WARPS * 32, 0, s>>>(
+      (const float*)score_hi, (const int*)bounds, bounds_stride, wp,
+      (unsigned char*)flags);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+""", ""),
+]
+
+# name -> (library, {tag: substitutions}, kernels whose SASS is counted)
 SETS = {
     # K8's block size: the committed 256 threads against 128, 384 and 512.
     "pose_lm-threads": ("pose_lm", {
         f"{n}-clock": ([] if n == 256 else [(_THREADS, f"constexpr int THREADS = {n};")])
         + _CLOCK
-        for n in (256, 128, 384, 512)}),
+        for n in (256, 128, 384, 512)}, ("pose_lm_kernel",)),
     # K1's output tile: the committed 32x64 against 32x32.
     "level-tile": ("level", {
         "32x64": [],
         "32x32": [("constexpr int TH = 64;", "constexpr int TH = 32;")],
-    }),
+    }, ("level_kernel",)),
+    # K2: the previous design against the committed 128x32 tile of 8
+    # thread rows and 8 flag warps, and other tiles, 4 thread rows, 4 flag
+    # warps, and one launch that finds its cells' flags in every block.
+    "level-combine": ("level", {
+        PREVIOUS: [],
+        "128x32": [],
+        "128x64": [(_NT_H, "constexpr int NT_H = 64;")],
+        "64x32": [(_NT_W, "constexpr int NT_W = 64;")],
+        "128x32-by4": [("constexpr int NMS_BY = 8;", "constexpr int NMS_BY = 4;")],
+        "128x32-flag4": [("constexpr int FLAG_WARPS = 8;", "constexpr int FLAG_WARPS = 4;")],
+        "128x32-one-launch": _K2_ONE_LAUNCH,
+    }, ("cell_flag_kernel", "combine_nms_kernel")),
+    # K6: the previous design against the committed 8 rows per block, 2
+    # warps per row and 2048-column chunks staged by vector loads; 1 and 4
+    # warps per row; 4 and 16 rows; 512-column chunks (two passes over the
+    # main paths' 1000 columns); staging by the bulk-copy engine; the
+    # committed build with clock counters.
+    "matching-k6": ("matching", {
+        PREVIOUS: [],
+        "rows8-wpr2": [],
+        "rows8-wpr1": [(_WPR, "constexpr int WPR = 1;")],
+        "rows8-wpr4": [(_WPR, "constexpr int WPR = 4;")],
+        "rows4-wpr2": [(_ROWS, "constexpr int ROWS = 4;")],
+        "rows16-wpr2": [(_ROWS, "constexpr int ROWS = 16;")],
+        "rows8-wpr2-chunk512": [(_CHUNK, "constexpr int CHUNK = 512;")],
+        "rows8-wpr2-bulk": _K6_BULK,
+        "rows8-wpr2-desc-l2": _K6_DESC_L2,
+        "rows8-wpr4-desc-l2": [(_WPR, "constexpr int WPR = 4;")] + _K6_DESC_L2,
+        "rows4-wpr2-desc-l2": [(_ROWS, "constexpr int ROWS = 4;")] + _K6_DESC_L2,
+        "rows8-wpr2-clock": _K6_CLOCK,
+    }, ("projection_top2_kernel", "masked_top2_kernel")),
 }
 
 
-def build(lib, tag, subs):
-    src = (_build.CSRC_DIR / f"{lib}.cu").read_text()
+def build(lib, tag, subs, previous):
+    src_path = (previous if tag == PREVIOUS else _build.CSRC_DIR) / f"{lib}.cu"
+    if not src_path.exists():
+        raise SystemExit(f"{src_path} not found: write the previous design's source there")
+    src = src_path.read_text()
     for a, b in subs:
         if a not in src:
             raise SystemExit(f"{lib} {tag}: substitution target not found: {a[:60]!r}")
@@ -108,46 +349,170 @@ def build(lib, tag, subs):
     return proc, so
 
 
-def load(lib, so):
+def load(lib, tag, so):
     dll = ctypes.CDLL(str(so))
-    for fn_name, argtypes in _build.SIGNATURES[lib].items():
+    signatures = PREVIOUS_SIGNATURES.get(lib, {}) if tag == PREVIOUS else {}
+    for fn_name, argtypes in {**_build.SIGNATURES[lib], **signatures}.items():
         fn = getattr(dll, fn_name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return dll
 
 
-def sass_counts(so, kernel):
+def sass_counts(so, kernels):
+    """-> [(function, instructions, most common opcodes)] of every function
+    whose name holds one of `kernels`."""
     sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", str(so)],
                           capture_output=True, text=True, check=True).stdout
     (so.with_suffix(".sass")).write_text(sass)
+    found = []
     for part in sass.split("Function : ")[1:]:
-        if kernel in part.split("\n")[0]:
+        name = part.split("\n")[0].strip()
+        if any(k in name for k in kernels):
             ops = [re.sub(r"^@!?U?P\w+\s+", "", m.group(1)).split()[0].split(".")[0]
                    for m in re.finditer(r"/\*[0-9a-f]{4,5}\*/\s+(.*?);", part)]
-            return len(ops), Counter(ops).most_common(8)
-    return 0, []
+            found.append((name, len(ops), Counter(ops).most_common(6)))
+    return found
+
+
+def previous_k6(dll):
+    """The previous design's K6 behind the wrapper's interface: one launch
+    per window."""
+    def top2(*args):
+        outs = []
+        for r in args[2]:
+            a = (*args[:2], r, *args[3:])
+            out = torch.empty((4, a[0].shape[0]), dtype=torch.int32, device=a[0].device)
+            _build.check(dll.projection_top2_launch(
+                *(t.data_ptr() for t in a[:6]), a[0].shape[0],
+                *(t.data_ptr() for t in a[6:]), a[6].shape[0], out.data_ptr(),
+                _build.stream_of(a[0])), "previous projection_top2")
+            outs.append(tuple(out))
+        return tuple(outs)
+    return top2
+
+
+def level_checks(x):
+    th_hi, th_lo = x["ths"]
+    canvases = (x["canvas"], x["small_canvas"])
+    want = [level.level_preprocess_plain(*level.pad_level(c), th_hi, th_lo)
+            for c in canvases]
+
+    def check():
+        for c, w in zip(canvases, want):
+            got = level.level_preprocess(c, th_hi, th_lo)
+            if not all(torch.equal(g, v) for g, v in zip(got, w)):
+                raise SystemExit("K1 variant is not bit-exact")
+
+    return check, {"K1": lambda: level.level_preprocess(x["canvas"], th_hi, th_lo)}, 200
+
+
+def combine_checks(x):
+    th_hi, th_lo = x["ths"]
+    _, s_hi, s_lo = level.level_preprocess(x["small_canvas"], th_hi, th_lo)
+    maps = ((x["hi"], x["lo"], x["bounds"]), (s_hi, s_lo, x["small_bounds"]),
+            (torch.zeros_like(x["hi"]), x["lo"], x["bounds"]))
+    want = [level.combine_nms_plain(*m) for m in maps]
+
+    def check():
+        for m, w in zip(maps, want):
+            if not torch.equal(level.combine_nms(*m), w):
+                raise SystemExit("K2 variant is not bit-exact")
+
+    return check, {"K2": lambda: level.combine_nms(*maps[0])}, 200
+
+
+def matching_checks(x):
+    problems = list(cs.k6_problems(x))
+    want7 = [kmatching.masked_hamming_top2_plain(*a) for a in x["k7"]]
+
+    def check():
+        for what, args in problems:
+            cs.check_k6(what, args)
+        for a, w in zip(x["k7"], want7):
+            if not all(torch.equal(g, v) for g, v in zip(kmatching.masked_hamming_top2(*a), w)):
+                raise SystemExit("K7 differs from its plain version")
+
+    # The motion stage's call with every row invalid: a launch with nothing
+    # to scan, the floor of a launch's device time.
+    motion = x["k6"][0]
+    idle = (*motion[:5], torch.zeros_like(motion[5]), *motion[6:])
+    return check, {
+        "K6 pair": lambda: [kmatching.projection_hamming_top2(*a) for a in x["k6"]],
+        "K6 every row invalid": lambda: kmatching.projection_hamming_top2(*idle),
+        "K7 stereo pair": lambda: [kmatching.masked_hamming_top2(*a) for a in x["k7"]],
+    }, 200
+
+
+def pose_checks(x):
+    problems = x["k8"] + x["k8_stereo"] + [cs.tiled_problem(x["k8_stereo"][0], n)
+                                           for n in cs.K8_TILED_ROWS]
+    want = [pose_opt.pose_optimization_plain(*a) for a in problems]
+
+    def check():
+        for a, w in zip(problems, want):
+            got, again = pose_lm.pose_lm(*a), pose_lm.pose_lm(*a)
+            d_rot = cs.rot_angle_deg(got.R.cpu(), w.R.cpu())
+            differ = int((got.inliers != w.inliers).sum())
+            if not (d_rot < cs.ROT_DEG_TOL and float((got.t - w.t).norm()) < cs.T_TOL
+                    and differ <= cs.K8_INLIER_TOL * a[2].shape[0]
+                    and all(torch.equal(p, q) for p, q in zip(got, again))):
+                raise SystemExit("K8 variant differs from its plain version")
+
+    return check, {"K8": lambda: [pose_lm.pose_lm(*a) for a in x["k8"]]}, 50
+
+
+CHECKS = {"pose_lm-threads": pose_checks, "level-tile": level_checks,
+          "level-combine": combine_checks, "matching-k6": matching_checks}
+
+
+def print_clocks(lib, tag, dll, x):
+    """Run the main path's calls of a `-clock` variant once each and print
+    the cycles its counters read."""
+    dll.clock_read.argtypes = [ctypes.c_void_p]
+    if lib == "matching":
+        for what, a in zip(("motion stage", "local-map stage"), x["k6"]):
+            kmatching.projection_hamming_top2(*a)
+            torch.cuda.synchronize()
+            c = (ctypes.c_longlong * 8)()
+            dll.clock_read(c)
+            w = 4 * (len(a[2]) - 1)
+            print(f"{lib} {tag} {what}: block 0, thread 0 cycles: staging {c[w]}, scan "
+                  f"{c[w + 1]}, merge and store {c[w + 2]}, whole block {c[w + 3]}")
+        return
+    for what, a in zip(("mono", "mono", "stereo", "stereo"), x["k8"] + x["k8_stereo"]):
+        pose_lm.pose_lm(*a)
+        torch.cuda.synchronize()
+        c = (ctypes.c_longlong * 6)()
+        dll.clock_read(c)
+        n = max(c[4], 1)
+        print(f"{lib} {tag} {what} problem: cycles per trial evaluation: solve "
+              f"{c[0] / n:.0f}, SE3 {c[1] / n:.0f}, pass {c[2] / n:.0f}, block "
+              f"reduction {c[3] / n:.0f} ({c[4]} trials, {c[5]} cycles in all)")
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("set", choices=sorted(SETS))
+    parser.add_argument("--previous", type=Path, default=Path("_checkouts/previous"),
+                        help="directory holding the previous design's <lib>.cu")
     args = parser.parse_args()
-    lib, variants = SETS[args.set]
+    lib, variants, kernels = SETS[args.set]
     OUT.mkdir(exist_ok=True)
     _, _, power = cs.phase_device()
 
-    built = {tag: build(lib, tag, subs) for tag, subs in variants.items()}
+    built = {tag: build(lib, tag, subs, args.previous) for tag, subs in variants.items()}
     dlls = {}
     for tag, (proc, so) in built.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"{lib} {tag}: nvcc failed\n{log}")
-        kernel = "pose_lm_kernel" if lib == "pose_lm" else "level_kernel"
-        lines = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-        n, top = sass_counts(so, kernel)
-        print(f"{lib} {tag}: {'; '.join(lines[-2:])}; {kernel} {n} SASS instructions {top}")
-        dlls[tag] = load(lib, so)
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"{lib} {tag}: {line.strip()}")
+        for name, n, top in sass_counts(so, kernels):
+            print(f"{lib} {tag}: {name[:60]} {n} SASS instructions {top}")
+        dlls[tag] = load(lib, tag, so)
 
     config, step_args = interop.make_example(cs.WIDTH, cs.HEIGHT, cs.N_FEATURES,
                                              cs.N_POINTS, "cuda")
@@ -156,69 +521,49 @@ def main():
              for s in ("monocular", "stereo")}
     x = cs.main_path_inputs(step_args[0], *pairs["monocular"])
     x.update(cs.stereo_path_inputs(*pairs["stereo"]))
-    th_hi, th_lo = x["ths"]
+    check, timed, iters = CHECKS[args.set](x)
 
-    if lib == "level":
-        canvases = (x["canvas"], x["small_canvas"])
-        want = [level.level_preprocess_plain(*level.pad_level(c), th_hi, th_lo)
-                for c in canvases]
+    wrapper = kmatching.projection_hamming_top2
 
-        def check():
-            for c, w in zip(canvases, want):
-                got = level.level_preprocess(c, th_hi, th_lo)
-                if not all(torch.equal(g, v) for g, v in zip(got, w)):
-                    raise SystemExit("K1 variant is not bit-exact")
-
-        def timed():
-            return cs.device_busy_ms(lambda: level.level_preprocess(x["canvas"], th_hi, th_lo),
-                                     200)[0]
-    else:
-        problems = x["k8"] + x["k8_stereo"] + [cs.tiled_problem(x["k8_stereo"][0], n)
-                                               for n in cs.K8_TILED_ROWS]
-        want = [pose_opt.pose_optimization_plain(*a) for a in problems]
-
-        def check():
-            for a, w in zip(problems, want):
-                got, again = pose_lm.pose_lm(*a), pose_lm.pose_lm(*a)
-                d_rot = cs.rot_angle_deg(got.R.cpu(), w.R.cpu())
-                differ = int((got.inliers != w.inliers).sum())
-                if not (d_rot < cs.ROT_DEG_TOL and float((got.t - w.t).norm()) < cs.T_TOL
-                        and differ <= cs.K8_INLIER_TOL * a[2].shape[0]
-                        and all(torch.equal(p, q) for p, q in zip(got, again))):
-                    raise SystemExit("K8 variant differs from its plain version")
-
-        def timed():
-            return cs.device_busy_ms(lambda: [pose_lm.pose_lm(*a) for a in x["k8"]], 50)[0]
+    def use(tag):
+        _build._libraries[lib] = dlls[tag]
+        kmatching.projection_hamming_top2 = (
+            previous_k6(dlls[tag]) if lib == "matching" and tag == PREVIOUS else wrapper)
 
     tags = list(dlls)
-    times = {t: [] for t in tags}
+    times = {(t, what): [] for t in tags for what in timed}
+    split = {}
     evals = {}
     for tag in tags:
-        _build._libraries[lib] = dlls[tag]
+        use(tag)
         check()
+        print(f"{lib} {tag}: exact against the plain versions")
         if lib == "pose_lm":
             evals[tag] = sum(pose_lm.work_done(*a)[0] for a in x["k8"])
         if hasattr(dlls[tag], "clock_read"):
-            dlls[tag].clock_read.argtypes = [ctypes.c_void_p]
-            for what, a in zip(("mono", "mono", "stereo", "stereo"), x["k8"] + x["k8_stereo"]):
-                pose_lm.pose_lm(*a)
-                torch.cuda.synchronize()
-                c = (ctypes.c_longlong * 6)()
-                dlls[tag].clock_read(c)
-                n = max(c[4], 1)
-                print(f"{lib} {tag} {what} problem: cycles per trial evaluation: solve "
-                      f"{c[0] / n:.0f}, SE3 {c[1] / n:.0f}, pass {c[2] / n:.0f}, block "
-                      f"reduction {c[3] / n:.0f} ({c[4]} trials, {c[5]} cycles in all)")
+            print_clocks(lib, tag, dlls[tag], x)
     for order in (tags, tags[::-1], tags, tags[::-1]):
         for tag in order:
-            _build._libraries[lib] = dlls[tag]
-            times[tag].append(timed())
+            use(tag)
+            for what, fn in timed.items():
+                ms, by_name = cs.device_busy_ms(fn, iters)
+                times[(tag, what)].append(ms)
+                split.setdefault((tag, what), []).append(by_name)
+    kmatching.projection_hamming_top2 = wrapper
     for tag in tags:
-        line = f"{lib} {tag}: device-busy ms per call {[round(v, 5) for v in times[tag]]}"
-        if lib == "pose_lm":
-            line += (f", {evals[tag]:.0f} evaluations, "
-                     f"{min(times[tag]) / evals[tag] * 1e3:.3f} us per evaluation")
-        print(f"{line} on {power}")
+        for what in timed:
+            v = times[(tag, what)]
+            by_op = {}
+            for d in split[(tag, what)]:
+                for k, ms in d.items():
+                    by_op[k] = min(by_op.get(k, ms), ms)
+            line = (f"{lib} {tag} {what}: device-busy ms per call {[round(t, 5) for t in v]}"
+                    f"; by operation, least of 4: " + ", ".join(
+                        f"{k} {ms:.4f}" for k, ms in sorted(by_op.items())))
+            if lib == "pose_lm":
+                line += (f", {evals[tag]:.0f} evaluations, "
+                         f"{min(v) / evals[tag] * 1e3:.3f} us per evaluation")
+            print(f"{line} on {power}; {cs.smi_clocks()}")
 
 
 if __name__ == "__main__":

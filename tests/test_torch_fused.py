@@ -3,7 +3,8 @@ jitted twins, on the same numpy inputs (interop.fused_example_arrays at
 320x240 / 400 features / 256 last-frame points / 512 candidates):
 fused_motion_track_packed against fused_motion_track_packed_jit, with the
 prediction at frame 1's ground truth and with one that forces the
-widen-on-failure retry, and fused_local_map_track against
+widen-on-failure retry (both searches from one K6 call with two
+windows), and fused_local_map_track against
 fused_local_map_track_jit. Bindings, inlier flags and counts equal;
 keypoints within 1e-4 px; pose within 0.05 deg / 2e-3.
 
@@ -23,6 +24,7 @@ from orb_slam2_commit_tpu.slam import jit_frontend as jjf
 from orb_slam2_commit_tpu.utils.config import synthetic_config as j_synthetic_config
 from orb_slam2_commit_tpu_torch import interop
 from orb_slam2_commit_tpu_torch.kernels import _build
+from orb_slam2_commit_tpu_torch.kernels import matching as kmatching
 from orb_slam2_commit_tpu_torch.ops import extractor
 from orb_slam2_commit_tpu_torch.slam import jit_frontend, matchers
 
@@ -91,7 +93,13 @@ def test_fused_motion_track_matches_jax(monkeypatch, example, case):
     args = _motion_inputs(a, case)
     ref = _jax_motion(args, jconfig)
     targs = interop.packed_from_numpy(*args, device="cpu")
+    # Both searches (th and 2 th) come from one K6 call with two windows.
+    calls = []
+    top2 = kmatching.projection_hamming_top2
+    monkeypatch.setattr(kmatching, "projection_hamming_top2",
+                        lambda *a, **k: calls.append(a) or top2(*a, **k))
     got = interop.packed_to_numpy(*jit_frontend.fused_motion_track_packed(*targs, config))
+    assert len(calls) == 1 and len(calls[0][2]) == 2
     assert got[2].dtype == np.uint32 and got[1].shape == (N_FEAT, jit_frontend.OUT_FEAT_COLS)
     _check_motion(got, ref)
 

@@ -135,3 +135,13 @@ def test_wrappers_check_inputs():
         level.level_preprocess(torch.zeros((64, 128)).t(), 20.0, 7.0)
     with pytest.raises(ValueError):   # neither a card nor the CPU
         level.level_preprocess(torch.zeros((64, 128), device="meta"), 20.0, 7.0)
+    with pytest.raises(ValueError):   # neither a card nor the CPU
+        level.combine_nms(*(torch.zeros((64, 128), device="meta") for _ in range(2)),
+                          torch.zeros((64, 2), dtype=torch.int32, device="meta"))
+    # K2 (and K6) load 16 bytes at a time: a view that starts off that
+    # boundary is copied before the launch, an aligned one is passed as is.
+    flat = torch.arange(64 * 128 + 1, dtype=torch.float32)
+    view = flat[1:].view(64, 128)
+    copy = _build.aligned(view)
+    assert view.data_ptr() % 16 and copy.data_ptr() % 16 == 0 and torch.equal(copy, view)
+    assert _build.aligned(flat) is flat

@@ -1,7 +1,10 @@
 """Port's projection matching on the CPU against the JAX package: K6's
 plain version equal to the Pallas kernel in interpret mode (VPU and MXU
-bodies) in all four outputs, index fallbacks included; match_from_top2,
-frustum_check and match_local_map equal to the JAX functions."""
+bodies) in all four outputs, index fallbacks included, with one window
+and with two (each window against its own Pallas call); match_from_top2,
+frustum_check and match_local_map equal to the JAX functions. The K6
+cases are interop's, on which chip_smoke.py holds the kernel to the same
+plain version on the card."""
 
 import jax
 import jax.numpy as jnp
@@ -12,6 +15,7 @@ import torch
 from orb_slam2_commit_tpu.ops import matching as jmatching
 from orb_slam2_commit_tpu.ops import pallas_matching as jpm
 from orb_slam2_commit_tpu.slam import matchers as jmatchers
+from orb_slam2_commit_tpu_torch.interop import TOP2_CASES as CASES, top2_problem
 from orb_slam2_commit_tpu_torch.kernels import _build
 from orb_slam2_commit_tpu_torch.kernels import matching as kmatching
 from orb_slam2_commit_tpu_torch.ops import matching
@@ -38,48 +42,19 @@ def _t(a):
     return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
 
 
-def _top2_problem(seed, m, n, ties=False, masked_rows=0):
-    rng = np.random.default_rng(seed)
-    da, db = _desc(rng, m), _desc(rng, n)
-    if ties:
-        # Few distinct descriptors: many equal distances per row.
-        db = db[rng.integers(0, 4, n)]
-        da = da[rng.integers(0, 4, m)]
-    proj = rng.uniform(0, 640, (m, 2)).astype(np.float32)
-    xy = rng.uniform(0, 640, (n, 2)).astype(np.float32)
-    radius = rng.uniform(10, 120, m).astype(np.float32)
-    pt_oct = rng.integers(0, 8, m).astype(np.int32)
-    octave = rng.integers(0, 8, n).astype(np.int32)
-    valid_a = rng.random(m) < 0.9
-    valid_b = rng.random(n) < 0.9
-    if masked_rows:
-        radius[:masked_rows] = 0.25            # at most a lucky candidate
-        valid_a[masked_rows:2 * masked_rows] = False
-        # one row with a single candidate at column 0
-        proj[2 * masked_rows] = xy[0]
-        radius[2 * masked_rows] = 0.0
-        valid_b[0] = True
-        octave[0] = pt_oct[2 * masked_rows]
-    return (da, proj, radius, pt_oct - 1, pt_oct + 1, valid_a,
-            db, xy, octave, valid_b)
-
-
-CASES = {
-    "64x200": dict(seed=11, m=64, n=200),
-    "257x513": dict(seed=11, m=257, n=513),
-    "ties": dict(seed=4, m=96, n=300, ties=True),
-    "masked": dict(seed=5, m=40, n=150, masked_rows=8),
-    "one_column": dict(seed=6, m=20, n=1),
-}
+def _windows(args, *radii):
+    """K6's arguments in the port's order: the radii as one tuple."""
+    return (*args[:2], radii, *args[3:])
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 @pytest.mark.parametrize("mxu", [False, True])
 def test_plain_top2_equals_pallas(case, mxu):
-    args = _top2_problem(**CASES[case])
+    args = top2_problem(**CASES[case])
     ref = jpm.projection_hamming_top2(*(jnp.asarray(a) for a in args),
                                       interpret=True, mxu=mxu)
-    got = kmatching.projection_hamming_top2(*(_t(a) for a in args))
+    args = [_t(a) for a in args]
+    got, = kmatching.projection_hamming_top2(*_windows(args, args[2]))
     for g, r in zip(got, ref):
         assert g.dtype == torch.int32
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
@@ -87,8 +62,53 @@ def test_plain_top2_equals_pallas(case, mxu):
         assert (got[0].numpy() == matching.BIG_DIST).sum() >= 8
 
 
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("mxu", [False, True])
+def test_two_window_top2_equals_pallas(case, mxu):
+    """Radii (r, 2 r) (the motion stage's retry window): each window's
+    four outputs equal to the Pallas kernel's call at that radius."""
+    args = top2_problem(**CASES[case])
+    radius2 = (2 * args[2]).astype(np.float32)
+    targs = [_t(a) for a in args]
+    got = kmatching.projection_hamming_top2(*_windows(targs, targs[2], _t(radius2)))
+    assert len(got) == 2
+    for r, top in zip((args[2], radius2), got):
+        ref = jpm.projection_hamming_top2(
+            *(jnp.asarray(a) for a in (*args[:2], r, *args[3:])), interpret=True, mxu=mxu)
+        for g, w in zip(top, ref):
+            assert g.dtype == torch.int32
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    if case in ("64x200", "257x513"):   # the wide window finds more
+        assert (got[1][0] <= 256).sum() > (got[0][0] <= 256).sum()
+
+
+def test_radius2_checks():
+    """The second window's radii are checked as the first's are, and any
+    two radii give each window's own answer (the scan filters by the wider
+    one), a second window narrower than the first included."""
+    args = [_t(a) for a in top2_problem(**CASES["64x200"])]
+    m, r = args[0].shape[0], args[2]
+    with pytest.raises(ValueError):      # one or two windows
+        kmatching.projection_hamming_top2(*_windows(args, r, r, r))
+    with pytest.raises(ValueError):
+        kmatching.projection_hamming_top2(*_windows(args))
+    with pytest.raises(ValueError):      # one value per row
+        kmatching.projection_hamming_top2(*_windows(args, r, torch.ones(m + 1)))
+    with pytest.raises(TypeError):
+        kmatching.projection_hamming_top2(*_windows(args, r, r.double()))
+    with pytest.raises(ValueError):      # on the rows' device
+        kmatching.projection_hamming_top2(*_windows(args, r, torch.ones(m, device="meta")))
+    narrow = 0.5 * r
+    both = kmatching.projection_hamming_top2(*_windows(args, r, narrow))
+    for got, radius in zip(both, (r, narrow)):
+        want, = kmatching.projection_hamming_top2(*_windows(args, radius))
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert (both[1][0] <= 256).sum() < (both[0][0] <= 256).sum()
+
+
 def test_match_from_top2_equals_jax():
-    args = _top2_problem(9, 120, 300)
+    args = top2_problem(9, 120, 300)
     top2 = [np.array(x) for x in jpm.projection_hamming_top2(
         *(jnp.asarray(a) for a in args), interpret=True, mxu=False)]
     octave = args[8]
@@ -197,3 +217,28 @@ def test_stereo_octave_rule_equals_jax(tz_rel):
     np.testing.assert_array_equal(got.idx.numpy(), ref[0])
     np.testing.assert_array_equal(got.dist.numpy(), ref[1])
     assert int((got.idx >= 0).sum()) > 10
+
+
+@pytest.mark.parametrize("mono", [True, False])
+def test_last_frame_two_windows_equal_two_searches(monkeypatch, mono):
+    """th = (th, 2 th): one K6 call gives each search's MatchResult, equal
+    to a search of its own at that th."""
+    (X, _, _, _, pt_valid, R, t, pt_desc, xy, desc, octave, valid, _) = _local_map_problem(4)
+    rng = np.random.default_rng(4)
+    pt_oct = rng.integers(0, 8, X.shape[0]).astype(np.int32)
+    pt_angle = rng.uniform(-np.pi, np.pi, X.shape[0]).astype(np.float32)
+    angle = rng.uniform(-np.pi, np.pi, xy.shape[0]).astype(np.float32)
+    arrays = [_t(a) for a in (X, pt_desc, pt_oct, pt_angle, pt_valid, R, t, xy, desc,
+                              angle, octave, valid)]
+    kw = dict(mono=mono, baseline=0.3, tz_rel=torch.tensor(0.5))
+    calls = []
+    top2 = kmatching.projection_hamming_top2
+    monkeypatch.setattr(kmatching, "projection_hamming_top2",
+                        lambda *a, **k: calls.append((a, top2(*a, **k))) or calls[-1][1])
+    both = matchers.match_projection_last_frame(*arrays, *CAM, th=(5.0, 10.0), **kw)
+    assert len(calls) == 1 and len(calls[0][0][2]) == 2
+    for th, got in zip((5.0, 10.0), both):
+        want = matchers.match_projection_last_frame(*arrays, *CAM, th=th, **kw)
+        assert torch.equal(got.idx, want.idx) and torch.equal(got.dist, want.dist)
+    narrow, wide = calls[0][1]
+    assert int(both[0].count()) > 0 and not torch.equal(narrow[2], wide[2])
