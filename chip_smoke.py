@@ -21,10 +21,14 @@ Phases (any failure exits non-zero and prints no result line):
   3. each kernel against its plain PyTorch version on the card, on the
      tensors the main paths give it (recorded from one run of a path),
      K1 and K2 also on a canvas with pad rows and columns (K2 also with
-     every cell low), K6 also on the CPU tests' cases with one window and
-     with two, with a narrower second window, with every row invalid and
-     past one shared-memory chunk,
-     and K8 also on a problem tiled past 1024 and past 7000 rows,
+     every cell low), K3 in its map form also on that canvas's score map,
+     on a width that is not a multiple of 4 and with 30-pixel cells, and
+     in its row form on the main map's cell matrix, K6 also on the CPU
+     tests' cases with one window and with two, with a narrower second
+     window, with every row invalid and past one shared-memory chunk, K7
+     on the stereo band also on the CPU tests' band cases (one on every
+     edge of the band) and K7 under a mask on the stereo pair's band
+     masks, and K8 also on a problem tiled past 1024 and past 7000 rows,
      launched twice;
   4. each main path through the port's entry points, with the kernels'
      launch counts reset just before and read just after it, and its
@@ -96,15 +100,18 @@ PROFILE_CALLS = 5
 # A K6 problem past one shared-memory chunk of the kernel (2048 columns).
 K6_CHUNKED = dict(seed=8, m=256, n=20000)
 
-STEP_WANT = {"level_preprocess": 1, "combine_nms": 1, "cell_topk": 1,
-             "extract_patches": 2, "corner_subpix": 1,
-             "projection_hamming_top2": 1, "masked_hamming_top2": 0,
-             "pose_lm": 1}
+# K3 runs in its map form; its row form and K7 under a mask have no caller
+# on the main paths.
+STEP_WANT = {"level_preprocess": 1, "combine_nms": 1, "cell_topk_map": 1,
+             "cell_topk": 0, "extract_patches": 2, "corner_subpix": 1,
+             "projection_hamming_top2": 1, "stereo_band_top2": 0,
+             "masked_hamming_top2": 0, "pose_lm": 1}
 # The motion stage's two searches (th, 2 th) share one K6 launch.
 PAIR_WANT = dict(STEP_WANT, projection_hamming_top2=2, pose_lm=2)
-# Two extractions and the stereo matcher's two K7 launches.
-STEREO_WANT = dict(PAIR_WANT, level_preprocess=2, combine_nms=2, cell_topk=2,
-                   extract_patches=4, corner_subpix=2, masked_hamming_top2=2)
+# Two extractions and the stereo matcher's one K7 band launch (both
+# directions).
+STEREO_WANT = dict(PAIR_WANT, level_preprocess=2, combine_nms=2, cell_topk_map=2,
+                   extract_patches=4, corner_subpix=2, stereo_band_top2=1)
 WANT = {"monocular": PAIR_WANT, "stereo": STEREO_WANT, "rgbd": PAIR_WANT}
 MOTION = {"monocular": fused_motion_track_packed,
           "stereo": fused_stereo_motion_track_packed,
@@ -270,13 +277,15 @@ def main_path_inputs(image, config, motion, cands):
         canvas, float(orb.ini_th_fast), float(orb.min_th_fast))
     bounds = torch.from_numpy(pe._bounds_np(plan, hi_c.shape[0])).to(image.device)
     score = level.combine_nms(hi_c, lo_c, bounds)
-    cells = pe.cell_matrix(score, orb.cell_size)
     yx, _, _ = pe.select_flat(score, plan, orb)
     small, small_bounds = padded_canvas(image.device)
+    ths = (float(orb.ini_th_fast), float(orb.min_th_fast))
+    _, s_hi, s_lo = level.level_preprocess(small, *ths)
     x = dict(canvas=canvas, blur=blur_c, hi=hi_c, lo=lo_c, bounds=bounds,
-             cells=cells, k=orb.cell_top_k, yx=yx,
-             ths=(float(orb.ini_th_fast), float(orb.min_th_fast)),
-             small_canvas=small, small_bounds=small_bounds)
+             score=score, cells=select.cell_matrix(score, orb.cell_size),
+             cell=orb.cell_size, k=orb.cell_top_k, yx=yx, ths=ths,
+             small_canvas=small, small_bounds=small_bounds,
+             small_score=level.combine_nms(s_hi, s_lo, small_bounds))
 
     # K6: the motion stage's two-window call and the local-map stage's.
     k5, k6, k8 = [], [], []
@@ -317,16 +326,51 @@ def tiled_problem(args, rows):
 
 def stereo_path_inputs(config, motion, cands):
     """The tensors K7 and K8 get on the stereo pair, from one recorded run
-    of it: K7's two launches (left -> right, right -> left) and K8's two
-    problems, now with stereo rows."""
-    k7, k8 = [], []
-    with recording(kmatching, "masked_hamming_top2", k7), \
+    of it: K7's band launch (both directions) and K8's two problems, now
+    with stereo rows. K7 under a mask gets the band's mask and its
+    transpose, built by the plain mask builder from the band's inputs."""
+    band, k8 = [], []
+    with recording(kmatching, "stereo_band_top2", band), \
             recording(pose_lm, "pose_lm", k8):
         run_pair(config, motion, cands)
     torch.cuda.synchronize()
-    if (len(k7), len(k8)) != (2, 2):
-        raise AssertionError(f"recorded {len(k7)} K7, {len(k8)} K8 calls on the stereo pair")
-    return dict(k7=[c[0] for c in k7], k8_stereo=[c[0] for c in k8])
+    if (len(band), len(k8)) != (1, 2):
+        raise AssertionError(f"recorded {len(band)} K7 band, {len(k8)} K8 calls on the "
+                             f"stereo pair")
+    args = band[0][0]
+    desc_l, xy_l, octave_l, scale_l, valid_l, desc_r, xy_r, octave_r, valid_r, max_d = args
+    mask = kmatching.stereo_band_mask(xy_l, octave_l, scale_l, valid_l, xy_r, octave_r,
+                                      valid_r, max_d)
+    return dict(k7_band=args, k7=[(desc_l, desc_r, mask),
+                                  (desc_r, desc_l, mask.t().contiguous())],
+                k8_stereo=[c[0] for c in k8])
+
+
+def band_problems(x):
+    """(what, args) of K7 band's phase-3 cases: the stereo pair's recorded
+    call and the CPU tests' band cases (interop.BAND_CASES)."""
+    dev = x["canvas"].device
+    yield "stereo pair", x["k7_band"]
+    scales = torch.from_numpy(interop.BAND_SCALES).to(dev)
+    for name, case in interop.BAND_CASES.items():
+        dl, xy_l, ol, vl, dr, xy_r, orr, vr = as_tensors(interop.band_problem(**case), dev)
+        yield name, (dl, xy_l, ol, scales[torch.clamp(ol, 0, 7).long()], vl, dr, xy_r, orr,
+                     vr, interop.BAND_MAX_D)
+
+
+def check_band(what, args):
+    """K7 band against its plain version: all four outputs of both
+    directions bit for bit."""
+    got = kmatching.stereo_band_top2(*args)
+    want = kmatching.stereo_band_top2_plain(*args)
+    torch.cuda.synchronize()
+    for side, g, w in zip(("left -> right", "right -> left"), got, want):
+        if not all(torch.equal(a, b) for a, b in zip(g, w)):
+            raise AssertionError(f"K7 band differs on {what}, {side}: " + ", ".join(
+                f"{max_abs(a, b):g}" for a, b in zip(g, w)))
+    log(f"K7 stereo_band_top2, {what} [{args[0].shape[0]}, {args[5].shape[0]}]: exact in "
+        f"all four outputs of both directions (rows with a candidate: "
+        f"{[int((g[0] <= 256).sum()) for g in got]})")
 
 
 # ---------------------------------------------------------------------------
@@ -410,14 +454,31 @@ def phase_kernels(x):
             f"({int((got > 0).sum())} maxima)")
     rows["combine_nms"] = 0.0
 
-    gv, ga = select.cell_topk(x["cells"], x["k"])
-    wv, wa = select.cell_topk_plain(x["cells"], x["k"])
+    # K3 bit for bit: the map form on the main canvas's score map, on the
+    # 320x240 canvas's, on a width that is not a multiple of 4 (read entry
+    # by entry, its last cell's columns zero) and with 30-pixel cells (rows
+    # of 900, -inf past them); the row form on the main map's cell matrix.
+    score, cell, k = x["score"], x["cell"], x["k"]
+    for what, m, c in (("main canvas", score, cell), ("320x240 canvas", x["small_score"], cell),
+                       ("width 598", score[:, :598].contiguous(), cell),
+                       ("30-pixel cells", score[: score.shape[0] // 30 * 30], 30)):
+        gv, ga = select.cell_topk_map(m, c, k)
+        wv, wa = select.cell_topk_map_plain(m, c, k)
+        torch.cuda.synchronize()
+        if not (torch.equal(gv, wv) and torch.equal(ga, wa)):
+            raise AssertionError(
+                f"K3 map form differs on the {what}: vals {max_abs(gv, wv)}, "
+                f"args {max_abs(ga, wa)}")
+        log(f"K3 cell_topk_map, {what} {tuple(m.shape)}, cell {c}, k={k}: exact "
+            f"({gv.shape[0]} cells, {int(torch.isinf(gv).sum())} -inf slots)")
+    gv, ga = select.cell_topk(x["cells"], k)
+    wv, wa = select.cell_topk_plain(x["cells"], k)
     torch.cuda.synchronize()
     if not (torch.equal(gv, wv) and torch.equal(ga, wa)):
         raise AssertionError(
             f"K3 differs: vals {max_abs(gv, wv)}, args {max_abs(ga, wa)}")
-    log(f"K3 cell_topk {tuple(x['cells'].shape)} k={x['k']}: exact")
-    rows["cell_topk"] = 0.0
+    log(f"K3 cell_topk {tuple(x['cells'].shape)} k={k}: exact")
+    rows["cell_topk_map"] = rows["cell_topk"] = 0.0
 
     for img, p in ((canvas, 31), (x["blur"], 39)):
         got = patches.extract_patches(img, x["yx"], p)
@@ -441,6 +502,10 @@ def phase_kernels(x):
     for what, args in k6_problems(x):
         check_k6(what, args)
     rows["projection_hamming_top2"] = 0.0
+
+    for what, args in band_problems(x):
+        check_band(what, args)
+    rows["stereo_band_top2"] = 0.0
 
     for args in x["k7"]:
         got = kmatching.masked_hamming_top2(*args)
@@ -868,7 +933,7 @@ def phase_sensor_timing(config, motion, cands, x, power):
     """The stereo or RGB-D pair: throughput by the bench recipe (noise on
     the left image), stage times, profile. The stereo pair's stages split
     the motion stage into both extractions, the stereo matcher (with its
-    two K7 launches alone), the motion matching with its LM, and the LM
+    K7 band launch alone), the motion matching with its LM, and the LM
     alone on its stereo rows."""
     what = PATH[config.sensor]
     image, second, pt_f32, pt_desc, meta = motion
@@ -891,8 +956,8 @@ def phase_sensor_timing(config, motion, cands, x, power):
         stages += [
             ("extraction x2", lambda: [extractor.extract_features(
                 im, orb, cam.height, cam.width) for im in (image, second)]),
-            ("stereo match (K7 x2, SAD, median)", lambda: stereo.stereo_match(*match_args)),
-            ("stereo K7 x2", lambda: [kmatching.masked_hamming_top2(*a) for a in x["k7"]]),
+            ("stereo match (K7 band, SAD, median)", lambda: stereo.stereo_match(*match_args)),
+            ("stereo K7 band", lambda: kmatching.stereo_band_top2(*x["k7_band"])),
             ("motion matching (K6) + pose_lm", lambda: jit_frontend._fused_match_and_pose(
                 feats, feats.xy, ur, pt_pos, pt_desc, pt_octave, pt_angle, pt_valid,
                 R, t, config, tz_rel=tz)),
@@ -972,9 +1037,17 @@ def phase_kernel_timing(x, errs, counts, power):
         lambda: level.combine_nms(hi, lo, bounds),
         lambda: level.combine_nms_plain(hi, lo, bounds),
         None, k2_bytes, 20 * hi.numel())
-    # K3 reads the cell matrix once, writes k values and indices per row;
-    # k rounds of one compare per entry.
-    cells, k = x["cells"], x["k"]
+    # K3 reads the score map (its map form, the main path's) or the cell
+    # matrix (its row form) once and writes k values and indices per cell;
+    # k rounds of one compare per entry. The library call is torch.topk on
+    # the cell matrix.
+    score, cells, cell, k = x["score"], x["cells"], x["cell"], x["k"]
+    row("cell_topk_map", "orb_slam2_commit_tpu_torch/csrc/select.cu",
+        "orb_slam2_commit_tpu/ops/pallas_select.py:64",
+        lambda: select.cell_topk_map(score, cell, k),
+        lambda: select.cell_topk_map_plain(score, cell, k),
+        lambda: torch.topk(cells, k, dim=1),
+        score.numel() * 4 + 2 * cells.shape[0] * k * 4, k * cells.numel())
     row("cell_topk", "orb_slam2_commit_tpu_torch/csrc/select.cu",
         "orb_slam2_commit_tpu/ops/pallas_select.py:64",
         lambda: select.cell_topk(cells, k),
@@ -1043,10 +1116,26 @@ def phase_kernel_timing(x, errs, counts, power):
         all_k6(kmatching.projection_hamming_top2),
         all_k6(kmatching.projection_hamming_top2_plain), None, k6_bytes, k6_ops)
 
-    # K7, the stereo pair's two launches: each reads its two descriptor
+    # K7 band, the stereo pair's launch: it reads both sides' tables once
+    # and writes 4 x (N_l + N_r) results; ~8 operations per band test of a
+    # valid row (both directions) and 24 (8 XOR, 8 popcount, 8 adds) per
+    # candidate pair in each direction, counted from this run's mask.
+    band = x["k7_band"]
+    n_l, n_r = band[0].shape[0], band[5].shape[0]
+    n_pairs = int(x["k7"][0][2].sum())
+    band_bytes = nbytes(*band[:9]) + 4 * (n_l + n_r) * 4
+    band_ops = 8 * (int(band[4].sum()) * n_r + int(band[8].sum()) * n_l) + 2 * 24 * n_pairs
+    log(f"K7 band: {n_pairs} candidate pairs, {int(band[4].sum())} of {n_l} left and "
+        f"{int(band[8].sum())} of {n_r} right rows valid")
+    row("stereo_band_top2", "orb_slam2_commit_tpu_torch/csrc/matching.cu",
+        "orb_slam2_commit_tpu/ops/pallas_matching.py:113",
+        lambda: kmatching.stereo_band_top2(*band),
+        lambda: kmatching.stereo_band_top2_plain(*band), None, band_bytes, band_ops)
+
+    # K7 under a mask, on the stereo band's mask and its transpose (no
+    # caller on the main paths): each launch reads its two descriptor
     # tables and its mask once and writes 4 x M results; one operation per
-    # mask entry and 24 (8 XOR, 8 popcount, 8 adds) per candidate pair,
-    # counted from this run's masks.
+    # mask entry and 24 per candidate pair.
     k7_bytes = sum(nbytes(*args) + 4 * args[0].shape[0] * 4 for args in x["k7"])
     k7_ops = sum(args[2].numel() + 24 * int(args[2].sum()) for args in x["k7"])
 
@@ -1116,6 +1205,7 @@ def main() -> int:
     # inputs), K7 on the stereo pair.
     kernels = phase_kernel_timing(x, errs, dict(
         counts["monocular"],
+        stereo_band_top2=counts["stereo"]["stereo_band_top2"],
         masked_hamming_top2=counts["stereo"]["masked_hamming_top2"]), power)
 
     log(json.dumps({"kernels": kernels}))

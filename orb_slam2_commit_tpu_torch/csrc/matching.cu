@@ -1,6 +1,7 @@
-// Hamming top-2 kernels: K6 projection_hamming_top2 and K7
-// masked_hamming_top2. Both give, per row, the best and second-best Hamming
-// distance (and their columns) over the row's candidate columns.
+// Hamming top-2 kernels: K6 projection_hamming_top2 and K7 (its band
+// form stereo_band_top2 and masked_hamming_top2). Each gives, per row, the
+// best and second-best Hamming distance (and their columns) over the row's
+// candidate columns.
 //
 // K6: for each of M projected map points, over the N current keypoints
 // that fall inside its search window and octave band. Replaces the Pallas
@@ -12,12 +13,16 @@
 // radius per row (the motion stage's widened retry window) and then gives
 // both windows' top-2 from one scan.
 //
-// K7: over the candidates of a caller-supplied [M, N] bool mask. Replaces
-// the Pallas kernel orb_slam2_commit_tpu/ops/pallas_matching.py:
-// masked_hamming_top2 (_masked_kernel). Its main caller is the stereo
-// matcher (ops/stereo.py): left -> right under the epipolar, octave and
-// disparity mask, and right -> left under the transposed mask for the
-// mutual check.
+// K7: the same top-2 over a row's candidates. Replaces the Pallas kernel
+// orb_slam2_commit_tpu/ops/pallas_matching.py: masked_hamming_top2
+// (_masked_kernel), in two forms. On the stereo band (stereo_band_top2,
+// the stereo matcher's only call, ops/stereo.py) the kernel tests the
+// candidate band itself: left keypoint l and right keypoint r pair when
+// both are valid, |y_l - y_r| <= 2 scale_l, octave_r is within octave_l
+// +- 1 and -2 <= x_l - x_r <= max_d (float32, max_d the float32 value
+// PyTorch compares with); one launch gives left -> right and right ->
+// left. Under a caller-supplied [M, N] bool mask (masked_hamming_top2)
+// it serves the dense-mask matchers still to be ported.
 //
 // Semantics follow the Pallas kernels exactly, index fallbacks included.
 // Rows are reduced by the packed key (distance << COL_BITS) | column, so
@@ -30,10 +35,9 @@
 //
 // What bounds them on the H100: neither memory nor arithmetic. K6 moves
 // ~0.2 MB in and out at [2048, 1000] and does ~8 operations per window
-// test of a valid row and ~24 per candidate pair. K7 reads ~1 MB of mask
-// at the stereo path's [1000, 1000] (~0.3 us at 3.35 TB/s) and pays ~24
-// integer operations per candidate pair. Each is a few microseconds of
-// latency-bound work.
+// test of a valid row and ~24 per candidate pair; the stereo band ~0.13
+// MB and ~16 M operations for 1000 x 1000 keypoints both ways. Each is a
+// few microseconds of latency-bound work.
 //
 // K6's design. A block of ROWS rows, WPR warps each, stages the column
 // table in dynamic shared memory, CHUNK columns at a time (one pass at the
@@ -65,12 +69,28 @@
 // no descriptors, reading a candidate's from L2 (0.0100-0.0103 ms), were
 // slower.
 //
-// K7's design: one warp per row, 8 rows per block. The row's descriptor
-// lives in registers; lanes stride over the N columns, so the row's mask
-// bytes are read coalesced, and a column's 32 descriptor bytes are read
-// only when it is a candidate (__popc on the 8 XORed words). Each lane
-// keeps its two smallest keys; five shuffle rounds merge them across the
-// warp. Only the 4 x M results reach memory.
+// K7 on the band. Rows 0..N_l-1 are left keypoints (columns: the right
+// ones), the rest right keypoints (columns: the left ones under the
+// transposed test), each block of BAND_ROWS rows x BAND_WPR warps on one
+// side. A block stages its side's column table in dynamic shared memory,
+// 16 bytes a column (x, NaN where the column is invalid, y, the octave's
+// bits, 2 scale for left columns), tests the band there and reads a
+// candidate's descriptor from L2 as two 16-byte loads; the keys, the
+// merge and the index fallbacks are K6's. So neither the [N_l, N_r] mask
+// nor its transpose exists. On an H100 80GB HBM3 at 700 W
+// (scripts/kernel_variants.py matching-k7) the stereo pair's launch takes
+// 0.0063 ms, against 0.0207 ms for the two launches under the mask that
+// it replaces (which also needed ~17 operations to build the mask and a
+// transpose copy); 1 or 4 warps per row (0.0081, 0.0088 ms) and 4 rows
+// per block (0.0104 ms) were slower, 16 rows per block level
+// (0.0061-0.0063 ms).
+//
+// K7 under a mask: one warp per row, 8 rows per block. The row's
+// descriptor lives in registers; lanes stride over the N columns, so the
+// row's mask bytes are read coalesced, and a column's 32 descriptor bytes
+// are read only when it is a candidate (__popc on the 8 XORed words). Each
+// lane keeps its two smallest keys; five shuffle rounds merge them across
+// the warp. Only the 4 x M results reach memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,6 +103,10 @@ constexpr int WPR = 2;                    // K6's warps per row
 constexpr int THREADS = ROWS * WPR * 32;  // K6's block
 constexpr int CHUNK = 2048;               // K6's columns staged per pass
 constexpr int ROUND = 1024;               // K6's columns staged per round of loads
+constexpr int BAND_ROWS = 8;              // K7 band's rows per block
+constexpr int BAND_WPR = 2;               // K7 band's warps per row
+constexpr int BAND_THREADS = BAND_ROWS * BAND_WPR * 32;
+constexpr int BAND_CHUNK = 2048;          // K7 band's columns staged per pass
 constexpr int WORDS = 8;                  // 256-bit descriptor
 constexpr int COL_BITS = 23;
 constexpr unsigned COL_MASK = (1u << COL_BITS) - 1u;
@@ -268,6 +292,145 @@ __global__ void __launch_bounds__(THREADS) projection_top2_kernel(
   }
 }
 
+// Columns [c0, c0 + cw) of one side of a stereo pair into shared memory,
+// one float4 per column: x (NaN where the column is invalid), y, the
+// octave's bits and 2 * scale (0 where scale is null). Every load of the
+// pass is issued before the first store.
+__device__ __forceinline__ void stage_band_columns(
+    const float2* __restrict__ xy, const int* __restrict__ octave,
+    const float* __restrict__ scale, const uint8_t* __restrict__ valid, int c0,
+    int cw, float4* scol) {
+  constexpr int CPT = BAND_CHUNK / BAND_THREADS;
+  float2 p[CPT];
+  int oc[CPT];
+  float s[CPT];
+  bool ok[CPT];
+#pragma unroll
+  for (int k = 0; k < CPT; ++k) {
+    const int c = threadIdx.x + k * BAND_THREADS;
+    if (c < cw) {
+      p[k] = __ldg(xy + c0 + c);
+      oc[k] = __ldg(octave + c0 + c);
+      s[k] = scale ? __ldg(scale + c0 + c) : 0.f;
+      ok[k] = __ldg(valid + c0 + c) != 0;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < CPT; ++k) {
+    const int c = threadIdx.x + k * BAND_THREADS;
+    if (c < cw) {
+      scol[c] = make_float4(ok[k] ? p[k].x : __int_as_float(0x7fc00000), p[k].y,
+                            __int_as_float(oc[k]), 2.f * s[k]);
+    }
+  }
+}
+
+// One block of K7 band rows. LEFT: rows are left keypoints and columns
+// right ones (scale: the rows' scale factors); else rows are right
+// keypoints and columns left ones (scale: the columns'). Row `row` of
+// this side is row `row0 + row` of out ([4, m_all]).
+template <bool LEFT>
+__device__ __forceinline__ void band_block(
+    int r0, int m, const uint4* __restrict__ desc_a, const float2* __restrict__ xy_a,
+    const int* __restrict__ octave_a, const uint8_t* __restrict__ valid_a,
+    const uint4* __restrict__ desc_b, const float2* __restrict__ xy_b,
+    const int* __restrict__ octave_b, const uint8_t* __restrict__ valid_b, int n,
+    const float* __restrict__ scale, float max_d, int cap, int row0, int m_all,
+    float4* scol, uint2 (*parts)[BAND_WPR], int* __restrict__ out) {
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int part = warp % BAND_WPR;
+  const int row = r0 + warp / BAND_WPR;
+  const bool active = row < m && valid_a[row] != 0;
+
+  unsigned k1 = NO_KEY, k2 = NO_KEY;
+  if (__syncthreads_or(active)) {
+    unsigned a[WORDS] = {};
+    float2 xy = make_float2(0.f, 0.f);
+    float s2 = 0.f;
+    int o = 0;
+    if (active) {
+      const uint4 q0 = __ldg(desc_a + 2 * (size_t)row), q1 = __ldg(desc_a + 2 * (size_t)row + 1);
+      a[0] = q0.x; a[1] = q0.y; a[2] = q0.z; a[3] = q0.w;
+      a[4] = q1.x; a[5] = q1.y; a[6] = q1.z; a[7] = q1.w;
+      xy = __ldg(xy_a + row);
+      o = __ldg(octave_a + row);
+      if (LEFT) s2 = 2.f * __ldg(scale + row);
+    }
+    for (int c0 = 0; c0 < n; c0 += cap) {
+      const int cw = min(cap, n - c0);
+      if (c0) __syncthreads();   // every warp is done with the last chunk
+      stage_band_columns(xy_b, octave_b, LEFT ? nullptr : scale, valid_b, c0, cw, scol);
+      __syncthreads();
+      if (!active) continue;
+#pragma unroll 4
+      for (int j = part * 32 + lane; j < cw; j += BAND_WPR * 32) {
+        const float4 c = scol[j];
+        const int oc = __float_as_int(c.z);
+        // The stereo matcher's candidate test, in its own float32 terms
+        // (|y_l - y_r| <= 2 scale_l, octave_l +- 1, -2 <= x_l - x_r <= max_d);
+        // an invalid column's NaN x fails both disparity tests.
+        bool pass;
+        if (LEFT) {
+          const float d = xy.x - c.x;
+          pass = fabsf(xy.y - c.y) <= s2 && oc >= o - 1 && oc <= o + 1 && d >= -2.f &&
+                 d <= max_d;
+        } else {
+          const float d = c.x - xy.x;
+          pass = fabsf(c.y - xy.y) <= c.w && o >= oc - 1 && o <= oc + 1 && d >= -2.f &&
+                 d <= max_d;
+        }
+        if (pass) {
+          const uint4 q0 = __ldg(desc_b + 2 * (size_t)(c0 + j));
+          const uint4 q1 = __ldg(desc_b + 2 * (size_t)(c0 + j) + 1);
+          const unsigned d = __popc(a[0] ^ q0.x) + __popc(a[1] ^ q0.y) +
+                             __popc(a[2] ^ q0.z) + __popc(a[3] ^ q0.w) +
+                             __popc(a[4] ^ q1.x) + __popc(a[5] ^ q1.y) +
+                             __popc(a[6] ^ q1.z) + __popc(a[7] ^ q1.w);
+          insert((d << COL_BITS) | (unsigned)(c0 + j), k1, k2);
+        }
+      }
+    }
+  }
+  // Merge the warp's keys, then the row's parts into part 0.
+  warp_merge(k1, k2);
+  if (lane == 0) parts[warp / BAND_WPR][part] = make_uint2(k1, k2);
+  __syncthreads();
+  if (row >= m || part != 0) return;
+#pragma unroll
+  for (int p = 1; p < BAND_WPR; ++p) {
+    const uint2 o = parts[warp / BAND_WPR][p];
+    insert(o.x, k1, k2);
+    insert(o.y, k1, k2);
+  }
+  if (k1 == NO_KEY) k1 = EMPTY << COL_BITS;
+  if (k2 == NO_KEY) k2 = (EMPTY << COL_BITS) | ((k1 & COL_MASK) == 0u ? 1u : 0u);
+  if (lane == 0) store_top2(k1, k2, row0 + row, m_all, n, out);
+}
+
+// K7 on the stereo band: left rows (blocks [0, ceil(nl / BAND_ROWS))),
+// then right rows. out: [4, nl + nr].
+__global__ void __launch_bounds__(BAND_THREADS) stereo_band_top2_kernel(
+    const uint4* __restrict__ desc_l, const float2* __restrict__ xy_l,
+    const int* __restrict__ octave_l, const float* __restrict__ scale_l,
+    const uint8_t* __restrict__ valid_l, int nl, const uint4* __restrict__ desc_r,
+    const float2* __restrict__ xy_r, const int* __restrict__ octave_r,
+    const uint8_t* __restrict__ valid_r, int nr, float max_d, int cap,
+    int* __restrict__ out) {
+  extern __shared__ float4 scol[];
+  __shared__ uint2 parts[BAND_ROWS][BAND_WPR];
+  const int left_blocks = (nl + BAND_ROWS - 1) / BAND_ROWS;
+  if ((int)blockIdx.x < left_blocks) {
+    band_block<true>(blockIdx.x * BAND_ROWS, nl, desc_l, xy_l, octave_l, valid_l, desc_r,
+                     xy_r, octave_r, valid_r, nr, scale_l, max_d, cap, 0, nl + nr, scol,
+                     parts, out);
+  } else {
+    band_block<false>((blockIdx.x - left_blocks) * BAND_ROWS, nr, desc_r, xy_r, octave_r,
+                      valid_r, desc_l, xy_l, octave_l, valid_l, nl, scale_l, max_d, cap,
+                      nl, nl + nr, scol, parts, out);
+  }
+}
+
 __global__ void masked_top2_kernel(
     const int* __restrict__ desc_a, int m, const int* __restrict__ desc_b,
     int n, const uint8_t* __restrict__ mask, int* __restrict__ out) {
@@ -321,6 +484,29 @@ extern "C" int projection_top2_launch(
       (const float*)radius2, (const int*)oct_lo, (const int*)oct_hi,
       (const uint8_t*)valid_a, m, (const uint4*)desc_b, (const float2*)xy_b,
       (const int*)octave_b, (const uint8_t*)valid_b, n, cap, (int*)out);
+  return (int)cudaGetLastError();
+}
+
+// desc_l, desc_r must be 16-byte and xy_l, xy_r 8-byte aligned; max_d is
+// the float32 value the disparity is compared with.
+extern "C" int stereo_band_top2_launch(
+    const void* desc_l, const void* xy_l, const void* octave_l, const void* scale_l,
+    const void* valid_l, int nl, const void* desc_r, const void* xy_r,
+    const void* octave_r, const void* valid_r, int nr, float max_d, void* out,
+    void* stream) {
+  const int cap = min((max(nl, nr) + 31) / 32 * 32, BAND_CHUNK);
+  const size_t smem = (size_t)cap * sizeof(float4);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        stereo_band_top2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int blocks = (nl + BAND_ROWS - 1) / BAND_ROWS + (nr + BAND_ROWS - 1) / BAND_ROWS;
+  stereo_band_top2_kernel<<<blocks, BAND_THREADS, smem, (cudaStream_t)stream>>>(
+      (const uint4*)desc_l, (const float2*)xy_l, (const int*)octave_l,
+      (const float*)scale_l, (const uint8_t*)valid_l, nl, (const uint4*)desc_r,
+      (const float2*)xy_r, (const int*)octave_r, (const uint8_t*)valid_r, nr, max_d, cap,
+      (int*)out);
   return (int)cudaGetLastError();
 }
 

@@ -20,6 +20,9 @@
   a seed, in the JAX kernel's argument order; the CPU tests hold the port
   to the JAX package on them and `chip_smoke.py` holds the kernel to its
   plain version on them.
+- `band_problem`, `BAND_CASES`, `BAND_MAX_D`, `BAND_SCALES`: K7 stereo-band
+  problems from a seed (numpy), one of them built on the band test's exact
+  edges, for the same two uses.
 
 Every entry point that places tensors takes `device`, "cuda" by default;
 without a card that default raises instead of falling back to the CPU.
@@ -335,3 +338,70 @@ def top2_problem(seed, m, n, ties=False, masked_rows=0):
         octave[0] = pt_oct[2 * masked_rows]
     return (da, proj, radius, pt_oct - 1, pt_oct + 1, valid_a,
             db, xy, octave, valid_b)
+
+
+# K7 on the stereo band. BAND_MAX_D is a Python float whose float32 value
+# (the one PyTorch compares a float32 disparity with) lies above it;
+# BAND_SCALES are the default ORB scale factors 1.2**i in float32.
+BAND_MAX_D = 342.8080423874833
+BAND_SCALES = np.asarray([1.2 ** i for i in range(8)], np.float32)
+BAND_CASES = {
+    "300x280": dict(seed=21, n_l=300, n_r=280),
+    "edges": dict(seed=22, n_l=64, n_r=48, edges=True),
+    "ties": dict(seed=23, n_l=120, n_r=100, ties=True),
+    "one_column": dict(seed=24, n_l=30, n_r=1),
+}
+
+
+def band_problem(seed, n_l, n_r, edges=False, ties=False):
+    """A K7 band problem in numpy: (desc_l, xy_l, octave_l, valid_l,
+    desc_r, xy_r, octave_r, valid_r), descriptors uint32; scale_l is
+    BAND_SCALES[clip(octave_l, 0, 7)] and max_d BAND_MAX_D. Keypoints lie
+    at y in [100, 160), so a row has a few dozen candidates. With edges
+    (n_l >= 8, n_r >= 16), rows 0-7 and columns 0-15 sit on rows of their
+    own (no other keypoint within 8 px in y) and test each edge of the
+    band: disparities of exactly f32(max_d) and its two float32
+    neighbours (row 0), exactly -2 and its neighbours (row 1), |dy| of
+    exactly 2 scale_l and its neighbours (row 2, octave 1), right octaves
+    at +-1 and +-2 (row 3, octave 3), an invalid row whose one candidate
+    column is then a right row with none (row 4), a row with no candidate
+    (row 5), and two rows with one candidate each, the same column at the
+    same distance (rows 6, 7), beside an invalid column that would match."""
+    rng = np.random.default_rng(seed)
+    dl = rng.integers(0, 2 ** 32, size=(n_l, 8), dtype=np.uint32)
+    dr = rng.integers(0, 2 ** 32, size=(n_r, 8), dtype=np.uint32)
+    if ties:
+        dl = dl[rng.integers(0, 3, n_l)]
+        dr = dl[rng.integers(0, 3, n_r)]
+    xy_l = np.stack([rng.uniform(0, 640, n_l), rng.uniform(100, 160, n_l)], 1)
+    xy_r = np.stack([rng.uniform(0, 640, n_r), rng.uniform(100, 160, n_r)], 1)
+    xy_l, xy_r = xy_l.astype(np.float32), xy_r.astype(np.float32)
+    oct_l = rng.choice(8, n_l, p=[.3, .2, .15, .1, .08, .07, .05, .05]).astype(np.int32)
+    oct_r = rng.choice(8, n_r, p=[.3, .2, .15, .1, .08, .07, .05, .05]).astype(np.int32)
+    valid_l, valid_r = rng.random(n_l) < 0.9, rng.random(n_r) < 0.9
+    if not edges:
+        return dl, xy_l, oct_l, valid_l, dr, xy_r, oct_r, valid_r
+    f32 = np.float32
+    up, down = (lambda v: np.nextafter(f32(v), f32(np.inf))), \
+        (lambda v: np.nextafter(f32(v), f32(-np.inf)))
+    md = f32(BAND_MAX_D)
+    s2 = f32(2) * BAND_SCALES[1]
+    # (row, x_l, y_l, octave_l, [(column, x_r, y_r, octave_r), ...])
+    plan = [
+        (0, f32(2) * md, 1000, 0, [(0, md, 1000, 0), (1, f32(2) * md - up(md), 1000, 0),
+                                   (2, f32(2) * md - down(md), 1000, 0)]),
+        (1, 10, 1100, 0, [(3, 12, 1100, 0), (4, up(12), 1100, 0), (5, down(12), 1100, 0)]),
+        (2, 300, f32(2) * s2, 1, [(6, 290, s2, 1), (7, 290, up(s2), 1), (8, 290, down(s2), 1)]),
+        (3, 300, 1200, 3, [(9, 290, 1200, 1), (10, 290, 1200, 2), (11, 290, 1200, 4),
+                           (12, 290, 1200, 5)]),
+        (4, 300, 1300, 0, [(13, 290, 1300, 0)]),
+        (5, 300, -5000, 0, []),
+        (6, 300, 1400, 2, [(14, 250, 1400, 2), (15, 260, 1400, 2)]),
+        (7, 300, 1400, 2, []),
+    ]
+    for row, x, y, o, cols in plan:
+        xy_l[row], oct_l[row], valid_l[row] = (x, y), o, row != 4
+        for col, xr, yr, orr in cols:
+            xy_r[col], oct_r[col], valid_r[col] = (xr, yr), orr, col != 15
+    dl[7] = dl[6]
+    return dl, xy_l, oct_l, valid_l, dr, xy_r, oct_r, valid_r

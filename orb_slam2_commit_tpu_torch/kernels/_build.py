@@ -64,6 +64,9 @@ SIGNATURES = {
         "cell_topk_launch": (
             _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_void_p, _c_void_p,
             _c_void_p),
+        "cell_topk_map_launch": (
+            _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_void_p, _c_void_p,
+            _c_void_p),
     },
     "patches": {
         "extract_patches_launch": (
@@ -82,6 +85,10 @@ SIGNATURES = {
         "masked_top2_launch": (
             _c_void_p, _c_int, _c_void_p, _c_int, _c_void_p, _c_void_p,
             _c_void_p),
+        "stereo_band_top2_launch": (
+            _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int,
+            _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_float,
+            _c_void_p, _c_void_p),
     },
     "pose_lm": {
         "pose_lm_launch": (
@@ -92,9 +99,9 @@ SIGNATURES = {
 }
 
 launches: Dict[str, int] = {
-    "level_preprocess": 0, "combine_nms": 0, "cell_topk": 0,
+    "level_preprocess": 0, "combine_nms": 0, "cell_topk_map": 0, "cell_topk": 0,
     "extract_patches": 0, "corner_subpix": 0, "projection_hamming_top2": 0,
-    "masked_hamming_top2": 0, "pose_lm": 0,
+    "stereo_band_top2": 0, "masked_hamming_top2": 0, "pose_lm": 0,
 }
 
 _libraries: Dict[str, ctypes.CDLL] = {}

@@ -3,8 +3,11 @@ ops/pallas_matching.py; kernels in csrc/matching.cu):
 
 - K6 projection_hamming_top2: windowed, octave-banded top-2 per projected
   map point, in one window or in two from one scan;
+- K7 stereo_band_top2: top-2 under the stereo matcher's candidate band
+  (ops/stereo.py), left -> right and right -> left in one launch that
+  tests the band itself;
 - K7 masked_hamming_top2: top-2 under a caller-supplied [M, N] candidate
-  mask (the stereo matcher's, ops/stereo.py).
+  mask (no caller on the main paths).
 
 On a CUDA tensor a wrapper launches its kernel; on a CPU tensor it runs
 the plain version. Both give the same four outputs, the Pallas kernels'
@@ -115,6 +118,86 @@ def projection_hamming_top2(
         _build.check(err, "projection_hamming_top2")
         _build.launches["projection_hamming_top2"] += 1
     return tuple(tuple(o) for o in out)
+
+
+def stereo_band_mask(xy_l, octave_l, scale_l, valid_l, xy_r, octave_r, valid_r,
+                     max_d: float) -> torch.Tensor:
+    """The stereo matcher's [N_l, N_r] candidate mask (JAX ops/stereo.py
+    stereo_match): both keypoints valid, |y_l - y_r| <= 2 scale_l, octave_r
+    within octave_l +- 1, and -2 <= x_l - x_r <= max_d, in float32."""
+    row_band = torch.abs(xy_l[:, 1:2] - xy_r[None, :, 1]) <= (2.0 * scale_l)[:, None]
+    octave_band = matching.octave_band_mask(octave_r, octave_l - 1, octave_l + 1)
+    disp = xy_l[:, 0:1] - xy_r[None, :, 0]
+    disp_ok = (disp >= -2.0) & (disp <= max_d)
+    return valid_l[:, None] & valid_r[None, :] & row_band & octave_band & disp_ok
+
+
+def stereo_band_top2_plain(
+    desc_l, xy_l, octave_l, scale_l, valid_l, desc_r, xy_r, octave_r, valid_r,
+    max_d: float, top2=masked_hamming_top2_plain,
+) -> Tuple[Top2, Top2]:
+    """Plain version of K7 on the stereo band: the mask, then `top2` left
+    -> right and right -> left on the transposed mask."""
+    mask = stereo_band_mask(xy_l, octave_l, scale_l, valid_l, xy_r, octave_r, valid_r,
+                            max_d)
+    return top2(desc_l, desc_r, mask), top2(desc_r, desc_l, mask.t().contiguous())
+
+
+def stereo_band_top2(
+    desc_l: torch.Tensor,     # [N_l, 8] int32 (uint32 bits)
+    xy_l: torch.Tensor,       # [N_l, 2] float32 keypoint pixels (x, y)
+    octave_l: torch.Tensor,   # [N_l] int32
+    scale_l: torch.Tensor,    # [N_l] float32 scale factor of each left octave
+    valid_l: torch.Tensor,    # [N_l] bool
+    desc_r: torch.Tensor,     # [N_r, 8] int32
+    xy_r: torch.Tensor,       # [N_r, 2] float32
+    octave_r: torch.Tensor,   # [N_r] int32
+    valid_r: torch.Tensor,    # [N_r] bool
+    max_d: float,             # largest disparity, compared in float32
+) -> Tuple[Top2, Top2]:
+    """K7 on the stereo matcher's candidate band -> (left -> right top-2
+    over [N_l] rows, right -> left top-2 over [N_r] rows), each
+    (best, best_idx, second, second_idx) int32 as `masked_hamming_top2`
+    gives it under `stereo_band_mask` and under its transpose. On the card
+    one launch tests the band itself, so no [N_l, N_r] mask exists; on the
+    CPU the mask goes through `masked_hamming_top2` twice."""
+    nl, nr = desc_l.shape[0], desc_r.shape[0]
+    for args, rows in (((desc_l, "desc_l", torch.int32, 2), (xy_l, "xy_l", torch.float32, 2),
+                        (octave_l, "octave_l", torch.int32, 1),
+                        (scale_l, "scale_l", torch.float32, 1),
+                        (valid_l, "valid_l", torch.bool, 1)), nl), \
+                      (((desc_r, "desc_r", torch.int32, 2), (xy_r, "xy_r", torch.float32, 2),
+                        (octave_r, "octave_r", torch.int32, 1),
+                        (valid_r, "valid_r", torch.bool, 1)), nr):
+        for t, name, dtype, ndim in args:
+            _build.require(t, f"stereo_band_top2 {name}", dtype, ndim)
+            if t.shape[0] != rows or t.device != desc_l.device:
+                raise ValueError(
+                    f"stereo_band_top2 {name}: shape {tuple(t.shape)} on {t.device}, "
+                    f"expected {rows} rows on {desc_l.device}")
+    if desc_l.shape[1] != 8 or desc_r.shape[1] != 8 or xy_l.shape[1] != 2 \
+            or xy_r.shape[1] != 2 or not 1 <= nl < (1 << COL_BITS) \
+            or not 1 <= nr < (1 << COL_BITS):
+        raise ValueError(
+            f"stereo_band_top2: descriptors {tuple(desc_l.shape)} x {tuple(desc_r.shape)}, "
+            f"xy {tuple(xy_l.shape)} x {tuple(xy_r.shape)}")
+    if not _build.on_card(desc_l, "stereo_band_top2"):
+        # masked_hamming_top2 takes its plain version on the CPU.
+        return stereo_band_top2_plain(desc_l, xy_l, octave_l, scale_l, valid_l, desc_r,
+                                      xy_r, octave_r, valid_r, max_d,
+                                      top2=masked_hamming_top2)
+    # The kernel reads descriptors 16 bytes and positions 8 bytes at a time.
+    desc_l, desc_r, xy_l, xy_r = (_build.aligned(t) for t in (desc_l, desc_r, xy_l, xy_r))
+    out = torch.empty((4, nl + nr), dtype=torch.int32, device=desc_l.device)
+    # PyTorch compares a float32 tensor with a Python float in float32: the
+    # kernel gets that float32 value (ctypes rounds the double to nearest).
+    err = _build.library("matching").stereo_band_top2_launch(
+        desc_l.data_ptr(), xy_l.data_ptr(), octave_l.data_ptr(), scale_l.data_ptr(),
+        valid_l.data_ptr(), nl, desc_r.data_ptr(), xy_r.data_ptr(), octave_r.data_ptr(),
+        valid_r.data_ptr(), nr, max_d, out.data_ptr(), _build.stream_of(desc_l))
+    _build.check(err, "stereo_band_top2")
+    _build.launches["stereo_band_top2"] += 1
+    return tuple(out[:, :nl]), tuple(out[:, nl:])
 
 
 def masked_hamming_top2(

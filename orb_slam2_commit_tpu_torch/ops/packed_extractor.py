@@ -7,7 +7,7 @@ W0] and each stage runs once on it:
   image -> pyramid (two batched products) -> canvas
   canvas -> blur + FAST at both thresholds  (K1, kernels/level.py)
          -> border mask + cell fallback + NMS (K2, kernels/level.py)
-         -> per-cell top-k                  (K3, kernels/select.py)
+         -> per-cell top-k, read from the score map (K3, kernels/select.py)
          -> per-level top-k                 (one stable sort)
          -> IC angle from 31x31 patches     (K4, kernels/patches.py)
          -> rotated BRIEF from 39x39 blurred patches (K4 again)
@@ -157,20 +157,6 @@ def build_canvas(image: torch.Tensor, plan: PackPlan) -> torch.Tensor:
     return torch.cat([lvl0, rest], dim=0)
 
 
-def cell_matrix(score: torch.Tensor, cell_size: int) -> torch.Tensor:
-    """[n_cells, cell_size**2] rows of the score map's cells in raster
-    order (the width zero-padded to whole cells); entry i of a row is
-    pixel (i // cell_size, i % cell_size) of its cell."""
-    hc, w = score.shape
-    if hc % cell_size:
-        raise ValueError("score rows must be a multiple of the cell size")
-    wp = _round_up(w, cell_size)
-    sp = torch.nn.functional.pad(score, (0, wp - w))
-    n_cy, n_cx = hc // cell_size, wp // cell_size
-    cells = sp.reshape(n_cy, cell_size, n_cx, cell_size).permute(0, 2, 1, 3)
-    return cells.reshape(n_cy * n_cx, cell_size * cell_size).contiguous()
-
-
 def packed_select(
     score: torch.Tensor,
     plan: PackPlan,
@@ -187,7 +173,7 @@ def packed_select(
     dev = score.device
     n_cy = score.shape[0] // cell_size
     n_cx = _round_up(score.shape[1], cell_size) // cell_size
-    cell_vals, cell_arg = select.cell_topk(cell_matrix(score, cell_size), cell_top_k)
+    cell_vals, cell_arg = select.cell_topk_map(score, cell_size, cell_top_k)
     cell_vals = cell_vals.clamp_min(0.0)   # -inf pads (k > nonzeros) -> 0
 
     cell_ids = torch.arange(n_cy * n_cx, dtype=torch.int32, device=dev)[:, None]

@@ -2,13 +2,14 @@
 ops/stereo.py; the reference's Frame::ComputeStereoMatches,
 src/Frame.cc:547-788).
 
-One dense candidate mask over the [N_l, N_r] keypoint pairs (epipolar row
-band + octave band + disparity window + validity), and the Hamming top-2
-under it through K7 (kernels/matching.masked_hamming_top2): left -> right
-for each left keypoint's best match, right -> left under the transposed
-mask for the mutual check. On the card the [N_l, N_r] distance matrix
-never exists. Then an 11x11 SAD scan over +-5 px with a parabola fit on
-the matched pairs, and the median-based outlier cut (:770-787).
+The candidate pairs are a band of the [N_l, N_r] keypoint pairs (epipolar
+row band + octave band + disparity window + validity), and the Hamming
+top-2 under it comes from K7 (kernels/matching.stereo_band_top2): left ->
+right for each left keypoint's best match, right -> left for the mutual
+check, in one launch that tests the band itself, so on the card neither
+the [N_l, N_r] mask nor the distance matrix exists. Then an 11x11 SAD
+scan over +-5 px with a parabola fit on the matched pairs, and the
+median-based outlier cut (:770-787).
 
 Level-dependent image access uses a padded pyramid stack [L, H0, W0], so
 an octave held in a tensor can index it.
@@ -121,15 +122,12 @@ def stereo_match(
     lvl = torch.clamp(octave_l, 0, scale_factors.shape[0] - 1).long()
     scale = scale_factors[lvl]
 
-    # --- candidate mask + Hamming best match (K7), mutual check (K7) -----
-    row_band = torch.abs(xy_l[:, 1:2] - xy_r[None, :, 1]) <= (2.0 * scale)[:, None]
-    octave_band = matching.octave_band_mask(octave_r, octave_l - 1, octave_l + 1)
-    disp = xy_l[:, 0:1] - xy_r[None, :, 0]
-    disp_ok = (disp >= min_d - 2.0) & (disp <= max_d)
-    mask = valid_l[:, None] & valid_r[None, :] & row_band & octave_band & disp_ok
-    desc_l, desc_r = desc_l.contiguous(), desc_r.contiguous()
-    m = matching.match_from_top2(
-        *matching_kernel.masked_hamming_top2(desc_l, desc_r, mask), int(TH_ORB))
+    # --- Hamming best match and mutual check under the candidate band (K7)
+    (best, best_idx, second, second_idx), (_, best_l_for_r, _, _) = \
+        matching_kernel.stereo_band_top2(
+            *(t.contiguous() for t in (desc_l, xy_l, octave_l, scale, valid_l,
+                                       desc_r, xy_r, octave_r, valid_r)), max_d)
+    m = matching.match_from_top2(best, best_idx, second, second_idx, int(TH_ORB))
     has = m.idx >= 0
     ridx = torch.clamp_min(m.idx, 0).long()
 
@@ -137,8 +135,6 @@ def stereo_match(
     # keypoint's own best left candidate must be this left keypoint. A
     # right keypoint with no candidate has best index 0, as jnp.argmin
     # gives over an all-BIG column.
-    best_l_for_r = matching_kernel.masked_hamming_top2(
-        desc_r, desc_l, mask.t().contiguous())[1]
     rows = torch.arange(n_l, dtype=torch.int32, device=dev)
     has = has & (best_l_for_r[ridx] == rows)
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Compare design variants of the port's K1, K2, K6 and K8 kernels on one card.
+"""Compare design variants of the port's K1, K2, K3, K6, K7 and K8 kernels on one card.
 
 A variant is csrc/<lib>.cu with a few text substitutions, or, under the tag
 `previous`, the source of an earlier design read from --previous DIR (write
@@ -19,6 +19,17 @@ under torch.profiler in the order A B .. B A twice:
   which shares the library, exact on the stereo pair's two launches and
   timed beside it; the `-clock` variant prints the cycles of block 0's
   staging, scan and merge;
+- K7 on the stereo band exact in both directions on chip_smoke.py's band
+  cases, timed on the stereo pair's call (the previous design runs K7
+  under the band's mask twice, left -> right and right -> left on the
+  transposed mask, as the stereo matcher called it), with K6 and K7 under
+  a mask still exact; the `-clock` variants, on both sides, add up
+  clock64() and %globaltimer in block 0, thread 0, over every launch of
+  the timed loop and print the SM clock they imply;
+- K3 bit for bit on chip_smoke.py's maps (the previous design in its row
+  form on the cell matrix), timed per launch on the main canvas's score
+  map (the previous design on the cell matrix, which cell_matrix copied
+  out of the map first) and with that copy;
 - K8 within chip_smoke.py's bounds on its six problems, two launches
   bit-identical. K8 variants also report their evaluations, which differ
   between builds because the LM's path depends on float rounding, and the
@@ -32,6 +43,8 @@ Run from the repository root on a machine with the card:
     python3 scripts/kernel_variants.py level-tile
     python3 scripts/kernel_variants.py level-combine --previous DIR
     python3 scripts/kernel_variants.py matching-k6 --previous DIR
+    python3 scripts/kernel_variants.py matching-k7 --previous DIR
+    python3 scripts/kernel_variants.py select-k3 --previous DIR
 """
 
 from __future__ import annotations
@@ -51,18 +64,18 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from orb_slam2_commit_tpu_torch import interop  # noqa: E402
 from orb_slam2_commit_tpu_torch.kernels import (  # noqa: E402
-    _build, level, matching as kmatching, pose_lm)
+    _build, level, matching as kmatching, pose_lm, select)
 from orb_slam2_commit_tpu_torch.optim import pose_opt  # noqa: E402
 
 OUT = Path("chiprun_out")
 PREVIOUS = "previous"
 _c_void_p, _c_int = ctypes.c_void_p, ctypes.c_int
-# The previous K6 design's entry point: one window, no radius2.
-PREVIOUS_SIGNATURES = {"matching": {
+# The entry points of a set's previous design where they differ from the
+# committed ones: matching-k6's (PR 4's K6: one window, no radius2).
+PREVIOUS_SIGNATURES = {"matching-k6": {
     "projection_top2_launch": (
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int,
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_void_p, _c_void_p),
-    "masked_top2_launch": _build.SIGNATURES["matching"]["masked_top2_launch"],
 }}
 
 _THREADS = "constexpr int THREADS = 256;"
@@ -227,6 +240,149 @@ _K6_DESC_L2 = [
      "#pragma unroll\n"
      "          for (int w = 0; w < WORDS; ++w) d += __popc(a[w] ^ bw[w]);\n"),
 ]
+# clock64() and %globaltimer in block 0, thread 0, added up over every
+# launch: K7 under a mask (the previous design, one launch per direction)
+# and K7 on the band.
+_K7_CLOCK_DECL = ("constexpr unsigned NO_KEY = 0xffffffffu;  // \"no column\": above every key",
+                  "constexpr unsigned NO_KEY = 0xffffffffu;\n"
+                  "__device__ unsigned long long k7_clocks[3];\n"
+                  "__device__ __forceinline__ unsigned long long global_ns() {\n"
+                  "  unsigned long long t;\n"
+                  "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n"
+                  "  return t;\n}")
+_K7_CLOCK_END = ("  if (blockIdx.x == 0 && threadIdx.x == 0) {\n"
+                 "    atomicAdd(&k7_clocks[0], (unsigned long long)(clock64() - c_start));\n"
+                 "    atomicAdd(&k7_clocks[1], global_ns() - g_start);\n"
+                 "    atomicAdd(&k7_clocks[2], 1ull);\n  }\n")
+_K7_CLOCK_READ = ("}  // namespace\n",
+                  "}  // namespace\n\nextern \"C\" int clock_read(void* host) {\n"
+                  "  return (int)cudaMemcpyFromSymbol(host, k7_clocks, sizeof(k7_clocks));\n}\n")
+_K7_CLOCK_START = ("  const long long c_start = clock64();\n"
+                   "  const unsigned long long g_start = global_ns();\n")
+_K7_CLOCK_MASKED = [
+    _K7_CLOCK_DECL,
+    ("  const int row = blockIdx.x * WARPS + warp;\n  if (row >= m) return;\n",
+     "  const int row = blockIdx.x * WARPS + warp;\n  if (row >= m) return;\n"
+     + _K7_CLOCK_START),
+    ("  if (lane == 0) store_top2(k1, k2, row, m, n, out);\n}\n",
+     "  if (lane == 0) store_top2(k1, k2, row, m, n, out);\n" + _K7_CLOCK_END + "}\n"),
+    _K7_CLOCK_READ,
+]
+_K7_CLOCK_BAND = [
+    _K7_CLOCK_DECL,
+    ("  const int row = r0 + warp / BAND_WPR;\n",
+     "  const int row = r0 + warp / BAND_WPR;\n" + _K7_CLOCK_START),
+    ("  if (lane == 0) store_top2(k1, k2, row0 + row, m_all, n, out);\n",
+     "  if (lane == 0) store_top2(k1, k2, row0 + row, m_all, n, out);\n" + _K7_CLOCK_END),
+    _K7_CLOCK_READ,
+]
+_BAND_ROWS, _BAND_WPR = "constexpr int BAND_ROWS = 8;", "constexpr int BAND_WPR = 2;"
+_K3_WARPS = "constexpr int WARPS = 4;     // cells per block"
+# K3 with every entry of a lane in registers (PR 6's first design): a
+# round masks the winning entry by 32 selects and rescans the lane by a
+# tree of depth 5, in place of one group of four in shared memory and
+# the eight group heads.
+_K3_REGISTERS = [
+    ("""// NJ: entries per lane / 4. MAP32:""",
+     """// The lane's best entry by a tree of depth 5 over 32 slots.
+template <int NV>
+__device__ __forceinline__ void lane_best(const float (&v)[NV], float& hv, int& hp) {
+  float bv[32];
+  int bp[32];
+#pragma unroll
+  for (int t = 0; t < 32; ++t) {
+    bv[t] = t < NV ? v[t < NV ? t : 0] : -INFINITY;
+    bp[t] = t;
+  }
+#pragma unroll
+  for (int s = 1; s < 32; s *= 2) {
+#pragma unroll
+    for (int t = 0; t < 32; t += 2 * s) {
+      if (bv[t + s] > bv[t]) {
+        bv[t] = bv[t + s];
+        bp[t] = bp[t + s];
+      }
+    }
+  }
+  hv = bv[0];
+  hp = bp[0];
+}
+
+// NJ: entries per lane / 4. MAP32:"""),
+    ("""  float gv[NJ];
+  int gp[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    staged[warp][j][lane] = q[j];
+    group_best(q[j], gv[j], gp[j]);
+    gp[j] += 4 * j;
+  }
+  float hv;
+  int hp;
+  heads_best(gv, gp, hv, hp);
+  for (int round = 0; round < k; ++round) {
+    const unsigned key = order_key(hv);
+    const unsigned best = __reduce_max_sync(0xffffffffu, key);
+    const unsigned idx = (unsigned)((hp / 4) * LANE + 4 * lane + hp % 4);
+    const unsigned win = __reduce_min_sync(0xffffffffu, key == best ? idx : 0xffffffffu);
+    if (idx == win) {
+      vals[(size_t)row * k + round] = hv;
+      args[(size_t)row * k + round] = (int)idx;
+      // Mask the entry, then find its group's new head and the lane's.
+      const int j = hp / 4, e = hp % 4;
+      float4 g4 = staged[warp][j][lane];
+      g4.x = e == 0 ? -INFINITY : g4.x;
+      g4.y = e == 1 ? -INFINITY : g4.y;
+      g4.z = e == 2 ? -INFINITY : g4.z;
+      g4.w = e == 3 ? -INFINITY : g4.w;
+      staged[warp][j][lane] = g4;
+      float nv;
+      int ne;
+      group_best(g4, nv, ne);
+#pragma unroll
+      for (int g = 0; g < NJ; ++g) {
+        if (g == j) {
+          gv[g] = nv;
+          gp[g] = 4 * g + ne;
+        }
+      }
+      heads_best(gv, gp, hv, hp);
+    }
+  }
+}
+
+""",
+     """  float v[4 * NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    v[4 * j] = q[j].x;
+    v[4 * j + 1] = q[j].y;
+    v[4 * j + 2] = q[j].z;
+    v[4 * j + 3] = q[j].w;
+  }
+  float hv;
+  int hp;
+  lane_best(v, hv, hp);
+  for (int round = 0; round < k; ++round) {
+    const unsigned key = order_key(hv);
+    const unsigned best = __reduce_max_sync(0xffffffffu, key);
+    const unsigned idx = (unsigned)((hp / 4) * LANE + 4 * lane + hp % 4);
+    const unsigned win = __reduce_min_sync(0xffffffffu, key == best ? idx : 0xffffffffu);
+    if (idx == win) {
+      vals[(size_t)row * k + round] = hv;
+      args[(size_t)row * k + round] = (int)idx;
+#pragma unroll
+      for (int t = 0; t < 4 * NJ; ++t) {
+        if (t == hp) v[t] = -INFINITY;
+      }
+      lane_best(v, hv, hp);
+    }
+  }
+}
+
+"""),
+]
+
 # K2 in one launch: each per-pixel block finds the flags of the 3 x 6
 # cells its staged pixels lie in from score_hi inside the bounds (every
 # row of those cells, 18 float4 loads a thread, all in flight), in place
@@ -328,11 +484,34 @@ SETS = {
         "rows4-wpr2-desc-l2": [(_ROWS, "constexpr int ROWS = 4;")] + _K6_DESC_L2,
         "rows8-wpr2-clock": _K6_CLOCK,
     }, ("projection_top2_kernel", "masked_top2_kernel")),
+    # K7: the previous design (two launches under the band's mask) against
+    # the committed band kernel, 8 rows per block and 2 warps per row; 1
+    # and 4 warps per row; 4 and 16 rows; both sides with clock counters.
+    "matching-k7": ("matching", {
+        PREVIOUS: [],
+        "band-rows8-wpr2": [],
+        "band-rows8-wpr1": [(_BAND_WPR, "constexpr int BAND_WPR = 1;")],
+        "band-rows8-wpr4": [(_BAND_WPR, "constexpr int BAND_WPR = 4;")],
+        "band-rows4-wpr2": [(_BAND_ROWS, "constexpr int BAND_ROWS = 4;")],
+        "band-rows16-wpr2": [(_BAND_ROWS, "constexpr int BAND_ROWS = 16;")],
+        f"{PREVIOUS}-clock": _K7_CLOCK_MASKED,
+        "band-rows8-wpr2-clock": _K7_CLOCK_BAND,
+    }, ("stereo_band_top2_kernel", "masked_top2_kernel")),
+    # K3: the previous design (row form on the cell matrix) against the
+    # committed 4 cells per block with groups of four staged in shared
+    # memory, 2 and 8 cells, and every entry in registers.
+    "select-k3": ("select", {
+        PREVIOUS: [],
+        "warps4": [],
+        "warps2": [(_K3_WARPS, "constexpr int WARPS = 2;")],
+        "warps8": [(_K3_WARPS, "constexpr int WARPS = 8;")],
+        "warps4-registers": _K3_REGISTERS,
+    }, ("cell_topk_kernel",)),
 }
 
 
 def build(lib, tag, subs, previous):
-    src_path = (previous if tag == PREVIOUS else _build.CSRC_DIR) / f"{lib}.cu"
+    src_path = (previous if tag.startswith(PREVIOUS) else _build.CSRC_DIR) / f"{lib}.cu"
     if not src_path.exists():
         raise SystemExit(f"{src_path} not found: write the previous design's source there")
     src = src_path.read_text()
@@ -349,10 +528,14 @@ def build(lib, tag, subs, previous):
     return proc, so
 
 
-def load(lib, tag, so):
+def load(set_name, lib, tag, so):
+    """The variant's library, its entry points typed; a previous design
+    lacks the entry points that came after it."""
     dll = ctypes.CDLL(str(so))
-    signatures = PREVIOUS_SIGNATURES.get(lib, {}) if tag == PREVIOUS else {}
+    signatures = PREVIOUS_SIGNATURES.get(set_name, {}) if tag.startswith(PREVIOUS) else {}
     for fn_name, argtypes in {**_build.SIGNATURES[lib], **signatures}.items():
+        if not hasattr(dll, fn_name):
+            continue
         fn = getattr(dll, fn_name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
@@ -392,7 +575,11 @@ def previous_k6(dll):
     return top2
 
 
-def level_checks(x):
+def is_previous(state):
+    return state["tag"].startswith(PREVIOUS)
+
+
+def level_checks(x, state):
     th_hi, th_lo = x["ths"]
     canvases = (x["canvas"], x["small_canvas"])
     want = [level.level_preprocess_plain(*level.pad_level(c), th_hi, th_lo)
@@ -407,7 +594,7 @@ def level_checks(x):
     return check, {"K1": lambda: level.level_preprocess(x["canvas"], th_hi, th_lo)}, 200
 
 
-def combine_checks(x):
+def combine_checks(x, state):
     th_hi, th_lo = x["ths"]
     _, s_hi, s_lo = level.level_preprocess(x["small_canvas"], th_hi, th_lo)
     maps = ((x["hi"], x["lo"], x["bounds"]), (s_hi, s_lo, x["small_bounds"]),
@@ -422,7 +609,7 @@ def combine_checks(x):
     return check, {"K2": lambda: level.combine_nms(*maps[0])}, 200
 
 
-def matching_checks(x):
+def matching_checks(x, state):
     problems = list(cs.k6_problems(x))
     want7 = [kmatching.masked_hamming_top2_plain(*a) for a in x["k7"]]
 
@@ -444,7 +631,7 @@ def matching_checks(x):
     }, 200
 
 
-def pose_checks(x):
+def pose_checks(x, state):
     problems = x["k8"] + x["k8_stereo"] + [cs.tiled_problem(x["k8_stereo"][0], n)
                                            for n in cs.K8_TILED_ROWS]
     want = [pose_opt.pose_optimization_plain(*a) for a in problems]
@@ -462,14 +649,71 @@ def pose_checks(x):
     return check, {"K8": lambda: [pose_lm.pose_lm(*a) for a in x["k8"]]}, 50
 
 
+def band_checks(x, state):
+    """K7: the band kernel on chip_smoke.py's band cases (the previous
+    design has none), K7 under a mask and K6 on theirs."""
+    problems = list(cs.band_problems(x))
+    check6, _, _ = matching_checks(x, state)
+
+    def check():
+        check6()
+        if not is_previous(state):
+            for what, args in problems:
+                cs.check_band(what, args)
+
+    def k7():
+        if is_previous(state):
+            return [kmatching.masked_hamming_top2(*a) for a in x["k7"]]
+        return kmatching.stereo_band_top2(*x["k7_band"])
+
+    return check, {"K7 stereo pair": k7}, 200
+
+
+def select_checks(x, state):
+    """K3: the map form on chip_smoke.py's two score maps, the row form on
+    the main map's cell matrix (the previous design: the row form only)."""
+    k, cell = x["k"], x["cell"]
+    maps = (x["score"], x["small_score"])
+    want = [select.cell_topk_map_plain(m, cell, k) for m in maps]
+
+    def check():
+        for m, (wv, wa) in zip(maps, want):
+            got = (select.cell_topk(select.cell_matrix(m, cell), k) if is_previous(state)
+                   else select.cell_topk_map(m, cell, k))
+            if not (torch.equal(got[0], wv) and torch.equal(got[1], wa)):
+                raise SystemExit("K3 variant differs from its plain version")
+
+    def k3():
+        if is_previous(state):
+            return select.cell_topk(x["cells"], k)
+        return select.cell_topk_map(x["score"], cell, k)
+
+    def k3_with_copy():
+        if is_previous(state):
+            return select.cell_topk(select.cell_matrix(x["score"], cell), k)
+        return select.cell_topk_map(x["score"], cell, k)
+
+    return check, {"K3": k3, "K3 with its input's copy": k3_with_copy}, 200
+
+
 CHECKS = {"pose_lm-threads": pose_checks, "level-tile": level_checks,
-          "level-combine": combine_checks, "matching-k6": matching_checks}
+          "level-combine": combine_checks, "matching-k6": matching_checks,
+          "matching-k7": band_checks, "select-k3": select_checks}
 
 
-def print_clocks(lib, tag, dll, x):
+def k7_clocks(dll):
+    """A K7 `-clock` variant's sums: (cycles, ns, launches)."""
+    c = (ctypes.c_ulonglong * 3)()
+    dll.clock_read(c)
+    return tuple(c)
+
+
+def print_clocks(set_name, lib, tag, dll, x):
     """Run the main path's calls of a `-clock` variant once each and print
     the cycles its counters read."""
     dll.clock_read.argtypes = [ctypes.c_void_p]
+    if set_name == "matching-k7":
+        return     # read around the timed loop instead
     if lib == "matching":
         for what, a in zip(("motion stage", "local-map stage"), x["k6"]):
             kmatching.projection_hamming_top2(*a)
@@ -502,6 +746,7 @@ def main():
     _, _, power = cs.phase_device()
 
     built = {tag: build(lib, tag, subs, args.previous) for tag, subs in variants.items()}
+    state = {"tag": ""}
     dlls = {}
     for tag, (proc, so) in built.items():
         log, _ = proc.communicate()
@@ -512,7 +757,7 @@ def main():
                 print(f"{lib} {tag}: {line.strip()}")
         for name, n, top in sass_counts(so, kernels):
             print(f"{lib} {tag}: {name[:60]} {n} SASS instructions {top}")
-        dlls[tag] = load(lib, tag, so)
+        dlls[tag] = load(args.set, lib, tag, so)
 
     config, step_args = interop.make_example(cs.WIDTH, cs.HEIGHT, cs.N_FEATURES,
                                              cs.N_POINTS, "cuda")
@@ -521,14 +766,16 @@ def main():
              for s in ("monocular", "stereo")}
     x = cs.main_path_inputs(step_args[0], *pairs["monocular"])
     x.update(cs.stereo_path_inputs(*pairs["stereo"]))
-    check, timed, iters = CHECKS[args.set](x)
+    check, timed, iters = CHECKS[args.set](x, state)
 
     wrapper = kmatching.projection_hamming_top2
 
     def use(tag):
+        state["tag"] = tag
         _build._libraries[lib] = dlls[tag]
         kmatching.projection_hamming_top2 = (
-            previous_k6(dlls[tag]) if lib == "matching" and tag == PREVIOUS else wrapper)
+            previous_k6(dlls[tag]) if args.set == "matching-k6" and tag == PREVIOUS
+            else wrapper)
 
     tags = list(dlls)
     times = {(t, what): [] for t in tags for what in timed}
@@ -541,7 +788,9 @@ def main():
         if lib == "pose_lm":
             evals[tag] = sum(pose_lm.work_done(*a)[0] for a in x["k8"])
         if hasattr(dlls[tag], "clock_read"):
-            print_clocks(lib, tag, dlls[tag], x)
+            print_clocks(args.set, lib, tag, dlls[tag], x)
+    clocks_before = {t: k7_clocks(dlls[t]) for t in tags
+                     if args.set == "matching-k7" and hasattr(dlls[t], "clock_read")}
     for order in (tags, tags[::-1], tags, tags[::-1]):
         for tag in order:
             use(tag)
@@ -550,6 +799,11 @@ def main():
                 times[(tag, what)].append(ms)
                 split.setdefault((tag, what), []).append(by_name)
     kmatching.projection_hamming_top2 = wrapper
+    for tag, before in clocks_before.items():
+        cycles, ns, n = (a - b for a, b in zip(k7_clocks(dlls[tag]), before))
+        print(f"{lib} {tag}: block 0, thread 0 over the timed loop's {n} launches: "
+              f"{cycles / max(n, 1):.0f} cycles and {ns / max(n, 1):.0f} ns per launch, "
+              f"{cycles / max(ns, 1) * 1e3:.0f} MHz")
     for tag in tags:
         for what in timed:
             v = times[(tag, what)]
