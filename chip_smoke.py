@@ -23,7 +23,11 @@ Phases (any failure exits non-zero and prints no result line):
      K1 and K2 also on a canvas with pad rows and columns (K2 also with
      every cell low), K3 in its map form also on that canvas's score map,
      on a width that is not a multiple of 4 and with 30-pixel cells, and
-     in its row form on the main map's cell matrix, K6 also on the CPU
+     in its row form on the main map's cell matrix, the fused K4 + K5
+     launch (both windows bit for bit, offsets within K5_TOL) also on the
+     320x240 canvas and on centres at and past every edge
+     (interop.patch_edge_yx), the standalone K4 (P = 31, 39 and 17) and K5
+     on the same inputs, K6 also on the CPU
      tests' cases with one window and with two, with a narrower second
      window, with every row invalid and past one shared-memory chunk, K7
      on the stereo band also on the CPU tests' band cases (one on every
@@ -60,6 +64,7 @@ try:
     from orb_slam2_commit_tpu_torch.kernels import (
         _build, level, matching as kmatching, patches, pose_lm, select, subpix)
     from orb_slam2_commit_tpu_torch.ops import extractor, pyramid, stereo
+    from orb_slam2_commit_tpu_torch.ops import subpix as ops_subpix
     from orb_slam2_commit_tpu_torch.ops import packed_extractor as pe
     from orb_slam2_commit_tpu_torch.optim import pose_opt
     from orb_slam2_commit_tpu_torch.slam import jit_frontend, matchers
@@ -100,18 +105,19 @@ PROFILE_CALLS = 5
 # A K6 problem past one shared-memory chunk of the kernel (2048 columns).
 K6_CHUNKED = dict(seed=8, m=256, n=20000)
 
-# K3 runs in its map form; its row form and K7 under a mask have no caller
-# on the main paths.
+# K3 runs in its map form; K4 and K5 in one fused launch (describe_patches)
+# per extraction. K3's row form, the standalone K4 and K5 and K7 under a
+# mask have no caller on the main paths.
 STEP_WANT = {"level_preprocess": 1, "combine_nms": 1, "cell_topk_map": 1,
-             "cell_topk": 0, "extract_patches": 2, "corner_subpix": 1,
-             "projection_hamming_top2": 1, "stereo_band_top2": 0,
+             "cell_topk": 0, "describe_patches": 1, "extract_patches": 0,
+             "corner_subpix": 0, "projection_hamming_top2": 1, "stereo_band_top2": 0,
              "masked_hamming_top2": 0, "pose_lm": 1}
 # The motion stage's two searches (th, 2 th) share one K6 launch.
 PAIR_WANT = dict(STEP_WANT, projection_hamming_top2=2, pose_lm=2)
 # Two extractions and the stereo matcher's one K7 band launch (both
 # directions).
 STEREO_WANT = dict(PAIR_WANT, level_preprocess=2, combine_nms=2, cell_topk_map=2,
-                   extract_patches=4, corner_subpix=2, stereo_band_top2=1)
+                   describe_patches=2, stereo_band_top2=1)
 WANT = {"monocular": PAIR_WANT, "stereo": STEREO_WANT, "rgbd": PAIR_WANT}
 MOTION = {"monocular": fused_motion_track_packed,
           "stereo": fused_stereo_motion_track_packed,
@@ -268,8 +274,9 @@ def run_pair(config, motion, cands):
 
 def main_path_inputs(image, config, motion, cands):
     """The tensors each kernel gets on the main paths, on the card: K1-K4
-    from the tracking step's extraction (as in slice 1), K5-K8's from one
-    recorded run of the pair."""
+    from the tracking step's extraction (as in slice 1), the fused K4 + K5
+    launch's and K6-K8's from one recorded run of the pair (the standalone
+    K5 on the 31x31 windows of that launch's call)."""
     orb = config.orb
     plan = pe.make_plan(orb, HEIGHT, WIDTH)
     canvas = pe.build_canvas(image, plan)
@@ -278,39 +285,46 @@ def main_path_inputs(image, config, motion, cands):
     bounds = torch.from_numpy(pe._bounds_np(plan, hi_c.shape[0])).to(image.device)
     score = level.combine_nms(hi_c, lo_c, bounds)
     yx, _, _ = pe.select_flat(score, plan, orb)
-    small, small_bounds = padded_canvas(image.device)
+    small, small_bounds, small_plan, small_orb = padded_canvas(image.device)
     ths = (float(orb.ini_th_fast), float(orb.min_th_fast))
-    _, s_hi, s_lo = level.level_preprocess(small, *ths)
+    s_blur, s_hi, s_lo = level.level_preprocess(small, *ths)
+    small_score = level.combine_nms(s_hi, s_lo, small_bounds)
     x = dict(canvas=canvas, blur=blur_c, hi=hi_c, lo=lo_c, bounds=bounds,
              score=score, cells=select.cell_matrix(score, orb.cell_size),
              cell=orb.cell_size, k=orb.cell_top_k, yx=yx, ths=ths,
-             small_canvas=small, small_bounds=small_bounds,
-             small_score=level.combine_nms(s_hi, s_lo, small_bounds))
+             small_canvas=small, small_bounds=small_bounds, small_score=small_score,
+             small_blur=s_blur, small_yx=pe.select_flat(small_score, small_plan, small_orb)[0])
 
     # K6: the motion stage's two-window call and the local-map stage's.
-    k5, k6, k8 = [], [], []
-    with recording(subpix, "corner_subpix_from_patches", k5), \
+    k45, k6, k8 = [], [], []
+    with recording(patches, "describe_patches", k45), \
             recording(kmatching, "projection_hamming_top2", k6), \
             recording(pose_lm, "pose_lm", k8):
         run_pair(config, motion, cands)
     torch.cuda.synchronize()
-    if (len(k5), len(k6), len(k8)) != (1, 2, 2) or len(k6[0][0][2]) != 2:
-        raise AssertionError(f"recorded {len(k5)} K5, {len(k6)} K6, {len(k8)} K8 calls")
-    x.update(k5=k5[0][0], k6=[c[0] for c in k6], k8=[c[0] for c in k8])
+    if (len(k45), len(k6), len(k8)) != (1, 2, 2) or len(k6[0][0][2]) != 2:
+        raise AssertionError(f"recorded {len(k45)} K4 + K5, {len(k6)} K6, {len(k8)} K8 calls")
+    p_canvas, _, p_yx, refine = k45[0][0]
+    if not refine:
+        raise AssertionError("the pair's extraction did not refine its keypoints")
+    half = patches.PATCH_SIZE // 2
+    x.update(k45=k45[0][0], k5=(patches.extract_patches_plain(p_canvas, p_yx, patches.PATCH_SIZE),
+                                half, half),
+             k6=[c[0] for c in k6], k8=[c[0] for c in k8])
     return x
 
 
 def padded_canvas(device):
     """The packed canvas of frame 1 at 320x240 and 400 features (the JAX
     package's example size): [1248, 320], whose outputs are [1280, 384], so
-    K1 reads pad rows and columns through its tables; and the row bounds
-    of those outputs."""
+    K1 reads pad rows and columns through its tables; the row bounds of
+    those outputs, the canvas plan and the ORB configuration."""
     config, images, _, _ = interop._scene(320, 240, 400, 2)
     plan = pe.make_plan(config.orb, 240, 320)
     canvas = pe.build_canvas(torch.as_tensor(images[1], dtype=torch.float32, device=device),
                              plan)
     hp = level._round_up(canvas.shape[0], level.STRIPE)
-    return canvas, torch.from_numpy(pe._bounds_np(plan, hp)).to(device)
+    return canvas, torch.from_numpy(pe._bounds_np(plan, hp)).to(device), plan, config.orb
 
 
 def tiled_problem(args, rows):
@@ -417,6 +431,102 @@ def check_k6(what, args):
         f"{[int((g[0] <= 256).sum()) for g in got]})")
 
 
+def describe_problems(x):
+    """(what, (canvas, blurred canvas, yx)) of the patch kernels' phase-3
+    cases: the step's and the pair's calls, the 320x240 canvas's keypoints,
+    and centres at and past every edge of both canvases."""
+    canvas, blur, small, s_blur = x["canvas"], x["blur"], x["small_canvas"], x["small_blur"]
+    yield "step", (canvas, blur, x["yx"])
+    yield "pair", x["k45"][:3]
+    yield "320x240 canvas", (small, s_blur, x["small_yx"])
+    for name, c, b in (("main canvas", canvas, blur), ("320x240 canvas", small, s_blur)):
+        yield f"{name}, edge centres", (c, b, torch.from_numpy(
+            interop.patch_edge_yx(*c.shape)).to(c.device))
+
+
+def guard_ratios(ic):
+    """det / s^2 of each keypoint's two 2x2 solves ([K, 2]; the guard
+    passes above 1e-6), by the plain version's arithmetic in float64 on the
+    9x9 centre of its 31x31 window: printed where K5 misses K5_TOL."""
+    half, r = patches.PATCH_SIZE // 2, ops_subpix.HALF + 1
+    win = ic[:, half - r:half + r + 1, half - r:half + r + 1].double()
+    gy = 0.5 * (win[:, 2:, 1:-1] - win[:, :-2, 1:-1])
+    gx = 0.5 * (win[:, 1:-1, 2:] - win[:, 1:-1, :-2])
+    d = torch.arange(-ops_subpix.HALF, ops_subpix.HALF + 1, dtype=torch.float64,
+                     device=ic.device)
+    py, px = torch.meshgrid(d, d, indexing="ij")
+    cy = cx = torch.zeros(ic.shape[0], 1, 1, dtype=torch.float64, device=ic.device)
+    ratios = []
+    for _ in range(ops_subpix.ITERS):
+        wgt = torch.exp(-((px - cx) ** 2 + (py - cy) ** 2) / (2.0 * ops_subpix.HALF ** 2))
+        a, b, c = ((wgt * g).sum((1, 2)) for g in (gx * gx, gx * gy, gy * gy))
+        bx = (wgt * (gx * gx * px + gx * gy * py)).sum((1, 2))
+        by = (wgt * (gx * gy * px + gy * gy * py)).sum((1, 2))
+        det = a * c - b * b
+        ratios.append(det / (a + c).clamp_min(1e-12) ** 2)
+        ok = (ratios[-1] > 1e-6)[:, None, None]
+        cx = torch.where(ok, ((c * bx - b * by) / det).clamp(-1, 1)[:, None, None], cx)
+        cy = torch.where(ok, ((a * by - b * bx) / det).clamp(-1, 1)[:, None, None], cy)
+    return torch.stack(ratios, 1)
+
+
+def check_offsets(what, got, want, ic):
+    """Offsets within K5_TOL of the plain version's -> max |d|; where they
+    are not, the count of keypoints beyond it and their windows' det / s^2
+    (a guard that flips between the two sum orders) before the failure."""
+    err = max_abs(got, want)
+    if not err <= K5_TOL:
+        bad = ((got - want).abs().amax(dim=1) > K5_TOL).nonzero().flatten()
+        log(f"{what}: {bad.numel()} keypoints beyond {K5_TOL:g} px; det / s^2 of their "
+            f"two solves (the guard is 1e-6): {guard_ratios(ic[bad]).cpu().tolist()}")
+        raise AssertionError(f"{what}: offsets differ from the plain version by {err} px")
+    return err
+
+
+def check_describe(what, canvas, blur, yx):
+    """The fused K4 + K5 launch against its plain version, with and without
+    refinement: both windows bit for bit, offsets within K5_TOL -> their
+    max |d|."""
+    ic, brief, off = patches.describe_patches(canvas, blur, yx, True)
+    ic_u, brief_u, none = patches.describe_patches(canvas, blur, yx, False)
+    w_ic, w_brief, w_off = patches.describe_patches_plain(canvas, blur, yx, True)
+    torch.cuda.synchronize()
+    for name, got, want in (("31x31", ic, w_ic), ("39x39", brief, w_brief),
+                            ("unrefined 31x31", ic_u, w_ic),
+                            ("unrefined 39x39", brief_u, w_brief)):
+        if not torch.equal(got, want):
+            raise AssertionError(f"describe_patches: {name} windows differ on the {what} "
+                                 f"inputs: {max_abs(got, want)}")
+    if none is not None:
+        raise AssertionError("describe_patches gave offsets without refinement")
+    err = check_offsets(f"describe_patches on the {what} inputs", off, w_off, w_ic)
+    log(f"K4 + K5 describe_patches, {what}, K={yx.shape[0]}, canvas {tuple(canvas.shape)}, "
+        f"blurred {tuple(blur.shape)}: both windows exact with and without refinement, "
+        f"offsets max|d| = {err:g} px (tolerance {K5_TOL:g}; "
+        f"{int((w_off != 0).any(dim=1).sum())} keypoints moved)")
+    return err
+
+
+def check_extract(what, image, yx, p):
+    got = patches.extract_patches(image, yx, p)
+    want = patches.extract_patches_plain(image, yx, p)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"K4 P={p} differs on the {what} inputs: {max_abs(got, want)}")
+    log(f"K4 extract_patches, {what}, K={yx.shape[0]}, P={p}, image {tuple(image.shape)}: exact")
+
+
+def check_k5(what, ic):
+    half = patches.PATCH_SIZE // 2
+    got = subpix.corner_subpix_from_patches(ic, half, half)
+    want = subpix.corner_subpix_from_patches_plain(ic, half, half)
+    torch.cuda.synchronize()
+    err = check_offsets(f"K5 corner_subpix on the {what} windows", got, want, ic)
+    log(f"K5 corner_subpix, {what} {tuple(ic.shape)}: max|d| = {err:g} px "
+        f"(tolerance {K5_TOL:g})")
+    return err
+
+
 def phase_kernels(x):
     """Each kernel against its plain version on the card (not counted as
     main-path launches: the counts are reset before each main path)."""
@@ -480,24 +590,15 @@ def phase_kernels(x):
     log(f"K3 cell_topk {tuple(x['cells'].shape)} k={k}: exact")
     rows["cell_topk_map"] = rows["cell_topk"] = 0.0
 
-    for img, p in ((canvas, 31), (x["blur"], 39)):
-        got = patches.extract_patches(img, x["yx"], p)
-        want = patches.extract_patches_plain(img, x["yx"], p)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"K4 P={p} differs: {max_abs(got, want)}")
-        log(f"K4 extract_patches K={x['yx'].shape[0]} P={p}: exact")
-    rows["extract_patches"] = 0.0
-
-    got = subpix.corner_subpix_from_patches(*x["k5"])
-    want = subpix.corner_subpix_from_patches_plain(*x["k5"])
-    torch.cuda.synchronize()
-    err = max_abs(got, want)
-    log(f"K5 corner_subpix {tuple(x['k5'][0].shape)}: max|d| = {err:g} px "
-        f"(tolerance {K5_TOL:g})")
-    if not err <= K5_TOL:
-        raise AssertionError(f"K5 differs from its plain version by {err} px")
-    rows["corner_subpix"] = err
+    # The fused K4 + K5 launch, and the standalone K4 and K5 on the same
+    # inputs (the standalone K5 on the plain 31x31 windows).
+    rows["describe_patches"] = rows["extract_patches"] = rows["corner_subpix"] = 0.0
+    for what, (c, b, yx) in describe_problems(x):
+        rows["describe_patches"] = max(rows["describe_patches"], check_describe(what, c, b, yx))
+        for img, p in ((c, 31), (b, 39), (c, 17)):
+            check_extract(what, img, yx, p)
+        ic = patches.extract_patches_plain(c, yx, patches.PATCH_SIZE)
+        rows["corner_subpix"] = max(rows["corner_subpix"], check_k5(what, ic))
 
     for what, args in k6_problems(x):
         check_k6(what, args)
@@ -1055,7 +1156,7 @@ def phase_kernel_timing(x, errs, counts, power):
         lambda: torch.topk(cells, k, dim=1),
         cells.numel() * 4 + 2 * cells.shape[0] * k * 4, k * cells.numel())
 
-    # K4 (both launches of a frame): the distinct image pixels the windows
+    # K4 (both windows of a frame): the distinct image pixels the windows
     # cover, the centres, and the windows written.
     def covered(img, p):
         h, w = img.shape
@@ -1071,17 +1172,38 @@ def phase_kernel_timing(x, errs, counts, power):
     k4_bytes = sum(covered(img, p) * 4 + n_k * 8 + n_k * p * p * 4
                    for img, p in ((canvas, 31), (blur, 39)))
 
+    # The fused K4 + K5 launch (the main paths' one per extraction): K4's
+    # bytes for both windows plus the two offsets of each keypoint (its 81
+    # window pixels are among the canvas pixels K4 reads); K5's ~2,700
+    # float operations per keypoint (gradients, 2 x 49 weighted terms with
+    # their exp, the 2x2 solves).
+    row("describe_patches", "orb_slam2_commit_tpu_torch/csrc/patches.cu",
+        "orb_slam2_commit_tpu/ops/pallas_patches.py:81",
+        lambda: patches.describe_patches(canvas, blur, yx, True),
+        lambda: patches.describe_patches_plain(canvas, blur, yx, True),
+        None, k4_bytes + 8 * n_k, 2700 * n_k)
+
+    # The standalone K4, both windows (no caller on the main paths). The
+    # library call is the plain version's last line, one aten::index per
+    # window on index grids built beforehand.
     def both(fn):
         return lambda: (fn(canvas, yx, 31), fn(blur, yx, 39))
 
+    def grids(img, p):
+        h, w = img.shape
+        d = torch.arange(-(p // 2), p // 2 + 1, device=img.device)
+        ys = (yx[:, 0:1].long().clamp(0, h - 1) + d).clamp(0, h - 1)
+        xs = (yx[:, 1:2].long().clamp(0, w - 1) + d).clamp(0, w - 1)
+        return img, ys[:, :, None], xs[:, None, :]
+
+    index_args = (grids(canvas, 31), grids(blur, 39))
     row("extract_patches", "orb_slam2_commit_tpu_torch/csrc/patches.cu",
         "orb_slam2_commit_tpu/ops/pallas_patches.py:81",
         both(patches.extract_patches), both(patches.extract_patches_plain),
-        None, k4_bytes, 0)
+        lambda: [img[ys, xs] for img, ys, xs in index_args], k4_bytes, 0)
 
-    # K5 needs the 81 window pixels of each patch and writes two offsets;
-    # ~2,700 float operations per keypoint (gradients, 2 x 49 weighted
-    # terms with their exp, the 2x2 solves).
+    # The standalone K5 (no caller on the main paths) needs the 81 window
+    # pixels of each patch and writes two offsets.
     p5, cy, cx = x["k5"]
     row("corner_subpix", "orb_slam2_commit_tpu_torch/csrc/subpix.cu",
         "orb_slam2_commit_tpu/ops/subpix.py:182",

@@ -23,6 +23,8 @@
 - `band_problem`, `BAND_CASES`, `BAND_MAX_D`, `BAND_SCALES`: K7 stereo-band
   problems from a seed (numpy), one of them built on the band test's exact
   edges, for the same two uses.
+- `patch_edge_yx`: keypoint centres at and past every edge of an image,
+  for the patch kernels (K4 and the fused K4 + K5), for the same two uses.
 
 Every entry point that places tensors takes `device`, "cuda" by default;
 without a card that default raises instead of falling back to the CPU.
@@ -405,3 +407,22 @@ def band_problem(seed, n_l, n_r, edges=False, ties=False):
             xy_r[col], oct_r[col], valid_r[col] = (xr, yr), orr, col != 15
     dl[7] = dl[6]
     return dl, xy_l, oct_l, valid_l, dr, xy_r, oct_r, valid_r
+
+
+# Distances from an edge that the patch kernels must get right: on it, just
+# outside it, and one px either side of each window's half width (15 for
+# the 31x31 window, 19 for the 39x39 one).
+PATCH_EDGE_OFFSETS = (0, -1, -7, 14, 15, 16, 18, 19, 20)
+
+
+def patch_edge_yx(h, w):
+    """[K, 2] int32 (row, col) centres for an h x w image: each edge
+    distance of PATCH_EDGE_OFFSETS from the top, bottom, left and right
+    edge (the other coordinate mid-image), the four corners, and the four
+    points one px diagonally past them."""
+    rows = list(PATCH_EDGE_OFFSETS) + [h - 1 - d for d in PATCH_EDGE_OFFSETS]
+    cols = list(PATCH_EDGE_OFFSETS) + [w - 1 - d for d in PATCH_EDGE_OFFSETS]
+    yx = [(y, w // 2) for y in rows] + [(h // 2, x) for x in cols]
+    yx += [(y, x) for y in (0, h - 1) for x in (0, w - 1)]
+    yx += [(y, x) for y in (-1, h) for x in (-1, w)]
+    return np.asarray(yx, np.int32)

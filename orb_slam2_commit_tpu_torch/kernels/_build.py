@@ -3,8 +3,10 @@
 Each source in `csrc/` is compiled by `nvcc` for sm_90a into its own
 shared library with a plain C interface, at first use, into `_build/`
 beside the package (a directory git ignores); the library's file name
-carries a hash of its source and its flags, so an edited source, or a
-source whose flags changed, is rebuilt. Libraries
+carries a hash of its source, of the headers under `csrc/` it includes
+(`subpix_solve.cuh`, shared by patches.cu and subpix.cu) and of its flags,
+so an edited source or header, or a source whose flags changed, is
+rebuilt. Libraries
 are loaded with ctypes: pointers and the CUDA stream travel as
 `c_void_p`, and every C entry point returns `cudaGetLastError()`, which
 `check` turns into an exception.
@@ -18,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -38,12 +41,15 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 # No multiply-add contraction where a kernel must round like its plain
-# version (the blur, csrc/level.cu; the subpixel terms, csrc/subpix.cu);
+# version (the blur, csrc/level.cu; the subpixel terms, csrc/subpix_solve.cuh
+# in subpix.cu and patches.cu);
 # the integer and compare kernels keep the flag they were measured with.
 # The pose LM agrees to float32 rounding only and contracts freely.
 NO_FMA = ("-fmad=false",)
 SOURCE_FLAGS = {"level": NO_FMA, "select": NO_FMA, "patches": NO_FMA,
                 "subpix": NO_FMA, "matching": NO_FMA, "pose_lm": ()}
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
@@ -69,6 +75,9 @@ SIGNATURES = {
             _c_void_p),
     },
     "patches": {
+        "describe_patches_launch": (
+            _c_void_p, _c_int, _c_int, _c_void_p, _c_int, _c_int, _c_void_p, _c_int,
+            _c_void_p, _c_void_p, _c_void_p, _c_void_p),
         "extract_patches_launch": (
             _c_void_p, _c_int, _c_int, _c_void_p, _c_int, _c_int, _c_void_p,
             _c_void_p),
@@ -100,7 +109,8 @@ SIGNATURES = {
 
 launches: Dict[str, int] = {
     "level_preprocess": 0, "combine_nms": 0, "cell_topk_map": 0, "cell_topk": 0,
-    "extract_patches": 0, "corner_subpix": 0, "projection_hamming_top2": 0,
+    "describe_patches": 0, "extract_patches": 0, "corner_subpix": 0,
+    "projection_hamming_top2": 0,
     "stereo_band_top2": 0, "masked_hamming_top2": 0, "pose_lm": 0,
 }
 
@@ -124,8 +134,22 @@ def nvcc_flags(name: str) -> Tuple[str, ...]:
     return (*NVCC_FLAGS, *SOURCE_FLAGS[name])
 
 
+def source_files(name: str) -> Tuple[Path, ...]:
+    """csrc/<name>.cu and every header it includes by `#include "..."`,
+    directly or through another header, in the order first met."""
+    files, todo = [], [CSRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path not in files:
+            files.append(path)
+            todo += [path.parent / inc for inc in _INCLUDE.findall(path.read_text())]
+    return tuple(files)
+
+
 def _library_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC_DIR / f"{name}.cu").read_bytes())
+    digest = hashlib.sha1()
+    for path in source_files(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
     digest.update(" ".join(nvcc_flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 

@@ -9,10 +9,10 @@ W0] and each stage runs once on it:
          -> border mask + cell fallback + NMS (K2, kernels/level.py)
          -> per-cell top-k, read from the score map (K3, kernels/select.py)
          -> per-level top-k                 (one stable sort)
-         -> IC angle from 31x31 patches     (K4, kernels/patches.py)
-         -> rotated BRIEF from 39x39 blurred patches (K4 again)
-         -> subpixel offsets from the 31x31 patches (K5, kernels/subpix.py,
-            when ORBConfig.subpixel_refine is on)
+         -> 31x31 canvas and 39x39 blurred patches, and the subpixel
+            offsets from the 31x31 windows when ORBConfig.subpixel_refine
+            is on: one fused launch (K4 + K5, kernels/patches.py)
+         -> IC angle from the 31x31 patches, rotated BRIEF from the 39x39
 
 Level start rows are aligned to the cell size, so the canvas cell grid
 restricted to a level is that level's own grid; the detection border
@@ -25,12 +25,12 @@ coordinates agree with it within 1e-4 px.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from orb_slam2_commit_tpu_torch.kernels import level, patches, select, subpix
+from orb_slam2_commit_tpu_torch.kernels import level, patches, select
 from orb_slam2_commit_tpu_torch.ops import descriptors, fast, pyramid
 from orb_slam2_commit_tpu_torch.ops.extractor import Features, detection_border
 from orb_slam2_commit_tpu_torch.utils.config import ORBConfig
@@ -257,15 +257,15 @@ def select_flat(
 
 
 def describe(
-    canvas: torch.Tensor, blur_c: torch.Tensor, yx: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    canvas: torch.Tensor, blur_c: torch.Tensor, yx: torch.Tensor, refine: bool
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """IC angle from 31x31 canvas patches and BRIEF from 39x39 blurred
-    patches (K4, twice) -> (angle [N], desc [N, 8] int32, the 31x31
-    patches, which subpixel refinement reuses)."""
-    ic_patches = patches.extract_patches(canvas, yx, descriptors.PATCH_SIZE)
+    patches, both gathered, with the subpixel offsets when refine is set,
+    by one fused launch (K4 + K5) -> (angle [N], desc [N, 8] int32,
+    offsets [N, 2] (dy, dx) or None)."""
+    ic_patches, brief_patches, offsets = patches.describe_patches(canvas, blur_c, yx, refine)
     angle = descriptors.ic_angle_from_patches(ic_patches)
-    brief_patches = patches.extract_patches(blur_c, yx, descriptors.BRIEF_PATCH)
-    return angle, descriptors.brief_from_patches(brief_patches, angle), ic_patches
+    return angle, descriptors.brief_from_patches(brief_patches, angle), offsets
 
 
 def extract_features_packed(
@@ -289,16 +289,15 @@ def features_from_canvas(
 
     blur_c, score = detect(canvas, plan, config)
     yx, resp, valid = select_flat(score, plan, config)
-    angle, desc, ic_patches = describe(canvas, blur_c, yx)
+    # Every keypoint sits >= border px inside its level's canvas rows, so
+    # the 9x9 refinement window never crosses a level boundary.
+    angle, desc, offsets = describe(canvas, blur_c, yx, config.subpixel_refine)
 
     row_off = _per_slot_t(dev, plan.row_offsets, budgets, np.float32)
     scale = _per_slot_t(dev, scales, budgets, np.float32)
     xy_f = yx.to(torch.float32)
-    if config.subpixel_refine:
-        # Every keypoint sits >= border px inside its level's canvas rows,
-        # so the 9x9 refinement window never crosses a level boundary.
-        half = descriptors.PATCH_SIZE // 2
-        xy_f = xy_f + subpix.corner_subpix_from_patches(ic_patches, half, half)
+    if offsets is not None:
+        xy_f = xy_f + offsets
     x0 = xy_f[:, 1] * scale
     y0 = (xy_f[:, 0] - row_off) * scale
     return Features(

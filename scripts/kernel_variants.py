@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Compare design variants of the port's K1, K2, K3, K6, K7 and K8 kernels on one card.
+"""Compare design variants of the port's K1-K8 kernels on one card.
 
-A variant is csrc/<lib>.cu with a few text substitutions, or, under the tag
-`previous`, the source of an earlier design read from --previous DIR (write
-it there first, for example with
+A variant is csrc/<lib>.cu (a set may build two libraries) with a few text
+substitutions, each made in the sources that hold its target, or, under
+the tag `previous`, the sources of an earlier design read from --previous
+DIR (write them there first, for example with
 `git show <commit>:orb_slam2_commit_tpu_torch/csrc/matching.cu`). Every
 variant of a set is built with the library's own nvcc flags (one nvcc each,
 all at once; `-Xptxas -v` lines and instruction counts from cuobjdump are
@@ -30,6 +31,12 @@ under torch.profiler in the order A B .. B A twice:
   form on the cell matrix), timed per launch on the main canvas's score
   map (the previous design on the cell matrix, which cell_matrix copied
   out of the map first) and with that copy;
+- K4 + K5 on chip_smoke.py's patch cases (the step's and the pair's
+  inputs, the 320x240 canvas, centres at and past every edge): both
+  windows bit for bit, offsets within K5_TOL; timed per image as the fused
+  launch, or, for the previous design and the redesigned standalone
+  kernels, as extract_patches twice and corner_subpix (three launches);
+  also the two K4 launches alone and K5 alone on the pair's windows;
 - K8 within chip_smoke.py's bounds on its six problems, two launches
   bit-identical. K8 variants also report their evaluations, which differ
   between builds because the LM's path depends on float rounding, and the
@@ -45,6 +52,7 @@ Run from the repository root on a machine with the card:
     python3 scripts/kernel_variants.py matching-k6 --previous DIR
     python3 scripts/kernel_variants.py matching-k7 --previous DIR
     python3 scripts/kernel_variants.py select-k3 --previous DIR
+    python3 scripts/kernel_variants.py patches-k4k5 --previous DIR
 """
 
 from __future__ import annotations
@@ -64,7 +72,7 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from orb_slam2_commit_tpu_torch import interop  # noqa: E402
 from orb_slam2_commit_tpu_torch.kernels import (  # noqa: E402
-    _build, level, matching as kmatching, pose_lm, select)
+    _build, level, matching as kmatching, patches, pose_lm, select, subpix)
 from orb_slam2_commit_tpu_torch.optim import pose_opt  # noqa: E402
 
 OUT = Path("chiprun_out")
@@ -278,6 +286,47 @@ _K7_CLOCK_BAND = [
 ]
 _BAND_ROWS, _BAND_WPR = "constexpr int BAND_ROWS = 8;", "constexpr int BAND_WPR = 2;"
 _K3_WARPS = "constexpr int WARPS = 4;     // cells per block"
+
+
+# describe_kernel with both windows of a keypoint in one block (the fused
+# launch's first design), in place of a block per window: all its loads of
+# both windows in flight, then the stores.
+_K45_BOTH_WINDOWS = [
+    ("""  const int nb = (k + KPB - 1) / KPB;
+  const bool brief_part = (int)blockIdx.x >= nb;
+  const int kp = ((int)blockIdx.x - (brief_part ? nb : 0)) * KPB + threadIdx.x / TPK;""",
+     """  const bool brief_part = false;
+  const int kp = blockIdx.x * KPB + threadIdx.x / TPK;"""),
+    ("""    if (brief_part) {
+      float b[trips<BRIEF, COPY>()];
+      load_window<BRIEF, COPY>(blur, hb, wb, clampi(y, 0, hb - 1), clampi(x, 0, wb - 1), tid, b);
+      store_window<BRIEF, COPY>(b, tid, brief + (size_t)kp * BRIEF * BRIEF);
+    } else {
+      float a[trips<IC, COPY>()];
+      load_window<IC, COPY>(canvas, h, w, yc, xc, tid, a);
+      store_window<IC, COPY>(a, tid, ic + (size_t)kp * IC * IC);
+    }""",
+     """    float a[trips<IC, COPY>()], b[trips<BRIEF, COPY>()];
+    load_window<IC, COPY>(canvas, h, w, yc, xc, tid, a);
+    load_window<BRIEF, COPY>(blur, hb, wb, clampi(y, 0, hb - 1), clampi(x, 0, wb - 1), tid, b);
+    store_window<IC, COPY>(a, tid, ic + (size_t)kp * IC * IC);
+    store_window<BRIEF, COPY>(b, tid, brief + (size_t)kp * BRIEF * BRIEF);"""),
+    ("describe_kernel<<<2 * ((k + KPB - 1) / KPB),", "describe_kernel<<<(k + KPB - 1) / KPB,"),
+]
+
+
+def _k45(kpb=1, copy=128, solver=True, split=True):
+    """Substitutions that set describe_kernel's layout in csrc/patches.cu
+    (the committed one by default)."""
+    return [("constexpr int KPB = 1;", f"constexpr int KPB = {kpb};"),
+            ("constexpr int COPY = 128;", f"constexpr int COPY = {copy};"),
+            ("constexpr bool OWN_SOLVER = true;",
+             f"constexpr bool OWN_SOLVER = {str(solver).lower()};"),
+            ] + ([] if split else _K45_BOTH_WINDOWS)
+
+
+# Tags of the patches-k4k5 set that run K4 and K5 as three launches.
+THREE_LAUNCHES = (PREVIOUS, "standalone")
 # K3 with every entry of a lane in registers (PR 6's first design): a
 # round masks the winning entry by 32 selects and rescans the lane by a
 # tree of depth 5, in place of one group of four in shared memory and
@@ -507,25 +556,59 @@ SETS = {
         "warps8": [(_K3_WARPS, "constexpr int WARPS = 8;")],
         "warps4-registers": _K3_REGISTERS,
     }, ("cell_topk_kernel",)),
+    # K4 + K5: the previous designs (two K4 launches and one K5, one
+    # thread per keypoint) against the committed fused launch (blocks of
+    # one window each: 128 copying threads, and beside them in a 31x31
+    # block a warp solving), the same with 224 copying threads, with 256
+    # and the solve on the last copying warp, with 2 keypoints a block;
+    # blocks copying both windows of 1 or 2 keypoints with 128 or 256
+    # threads, the solve on the last copying warp or on a warp of its own
+    # beside 224 or 256; and the redesigned standalone kernels as three
+    # launches.
+    "patches-k4k5": (("patches", "subpix"), {
+        PREVIOUS: [],
+        "split-t128-solver": _k45(),
+        "split-t224-solver": _k45(copy=224),
+        "split-t256": _k45(copy=256, solver=False),
+        "split-kpb2-t128-solver": _k45(kpb=2),
+        "kpb1-t256": _k45(copy=256, solver=False, split=False),
+        "kpb1-t128": _k45(solver=False, split=False),
+        "kpb2-t128": _k45(kpb=2, solver=False, split=False),
+        "kpb2-t256": _k45(kpb=2, copy=256, solver=False, split=False),
+        "kpb1-t256-solver": _k45(copy=256, split=False),
+        "kpb1-t224-solver": _k45(copy=224, split=False),
+        "standalone": [],
+    }, ("describe_kernel", "patch_kernel", "subpix_kernel")),
 }
 
 
-def build(lib, tag, subs, previous):
-    src_path = (previous if tag.startswith(PREVIOUS) else _build.CSRC_DIR) / f"{lib}.cu"
-    if not src_path.exists():
-        raise SystemExit(f"{src_path} not found: write the previous design's source there")
-    src = src_path.read_text()
+def build(libs, tag, subs, previous):
+    """Start nvcc on the variant's sources -> {lib: (process, library)};
+    each substitution is made in every source that holds its target, and
+    the headers come from the sources' own directory."""
+    src_dir = previous if tag.startswith(PREVIOUS) else _build.CSRC_DIR
+    srcs = {}
+    for lib in libs:
+        src_path = src_dir / f"{lib}.cu"
+        if not src_path.exists():
+            raise SystemExit(f"{src_path} not found: write the previous design's source there")
+        srcs[lib] = src_path.read_text()
     for a, b in subs:
-        if a not in src:
-            raise SystemExit(f"{lib} {tag}: substitution target not found: {a[:60]!r}")
-        src = src.replace(a, b)
-    path = OUT / f"variant_{lib}_{tag}.cu"
-    path.write_text(src)
-    so = path.with_suffix(".so")
-    proc = subprocess.Popen(["/usr/local/cuda/bin/nvcc", *_build.nvcc_flags(lib), "-o",
-                             str(so), str(path)],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return proc, so
+        hit = [lib for lib in libs if a in srcs[lib]]
+        if not hit:
+            raise SystemExit(f"{tag}: substitution target not found: {a[:60]!r}")
+        for lib in hit:
+            srcs[lib] = srcs[lib].replace(a, b)
+    out = {}
+    for lib, src in srcs.items():
+        path = OUT / f"variant_{lib}_{tag}.cu"
+        path.write_text(src)
+        so = path.with_suffix(".so")
+        out[lib] = (subprocess.Popen(
+            ["/usr/local/cuda/bin/nvcc", *_build.nvcc_flags(lib), "-I", str(src_dir), "-o",
+             str(so), str(path)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+    return out
 
 
 def load(set_name, lib, tag, so):
@@ -696,9 +779,50 @@ def select_checks(x, state):
     return check, {"K3": k3, "K3 with its input's copy": k3_with_copy}, 200
 
 
+def patches_checks(x, state):
+    """K4 + K5: the fused launch (the previous design and the standalone
+    kernels: extract_patches twice, then corner_subpix on the 31x31
+    windows) on chip_smoke.py's patch cases against the plain version."""
+    problems = list(cs.describe_problems(x))
+    want = [patches.describe_patches_plain(*args, True) for _, args in problems]
+    half = patches.PATCH_SIZE // 2
+
+    def k45(canvas, blur, yx):
+        if state["tag"] in THREE_LAUNCHES:
+            ic = patches.extract_patches(canvas, yx, patches.PATCH_SIZE)
+            brief = patches.extract_patches(blur, yx, patches.BRIEF_PATCH)
+            return ic, brief, subpix.corner_subpix_from_patches(ic, half, half)
+        return patches.describe_patches(canvas, blur, yx, True)
+
+    def check():
+        for (what, args), w in zip(problems, want):
+            ic, brief, off = k45(*args)
+            err = cs.max_abs(off, w[2])
+            if not (torch.equal(ic, w[0]) and torch.equal(brief, w[1]) and err <= cs.K5_TOL):
+                raise SystemExit(f"K4 + K5 variant differs from the plain version on the "
+                                 f"{what} inputs (offsets max|d| {err:g})")
+            print(f"{state['tag']}: {what}: windows exact, offsets max|d| {err:g} px")
+
+    def windows_only():
+        if state["tag"] in THREE_LAUNCHES:
+            return (patches.extract_patches(canvas, yx, patches.PATCH_SIZE),
+                    patches.extract_patches(blur, yx, patches.BRIEF_PATCH))
+        return patches.describe_patches(canvas, blur, yx, False)
+
+    canvas, blur, yx = x["canvas"], x["blur"], x["yx"]
+    return check, {
+        "K4 + K5 per image": lambda: k45(canvas, blur, yx),
+        "K4 + K5 without refinement": windows_only,
+        "K4 both windows": lambda: (patches.extract_patches(canvas, yx, patches.PATCH_SIZE),
+                                    patches.extract_patches(blur, yx, patches.BRIEF_PATCH)),
+        "K5 alone": lambda: subpix.corner_subpix_from_patches(*x["k5"]),
+    }, 200
+
+
 CHECKS = {"pose_lm-threads": pose_checks, "level-tile": level_checks,
           "level-combine": combine_checks, "matching-k6": matching_checks,
-          "matching-k7": band_checks, "select-k3": select_checks}
+          "matching-k7": band_checks, "select-k3": select_checks,
+          "patches-k4k5": patches_checks}
 
 
 def k7_clocks(dll):
@@ -741,23 +865,27 @@ def main():
     parser.add_argument("--previous", type=Path, default=Path("_checkouts/previous"),
                         help="directory holding the previous design's <lib>.cu")
     args = parser.parse_args()
-    lib, variants, kernels = SETS[args.set]
+    libs, variants, kernels = SETS[args.set]
+    libs = (libs,) if isinstance(libs, str) else libs
+    lib = "+".join(libs)
     OUT.mkdir(exist_ok=True)
     _, _, power = cs.phase_device()
 
-    built = {tag: build(lib, tag, subs, args.previous) for tag, subs in variants.items()}
+    built = {tag: build(libs, tag, subs, args.previous) for tag, subs in variants.items()}
     state = {"tag": ""}
     dlls = {}
-    for tag, (proc, so) in built.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise SystemExit(f"{lib} {tag}: nvcc failed\n{log}")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                print(f"{lib} {tag}: {line.strip()}")
-        for name, n, top in sass_counts(so, kernels):
-            print(f"{lib} {tag}: {name[:60]} {n} SASS instructions {top}")
-        dlls[tag] = load(args.set, lib, tag, so)
+    for tag, procs in built.items():
+        dlls[tag] = {}
+        for name_lib, (proc, so) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise SystemExit(f"{name_lib} {tag}: nvcc failed\n{log}")
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line or "Compiling entry" in line:
+                    print(f"{name_lib} {tag}: {line.strip()}")
+            for name, n, top in sass_counts(so, kernels):
+                print(f"{name_lib} {tag}: {name[:60]} {n} SASS instructions {top}")
+            dlls[tag][name_lib] = load(args.set, name_lib, tag, so)
 
     config, step_args = interop.make_example(cs.WIDTH, cs.HEIGHT, cs.N_FEATURES,
                                              cs.N_POINTS, "cuda")
@@ -772,9 +900,9 @@ def main():
 
     def use(tag):
         state["tag"] = tag
-        _build._libraries[lib] = dlls[tag]
+        _build._libraries.update(dlls[tag])
         kmatching.projection_hamming_top2 = (
-            previous_k6(dlls[tag]) if args.set == "matching-k6" and tag == PREVIOUS
+            previous_k6(dlls[tag][libs[0]]) if args.set == "matching-k6" and tag == PREVIOUS
             else wrapper)
 
     tags = list(dlls)
@@ -787,10 +915,10 @@ def main():
         print(f"{lib} {tag}: exact against the plain versions")
         if lib == "pose_lm":
             evals[tag] = sum(pose_lm.work_done(*a)[0] for a in x["k8"])
-        if hasattr(dlls[tag], "clock_read"):
-            print_clocks(args.set, lib, tag, dlls[tag], x)
-    clocks_before = {t: k7_clocks(dlls[t]) for t in tags
-                     if args.set == "matching-k7" and hasattr(dlls[t], "clock_read")}
+        if hasattr(dlls[tag][libs[0]], "clock_read"):
+            print_clocks(args.set, lib, tag, dlls[tag][libs[0]], x)
+    clocks_before = {t: k7_clocks(dlls[t][libs[0]]) for t in tags
+                     if args.set == "matching-k7" and hasattr(dlls[t][libs[0]], "clock_read")}
     for order in (tags, tags[::-1], tags, tags[::-1]):
         for tag in order:
             use(tag)
@@ -800,7 +928,7 @@ def main():
                 split.setdefault((tag, what), []).append(by_name)
     kmatching.projection_hamming_top2 = wrapper
     for tag, before in clocks_before.items():
-        cycles, ns, n = (a - b for a, b in zip(k7_clocks(dlls[tag]), before))
+        cycles, ns, n = (a - b for a, b in zip(k7_clocks(dlls[tag][libs[0]]), before))
         print(f"{lib} {tag}: block 0, thread 0 over the timed loop's {n} launches: "
               f"{cycles / max(n, 1):.0f} cycles and {ns / max(n, 1):.0f} ns per launch, "
               f"{cycles / max(ns, 1) * 1e3:.0f} MHz")

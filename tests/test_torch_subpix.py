@@ -2,8 +2,10 @@
 with refinement on) on the CPU against the JAX package: offsets within
 1e-5 px of offsets_from_windows and of the Pallas kernel in interpret
 mode (the tolerance tests/test_subpix.py uses between the JAX routes);
-extraction's integer outputs exact and its coordinates within 1e-4 px of
-the JAX packed route."""
+the fused launch's offsets (`describe_patches`) within 1e-5 px of the JAX
+image route; extraction's integer outputs exact and its coordinates within
+1e-4 px of the JAX packed route, the extraction refining through one
+fused call."""
 
 import dataclasses
 
@@ -18,6 +20,7 @@ from orb_slam2_commit_tpu.ops import subpix as jsubpix
 from orb_slam2_commit_tpu.utils.config import synthetic_config as j_synthetic_config
 from orb_slam2_commit_tpu_torch import interop
 from orb_slam2_commit_tpu_torch.kernels import _build
+from orb_slam2_commit_tpu_torch.kernels import patches as kpatches
 from orb_slam2_commit_tpu_torch.kernels import subpix as ksubpix
 from orb_slam2_commit_tpu_torch.ops import extractor, subpix
 from orb_slam2_commit_tpu_torch.utils import synthetic
@@ -146,3 +149,58 @@ def test_extraction_with_refinement_matches_jax_packed(monkeypatch, source):
     assert np.all(moved <= scale * 1.0 + 1e-4) and (moved[v] > 0).mean() > 0.5
     np.testing.assert_array_equal(got["desc"], plain["desc"])
     np.testing.assert_array_equal(got["angle"], plain["angle"])
+
+
+@pytest.mark.parametrize("kind", ["random", "checker", "flat", "edge"])
+def test_describe_patches_offsets_match_jax_image_route(kind):
+    """The fused launch's offsets, read from the 9x9 centre of each 31x31
+    window, against the JAX package's image route (its own 9x9 gather), on
+    centres inside the image up to its edges, where both clamp alike."""
+    rng = np.random.default_rng(9)
+    h, w = 72, 96
+    if kind == "random":
+        img = rng.uniform(0, 255, (h, w)).astype(np.float32)
+    elif kind == "checker":
+        img = _checker_aa(h, w, 36.3, 47.6)
+    elif kind == "flat":
+        img = np.full((h, w), 57.0, np.float32)
+    else:
+        img = _checker_aa(h, w, 36.3, -10.0)       # one straight edge
+    yx = interop.patch_edge_yx(h, w)
+    inside = (yx >= 0).all(1) & (yx[:, 0] < h) & (yx[:, 1] < w)
+    yx = np.concatenate([yx[inside], [[36, 47], [37, 48]],
+                         np.stack([rng.integers(0, h, 12), rng.integers(0, w, 12)], -1)]
+                        ).astype(np.int32)
+    want = np.asarray(jsubpix.corner_subpix_offsets(jnp.asarray(img), jnp.asarray(yx)))
+    t = torch.from_numpy(img)
+    _, _, got = kpatches.describe_patches(t, t, torch.from_numpy(yx), True)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+    if kind == "flat":
+        np.testing.assert_array_equal(got.numpy(), 0.0)
+    if kind == "checker":      # the corner at (36.3, 47.6), seen from 2 pixels
+        np.testing.assert_allclose(got.numpy()[-14:-12] + yx[-14:-12], [(36.3, 47.6)] * 2,
+                                   atol=0.1)
+
+
+@pytest.mark.parametrize("refine", [True, False])
+def test_extraction_describes_in_one_fused_call(monkeypatch, refine):
+    """Packed extraction gathers both windows and refines through one
+    describe_patches call, and never through the standalone K4 or K5."""
+    calls = []
+    fused = kpatches.describe_patches
+
+    def spy(*args):
+        calls.append(args[3])
+        return fused(*args)
+
+    def refused(*args):
+        raise AssertionError("a standalone kernel wrapper was called")
+
+    monkeypatch.setattr(kpatches, "describe_patches", spy)
+    monkeypatch.setattr(kpatches, "extract_patches", refused)
+    monkeypatch.setattr(ksubpix, "corner_subpix_from_patches", refused)
+    cfg = dataclasses.replace(synthetic_config(width=320, height=240, n_features=200).orb,
+                              n_levels=3, subpixel_refine=refine)
+    img = np.random.default_rng(4).uniform(0, 255, (240, 320)).astype(np.float32)
+    extractor.extract_features(torch.from_numpy(img), cfg, 240, 320)
+    assert calls == [refine]
