@@ -5,14 +5,18 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-Four main paths run at full width (640x480, 1000 features), all with the
+Six main paths run at full width (640x480, 1000 features), all with the
 default configuration (subpixel refinement on): the tracking step
-(`tracking_forward_step`, 1024 local-map points) and the tracker's
+(`tracking_forward_step`, 1024 local-map points); the tracker's
 per-frame pair for each sensor: the motion stage against 1024 last-frame
 points (`fused_motion_track_packed` for a monocular frame,
 `fused_stereo_motion_track_packed` for a stereo pair,
 `fused_rgbd_motion_track_packed` for an image and its depth map), then
-`fused_local_map_track` against a 2048-row candidate table.
+`fused_local_map_track` against a 2048-row candidate table; and the
+System (`slam/system.py`, synchronous local mapping, no vocabulary) over a
+30-frame RGB-D sequence (`System.track_rgbd`) and a 30-frame stereo
+sequence (`System.track_stereo`) of the synthetic scene (500 landmarks,
+seed 5, 0.05 m a frame).
 
 Phases (any failure exits non-zero and prints no result line):
   1. the card: name, count, torch/CUDA versions, nvidia-smi name + power limit;
@@ -32,13 +36,22 @@ Phases (any failure exits non-zero and prints no result line):
      window, with every row invalid and past one shared-memory chunk, K7
      on the stereo band also on the CPU tests' band cases (one on every
      edge of the band) and K7 under a mask on the stereo pair's band
-     masks, and K8 also on a problem tiled past 1024 and past 7000 rows,
-     launched twice;
+     masks and on the System's reference-keyframe matcher's input, K7
+     under a mask with a batch axis on the System's triangulation masks and
+     K6 with a batch axis on its fuse problems (each also with an empty
+     problem and with every row empty), and K8 also on a problem tiled past
+     1024 and past 7000 rows, launched twice;
   4. each main path through the port's entry points, with the kernels'
      launch counts reset just before and read just after it, and its
      result held against the same call on the CPU; the stereo matcher
      also on the card's own features and pyramids, on the card and the CPU;
-  5. timing: throughput of each path by the bench recipe; per stage its
+     the System's sequences held to every frame OK, the ATE gate, at
+     least 2 keyframes, points made by triangulation and a fuse pass, and
+     the RGB-D sequence's first frames against the CPU's;
+  5. timing: throughput of each path by the bench recipe (the System's
+     frames/s over a sequence, after a warm-up sequence, with its stage
+     times and, under torch.profiler, one keyframe frame and one plain
+     frame); per stage its
      synchronised wall time and device time; under torch.profiler the
      device's busy time, idle share and operations per call; per kernel its
      device-busy time (and its CUDA-event time in a row), its plain
@@ -52,6 +65,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -68,6 +82,10 @@ try:
     from orb_slam2_commit_tpu_torch.ops import packed_extractor as pe
     from orb_slam2_commit_tpu_torch.optim import pose_opt
     from orb_slam2_commit_tpu_torch.slam import jit_frontend, matchers
+    from orb_slam2_commit_tpu_torch.slam.local_mapping import LocalMapper
+    from orb_slam2_commit_tpu_torch.slam.system import System
+    from orb_slam2_commit_tpu_torch.utils import synthetic, trajectory
+    from orb_slam2_commit_tpu_torch.utils.config import synthetic_config
     from orb_slam2_commit_tpu_torch.slam.jit_frontend import (
         fused_local_map_track, fused_motion_track_packed,
         fused_rgbd_motion_track_packed, fused_stereo_motion_track_packed,
@@ -105,9 +123,29 @@ PROFILE_CALLS = 5
 # A K6 problem past one shared-memory chunk of the kernel (2048 columns).
 K6_CHUNKED = dict(seed=8, m=256, n=20000)
 
+# The System's sequences: 30 frames of the synthetic scene at full width.
+SYSTEM_FRAMES = 30
+SYSTEM_SCENE = dict(n_points=500, seed=5, step=0.05)
+# ATE gate, no scale alignment: tests/test_pipeline.py's RGB-D gate of
+# 0.015 x the trajectory's span, the same for the stereo sequence.
+ATE_SPAN_GATE = 0.015
+# Frames of the RGB-D sequence also run on the CPU (fused route forced
+# there): past the third keyframe (frame 9), whose local mapping runs the
+# first local BA; the card's frame and keyframe poses held to the CPU's
+# within ROT_DEG_TOL / T_TOL.
+SYSTEM_CPU_FRAMES = 10
+# The System's kernels: each must launch in a sequence; K3's row form and
+# the standalone K4 and K5 have no caller there.
+SYSTEM_LAUNCHED = ("level_preprocess", "combine_nms", "cell_topk_map", "describe_patches",
+                   "projection_hamming_top2", "masked_hamming_top2", "pose_lm")
+SYSTEM_UNUSED = ("cell_topk", "extract_patches", "corner_subpix")
+# Recorded calls kept per kernel for phase 3 and the kernel rows.
+SYSTEM_RECORDED = 4
+
 # K3 runs in its map form; K4 and K5 in one fused launch (describe_patches)
-# per extraction. K3's row form, the standalone K4 and K5 and K7 under a
-# mask have no caller on the main paths.
+# per extraction. K3's row form and the standalone K4 and K5 have no caller
+# on the main paths; K7 under a mask has its callers in the System only, as
+# have K6 and K7 with a batch axis.
 STEP_WANT = {"level_preprocess": 1, "combine_nms": 1, "cell_topk_map": 1,
              "cell_topk": 0, "describe_patches": 1, "extract_patches": 0,
              "corner_subpix": 0, "projection_hamming_top2": 1, "stereo_band_top2": 0,
@@ -527,6 +565,44 @@ def check_k5(what, ic):
     return err
 
 
+def check_top2(name, what, kernel, plain, args, shape):
+    """A top-2 kernel against its plain version: all four outputs exact."""
+    got = kernel(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{name} differs on {what}: " + ", ".join(
+            f"{max_abs(g, w):g}" for g, w in zip(got, want)))
+    log(f"{name}, {what} {tuple(shape)}: exact in all four outputs "
+        f"({int((got[0] <= 256).sum())} of {got[0].numel()} rows with a candidate)")
+
+
+def batched_k7_problems(x):
+    """(what, args) of the phase-3 cases of K7 with a batch axis: the
+    System's recorded triangulation calls, the first with its first pair
+    emptied, and with every pair emptied."""
+    for i, args in enumerate(x["sys_k7b"]):
+        yield f"System triangulation call {i}", args
+    da, db, mask = x["sys_k7b"][0]
+    empty = mask.clone()
+    empty[0] = False
+    yield "triangulation call 0, first pair empty", (da, db, empty)
+    yield "triangulation call 0, every row empty", (da, db, torch.zeros_like(mask))
+
+
+def batched_k6_problems(x):
+    """(what, args) of the phase-3 cases of K6 with a batch axis: the
+    System's recorded fuse calls, the first with its first target's rows
+    invalid, and with every row invalid."""
+    for i, args in enumerate(x["sys_k6b"]):
+        yield f"System fuse call {i}", args
+    args = list(x["sys_k6b"][0])
+    valid = args[5].clone()
+    valid[0] = False
+    yield "fuse call 0, first target's rows invalid", (*args[:5], valid, *args[6:])
+    yield "fuse call 0, every row invalid", (*args[:5], torch.zeros_like(valid), *args[6:])
+
+
 def phase_kernels(x):
     """Each kernel against its plain version on the card (not counted as
     main-path launches: the counts are reset before each main path)."""
@@ -608,18 +684,21 @@ def phase_kernels(x):
         check_band(what, args)
     rows["stereo_band_top2"] = 0.0
 
-    for args in x["k7"]:
-        got = kmatching.masked_hamming_top2(*args)
-        want = kmatching.masked_hamming_top2_plain(*args)
-        torch.cuda.synchronize()
-        if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            raise AssertionError(
-                "K7 differs: " + ", ".join(f"{max_abs(g, w):g}" for g, w in zip(got, want)))
-        mask = args[2]
-        log(f"K7 masked_hamming_top2 {tuple(mask.shape)}: exact in all four outputs "
-            f"({int(mask.sum())} candidate pairs, {int(mask.any(dim=1).sum())} rows "
-            f"with a candidate)")
+    # K7 under a mask on the stereo band's masks and on the System's
+    # reference-keyframe matcher's input, and with a batch axis on the
+    # System's triangulation masks; K6 with a batch axis on its fuse
+    # problems.
+    for what, args in [("stereo band mask", a) for a in x["k7"]] + \
+            [("System reference-keyframe match", a) for a in x["sys_k7"]] + \
+            list(batched_k7_problems(x)):
+        check_top2("K7 masked_hamming_top2", what, kmatching.masked_hamming_top2,
+                   kmatching.masked_hamming_top2_plain, args, args[2].shape)
     rows["masked_hamming_top2"] = 0.0
+    for what, args in batched_k6_problems(x):
+        check_top2("K6 projection_hamming_top2", what,
+                   lambda *a: kmatching.projection_hamming_top2(*a)[0],
+                   lambda *a: kmatching.projection_hamming_top2_plain(*a)[0], args,
+                   (*args[1].shape[:2], args[6].shape[1]))
 
     # K8 on the pairs' four problems and on one stereo problem tiled past
     # 1024 rows; each launched twice, which must give the same bits.
@@ -904,6 +983,259 @@ def phase_pair(config, motion, cands):
 
 
 # ---------------------------------------------------------------------------
+# The System: RGB-D and stereo sequences with synchronous local mapping
+# ---------------------------------------------------------------------------
+
+# The kernels whose System inputs phase 3 and the kernel rows use.
+SYSTEM_KERNELS = ("masked_hamming_top2", "projection_hamming_top2")
+
+
+def has_batch_axis(name, args):
+    """Whether a recorded call of K7 under a mask or of K6 has a leading
+    batch axis (the mapper's calls)."""
+    return (args[2] if name == "masked_hamming_top2" else args[1]).dim() == 3
+
+
+@contextlib.contextmanager
+def batched_launches(counts):
+    """counts[name] += 1 for each launch of K7 under a mask or of K6 with
+    a batch axis (read off the kernel's launch counter around the call)."""
+    fns = {name: getattr(kmatching, name) for name in SYSTEM_KERNELS}
+
+    def spy(name):
+        def call(*args):
+            before = _build.launches[name]
+            out = fns[name](*args)
+            if has_batch_axis(name, args):
+                counts[name] += _build.launches[name] - before
+            return out
+        return call
+
+    for name in SYSTEM_KERNELS:
+        counts[name] = 0
+        setattr(kmatching, name, spy(name))
+    try:
+        yield counts
+    finally:
+        for name, fn in fns.items():
+            setattr(kmatching, name, fn)
+
+
+def system_sequence(sensor):
+    """(config, images [T, H, W], depth maps or right images, ground-truth
+    poses) of the sensor's 30-frame sequence."""
+    config = synthetic_config(WIDTH, HEIGHT, N_FEATURES, sensor=sensor)
+    if sensor == "rgbd":
+        images, poses, _, depths = synthetic.render_sequence(
+            config.camera, n_frames=SYSTEM_FRAMES, with_depth=True, **SYSTEM_SCENE)
+        return config, images, depths, poses
+    lefts, rights, poses, _ = synthetic.render_stereo_sequence(
+        config.camera, n_frames=SYSTEM_FRAMES, **SYSTEM_SCENE)
+    return config, lefts, rights, poses
+
+
+def run_system(seq, device="cuda", n_frames=SYSTEM_FRAMES, around=None):
+    """A System over the sequence through its entry point (track_rgbd or
+    track_stereo) on `device` -> (system, state name per frame, pose per
+    frame, seconds). around(i): a context manager around frame i."""
+    config, first, second, _ = seq
+    sys_ = System(config, vocabulary=None, async_mapping=False, device=device)
+    track = sys_.track_rgbd if config.sensor == "rgbd" else sys_.track_stereo
+    states, poses = [], []
+    t0 = time.perf_counter()
+    for i in range(n_frames):
+        with around(i) if around else contextlib.nullcontext():
+            poses.append(track(first[i], second[i], i / config.camera.fps))
+        states.append(sys_.tracking_state().name)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return sys_, states, poses, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def triangulation_counted(made):
+    """Append to `made` the points each keyframe's triangulation makes."""
+    fn = LocalMapper._create_new_points_batched
+
+    def spy(self, kf):
+        before = self.map.next_pt
+        fn(self, kf)
+        made.append(self.map.next_pt - before)
+
+    LocalMapper._create_new_points_batched = spy
+    try:
+        yield made
+    finally:
+        LocalMapper._create_new_points_batched = fn
+
+
+@contextlib.contextmanager
+def profiled(out, key):
+    """torch.profiler around the block -> out[key] = (wall ms, device busy
+    ms, device operations)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    n_ops, busy = device_ops(prof)
+    out[key] = (wall, busy, n_ops)
+
+
+def system_path_inputs(seqs):
+    """One warm-up run of each sequence on the card (every kernel built and
+    every table made before the timed runs), recording the System's calls
+    of K7 under a mask (reference-keyframe tracking; with a batch axis,
+    triangulation) and of K6 with a batch axis (the forward fuse pass) on
+    the RGB-D sequence: the first SYSTEM_RECORDED calls of each."""
+    out = {}
+    for sensor, seq in seqs.items():
+        calls = {name: [] for name in SYSTEM_KERNELS}
+        with contextlib.ExitStack() as stack:
+            for name in SYSTEM_KERNELS:
+                stack.enter_context(recording(kmatching, name, calls[name]))
+            sys_, states, _, seconds = run_system(seq)
+        split = {(name, batched): [c[0] for c in calls[name]
+                                   if has_batch_axis(name, c[0]) == batched]
+                 for name in SYSTEM_KERNELS for batched in (False, True)}
+        log(f"System {sensor} warm-up: {seconds:.2f} s for {SYSTEM_FRAMES} frames, "
+            f"{sys_.map.next_kf} keyframes inserted; calls (kernel, batch axis): "
+            f"{ {k: len(v) for k, v in split.items()} }")
+        if sensor == "rgbd":
+            out = dict(sys_k7=split["masked_hamming_top2", False],
+                       sys_k7b=split["masked_hamming_top2", True],
+                       sys_k6b=split["projection_hamming_top2", True])
+            for key, c in out.items():
+                if not c:
+                    raise AssertionError(f"the System's RGB-D run made no {key} call")
+    return {key: c[:SYSTEM_RECORDED] for key, c in out.items()}
+
+
+def system_vs_cpu(seq):
+    """The sequence's first SYSTEM_CPU_FRAMES frames on the card and on the
+    CPU, on the route the card takes (fused, forced there), each past its
+    first local BA: the same states and keyframes, frame poses and the
+    keyframe poses the BAs left within ROT_DEG_TOL / T_TOL of each other.
+    The card's and the CPU's pyramids differ above level 0 (ROADMAP queue
+    3), so this holds the outcome, not the bits."""
+    prev = os.environ.get("ORB_TPU_FUSED_TRACK")
+    os.environ["ORB_TPU_FUSED_TRACK"] = "1"
+    try:
+        cpu_sys, states, poses, seconds = run_system(seq, "cpu", SYSTEM_CPU_FRAMES)
+    finally:
+        if prev is None:
+            del os.environ["ORB_TPU_FUSED_TRACK"]
+        else:
+            os.environ["ORB_TPU_FUSED_TRACK"] = prev
+    card_sys, card_states, card_poses, _ = run_system(seq, "cuda", SYSTEM_CPU_FRAMES)
+    n_lba = [int(s_.timings().get("map_lba", {}).get("count", 0)) for s_ in (card_sys, cpu_sys)]
+    if min(n_lba) < 1:
+        raise AssertionError(f"System RGB-D, first {SYSTEM_CPU_FRAMES} frames: local BA ran "
+                             f"{n_lba} times (card, cpu)")
+    worst = (0.0, 0.0)
+    for i in range(SYSTEM_CPU_FRAMES):
+        if states[i] != card_states[i] or (poses[i] is None) != (card_poses[i] is None):
+            raise AssertionError(f"System frame {i}: card {card_states[i]}, cpu {states[i]}")
+        if poses[i] is not None:
+            d = (rot_angle_deg(poses[i][0], card_poses[i][0]),
+                 float(np.linalg.norm(poses[i][1] - card_poses[i][1])))
+            worst = tuple(max(a, b) for a, b in zip(worst, d))
+    kfs = [(m.next_kf, m.kf_frame_id[:m.next_kf].tolist(), m.kf_valid[:m.next_kf].tolist())
+           for m in (card_sys.map, cpu_sys.map)]
+    if kfs[0] != kfs[1]:
+        raise AssertionError(f"System RGB-D keyframes: card {kfs[0]}, cpu {kfs[1]}")
+    kf_worst = (0.0, 0.0)
+    cm, pm = card_sys.map, cpu_sys.map
+    for k in range(cm.next_kf):
+        d = (rot_angle_deg(pm.kf_pose_R[k], cm.kf_pose_R[k]),
+             float(np.linalg.norm(pm.kf_pose_t[k] - cm.kf_pose_t[k])))
+        kf_worst = tuple(max(a, b) for a, b in zip(kf_worst, d))
+    log(f"System RGB-D, first {SYSTEM_CPU_FRAMES} frames card vs cpu ({seconds:.1f} s on "
+        f"the CPU; local BA ran {n_lba[0]} times on the card, {n_lba[1]} on the CPU): states "
+        f"and keyframes {kfs[0][1]} equal, frame poses within rot {worst[0]:.5f} deg, |dt| "
+        f"{worst[1]:.6f}; keyframe poses after the BAs within rot {kf_worst[0]:.5f} deg, "
+        f"|dt| {kf_worst[1]:.6f}")
+    if not (max(worst[0], kf_worst[0]) < ROT_DEG_TOL and max(worst[1], kf_worst[1]) < T_TOL):
+        raise AssertionError("the System's card and CPU poses differ beyond the bounds")
+
+
+def phase_system(seqs, power):
+    """Each sequence on the card through the System's entry point, the
+    launch counts reset just before and read just after it: every frame
+    after the first OK, the ATE gate, >= 2 keyframes, points made by
+    triangulation, a fuse pass, and every kernel of the path launched (K6
+    and K7 under a mask also with a batch axis);
+    frames/s over the sequence (after system_path_inputs' warm-up), the
+    stage times, and a third run with frames 3-14 each under
+    torch.profiler (keyframe frames and plain frames apart). The RGB-D
+    sequence's first frames also against the CPU. -> (launch counts,
+    launches with a batch axis), each per sensor."""
+    counts, batched_counts = {}, {}
+    for sensor, seq in seqs.items():
+        what = f"System {'RGB-D' if sensor == 'rgbd' else sensor}"
+        _, _, _, gt = seq
+        made, batched = [], batched_counts.setdefault(sensor, {})
+        _build.reset_launches()
+        with triangulation_counted(made), batched_launches(batched):
+            sys_, states, poses, seconds = run_system(seq)
+        c = counts[sensor] = dict(_build.launches)
+        log(f"{what} launches: {c}; of them with a batch axis: {batched}")
+        want = SYSTEM_LAUNCHED + (("stereo_band_top2",) if sensor == "stereo" else ())
+        if [k for k in want if c[k] < 1] or [k for k in SYSTEM_UNUSED if c[k]] or \
+                (sensor == "rgbd" and c["stereo_band_top2"]) or min(batched.values()) < 1:
+            raise AssertionError(f"{what}: a kernel of the path did not launch, or "
+                                 f"one off the path did")
+        if any(st != "OK" for st in states) or any(p is None for p in poses):
+            raise AssertionError(f"{what}: states {states}")
+        timings = sys_.timings()
+        n_mapped = int(timings.get("local_mapping", {}).get("count", 0))
+        n_fuse = int(timings.get("map_fuse", {}).get("count", 0))
+        est = sys_.trajectory_positions()
+        gt_c = np.asarray([-R.T @ t for R, t in gt])
+        rmse = trajectory.ate_rmse(est, gt_c, align_scale=False)
+        span = float(np.linalg.norm(gt_c[-1] - gt_c[0]))
+        log(f"{what}: {SYSTEM_FRAMES} frames all OK, {sys_.map.next_kf} keyframes inserted "
+            f"({sys_.map.n_keyframes()} kept), {n_mapped} mapped, {sum(made)} points by "
+            f"triangulation ({made}), {n_fuse} fuse passes, {sys_.map.n_points()} points; "
+            f"ATE {rmse:.6f} m over a {span:.3f} m span (gate {ATE_SPAN_GATE} x span)")
+        if sys_.map.next_kf < 2 or sum(made) < 1 or n_fuse < 1:
+            raise AssertionError(f"{what}: too few keyframes, triangulated points or fuses")
+        if not rmse < ATE_SPAN_GATE * span:
+            raise AssertionError(f"{what}: ATE {rmse} over the gate")
+        log(f"{what}: {SYSTEM_FRAMES / seconds:.2f} frames/s over the sequence "
+            f"({seconds:.3f} s) on {power}; launches per mapped keyframe: " + ", ".join(
+                [f"{k} with a batch axis {batched[k] / max(n_mapped, 1):.2f}"
+                 for k in SYSTEM_KERNELS]
+                + [f"{k} {c[k] / max(n_mapped, 1):.2f}"
+                   for k in ("masked_hamming_top2", "projection_hamming_top2", "pose_lm")]))
+        for stage, st in sorted(timings.items()):
+            log(f"    {what} stage {stage}: {int(st['count'])} x {st['mean_ms']:.3f} ms "
+                f"(max {st['max_ms']:.3f}, total {st['total_s'] * 1e3:.1f} ms)")
+
+        profs = {}
+        sys3, _, _, _ = run_system(seq, around=lambda i: (
+            profiled(profs, i) if 3 <= i < 15 else contextlib.nullcontext()))
+        kf_frames = {int(f) for f in sys3.map.kf_frame_id[:sys3.map.next_kf]}
+        for kind, frames in (("keyframe", sorted(kf_frames & set(profs))),
+                             ("plain", sorted(set(profs) - kf_frames))):
+            if not frames:
+                raise AssertionError(f"{what}: no {kind} frame among frames 3-14")
+            wall, busy, n_ops = (np.mean([profs[i][j] for i in frames]) for j in range(3))
+            first = profs[frames[0]]
+            log(f"profiled {what} {kind} frames {frames}: mean {wall:.3f} ms wall, "
+                f"{busy:.3f} ms device busy, idle share {1.0 - busy / wall:.4f}, "
+                f"{n_ops:.0f} device operations; frame {frames[0]}: {first[0]:.3f} ms wall, "
+                f"{first[1]:.3f} ms busy, idle share {1.0 - first[1] / first[0]:.4f}, "
+                f"{first[2]} operations, on {power}")
+        if sensor == "rgbd":
+            system_vs_cpu(seq)
+    return counts, batched_counts
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: timing
 # ---------------------------------------------------------------------------
 
@@ -1074,30 +1406,35 @@ def phase_sensor_timing(config, motion, cands, x, power):
     profile_calls(what, lambda: run_pair(config, motion, cands), power)
 
 
-def phase_kernel_timing(x, errs, counts, power):
+def phase_kernel_timing(x, errs, counts, batched, power):
     th_hi, th_lo = x["ths"]
     canvas, blur = x["canvas"], x["blur"]
     padded, hp, wp = level.pad_level(canvas)
     yx = x["yx"]
     kernels = []
 
-    def row(name, src, replaces, fn, plain, library, n_bytes, n_ops, iters=100):
+    def row(name, src, replaces, fn, plain, library, n_bytes, n_ops, iters=100,
+            caller=None):
         """One kernel's line: ms, plain_ms and library_ms are device busy
         times per call; the CUDA-event time of the same calls in a row, and
         the device time of each operation the call ran, are logged beside
-        ms."""
+        ms. With `caller` (a part of the kernel's inputs, its launches
+        counted in `batched`) the line is only logged."""
         ms, by_name = device_busy_ms(fn, iters)
         clocks = smi_clocks()
         events_ms = gpu_time_ms(fn, iters)
         plain_ms = device_busy_ms(plain, max(iters // 10, 5))[0]
         lib_ms = device_busy_ms(library, iters)[0] if library is not None else None
         b_ms, b_by = bound_ms(n_bytes, n_ops)
-        kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": counts[name], "max_abs_err": errs[name], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms,
-        })
+        if caller is None:
+            kernels.append({
+                "name": name, "route": "cuda", "source": src, "replaces": replaces,
+                "launches": counts[name], "max_abs_err": errs[name], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": lib_ms,
+            })
+        else:
+            name = f"{name} ({caller}; {batched[caller]} launches in the System's RGB-D run)"
         log(f"{name}: {ms:.4f} ms device busy, {events_ms:.4f} ms by events in a row "
             f"(plain {plain_ms:.4f} ms, library "
             f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
@@ -1254,20 +1591,54 @@ def phase_kernel_timing(x, errs, counts, power):
         lambda: kmatching.stereo_band_top2(*band),
         lambda: kmatching.stereo_band_top2_plain(*band), None, band_bytes, band_ops)
 
-    # K7 under a mask, on the stereo band's mask and its transpose (no
-    # caller on the main paths): each launch reads its two descriptor
-    # tables and its mask once and writes 4 x M results; one operation per
-    # mask entry and 24 per candidate pair.
-    k7_bytes = sum(nbytes(*args) + 4 * args[0].shape[0] * 4 for args in x["k7"])
-    k7_ops = sum(args[2].numel() + 24 * int(args[2].sum()) for args in x["k7"])
+    # K7 under a mask on its callers' inputs, the System's recorded calls:
+    # the reference-keyframe matcher's ([N_kf, N] validity mask) and the
+    # triangulation matcher's (B neighbour pairs of [N, N] masks a call,
+    # the keyframe's descriptors shared). A call reads its two descriptor
+    # tables and its mask once and writes 4 x M results per problem; one
+    # operation per mask entry and 24 per candidate pair.
+    def top2_work(calls):
+        n_bytes = sum(nbytes(*args) + 4 * args[2].shape[-2] * args[2].shape[:-2].numel() * 4
+                      for args in calls)
+        n_ops = sum(args[2].numel() + 24 * int(args[2].sum()) for args in calls)
+        return n_bytes, n_ops
 
-    def all_k7(fn):
-        return lambda: [fn(*args) for args in x["k7"]]
+    def each(fn, calls):
+        return lambda: [fn(*args) for args in calls]
 
-    row("masked_hamming_top2", "orb_slam2_commit_tpu_torch/csrc/matching.cu",
-        "orb_slam2_commit_tpu/ops/pallas_matching.py:113",
-        all_k7(kmatching.masked_hamming_top2),
-        all_k7(kmatching.masked_hamming_top2_plain), None, k7_bytes, k7_ops)
+    log("K7 triangulation calls (B, N, N): " + ", ".join(
+        f"{tuple(a[2].shape)} {int(a[2].sum())} pairs" for a in x["sys_k7b"]))
+    k7_src = ("masked_hamming_top2", "orb_slam2_commit_tpu_torch/csrc/matching.cu",
+              "orb_slam2_commit_tpu/ops/pallas_matching.py:113")
+    row(*k7_src, each(kmatching.masked_hamming_top2, x["sys_k7"] + x["sys_k7b"]),
+        each(kmatching.masked_hamming_top2_plain, x["sys_k7"] + x["sys_k7b"]), None,
+        *top2_work(x["sys_k7"] + x["sys_k7b"]))
+    for caller, calls in (("reference-keyframe match", x["sys_k7"]),
+                          ("triangulation, batch axis", x["sys_k7b"])):
+        row(*k7_src, each(kmatching.masked_hamming_top2, calls),
+            each(kmatching.masked_hamming_top2_plain, calls), None, *top2_work(calls),
+            caller=caller)
+
+    # K6 with a batch axis on the System's recorded fuse calls (one
+    # keyframe's points, their descriptors shared, into B targets): inputs
+    # once, 4 x B x M results; 8 operations per window test of a valid row
+    # and 24 per candidate pair.
+    k6b_bytes = k6b_ops = 0
+    for args in x["sys_k6b"]:
+        desc_a, proj, (radius,), lo, hi, valid_a, desc_b, xy_b, octave_b, valid_b = args
+        k6b_bytes += nbytes(desc_a, proj, radius, *args[3:]) + 4 * valid_a.numel() * 4
+        cand = (valid_a[:, :, None] & valid_b[:, None, :]
+                & kmatching.matching.window_mask(proj, xy_b, radius)
+                & kmatching.matching.octave_band_mask(octave_b, lo, hi))
+        k6b_ops += 8 * int(valid_a.sum()) * desc_b.shape[1] + 24 * int(cand.sum())
+    log("K6 fuse calls (B, P, N): " + ", ".join(
+        f"({a[1].shape[0]}, {a[1].shape[1]}, {a[6].shape[1]}) {int(a[5].sum())} valid rows"
+        for a in x["sys_k6b"]))
+    row("projection_hamming_top2", "orb_slam2_commit_tpu_torch/csrc/matching.cu",
+        "orb_slam2_commit_tpu/ops/pallas_matching.py:246",
+        each(kmatching.projection_hamming_top2, x["sys_k6b"]),
+        each(kmatching.projection_hamming_top2_plain, x["sys_k6b"]), None,
+        k6b_bytes, k6b_ops, caller="fuse, batch axis")
 
     # K8, the pair's two launches: inputs read once, pose and inlier flags
     # written; operations from the evaluations each launch ran on this
@@ -1316,19 +1687,28 @@ def main() -> int:
 
     x = main_path_inputs(args[0], *pairs["monocular"])
     x.update(stereo_path_inputs(*pairs["stereo"]))
+    seqs = {sensor: system_sequence(sensor) for sensor in ("rgbd", "stereo")}
+    x.update(system_path_inputs(seqs))
     errs = phase_kernels(x)
     counts = {sensor: phase_pair(*pair) for sensor, pair in pairs.items()}
     phase_step(config, args)
+    system_counts, system_batched = phase_system(seqs, power)
     phase_step_timing(config, args, power)
     phase_pair_timing(*pairs["monocular"], x, power)
     for sensor in ("stereo", "rgbd"):
         phase_sensor_timing(*pairs[sensor], x, power)
     # Launches per call: K1-K6 and K8 on the monocular pair (their timed
-    # inputs), K7 on the stereo pair.
+    # inputs), K7's band form on the stereo pair, K7 under a mask over the
+    # System's RGB-D sequence; the callers' lines of K6 and K7 under a mask
+    # with their launches with a batch axis in that sequence.
     kernels = phase_kernel_timing(x, errs, dict(
         counts["monocular"],
         stereo_band_top2=counts["stereo"]["stereo_band_top2"],
-        masked_hamming_top2=counts["stereo"]["masked_hamming_top2"]), power)
+        masked_hamming_top2=system_counts["rgbd"]["masked_hamming_top2"]), {
+        "reference-keyframe match": (system_counts["rgbd"]["masked_hamming_top2"]
+                                     - system_batched["rgbd"]["masked_hamming_top2"]),
+        "triangulation, batch axis": system_batched["rgbd"]["masked_hamming_top2"],
+        "fuse, batch axis": system_batched["rgbd"]["projection_hamming_top2"]}, power)
 
     log(json.dumps({"kernels": kernels}))
     log(power)

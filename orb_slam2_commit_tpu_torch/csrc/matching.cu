@@ -22,7 +22,10 @@
 // +- 1 and -2 <= x_l - x_r <= max_d (float32, max_d the float32 value
 // PyTorch compares with); one launch gives left -> right and right ->
 // left. Under a caller-supplied [M, N] bool mask (masked_hamming_top2)
-// it serves the dense-mask matchers still to be ported.
+// it serves the dense-mask matchers: reference-keyframe tracking
+// (match_brute_force) and, with a leading batch axis of neighbour pairs,
+// the mapper's triangulation matcher (match_for_triangulation in
+// fused_triangulation_jit).
 //
 // Semantics follow the Pallas kernels exactly, index fallbacks included.
 // Rows are reduced by the packed key (distance << COL_BITS) | column, so
@@ -84,6 +87,19 @@
 // transpose copy); 1 or 4 warps per row (0.0081, 0.0088 ms) and 4 rows
 // per block (0.0104 ms) were slower, 16 rows per block level
 // (0.0061-0.0063 ms).
+//
+// Batches. Both K6 and K7 under a mask take a leading batch axis: the
+// grid's y index is the problem, whose rows, columns, mask and outputs sit
+// at its own offsets (the row descriptors may be shared by every
+// problem: the mapper's fuse pass projects one keyframe's points into B
+// target keyframes, and its triangulation matcher matches one keyframe's
+// features against B neighbours). One launch serves all B problems; a problem's
+// blocks run exactly the code of a launch of that problem alone, so each
+// result is bit-identical to it, and the single-problem launches are
+// batches of one. On an H100 80GB HBM3 at 700 W (chip_smoke.py, the
+// System's recorded calls) a batched K7 launch over 4-8 neighbour pairs of
+// [1000, 1000] masks takes ~0.009 ms, and a batched K6 launch over 4
+// targets of 1024 points against 1000 keypoints ~0.010 ms.
 //
 // K7 under a mask: one warp per row, 8 rows per block. The row's
 // descriptor lives in registers; lanes stride over the N columns, so the
@@ -206,7 +222,24 @@ __global__ void __launch_bounds__(THREADS) projection_top2_kernel(
     const int* __restrict__ oct_lo, const int* __restrict__ oct_hi,
     const uint8_t* __restrict__ valid_a, int m, const uint4* __restrict__ desc_b,
     const float2* __restrict__ xy_b, const int* __restrict__ octave_b,
-    const uint8_t* __restrict__ valid_b, int n, int cap, int* __restrict__ out) {
+    const uint8_t* __restrict__ valid_b, int n, int cap, long long a_bstride,
+    int* __restrict__ out) {
+  // Problem blockIdx.y of a batch: its rows, columns and outputs.
+  {
+    const size_t b = blockIdx.y;
+    desc_a += b * a_bstride;
+    proj += b * m;
+    radius += b * m;
+    if constexpr (NW == 2) radius2 += b * m;
+    oct_lo += b * m;
+    oct_hi += b * m;
+    valid_a += b * m;
+    desc_b += b * 2 * (size_t)n;
+    xy_b += b * n;
+    octave_b += b * n;
+    valid_b += b * n;
+    out += b * NW * 4 * (size_t)m;
+  }
   extern __shared__ uint4 smem[];
   float2* sxy = reinterpret_cast<float2*>(smem);
   int* soct = reinterpret_cast<int*>(sxy + cap);
@@ -432,8 +465,18 @@ __global__ void __launch_bounds__(BAND_THREADS) stereo_band_top2_kernel(
 }
 
 __global__ void masked_top2_kernel(
-    const int* __restrict__ desc_a, int m, const int* __restrict__ desc_b,
-    int n, const uint8_t* __restrict__ mask, int* __restrict__ out) {
+    const int* __restrict__ desc_a, long long a_bstride, int m,
+    const int* __restrict__ desc_b, int n, const uint8_t* __restrict__ mask,
+    int* __restrict__ out) {
+  // Problem blockIdx.y of a batch: desc_a's rows a_bstride ints apart (0:
+  // shared), [B, N, 8] columns under [B, M, N] -> out [B, 4, M].
+  {
+    const size_t b = blockIdx.y;
+    desc_a += b * a_bstride;
+    desc_b += b * n * WORDS;
+    mask += b * m * (size_t)n;
+    out += b * 4 * (size_t)m;
+  }
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int row = blockIdx.x * WARPS + warp;
@@ -461,14 +504,16 @@ __global__ void masked_top2_kernel(
 
 }  // namespace
 
-// radius2: null for one window (out [4, m]), else the second window's
-// radii (out [2, 4, m]). desc_b must be 16-byte and proj, xy_b 8-byte
-// aligned.
+// radius2: null for one window (out [batch, 4, m]), else the second
+// window's radii (out [batch, 2, 4, m]). Row tensors [batch, m, ...]
+// except desc_a, whose problems lie a_bstride ints apart (0: shared);
+// column tensors [batch, n, ...]. desc_b must be 16-byte and proj, xy_b
+// 8-byte aligned.
 extern "C" int projection_top2_launch(
-    const void* desc_a, const void* proj, const void* radius, const void* radius2,
-    const void* oct_lo, const void* oct_hi, const void* valid_a, int m,
-    const void* desc_b, const void* xy_b, const void* octave_b,
-    const void* valid_b, int n, void* out, void* stream) {
+    const void* desc_a, long long a_bstride, const void* proj, const void* radius,
+    const void* radius2, const void* oct_lo, const void* oct_hi, const void* valid_a,
+    int m, const void* desc_b, const void* xy_b, const void* octave_b,
+    const void* valid_b, int n, int batch, void* out, void* stream) {
   const int cap = min((n + 31) / 32 * 32, CHUNK);
   const size_t smem = (size_t)cap * (sizeof(float2) + sizeof(int)) +
                       (size_t)(cap + 4) * WORDS * sizeof(unsigned);
@@ -478,12 +523,12 @@ extern "C" int projection_top2_launch(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const int blocks = (m + ROWS - 1) / ROWS;
-  kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+  const dim3 grid((m + ROWS - 1) / ROWS, batch);
+  kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       (const int*)desc_a, (const float2*)proj, (const float*)radius,
       (const float*)radius2, (const int*)oct_lo, (const int*)oct_hi,
       (const uint8_t*)valid_a, m, (const uint4*)desc_b, (const float2*)xy_b,
-      (const int*)octave_b, (const uint8_t*)valid_b, n, cap, (int*)out);
+      (const int*)octave_b, (const uint8_t*)valid_b, n, cap, a_bstride, (int*)out);
   return (int)cudaGetLastError();
 }
 
@@ -510,12 +555,14 @@ extern "C" int stereo_band_top2_launch(
   return (int)cudaGetLastError();
 }
 
+// batch problems: desc_a [m, 8] per problem, a_bstride ints apart (0:
+// shared), desc_b [batch, n, 8], mask [batch, m, n] -> out [batch, 4, m].
 extern "C" int masked_top2_launch(
-    const void* desc_a, int m, const void* desc_b, int n, const void* mask,
-    void* out, void* stream) {
-  const int blocks = (m + WARPS - 1) / WARPS;
-  masked_top2_kernel<<<blocks, WARPS * 32, 0, (cudaStream_t)stream>>>(
-      (const int*)desc_a, m, (const int*)desc_b, n, (const uint8_t*)mask,
-      (int*)out);
+    const void* desc_a, long long a_bstride, int m, const void* desc_b, int n,
+    const void* mask, int batch, void* out, void* stream) {
+  const dim3 grid((m + WARPS - 1) / WARPS, batch);
+  masked_top2_kernel<<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
+      (const int*)desc_a, a_bstride, m, (const int*)desc_b, n,
+      (const uint8_t*)mask, (int*)out);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,7 @@
 """Entry points that move state into and out of the port.
 
+- `to_device`, `to_host`: one host array to a tensor on a device (uint32
+  descriptors as int32 bits, floats as float32), and a tensor back.
 - `map_from_numpy`: the tracking step's inputs as numpy arrays (the JAX
   package's layout: uint32 descriptors) -> tensors on a device.
 - `packed_from_numpy`: the fused pair's packed inputs (`pt_f32 [M, 6]`,
@@ -25,6 +27,14 @@
   edges, for the same two uses.
 - `patch_edge_yx`: keypoint centres at and past every edge of an image,
   for the patch kernels (K4 and the fused K4 + K5), for the same two uses.
+- `map_state_to_numpy` / `map_state_from_numpy`, `frame_to_numpy` /
+  `frame_from_numpy`, `tracker_state_to_numpy` / `tracker_state_into`,
+  `recent_points_to_numpy` / `recent_points_from_numpy`: a System's host
+  state (the map tables, a Frame, the fields a tracker step reads, the
+  mapper's recent-point list) as plain numpy arrays and scalars, and
+  back into the port's objects. The `_to_numpy` side reads any object with
+  the JAX package's attribute names, so a JAX System's state carries
+  across into the port's.
 
 Every entry point that places tensors takes `device`, "cuda" by default;
 without a card that default raises instead of falling back to the CPU.
@@ -50,7 +60,7 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
-def _put(a, dev) -> torch.Tensor:
+def to_device(a, dev) -> torch.Tensor:
     """numpy -> tensor on dev: uint32 keeps its bits as int32, other
     integers become int32, floats float32, bools stay bool."""
     a = np.asarray(a)
@@ -61,6 +71,11 @@ def _put(a, dev) -> torch.Tensor:
     elif a.dtype.kind == "f":
         a = a.astype(np.float32)
     return torch.from_numpy(np.array(a, order="C")).to(dev)
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A tensor on any device -> numpy (waits for the device)."""
+    return t.detach().cpu().numpy()
 
 
 def map_from_numpy(
@@ -79,7 +94,7 @@ def map_from_numpy(
     on `device`. Floats become float32; uint32 descriptors keep their bits
     as int32."""
     dev = resolve_device(device)
-    return tuple(_put(a, dev) for a in (
+    return tuple(to_device(a, dev) for a in (
         image, pt_pos, np.asarray(pt_desc, np.uint32), pt_octave, pt_angle,
         np.asarray(pt_valid, bool), R_pred, t_pred))
 
@@ -91,7 +106,7 @@ def packed_from_numpy(*arrays: np.ndarray, device="cuda") -> Tuple[torch.Tensor,
     `device`: float matrices as float32, uint32 descriptor tables as int32
     bits."""
     dev = resolve_device(device)
-    return tuple(_put(a, dev) for a in arrays)
+    return tuple(to_device(a, dev) for a in arrays)
 
 
 def features_to_numpy(feats: ext.Features) -> Dict[str, np.ndarray]:
@@ -426,3 +441,129 @@ def patch_edge_yx(h, w):
     yx += [(y, x) for y in (0, h - 1) for x in (0, w - 1)]
     yx += [(y, x) for y in (-1, h) for x in (-1, w)]
     return np.asarray(yx, np.int32)
+
+
+# ---------------------------------------------------------------------------
+# Host state carried across
+# ---------------------------------------------------------------------------
+
+MAP_SCALARS = ("n_feat", "next_kf", "next_pt", "big_change_idx")
+FRAME_ARRAYS = ("xy", "xy_raw", "octave", "angle", "response", "desc", "valid",
+                "depth", "ur", "R", "t", "point_ids", "dev_feat", "dev_desc")
+TRACKER_SCALARS = ("ref_kf", "last_kf_frame_id", "last_reloc_frame_id", "n_inliers")
+
+
+def _copy(a):
+    """A host copy of an array of any framework (numpy, a torch tensor on
+    any device, a JAX array); None stays None."""
+    if a is None:
+        return None
+    if isinstance(a, torch.Tensor):
+        return to_host(a).copy()
+    return np.array(a, copy=True)
+
+
+def map_state_to_numpy(ms) -> Dict[str, object]:
+    """A MapState (the port's or the JAX package's) -> a dict of numpy
+    copies of its tables, its counters, its loop edges and its MapConfig
+    fields (under "cfg")."""
+    import dataclasses
+
+    from orb_slam2_commit_tpu_torch.models.map_state import MapState
+
+    out = {f.name: _copy(getattr(ms, f.name)) for f in dataclasses.fields(MapState)
+           if f.name not in ("cfg", "loop_edges", "remove_kf_hooks", "grow_hooks")
+           and f.name not in MAP_SCALARS}
+    out.update({k: int(getattr(ms, k)) for k in MAP_SCALARS})
+    out["loop_edges"] = [tuple(int(v) for v in e) for e in (ms.loop_edges or [])]
+    out["cfg"] = {f.name: getattr(ms.cfg, f.name) for f in dataclasses.fields(ms.cfg)}
+    return out
+
+
+def map_state_from_numpy(d: Dict[str, object]):
+    """map_state_to_numpy's dict -> the port's MapState (arrays copied)."""
+    from orb_slam2_commit_tpu_torch.models.map_state import MapState
+    from orb_slam2_commit_tpu_torch.utils.config import MapConfig
+
+    arrays = {k: np.array(v, copy=True) for k, v in d.items()
+              if k not in MAP_SCALARS and k not in ("cfg", "loop_edges")}
+    return MapState(cfg=MapConfig(**d["cfg"]), loop_edges=list(d["loop_edges"]),
+                    **{k: d[k] for k in MAP_SCALARS}, **arrays)
+
+
+def _entry_to_numpy(e):
+    if e is None:
+        return None
+    return dict(ref_kf=int(e.ref_kf), R_rel=_copy(e.R_rel), t_rel=_copy(e.t_rel),
+                timestamp=float(e.timestamp), lost=bool(e.lost))
+
+
+def frame_to_numpy(frame) -> Dict[str, object]:
+    """A Frame (the port's or the JAX package's) -> a dict of numpy copies:
+    its features, pose, bindings, its trajectory anchor (a dict) and the
+    fused motion stage's packed features left on the device (dev_feat
+    [N, 12] float32, dev_desc [N, 8]; None for a staged frame)."""
+    out = {k: _copy(getattr(frame, k)) for k in FRAME_ARRAYS}
+    if out["dev_desc"] is not None:
+        out["dev_desc"] = out["dev_desc"].view(np.uint32)
+    out.update(frame_id=int(frame.frame_id), timestamp=float(frame.timestamp),
+               anchor=_entry_to_numpy(frame.anchor))
+    return out
+
+
+def frame_from_numpy(d: Dict[str, object], device="cuda"):
+    """frame_to_numpy's dict -> the port's Frame, its dev_feat and dev_desc
+    on `device`."""
+    from orb_slam2_commit_tpu_torch.slam.frame import Frame
+    from orb_slam2_commit_tpu_torch.slam.tracking import TrajectoryEntry
+
+    dev = resolve_device(device)
+    host = {k: (None if d[k] is None else np.array(d[k], copy=True))
+            for k in FRAME_ARRAYS if k not in ("dev_feat", "dev_desc")}
+    frame = Frame(frame_id=d["frame_id"], timestamp=d["timestamp"], **host)
+    if d["dev_feat"] is not None:
+        frame.dev_feat = to_device(d["dev_feat"], dev)
+        frame.dev_desc = to_device(np.asarray(d["dev_desc"], np.uint32), dev)
+    if d["anchor"] is not None:
+        frame.anchor = TrajectoryEntry(**d["anchor"])
+    return frame
+
+
+def tracker_state_to_numpy(tracker) -> Dict[str, object]:
+    """The fields a tracker step reads (the port's or the JAX package's
+    Tracker): last_frame (a frame dict), velocity ((R, t) or None), state
+    (its name), ref_kf, last_kf_frame_id, last_reloc_frame_id, n_inliers."""
+    out = {k: int(getattr(tracker, k)) for k in TRACKER_SCALARS}
+    out["state"] = tracker.state.name
+    out["velocity"] = (None if tracker.velocity is None
+                       else tuple(_copy(v) for v in tracker.velocity))
+    out["last_frame"] = (None if tracker.last_frame is None
+                         else frame_to_numpy(tracker.last_frame))
+    return out
+
+
+def tracker_state_into(tracker, d: Dict[str, object]) -> None:
+    """Set a port Tracker's step fields from tracker_state_to_numpy's dict;
+    the last frame's device buffers go to the tracker's device."""
+    from orb_slam2_commit_tpu_torch.slam.tracking import TrackingState
+
+    for k in TRACKER_SCALARS:
+        setattr(tracker, k, d[k])
+    tracker.state = TrackingState[d["state"]]
+    tracker.velocity = (None if d["velocity"] is None
+                        else tuple(np.array(v, copy=True) for v in d["velocity"]))
+    tracker.last_frame = (None if d["last_frame"] is None
+                          else frame_from_numpy(d["last_frame"], tracker.device))
+
+
+def recent_points_to_numpy(mapper) -> np.ndarray:
+    """A LocalMapper's recent-point list -> [R, 2] int64 (pt_id, first_kf)."""
+    return np.asarray([(rp.pt_id, rp.first_kf) for rp in mapper.recent_points],
+                      np.int64).reshape(-1, 2)
+
+
+def recent_points_from_numpy(a: np.ndarray):
+    """recent_points_to_numpy's array -> the port's RecentPoint list."""
+    from orb_slam2_commit_tpu_torch.slam.local_mapping import RecentPoint
+
+    return [RecentPoint(int(p), int(k)) for p, k in np.asarray(a).reshape(-1, 2)]

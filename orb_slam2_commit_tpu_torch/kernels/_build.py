@@ -88,12 +88,12 @@ SIGNATURES = {
     },
     "matching": {
         "projection_top2_launch": (
-            _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-            _c_void_p, _c_int, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-            _c_int, _c_void_p, _c_void_p),
+            _c_void_p, ctypes.c_longlong, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+            _c_void_p, _c_void_p, _c_int, _c_void_p, _c_void_p, _c_void_p,
+            _c_void_p, _c_int, _c_int, _c_void_p, _c_void_p),
         "masked_top2_launch": (
-            _c_void_p, _c_int, _c_void_p, _c_int, _c_void_p, _c_void_p,
-            _c_void_p),
+            _c_void_p, ctypes.c_longlong, _c_int, _c_void_p, _c_int, _c_void_p, _c_int,
+            _c_void_p, _c_void_p),
         "stereo_band_top2_launch": (
             _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int,
             _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_float,

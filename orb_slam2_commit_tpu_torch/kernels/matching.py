@@ -7,7 +7,12 @@ ops/pallas_matching.py; kernels in csrc/matching.cu):
   (ops/stereo.py), left -> right and right -> left in one launch that
   tests the band itself;
 - K7 masked_hamming_top2: top-2 under a caller-supplied [M, N] candidate
-  mask (no caller on the main paths).
+  mask (reference-keyframe tracking's match_brute_force).
+
+K6 and K7 under a mask also take a leading batch axis: one launch serves
+B problems (the mapper's fuse pass into B target keyframes, its
+triangulation matcher over B neighbour pairs) and counts as one launch;
+a single problem is a batch of one.
 
 On a CUDA tensor a wrapper launches its kernel; on a CPU tensor it runs
 the plain version. Both give the same four outputs, the Pallas kernels'
@@ -30,20 +35,21 @@ Top2 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def masked_hamming_top2_plain(desc_a, desc_b, mask) -> Top2:
-    """Plain version of K7, the dense route: the [M, N] distance matrix
-    under the mask, then the top-2 of the Pallas kernels' _top2_reduce:
-    ties to the lowest column, BIG where there is no candidate, and the
-    second index the lowest column other than the best when the row has
-    fewer than two candidates."""
+    """Plain version of K7, the dense route: the [..., M, N] distance
+    matrix under the mask, then the top-2 of the Pallas kernels'
+    _top2_reduce: ties to the lowest column, BIG where there is no
+    candidate, and the second index the lowest column other than the best
+    when the row has fewer than two candidates. Leading batch dimensions
+    broadcast."""
     dist = matching.hamming_distance_matrix(desc_a, desc_b)
     d = torch.where(mask, dist, torch.full_like(dist, BIG_DIST))
     best_idx = matching._first_argmin(d)
-    best = d.amin(dim=1)
-    cols = torch.arange(d.shape[1], dtype=torch.int32, device=d.device)[None, :]
+    best = d.amin(dim=-1)
+    cols = torch.arange(d.shape[-1], dtype=torch.int32, device=d.device)
     # The best column drops below every other, candidate or not.
-    d2 = torch.where(cols == best_idx[:, None], torch.full_like(d, BIG_DIST + 1), d)
+    d2 = torch.where(cols == best_idx[..., None], torch.full_like(d, BIG_DIST + 1), d)
     second_idx = matching._first_argmin(d2)
-    second = torch.clamp_max(d2.amin(dim=1), BIG_DIST)
+    second = torch.clamp_max(d2.amin(dim=-1), BIG_DIST)
     return best, best_idx, second, second_idx
 
 
@@ -52,10 +58,10 @@ def projection_hamming_top2_plain(
     desc_b, xy_b, octave_b, valid_b,
 ) -> Tuple[Top2, ...]:
     """Plain version of K6: per radius, the window and octave masks, then
-    K7's plain version."""
+    K7's plain version (leading batch dimensions broadcast)."""
     band = (
-        valid_a[:, None]
-        & valid_b[None, :]
+        valid_a[..., :, None]
+        & valid_b[..., None, :]
         & matching.octave_band_mask(octave_b, oct_lo, oct_hi)
     )
     return tuple(
@@ -79,45 +85,60 @@ def projection_hamming_top2(
     int32; best and second are BIG_DIST where the row has no (second)
     candidate. Two windows per row (the motion stage's search and its
     widened retry) come from one kernel launch, exact for any two radii;
-    the plain version takes each window on its own."""
+    the plain version takes each window on its own.
+
+    B problems in one launch: every tensor but desc_a takes a leading
+    batch axis ([B, M, 2], [B, N, 8], ...), desc_a is [B, M, 8] or stays
+    [M, 8] (one point set shared by the problems), and each output is
+    [B, M]; problem b's rows are exactly what the call on its slices
+    gives."""
+    name = "projection_hamming_top2"
     if not 1 <= len(radii) <= 2:
-        raise ValueError(f"projection_hamming_top2: one or two radii, got {len(radii)}")
-    row_args = ((desc_a, "desc_a", torch.int32, 2), (proj, "proj", torch.float32, 2),
+        raise ValueError(f"{name}: one or two radii, got {len(radii)}")
+    k = proj.dim() - 2
+    if k not in (0, 1):
+        raise ValueError(f"{name}: proj [M, 2] or [B, M, 2], got {tuple(proj.shape)}")
+    lead = tuple(proj.shape[:k])
+    m, n = proj.shape[k], (desc_b.shape[k] if desc_b.dim() > k else 0)
+    row_args = ((proj, "proj", torch.float32, 2),
                 *((r, f"radii[{i}]", torch.float32, 1) for i, r in enumerate(radii)),
                 (oct_lo, "oct_lo", torch.int32, 1), (oct_hi, "oct_hi", torch.int32, 1),
                 (valid_a, "valid_a", torch.bool, 1))
     col_args = ((desc_b, "desc_b", torch.int32, 2), (xy_b, "xy_b", torch.float32, 2),
                 (octave_b, "octave_b", torch.int32, 1), (valid_b, "valid_b", torch.bool, 1))
-    m, n = desc_a.shape[0], desc_b.shape[0]
     for args, rows in ((row_args, m), (col_args, n)):
-        for t, name, dtype, ndim in args:
-            _build.require(t, f"projection_hamming_top2 {name}", dtype, ndim)
-            if t.shape[0] != rows or t.device != desc_a.device:
+        for t, what, dtype, ndim in args:
+            _build.require(t, f"{name} {what}", dtype, ndim + k)
+            if tuple(t.shape[:k + 1]) != lead + (rows,) or t.device != desc_a.device:
                 raise ValueError(
-                    f"projection_hamming_top2 {name}: shape {tuple(t.shape)} on "
-                    f"{t.device}, expected {rows} rows on {desc_a.device}")
-    if desc_a.shape[1] != 8 or desc_b.shape[1] != 8 or proj.shape[1] != 2 \
-            or xy_b.shape[1] != 2 or not 1 <= n < (1 << COL_BITS):
+                    f"{name} {what}: shape {tuple(t.shape)} on {t.device}, "
+                    f"expected {lead + (rows,)} leading on {desc_a.device}")
+    _build.require(desc_a, f"{name} desc_a", torch.int32, 2 if desc_a.dim() == 2 else 2 + k)
+    bsz = lead[0] if lead else 1
+    if tuple(desc_a.shape) not in ((m, 8), lead + (m, 8)) or desc_b.shape[-1] != 8 \
+            or proj.shape[-1] != 2 or xy_b.shape[-1] != 2 \
+            or not 1 <= n < (1 << COL_BITS) or not 1 <= bsz < (1 << 16):
         raise ValueError(
-            f"projection_hamming_top2: descriptors {tuple(desc_a.shape)} x "
-            f"{tuple(desc_b.shape)}, proj {tuple(proj.shape)}, xy {tuple(xy_b.shape)}")
-    if not _build.on_card(desc_a, "projection_hamming_top2"):
+            f"{name}: descriptors {tuple(desc_a.shape)} x {tuple(desc_b.shape)}, "
+            f"proj {tuple(proj.shape)}, xy {tuple(xy_b.shape)}")
+    if not _build.on_card(desc_a, name):
         return projection_hamming_top2_plain(
             desc_a, proj, radii, oct_lo, oct_hi, valid_a,
             desc_b, xy_b, octave_b, valid_b)
     # The kernel reads desc_b 16 bytes and proj, xy_b 8 bytes at a time.
     desc_b, proj, xy_b = (_build.aligned(t) for t in (desc_b, proj, xy_b))
-    out = torch.empty((len(radii), 4, m), dtype=torch.int32, device=desc_a.device)
+    out = torch.empty((bsz, len(radii), 4, m), dtype=torch.int32, device=desc_a.device)
     if m:
         err = _build.library("matching").projection_top2_launch(
-            desc_a.data_ptr(), proj.data_ptr(), radii[0].data_ptr(),
-            radii[1].data_ptr() if len(radii) == 2 else None,
+            desc_a.data_ptr(), m * 8 if desc_a.dim() == 3 else 0, proj.data_ptr(),
+            radii[0].data_ptr(), radii[1].data_ptr() if len(radii) == 2 else None,
             oct_lo.data_ptr(), oct_hi.data_ptr(), valid_a.data_ptr(), m,
             desc_b.data_ptr(), xy_b.data_ptr(), octave_b.data_ptr(),
-            valid_b.data_ptr(), n, out.data_ptr(), _build.stream_of(desc_a))
-        _build.check(err, "projection_hamming_top2")
-        _build.launches["projection_hamming_top2"] += 1
-    return tuple(tuple(o) for o in out)
+            valid_b.data_ptr(), n, bsz, out.data_ptr(), _build.stream_of(desc_a))
+        _build.check(err, name)
+        _build.launches[name] += 1
+    out = out.reshape(lead + (len(radii), 4, m)).movedim(-3, 0)
+    return tuple(tuple(o.unbind(-2)) for o in out)
 
 
 def stereo_band_mask(xy_l, octave_l, scale_l, valid_l, xy_r, octave_r, valid_r,
@@ -207,26 +228,39 @@ def masked_hamming_top2(
 ) -> Top2:
     """-> (best, best_idx, second, second_idx), each [M] int32; best and
     second are BIG_DIST where the row has no (second) candidate, and a row
-    with no candidate has best_idx 0, as jnp.argmin gives over a BIG row."""
-    m, n = desc_a.shape[0], desc_b.shape[0]
-    for t, name, dtype in ((desc_a, "desc_a", torch.int32),
-                           (desc_b, "desc_b", torch.int32), (mask, "mask", torch.bool)):
-        _build.require(t, f"masked_hamming_top2 {name}", dtype, 2)
+    with no candidate has best_idx 0, as jnp.argmin gives over a BIG row.
+
+    B problems in one launch: mask [B, M, N], desc_b [B, N, 8], desc_a
+    [B, M, 8] or [M, 8] (one keyframe's descriptors shared by the
+    problems), each output [B, M]; problem b's rows are exactly what the
+    call on its slices gives."""
+    name = "masked_hamming_top2"
+    k = mask.dim() - 2
+    if k not in (0, 1):
+        raise ValueError(f"{name}: mask [M, N] or [B, M, N], got {tuple(mask.shape)}")
+    for t, what, dtype, ndim in ((desc_a, "desc_a", torch.int32,
+                                  2 if desc_a.dim() == 2 else 2 + k),
+                                 (desc_b, "desc_b", torch.int32, 2 + k),
+                                 (mask, "mask", torch.bool, 2 + k)):
+        _build.require(t, f"{name} {what}", dtype, ndim)
         if t.device != desc_a.device:
-            raise ValueError(f"masked_hamming_top2 {name}: on {t.device}, "
-                             f"expected {desc_a.device}")
-    if desc_a.shape[1] != 8 or desc_b.shape[1] != 8 or tuple(mask.shape) != (m, n) \
-            or not 1 <= n < (1 << COL_BITS):
+            raise ValueError(f"{name} {what}: on {t.device}, expected {desc_a.device}")
+    lead = tuple(mask.shape[:k])
+    m, n = mask.shape[k:]
+    bsz = lead[0] if lead else 1
+    if tuple(desc_a.shape) not in ((m, 8), lead + (m, 8)) \
+            or tuple(desc_b.shape) != lead + (n, 8) \
+            or not 1 <= n < (1 << COL_BITS) or not 1 <= bsz < (1 << 16):
         raise ValueError(
-            f"masked_hamming_top2: descriptors {tuple(desc_a.shape)} x "
-            f"{tuple(desc_b.shape)}, mask {tuple(mask.shape)}")
-    if not _build.on_card(desc_a, "masked_hamming_top2"):
+            f"{name}: descriptors {tuple(desc_a.shape)} x {tuple(desc_b.shape)}, "
+            f"mask {tuple(mask.shape)}")
+    if not _build.on_card(desc_a, name):
         return masked_hamming_top2_plain(desc_a, desc_b, mask)
-    out = torch.empty((4, m), dtype=torch.int32, device=desc_a.device)
+    out = torch.empty((bsz, 4, m), dtype=torch.int32, device=desc_a.device)
     if m:
         err = _build.library("matching").masked_top2_launch(
-            desc_a.data_ptr(), m, desc_b.data_ptr(), n, mask.data_ptr(),
-            out.data_ptr(), _build.stream_of(desc_a))
-        _build.check(err, "masked_hamming_top2")
-        _build.launches["masked_hamming_top2"] += 1
-    return out[0], out[1], out[2], out[3]
+            desc_a.data_ptr(), m * 8 if desc_a.dim() == 3 else 0, m, desc_b.data_ptr(),
+            n, mask.data_ptr(), bsz, out.data_ptr(), _build.stream_of(desc_a))
+        _build.check(err, name)
+        _build.launches[name] += 1
+    return tuple(out.reshape(lead + (4, m)).unbind(-2))

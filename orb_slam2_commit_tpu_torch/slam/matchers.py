@@ -1,7 +1,15 @@
-"""Tracker-level matching (PyTorch port of the per-frame matchers of
-slam/matchers.py): projection window + octave band -> Hamming top-2 per
-map point (K6, kernels/matching.py) -> best/ratio gating -> rotation
-histogram -> duplicate resolution, over fixed-shape padded tensors."""
+"""Tracker- and mapper-level matching (PyTorch port of slam/matchers.py):
+a candidate set -> Hamming top-2 per row (K6 for projection windows, K7
+under a mask, kernels/matching.py) -> best/ratio gating -> rotation
+histogram -> duplicate resolution, over fixed-shape padded tensors.
+
+The variants: motion-model and local-map projection matching (K6),
+reference-keyframe brute force (K7 under a mask), the mapper's
+triangulation matcher under the epipolar mask (K7, one launch over a batch
+of neighbour pairs) and its fuse projection (K6, one launch over a batch
+of target keyframes).
+match_for_initialization, match_brute_force_many and match_by_sim3 are
+still to be ported."""
 
 from __future__ import annotations
 
@@ -12,7 +20,7 @@ import torch
 
 from orb_slam2_commit_tpu_torch.kernels import matching as matching_kernel
 from orb_slam2_commit_tpu_torch.ops import matching
-from orb_slam2_commit_tpu_torch.ops.matching import MatchResult, TH_HIGH
+from orb_slam2_commit_tpu_torch.ops.matching import MatchResult, TH_HIGH, TH_LOW
 from orb_slam2_commit_tpu_torch.utils.device_cache import device_table
 from orb_slam2_commit_tpu_torch.utils.precision import full_float32
 
@@ -184,3 +192,95 @@ def match_local_map(
         TH_HIGH, ratio, ratio_octave_rule=True,
     )[0]
     return matching.resolve_duplicate_targets(m, desc.shape[0])
+
+
+def match_brute_force(
+    desc_a: torch.Tensor, angle_a: torch.Tensor, valid_a: torch.Tensor,
+    desc_b: torch.Tensor, angle_b: torch.Tensor, valid_b: torch.Tensor,
+    max_dist: int = TH_LOW, ratio: float = 0.7,
+) -> MatchResult:
+    """Whole-frame descriptor matching with ratio + rotation checks: the
+    stand-in for SearchByBoW (src/ORBmatcher.cc:175-325) with its gates
+    (TH_LOW, ratio 0.7, rotation histogram, one-to-one) over every valid
+    pair, a superset of the BoW node buckets. K7 under the [N_a, N_b]
+    validity mask. Used for reference-keyframe tracking."""
+    mask = valid_a[:, None] & valid_b[None, :]
+    m = matching.match_from_top2(
+        *matching_kernel.masked_hamming_top2(
+            desc_a.contiguous(), desc_b.contiguous(), mask.contiguous()),
+        max_dist, ratio)
+    m = matching.rotation_consistency_filter(m, angle_a, angle_b)
+    return matching.resolve_duplicate_targets(m, desc_b.shape[0])
+
+
+@full_float32
+def triangulation_mask(
+    xy1, free1, xy2, free2, F12, octave2, epipole2, min_epipole_dist2,
+    n_levels: int = 8, scale: float = 1.2,
+) -> torch.Tensor:
+    """SearchForTriangulation's candidate pairs (src/ORBmatcher.cc:738-911)
+    as a [..., N1, N2] mask: both features free (no bound map point), the
+    image-2 feature at least sqrt(min_epipole_dist2) px from the epipole
+    (:831-838) and inside the epipolar band of the image-1 feature
+    (CheckDistEpipolarLine). Leading batch dimensions broadcast: xy2
+    [..., N2, 2], F12 [..., 3, 3], epipole2 [..., 2]."""
+    sigmas2 = _scale_sigmas(xy1.device, n_levels, scale) ** 2
+    sig2 = sigmas2[torch.clamp(octave2, 0, sigmas2.shape[0] - 1).long()]
+    de = xy2 - epipole2[..., None, :]
+    far_from_epipole = torch.sum(de * de, dim=-1) >= min_epipole_dist2
+    return (
+        free1[..., :, None]
+        & (free2 & far_from_epipole)[..., None, :]
+        & matching.epipolar_mask(xy1, xy2, F12, sig2)
+    )
+
+
+def match_for_triangulation(
+    xy1: torch.Tensor, desc1: torch.Tensor, angle1: torch.Tensor,
+    free1: torch.Tensor,
+    xy2: torch.Tensor, desc2: torch.Tensor, angle2: torch.Tensor,
+    free2: torch.Tensor,
+    F12: torch.Tensor,
+    octave2: torch.Tensor,
+    epipole2: torch.Tensor,          # [2] projection of camera 1's centre in image 2
+    min_epipole_dist2,               # min squared px distance to the epipole
+    n_levels: int = 8, scale: float = 1.2,
+) -> MatchResult:
+    """KF1 -> KF2 matches for new-point triangulation (SearchForTriangulation,
+    src/ORBmatcher.cc:738-911): free features only, the epipolar band,
+    epipole proximity rejection, TH_LOW, rotation histogram. K7 under
+    `triangulation_mask`. One keyframe against B neighbours: the neighbour
+    side (xy2, desc2, angle2, free2, octave2 [B, N2, ...], F12 [B, 3, 3],
+    epipole2 [B, 2]) and free1 ([B, N1]) take a leading batch axis, and
+    idx, dist come out [B, N1]; the B masks go through one K7 launch."""
+    mask = triangulation_mask(xy1, free1, xy2, free2, F12, octave2, epipole2,
+                              min_epipole_dist2, n_levels, scale)
+    top2 = matching_kernel.masked_hamming_top2(
+        desc1.contiguous(), desc2.contiguous(), mask.contiguous())
+    m = matching.match_from_top2(*top2, TH_LOW)
+    m = matching.rotation_consistency_filter(m, angle1, angle2)
+    return matching.resolve_duplicate_targets(m, desc2.shape[-2])
+
+
+def match_fuse(
+    info: FrustumInfo,
+    pt_desc: torch.Tensor,
+    xy: torch.Tensor, desc: torch.Tensor,
+    octave: torch.Tensor, valid: torch.Tensor,
+    th: float = 3.0,
+    n_levels: int = 8, scale: float = 1.2,
+) -> MatchResult:
+    """Project map points into a keyframe for duplicate fusion
+    (ORBmatcher::Fuse, src/ORBmatcher.cc:918-1092): radius = th *
+    sigma(predicted level), octaves [pred-1, pred+1], TH_LOW, through K6.
+    The host decides merge vs bind per returned match (:1061-1082). One
+    point set into B target keyframes: info and the target side (xy, desc,
+    octave, valid) take a leading batch axis, pt_desc [P, 8] stays shared,
+    and idx, dist come out [B, P]; the B problems go through one K6
+    launch."""
+    sigmas = _scale_sigmas(pt_desc.device, n_levels, scale)
+    radius = th * sigmas[info.pred_octave.long()]
+    m = _projection_match(
+        pt_desc, info.proj, (radius,), info.pred_octave - 1, info.pred_octave + 1,
+        info.visible, xy, desc, octave, valid, TH_LOW)[0]
+    return matching.resolve_duplicate_targets(m, desc.shape[-2])

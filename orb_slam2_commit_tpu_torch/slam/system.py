@@ -1,0 +1,243 @@
+"""System facade: the public SLAM API (PyTorch port of slam/system.py,
+for the stereo and RGB-D sensors; reference: src/System.cc,
+include/System.h:63-124).
+
+It builds the map, the tracker and the local mapper, takes frames through
+`track_rgbd` / `track_stereo`, runs local mapping synchronously after each
+new keyframe, and exports the trajectory. Every device call runs on the
+System's device: the card unless the caller asks for the CPU.
+
+Route choice as in the JAX package (slam/system.py:209-219): on the card
+an OK-state frame goes through the fused motion stage and the fused
+local-map stage (one call each); on the CPU the staged path runs unless
+ORB_TPU_FUSED_TRACK=1 (ORB_TPU_FUSED_TRACK=0 forces the staged path on
+the card).
+
+Still to be ported, and raising NotImplementedError: the monocular sensor
+(the next part of slice 2), asynchronous mapping (slice 3) and the
+vocabulary with place recognition and loop closing (slice 4).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from orb_slam2_commit_tpu_torch.interop import resolve_device
+from orb_slam2_commit_tpu_torch.models.map_state import MapState
+from orb_slam2_commit_tpu_torch.slam.frame import Frame, make_frame, make_stereo_frame
+from orb_slam2_commit_tpu_torch.slam.local_mapping import LocalMapper, RecentPoint
+from orb_slam2_commit_tpu_torch.slam.tracking import Tracker, TrackingState
+from orb_slam2_commit_tpu_torch.utils import trajectory as traj
+from orb_slam2_commit_tpu_torch.utils.config import SLAMConfig
+from orb_slam2_commit_tpu_torch.utils.profiling import Profiler
+
+SLICE_2_MONO = "the monocular sensor: ROADMAP queue 1, slice 2 (its next part)"
+SLICE_2_LOCALIZATION = "the localization-only / VO mode: ROADMAP queue 1, slice 2"
+SLICE_3_ASYNC = "asynchronous mapping (slam/async_pipeline.py): ROADMAP queue 1, slice 3"
+SLICE_4_VOCAB = ("a vocabulary (place recognition, loop closing): "
+                 "ROADMAP queue 1, slice 4")
+
+
+class System:
+    def __init__(self, config: SLAMConfig, vocabulary=None,
+                 async_mapping: Optional[bool] = None, device="cuda"):
+        """vocabulary: None or False (no place recognition), or "default",
+        which means none when config.system.use_vocabulary is off.
+        async_mapping: False, or None to take config.system.async_mapping.
+        device: where every device call runs ("cuda" by default; "cpu"
+        runs the kernels' plain versions)."""
+        if async_mapping is None:
+            async_mapping = config.system.async_mapping
+        if async_mapping:
+            raise NotImplementedError(SLICE_3_ASYNC)
+        if isinstance(vocabulary, str) and vocabulary == "default" \
+                and not config.system.use_vocabulary:
+            vocabulary = None
+        if vocabulary is not None and vocabulary is not False:
+            raise NotImplementedError(SLICE_4_VOCAB)
+        if config.sensor == "monocular":
+            raise NotImplementedError(SLICE_2_MONO)
+        self.config = config
+        self.device = resolve_device(device)
+        self.profiler = Profiler()
+        self.frame_count = 0
+        self._build()
+
+    def _build(self) -> None:
+        """A fresh map with its tracker and mapper (construction, Reset)."""
+        self.map = MapState.create(self.config.map, sum(self.config.orb.features_per_level()))
+        self.tracker = Tracker(self.config, self.map, self.device)
+        self.tracker.profiler = self.profiler
+        self.mapper = LocalMapper(self.config, self.map, self.device)
+        self.mapper.profiler = self.profiler
+
+    # ------------------------------------------------------------------
+    # Per-frame entries (System::TrackRGBD :169-223, TrackStereo :121-167)
+    # ------------------------------------------------------------------
+
+    def track_rgbd(
+        self, image: np.ndarray, depth: np.ndarray, timestamp: float
+    ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        if self.config.sensor != "rgbd":
+            raise ValueError(f"track_rgbd on a {self.config.sensor} System")
+        if self._use_fused_track() and self.tracker.can_fuse_motion():
+            with self.profiler.timed("fused_frontend"):
+                frame, motion_ok = self.tracker.fused_motion_frame(
+                    image, self.frame_count, timestamp, depth_image=depth)
+            self.frame_count += 1
+            with self.profiler.timed("track"):
+                return self._track_frame(frame, motion_ok=motion_ok)
+        with self.profiler.timed("extract_frame"):
+            frame = make_frame(image, self.frame_count, timestamp, self.config, depth,
+                               device=self.device)
+        self.frame_count += 1
+        with self.profiler.timed("track"):
+            return self._track_frame(frame)
+
+    def track_stereo(
+        self, image_left: np.ndarray, image_right: np.ndarray, timestamp: float
+    ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        if self.config.sensor != "stereo":
+            raise ValueError(f"track_stereo on a {self.config.sensor} System")
+        if self._use_fused_track() and self.tracker.can_fuse_motion():
+            with self.profiler.timed("fused_frontend"):
+                frame, motion_ok = self.tracker.fused_motion_frame(
+                    image_left, self.frame_count, timestamp, image_right=image_right)
+            self.frame_count += 1
+            with self.profiler.timed("track"):
+                return self._track_frame(frame, motion_ok=motion_ok)
+        with self.profiler.timed("extract_frame"):
+            frame = make_stereo_frame(image_left, image_right, self.frame_count,
+                                      timestamp, self.config, device=self.device)
+        self.frame_count += 1
+        with self.profiler.timed("track"):
+            return self._track_frame(frame)
+
+    def _use_fused_track(self) -> bool:
+        """The fused one-call stages on the card, the staged path on the
+        CPU; ORB_TPU_FUSED_TRACK=0/1 overrides either."""
+        v = os.environ.get("ORB_TPU_FUSED_TRACK")
+        if v is not None:
+            return v == "1"
+        return self.device.type != "cpu"
+
+    def _track_frame(self, frame: Frame, motion_ok=None):
+        was_initialized = self.tracker.state in (TrackingState.OK, TrackingState.LOST)
+        pose = self.tracker.track(frame, motion_ok=motion_ok)
+
+        if self.tracker.request_reset:
+            # Lost right after initialization: restart from scratch
+            # (src/Tracking.cc:540-552).
+            self.reset()
+            return None
+        if not was_initialized and self.tracker.state == TrackingState.OK:
+            return pose   # the map was just created
+
+        with self.profiler.timed("track_need_kf"):
+            need_kf = pose is not None and self.tracker.need_new_keyframe(frame)
+        if need_kf:
+            # The anchor rebind happens before mapping moves the new
+            # keyframe (CreateNewKeyFrame before the bookkeeping).
+            with self.profiler.timed("keyframe_insert"):
+                kf = self._insert_keyframe(frame)
+            self.tracker.bind_keyframe_anchor(frame, kf)
+            with self.profiler.timed("local_mapping"):
+                self.mapper.process_keyframe(kf)
+            self.tracker.ref_kf = kf
+            self.tracker.last_kf_frame_id = frame.frame_id
+        return pose
+
+    def _insert_keyframe(self, frame: Frame) -> int:
+        """Tracking::CreateNewKeyFrame (src/Tracking.cc:1311-1401): unbound
+        features with close depth spawn new map points, nearest first, at
+        least 100 or all closer than th_depth (:1335-1392)."""
+        cam = self.config.camera
+        close_th = cam.baseline * cam.th_depth
+        unbound = frame.valid & (frame.point_ids < 0) & (frame.depth > 0)
+        feats = np.where(unbound)[0]
+        if feats.size:
+            order = feats[np.argsort(frame.depth[feats])]
+            n_close = int((frame.depth[order] < close_th).sum())
+            take = order[: max(min(100, order.size), n_close)]
+            zt = frame.depth[take].astype(np.float64)
+            x = (frame.xy[take, 0] - cam.cx) / cam.fx * zt
+            y = (frame.xy[take, 1] - cam.cy) / cam.fy * zt
+            pw = (np.stack([x, y, zt], -1) - frame.t) @ frame.R
+            take = take[: self.map.cfg.max_points - self.map.next_pt]
+            if take.size:
+                ids = self.map.add_points(pw[: take.size], self.map.next_kf)
+                frame.point_ids[take] = ids
+                for pid in ids:
+                    self.mapper.recent_points.append(RecentPoint(int(pid), self.map.next_kf))
+        return self.map.add_keyframe(
+            frame.R, frame.t, frame.xy, frame.octave, frame.angle, frame.desc,
+            frame.valid, frame.point_ids, frame.frame_id, frame.timestamp,
+            depth=frame.depth, ur=frame.ur,
+        )
+
+    # ------------------------------------------------------------------
+    # Mode switches (ActivateLocalizationMode, src/System.cc:284-307;
+    # Reset :309-313)
+    # ------------------------------------------------------------------
+
+    def activate_localization_mode(self) -> None:
+        raise NotImplementedError(SLICE_2_LOCALIZATION)
+
+    def reset(self) -> None:
+        """Tracking::Reset (src/Tracking.cc:1886-1932): clear the map and
+        restart tracking from scratch."""
+        self._build()
+
+    def timings(self):
+        """Per-stage timing summary (utils/profiling.Profiler):
+        {stage: {count, mean_ms, ema_ms, min_ms, max_ms, total_s}}."""
+        return self.profiler.summary()
+
+    def tracking_state(self) -> TrackingState:
+        return self.tracker.state
+
+    # ------------------------------------------------------------------
+    # Trajectory export (src/System.cc:336-486)
+    # ------------------------------------------------------------------
+
+    def _resolve_trajectory(self) -> List[Tuple[float, np.ndarray, np.ndarray]]:
+        """Frame poses = relative pose composed with the (possibly
+        BA-corrected) reference keyframe pose, walking to the
+        spanning-tree parent through each culled keyframe's frozen Tcp
+        (src/System.cc:362-384)."""
+        out = []
+        for e in self.tracker.trajectory:
+            k = e.ref_kf
+            R_rel, t_rel = e.R_rel, e.t_rel
+            hops = 0
+            while k >= 0 and not self.map.kf_valid[k] and hops < 64:
+                parent = int(self.map.kf_parent[k])
+                if parent < 0:
+                    break
+                t_rel = R_rel @ self.map.kf_tcp_t[k] + t_rel
+                R_rel = R_rel @ self.map.kf_tcp_R[k]
+                k = parent
+                hops += 1
+            if k < 0:
+                continue
+            Rk, tk = self.map.kf_pose_R[k], self.map.kf_pose_t[k]
+            out.append((e.timestamp, R_rel @ Rk, R_rel @ tk + t_rel))
+        return out
+
+    def save_trajectory_tum(self, path: str) -> None:
+        traj.write_tum(path, self._resolve_trajectory())
+
+    def save_trajectory_kitti(self, path: str) -> None:
+        traj.write_kitti(path, self._resolve_trajectory())
+
+    def save_keyframe_trajectory_tum(self, path: str) -> None:
+        traj.write_tum(path, [
+            (float(self.map.kf_timestamp[k]), self.map.kf_pose_R[k], self.map.kf_pose_t[k])
+            for k in range(self.map.next_kf) if self.map.kf_valid[k]])
+
+    def trajectory_positions(self) -> np.ndarray:
+        """[T, 3] camera centres for evaluation."""
+        return np.asarray([-R.T @ t for _, R, t in self._resolve_trajectory()])

@@ -79,12 +79,25 @@ OUT = Path("chiprun_out")
 PREVIOUS = "previous"
 _c_void_p, _c_int = ctypes.c_void_p, ctypes.c_int
 # The entry points of a set's previous design where they differ from the
-# committed ones: matching-k6's (PR 4's K6: one window, no radius2).
-PREVIOUS_SIGNATURES = {"matching-k6": {
-    "projection_top2_launch": (
-        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int,
-        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_void_p, _c_void_p),
-}}
+# committed ones: matching-k6's (the one-window K6, no radius2) and
+# matching-k7's (the two-window K6); neither has the batch argument that
+# K6 and K7 under a mask take now.
+_PREVIOUS_MASKED = (_c_void_p, _c_int, _c_void_p, _c_int, _c_void_p, _c_void_p, _c_void_p)
+PREVIOUS_SIGNATURES = {
+    "matching-k6": {
+        "projection_top2_launch": (
+            _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int,
+            _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_void_p, _c_void_p),
+        "masked_top2_launch": _PREVIOUS_MASKED,
+    },
+    "matching-k7": {
+        "projection_top2_launch": (
+            _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+            _c_int, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_void_p,
+            _c_void_p),
+        "masked_top2_launch": _PREVIOUS_MASKED,
+    },
+}
 
 _THREADS = "constexpr int THREADS = 256;"
 # clock64() counters around the phases of a trial evaluation, read back by
@@ -642,8 +655,8 @@ def sass_counts(so, kernels):
 
 
 def previous_k6(dll):
-    """The previous design's K6 behind the wrapper's interface: one launch
-    per window."""
+    """The one-window K6 behind the wrapper's interface: one launch per
+    window."""
     def top2(*args):
         outs = []
         for r in args[2]:
@@ -655,6 +668,35 @@ def previous_k6(dll):
                 _build.stream_of(a[0])), "previous projection_top2")
             outs.append(tuple(out))
         return tuple(outs)
+    return top2
+
+
+def previous_k6_two_windows(dll):
+    """The two-window K6 without a batch argument behind the wrapper's
+    interface: both windows in one launch."""
+    def top2(desc_a, proj, radii, *rest):
+        m, n = desc_a.shape[0], rest[3].shape[0]
+        desc_b, xy_b = _build.aligned(rest[3]), _build.aligned(rest[4])
+        out = torch.empty((len(radii), 4, m), dtype=torch.int32, device=desc_a.device)
+        _build.check(dll.projection_top2_launch(
+            desc_a.data_ptr(), _build.aligned(proj).data_ptr(), radii[0].data_ptr(),
+            radii[1].data_ptr() if len(radii) == 2 else None,
+            *(t.data_ptr() for t in rest[:3]), m, desc_b.data_ptr(), xy_b.data_ptr(),
+            rest[5].data_ptr(), rest[6].data_ptr(), n, out.data_ptr(),
+            _build.stream_of(desc_a)), "previous projection_top2")
+        return tuple(tuple(o) for o in out)
+    return top2
+
+
+def previous_masked(dll):
+    """A previous design's K7 under a mask, with no batch argument."""
+    def top2(desc_a, desc_b, mask):
+        out = torch.empty((4, desc_a.shape[0]), dtype=torch.int32, device=desc_a.device)
+        _build.check(dll.masked_top2_launch(
+            desc_a.data_ptr(), desc_a.shape[0], desc_b.data_ptr(), desc_b.shape[0],
+            mask.data_ptr(), out.data_ptr(), _build.stream_of(desc_a)),
+            "previous masked_top2")
+        return out[0], out[1], out[2], out[3]
     return top2
 
 
@@ -896,14 +938,16 @@ def main():
     x.update(cs.stereo_path_inputs(*pairs["stereo"]))
     check, timed, iters = CHECKS[args.set](x, state)
 
-    wrapper = kmatching.projection_hamming_top2
+    wrappers = (kmatching.projection_hamming_top2, kmatching.masked_hamming_top2)
+    previous_k6s = {"matching-k6": previous_k6, "matching-k7": previous_k6_two_windows}
 
     def use(tag):
         state["tag"] = tag
         _build._libraries.update(dlls[tag])
-        kmatching.projection_hamming_top2 = (
-            previous_k6(dlls[tag][libs[0]]) if args.set == "matching-k6" and tag == PREVIOUS
-            else wrapper)
+        dll = dlls[tag][libs[0]]
+        previous = args.set in previous_k6s and tag.startswith(PREVIOUS)
+        kmatching.projection_hamming_top2, kmatching.masked_hamming_top2 = (
+            (previous_k6s[args.set](dll), previous_masked(dll)) if previous else wrappers)
 
     tags = list(dlls)
     times = {(t, what): [] for t in tags for what in timed}
@@ -926,7 +970,7 @@ def main():
                 ms, by_name = cs.device_busy_ms(fn, iters)
                 times[(tag, what)].append(ms)
                 split.setdefault((tag, what), []).append(by_name)
-    kmatching.projection_hamming_top2 = wrapper
+    kmatching.projection_hamming_top2, kmatching.masked_hamming_top2 = wrappers
     for tag, before in clocks_before.items():
         cycles, ns, n = (a - b for a, b in zip(k7_clocks(dlls[tag][libs[0]]), before))
         print(f"{lib} {tag}: block 0, thread 0 over the timed loop's {n} launches: "

@@ -151,3 +151,60 @@ def test_wrapper_checks_its_inputs():
         kmatching.masked_hamming_top2(da, db, mask.t())
     with pytest.raises(ValueError):
         kmatching.masked_hamming_top2(da, db[:0], mask[:, :0].contiguous())
+
+
+def _batch(seed, b, m, n, empty=(), **kw):
+    """B problems of one shape stacked: [B, M, 8], [B, N, 8], [B, M, N];
+    the pairs in `empty` have no candidate at all."""
+    probs = [_problem(seed + i, m, n, **kw) for i in range(b)]
+    da, db, mask = (np.stack(parts) for parts in zip(*probs))
+    mask[list(empty)] = False
+    return da, db, mask
+
+
+BATCH_CASES = {
+    "B1": dict(seed=11, b=1, m=64, n=100),
+    "B3_empty_pair": dict(seed=12, b=3, m=120, n=90, empty=(1,)),
+    "B4_ties_sparse": dict(seed=13, b=4, m=50, n=70, density=0.05, ties=True, empty=(3,)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BATCH_CASES))
+def test_batched_plain_equals_vmapped_pallas(case):
+    """K7 with a leading batch axis (its plain version here) against
+    jax.vmap of the Pallas kernel (interpret mode), each problem against
+    the [M, N] form, and row descriptors shared by the problems ([M, 8])
+    against each problem with those rows."""
+    da, db, mask = _batch(**BATCH_CASES[case])
+    with jax.enable_x64(False):
+        ref = jax.vmap(lambda a, b, m: jpm.masked_hamming_top2(a, b, m, interpret=True))(
+            jnp.asarray(da), jnp.asarray(db), jnp.asarray(mask))
+        ref = [np.asarray(r) for r in ref]
+    got = kmatching.masked_hamming_top2(_t(da), _t(db), _t(mask))
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.int32 and tuple(g.shape) == mask.shape[:2]
+        np.testing.assert_array_equal(g.numpy(), r)
+    shared = kmatching.masked_hamming_top2(_t(da[0]), _t(db), _t(mask))
+    for b in range(da.shape[0]):
+        single = kmatching.masked_hamming_top2(_t(da[b]), _t(db[b]), _t(mask[b]))
+        for g, s in zip(got, single):
+            np.testing.assert_array_equal(g[b].numpy(), s.numpy())
+        single = kmatching.masked_hamming_top2(_t(da[0]), _t(db[b]), _t(mask[b]))
+        for g, s in zip(shared, single):
+            np.testing.assert_array_equal(g[b].numpy(), s.numpy())
+    for b in BATCH_CASES[case].get("empty", ()):
+        assert (got[0][b].numpy() == BIG).all() and (got[1][b].numpy() == 0).all()
+
+
+def test_batched_wrapper_checks_its_inputs():
+    da, db, mask = (_t(a) for a in _batch(1, 2, 4, 6))
+    with pytest.raises(ValueError):
+        kmatching.masked_hamming_top2(da, db, mask[None])
+    with pytest.raises(ValueError):
+        kmatching.masked_hamming_top2(da[:1].contiguous(), db, mask)
+    with pytest.raises(ValueError):
+        kmatching.masked_hamming_top2(da, db[:1].contiguous(), mask)
+    with pytest.raises(ValueError):
+        kmatching.masked_hamming_top2(da, db, mask[:, :, :5].contiguous())
+    with pytest.raises(TypeError):
+        kmatching.masked_hamming_top2(da, db, mask.to(torch.int32))

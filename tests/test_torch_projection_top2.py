@@ -242,3 +242,76 @@ def test_last_frame_two_windows_equal_two_searches(monkeypatch, mono):
         assert torch.equal(got.idx, want.idx) and torch.equal(got.dist, want.dist)
     narrow, wide = calls[0][1]
     assert int(both[0].count()) > 0 and not torch.equal(narrow[2], wide[2])
+
+
+def _batch(seeds, m, n, invalid=()):
+    """B one-window K6 problems of one shape: the first problem's row
+    descriptors shared by all, the rest per problem, stacked; the problems
+    in `invalid` have every row invalid."""
+    probs = [top2_problem(seed, m, n) for seed in seeds]
+    stacked = [np.stack(parts) for parts in zip(*probs)]
+    stacked[5][list(invalid)] = False
+    return probs[0][0], stacked
+
+
+@pytest.mark.parametrize("seeds, m, n, invalid", [
+    ((21,), 64, 200, ()),
+    ((22, 23, 24), 96, 150, (1,)),
+    ((25, 26, 27, 28), 40, 300, (0, 3)),
+])
+def test_batched_plain_equals_vmapped_pallas(seeds, m, n, invalid):
+    """K6 with a leading batch axis (its plain version here; shared row
+    descriptors, one window per problem) against jax.vmap of the Pallas
+    kernel (interpret mode), and each problem against the single-problem
+    form, with one window and with two."""
+    desc_a, st = _batch(seeds, m, n, invalid)
+    with jax.enable_x64(False):
+        ref = jax.vmap(
+            lambda *a: jpm.projection_hamming_top2(jnp.asarray(desc_a), *a, interpret=True))(
+            *(jnp.asarray(a) for a in st[1:]))
+        ref = [np.asarray(r) for r in ref]
+    targs = [_t(a) for a in st]
+    got, = kmatching.projection_hamming_top2(_t(desc_a), targs[1], (targs[2],), *targs[3:])
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.int32 and tuple(g.shape) == (len(seeds), m)
+        np.testing.assert_array_equal(g.numpy(), r)
+    wide = 1.5 * targs[2]
+    both = kmatching.projection_hamming_top2(
+        _t(desc_a), targs[1], (targs[2], wide), *targs[3:])
+    for b in range(len(seeds)):
+        per = [t[b] for t in targs[1:]]
+        single, = kmatching.projection_hamming_top2(_t(desc_a), per[0], (per[1],), *per[2:])
+        for g, s in zip(got, single):
+            np.testing.assert_array_equal(g[b].numpy(), s.numpy())
+        singles = kmatching.projection_hamming_top2(
+            _t(desc_a), per[0], (per[1], wide[b]), *per[2:])
+        for window, single in zip(both, singles):
+            for g, s in zip(window, single):
+                np.testing.assert_array_equal(g[b].numpy(), s.numpy())
+    for b in invalid:
+        assert (got[0][b].numpy() == matching.BIG_DIST).all()
+    # Per-problem row descriptors ([B, M, 8]) give the same as shared ones.
+    again, = kmatching.projection_hamming_top2(
+        _t(np.tile(desc_a[None], (len(seeds), 1, 1))), targs[1], (targs[2],), *targs[3:])
+    for g, a in zip(got, again):
+        np.testing.assert_array_equal(g.numpy(), a.numpy())
+
+
+def test_batched_wrapper_checks_its_inputs():
+    desc_a, st = _batch((1, 2), 8, 12)
+    targs = [_t(a) for a in st]
+    with pytest.raises(ValueError):
+        kmatching.projection_hamming_top2(_t(desc_a[:7]), targs[1], (targs[2],), *targs[3:])
+    with pytest.raises(ValueError):
+        kmatching.projection_hamming_top2(
+            _t(desc_a[None]), targs[1], (targs[2],), *targs[3:])
+    with pytest.raises(ValueError):
+        kmatching.projection_hamming_top2(
+            _t(desc_a), targs[1], (targs[2],), *targs[3:6], targs[6][:1].contiguous(),
+            *targs[7:])
+    with pytest.raises(ValueError):
+        kmatching.projection_hamming_top2(
+            _t(desc_a), targs[1][None], (targs[2][None],), *(t[None] for t in targs[3:]))
+    with pytest.raises(TypeError):
+        kmatching.projection_hamming_top2(
+            _t(desc_a), targs[1], (targs[2].double(),), *targs[3:])

@@ -67,7 +67,7 @@ def reference():
 def _port_args(p):
     """band_problem's arrays -> stereo_band_top2's tensors (scale_l from
     the left octaves)."""
-    dl, xy_l, ol, vl, dr, xy_r, orr, vr = (interop._put(a, "cpu") for a in p)
+    dl, xy_l, ol, vl, dr, xy_r, orr, vr = (interop.to_device(a, "cpu") for a in p)
     scale_l = torch.from_numpy(interop.BAND_SCALES)[torch.clamp(ol, 0, 7).long()]
     return dl, xy_l, ol, scale_l, vl, dr, xy_r, orr, vr
 
