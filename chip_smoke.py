@@ -16,7 +16,11 @@ points (`fused_motion_track_packed` for a monocular frame,
 System (`slam/system.py`, synchronous local mapping, no vocabulary) over a
 30-frame RGB-D sequence (`System.track_rgbd`) and a 30-frame stereo
 sequence (`System.track_stereo`) of the synthetic scene (500 landmarks,
-seed 5, 0.05 m a frame).
+seed 5, 0.05 m a frame); and the monocular System (`System.track_monocular`,
+two-view initialization at 2000 features, its global BA) over a 40-frame
+lateral sweep (500 landmarks, seed 3) and over the same sweep with a
+kidnap (frames 22-26 a flat grey image; relocalization without a
+vocabulary).
 
 Phases (any failure exits non-zero and prints no result line):
   1. the card: name, count, torch/CUDA versions, nvidia-smi name + power limit;
@@ -39,19 +43,28 @@ Phases (any failure exits non-zero and prints no result line):
      masks and on the System's reference-keyframe matcher's input, K7
      under a mask with a batch axis on the System's triangulation masks and
      K6 with a batch axis on its fuse problems (each also with an empty
-     problem and with every row empty), and K8 also on a problem tiled past
-     1024 and past 7000 rows, launched twice;
+     problem and with every row empty), K7 under a mask on the monocular
+     initialization's [2000, 2000] masks and, with a batch axis and the
+     column table shared, on relocalization's candidates (also with an
+     empty candidate and with every row empty), and K8 also on a problem
+     tiled past 1024 and past 7000 rows, launched twice;
   4. each main path through the port's entry points, with the kernels'
      launch counts reset just before and read just after it, and its
      result held against the same call on the CPU; the stereo matcher
      also on the card's own features and pyramids, on the card and the CPU;
      the System's sequences held to every frame OK, the ATE gate, at
      least 2 keyframes, points made by triangulation and a fuse pass, and
-     the RGB-D sequence's first frames against the CPU's;
+     the RGB-D sequence's first frames against the CPU's; the monocular
+     sweep held to its initialization, every frame after it OK, >= 3
+     keyframes and 150 points, the scale-aligned ATE gate, K7 launched at
+     initialization, and its first frames past the initialization against
+     the CPU's (the same host sample sets); the kidnap sequence held to
+     LOST during the occlusion, relocalized after it through K7 batched
+     over the candidates, and its recovered poses on the trajectory;
   5. timing: throughput of each path by the bench recipe (the System's
      frames/s over a sequence, after a warm-up sequence, with its stage
-     times and, under torch.profiler, one keyframe frame and one plain
-     frame); per stage its
+     times, initialization's and relocalization's among them, and, under
+     torch.profiler, its keyframe frames and plain frames); per stage its
      synchronised wall time and device time; under torch.profiler the
      device's busy time, idle share and operations per call; per kernel its
      device-busy time (and its CUDA-event time in a row), its plain
@@ -141,6 +154,31 @@ SYSTEM_LAUNCHED = ("level_preprocess", "combine_nms", "cell_topk_map", "describe
 SYSTEM_UNUSED = ("cell_topk", "extract_patches", "corner_subpix")
 # Recorded calls kept per kernel for phase 3 and the kernel rows.
 SYSTEM_RECORDED = 4
+
+# The monocular System: tests/test_pipeline.py's lateral sweep (500
+# landmarks, seed 3, 0.025 m peak step, depths 1.5-4 m) at full width, 40
+# frames (tests/test_robustness.py's kidnap length), 2000 features until
+# it initializes. Gates of the JAX tests: every frame after the
+# initialization OK, >= 3 keyframes, >= 150 points, scale-aligned ATE
+# under 0.02 x span.
+MONO_FRAMES = 40
+MONO_SCENE = dict(n_points=500, seed=3, step=0.025, motion="sweep",
+                  depth_range=(1.5, 4.0), spread=2.0)
+MONO_ATE_GATE = 0.02
+MONO_MIN_KFS, MONO_MIN_POINTS = 3, 150
+# The kidnap: these frames replaced by a flat 96-grey image, no vocabulary
+# (tests/test_robustness.py); recovered poses after the kidnap within a
+# median of 0.05 x span of the ground truth, in the frame fixed by the
+# frames before it.
+KIDNAP = range(22, 27)
+KIDNAP_GATE = 0.05
+# Frames after the initialization also run on the CPU (the same host
+# sample sets): the same initialization frame and keyframes, poses
+# within ROT_DEG_TOL / T_TOL.
+MONO_CPU_FRAMES = 10
+# K7 under a mask has four callers; a recorded call is told apart by its
+# shapes (k7_caller).
+K7_CALLERS = ("reference keyframe", "initialization", "triangulation", "relocalization")
 
 # K3 runs in its map form; K4 and K5 in one fused launch (describe_patches)
 # per extraction. K3's row form and the standalone K4 and K5 have no caller
@@ -590,6 +628,23 @@ def batched_k7_problems(x):
     yield "triangulation call 0, every row empty", (da, db, torch.zeros_like(mask))
 
 
+def mono_k7_problems(x):
+    """(what, args) of the phase-3 cases of K7 under a mask from the
+    monocular System: the recorded initialization calls ([2000, 2000]),
+    and the relocalization calls (a batch of candidates, the frame's
+    descriptor table shared), the first also with its first candidate
+    emptied and with every row empty."""
+    for i, args in enumerate(x["mono_k7_init"]):
+        yield f"monocular initialization call {i}", args
+    for i, args in enumerate(x["mono_k7_reloc"]):
+        yield f"relocalization call {i} (shared columns)", args
+    da, db, mask = x["mono_k7_reloc"][0]
+    empty = mask.clone()
+    empty[0] = False
+    yield "relocalization call 0, first candidate empty", (da, db, empty)
+    yield "relocalization call 0, every row empty", (da, db, torch.zeros_like(mask))
+
+
 def batched_k6_problems(x):
     """(what, args) of the phase-3 cases of K6 with a batch axis: the
     System's recorded fuse calls, the first with its first target's rows
@@ -684,13 +739,15 @@ def phase_kernels(x):
         check_band(what, args)
     rows["stereo_band_top2"] = 0.0
 
-    # K7 under a mask on the stereo band's masks and on the System's
-    # reference-keyframe matcher's input, and with a batch axis on the
-    # System's triangulation masks; K6 with a batch axis on its fuse
-    # problems.
+    # K7 under a mask on the stereo band's masks, on the System's
+    # reference-keyframe matcher's input and on the monocular
+    # initialization's [2000, 2000] masks, and with a batch axis on the
+    # System's triangulation masks (the row table shared) and on
+    # relocalization's candidates (the column table shared); K6 with a
+    # batch axis on its fuse problems.
     for what, args in [("stereo band mask", a) for a in x["k7"]] + \
             [("System reference-keyframe match", a) for a in x["sys_k7"]] + \
-            list(batched_k7_problems(x)):
+            list(batched_k7_problems(x)) + list(mono_k7_problems(x)):
         check_top2("K7 masked_hamming_top2", what, kmatching.masked_hamming_top2,
                    kmatching.masked_hamming_top2_plain, args, args[2].shape)
     rows["masked_hamming_top2"] = 0.0
@@ -1021,10 +1078,17 @@ def batched_launches(counts):
             setattr(kmatching, name, fn)
 
 
-def system_sequence(sensor):
-    """(config, images [T, H, W], depth maps or right images, ground-truth
-    poses) of the sensor's 30-frame sequence."""
+def system_sequence(sensor, kidnap=False):
+    """(config, images [T, H, W], depth maps or right images (None for the
+    monocular sweep), ground-truth poses) of the sensor's sequence; with
+    kidnap the sweep's KIDNAP frames are a flat 96-grey image."""
     config = synthetic_config(WIDTH, HEIGHT, N_FEATURES, sensor=sensor)
+    if sensor == "monocular":
+        images, poses, _ = synthetic.render_sequence(
+            config.camera, n_frames=MONO_FRAMES, **MONO_SCENE)
+        if kidnap:
+            images[list(KIDNAP)] = 96.0
+        return config, images, None, poses
     if sensor == "rgbd":
         images, poses, _, depths = synthetic.render_sequence(
             config.camera, n_frames=SYSTEM_FRAMES, with_depth=True, **SYSTEM_SCENE)
@@ -1035,17 +1099,25 @@ def system_sequence(sensor):
 
 
 def run_system(seq, device="cuda", n_frames=SYSTEM_FRAMES, around=None):
-    """A System over the sequence through its entry point (track_rgbd or
-    track_stereo) on `device` -> (system, state name per frame, pose per
-    frame, seconds). around(i): a context manager around frame i."""
+    """A System over the sequence through its entry point (track_monocular,
+    track_rgbd or track_stereo) on `device` -> (system, state name per
+    frame, pose per frame, seconds). around(i): a context manager around
+    frame i."""
     config, first, second, _ = seq
     sys_ = System(config, vocabulary=None, async_mapping=False, device=device)
-    track = sys_.track_rgbd if config.sensor == "rgbd" else sys_.track_stereo
+    if config.sensor == "monocular":
+        def track(i):
+            return sys_.track_monocular(first[i], i / config.camera.fps)
+    else:
+        entry = sys_.track_rgbd if config.sensor == "rgbd" else sys_.track_stereo
+
+        def track(i):
+            return entry(first[i], second[i], i / config.camera.fps)
     states, poses = [], []
     t0 = time.perf_counter()
     for i in range(n_frames):
         with around(i) if around else contextlib.nullcontext():
-            poses.append(track(first[i], second[i], i / config.camera.fps))
+            poses.append(track(i))
         states.append(sys_.tracking_state().name)
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
@@ -1233,6 +1305,226 @@ def phase_system(seqs, power):
         if sensor == "rgbd":
             system_vs_cpu(seq)
     return counts, batched_counts
+
+
+# ---------------------------------------------------------------------------
+# The monocular System: two-view initialization, the lateral sweep, and
+# relocalization after a kidnap
+# ---------------------------------------------------------------------------
+
+def k7_caller(args):
+    """The caller of a recorded K7-under-a-mask call, from its shapes:
+    relocalization (a batch of candidates against the frame's shared
+    descriptor table), triangulation (a batch of neighbour pairs, the
+    keyframe's table shared), initialization (a [2 N, 2 N] mask between
+    two frames extracted at twice the features) or reference-keyframe
+    tracking."""
+    desc_a, desc_b, mask = args
+    if mask.dim() == 3:
+        return "relocalization" if desc_b.dim() == 2 else "triangulation"
+    if tuple(mask.shape) == (2 * N_FEATURES, 2 * N_FEATURES):
+        return "initialization"
+    return "reference keyframe"
+
+
+@contextlib.contextmanager
+def k7_launches_by_caller(counts, problems):
+    """counts[caller] += launches of K7 under a mask by each caller, and
+    problems[caller] += the problems they carried (read off the launch
+    counter around each call)."""
+    fn = kmatching.masked_hamming_top2
+
+    def call(*args):
+        before = _build.launches["masked_hamming_top2"]
+        out = fn(*args)
+        caller = k7_caller(args)
+        n = _build.launches["masked_hamming_top2"] - before
+        counts[caller] += n
+        problems[caller] += n * (args[2].shape[0] if args[2].dim() == 3 else 1)
+        return out
+
+    for caller in K7_CALLERS:
+        counts[caller] = problems[caller] = 0
+    kmatching.masked_hamming_top2 = call
+    try:
+        yield counts
+    finally:
+        kmatching.masked_hamming_top2 = fn
+
+
+def mono_path_inputs(kidnap_seq):
+    """One warm-up run of the kidnap sequence on the card (every kernel of
+    the monocular path built, both feature budgets' tables made),
+    recording the calls of K7 under a mask at initialization and at
+    relocalization (those with a candidate pair): the first
+    SYSTEM_RECORDED of each."""
+    calls = []
+    with recording(kmatching, "masked_hamming_top2", calls):
+        sys_, states, _, seconds = run_system(kidnap_seq, n_frames=MONO_FRAMES)
+    by = {c: [a for a, _ in calls if k7_caller(a) == c] for c in K7_CALLERS}
+    log(f"System monocular kidnap warm-up: {seconds:.2f} s for {MONO_FRAMES} frames, "
+        f"{sys_.map.next_kf} keyframes inserted, states {''.join(st[0] for st in states)}; "
+        f"K7 calls by caller: { {c: len(v) for c, v in by.items()} }")
+    # An occluded frame has no feature, so its relocalization call has no
+    # candidate pair: keep the calls that have.
+    by["relocalization"] = [a for a in by["relocalization"] if bool(a[2].any())]
+    for c in ("initialization", "relocalization"):
+        if not by[c]:
+            raise AssertionError(f"the monocular kidnap run made no K7 call at {c} "
+                                 f"with a candidate")
+    return dict(mono_k7_init=by["initialization"][:SYSTEM_RECORDED],
+                mono_k7_reloc=by["relocalization"][:SYSTEM_RECORDED])
+
+
+def mono_vs_cpu(seq, init_frame):
+    """The sweep up to MONO_CPU_FRAMES frames past its initialization on the
+    card and on the CPU, on the card's route (fused, forced there), each
+    tracker drawing the same host sample sets: the same initialization
+    frame and keyframes, frame and keyframe poses within ROT_DEG_TOL /
+    T_TOL (in the map's units, the median depth at initialization)."""
+    n = init_frame + 1 + MONO_CPU_FRAMES
+    prev = os.environ.get("ORB_TPU_FUSED_TRACK")
+    os.environ["ORB_TPU_FUSED_TRACK"] = "1"
+    try:
+        cpu_sys, states, poses, seconds = run_system(seq, "cpu", n)
+    finally:
+        if prev is None:
+            del os.environ["ORB_TPU_FUSED_TRACK"]
+        else:
+            os.environ["ORB_TPU_FUSED_TRACK"] = prev
+    card_sys, card_states, card_poses, _ = run_system(seq, "cuda", n)
+    if states != card_states:
+        raise AssertionError(f"System monocular states: card {card_states}, cpu {states}")
+    worst = (0.0, 0.0)
+    for p, c in zip(poses, card_poses):
+        if (p is None) != (c is None):
+            raise AssertionError("System monocular: a frame tracked on one device only")
+        if p is not None:
+            d = (rot_angle_deg(p[0], c[0]), float(np.linalg.norm(p[1] - c[1])))
+            worst = tuple(max(a, b) for a, b in zip(worst, d))
+    kfs = [m.kf_frame_id[:m.next_kf].tolist() for m in (card_sys.map, cpu_sys.map)]
+    if kfs[0] != kfs[1]:
+        raise AssertionError(f"System monocular keyframes: card {kfs[0]}, cpu {kfs[1]}")
+    kf_worst = (0.0, 0.0)
+    cm, pm = card_sys.map, cpu_sys.map
+    for k in range(cm.next_kf):
+        d = (rot_angle_deg(pm.kf_pose_R[k], cm.kf_pose_R[k]),
+             float(np.linalg.norm(pm.kf_pose_t[k] - cm.kf_pose_t[k])))
+        kf_worst = tuple(max(a, b) for a, b in zip(kf_worst, d))
+    log(f"System monocular, {n} frames card vs cpu ({seconds:.1f} s on the CPU): "
+        f"initialized at frame {states.index('OK')} on both, keyframes {kfs[0]} equal, "
+        f"frame poses within rot {worst[0]:.5f} deg, |dt| {worst[1]:.6f}; keyframe poses "
+        f"within rot {kf_worst[0]:.5f} deg, |dt| {kf_worst[1]:.6f}")
+    if not (max(worst[0], kf_worst[0]) < ROT_DEG_TOL and max(worst[1], kf_worst[1]) < T_TOL):
+        raise AssertionError("the monocular System's card and CPU poses differ beyond the bounds")
+
+
+def centres(poses):
+    return np.asarray([-R.T @ t for R, t in poses])
+
+
+def phase_mono(seq, kidnap_seq, power):
+    """The sweep on the card through track_monocular, the launch counts
+    reset just before and read just after it: it initializes (K7 under the
+    [2000, 2000] mask), every frame after that OK, >= 3 keyframes, >= 150
+    points, the scale-aligned ATE gate, every kernel of the path launched;
+    frames/s (after mono_path_inputs' warm-up), stage times, a second run
+    with frames 3-14 under torch.profiler, and the first frames against
+    the CPU. Then the kidnap sequence, its counts read the same way: LOST
+    during the occlusion, relocalized after it (K7 batched over the
+    candidates), recovered poses within KIDNAP_GATE. -> (launch counts of
+    the sweep, K7 launches by caller over both runs, problems by caller)."""
+    what = "System monocular"
+    _, _, _, gt = seq
+    by_caller, problems = {}, {}
+    _build.reset_launches()
+    with k7_launches_by_caller(by_caller, problems):
+        sys_, states, poses, seconds = run_system(seq, n_frames=MONO_FRAMES)
+    c = dict(_build.launches)
+    log(f"{what} launches: {c}; K7 under a mask by caller: {by_caller} "
+        f"(problems {problems})")
+    if [k for k in SYSTEM_LAUNCHED if c[k] < 1] or [k for k in SYSTEM_UNUSED if c[k]] \
+            or c["stereo_band_top2"] or by_caller["initialization"] < 1:
+        raise AssertionError(f"{what}: a kernel of the path did not launch, one off the "
+                             f"path did, or the initialization's K7 did not launch")
+    if "OK" not in states:
+        raise AssertionError(f"{what}: never initialized ({states})")
+    f0 = states.index("OK")
+    if any(st != "OK" for st in states[f0:]) or any(p is None for p in poses[f0:]):
+        raise AssertionError(f"{what}: states {states}")
+    timings = sys_.timings()
+    n_mapped = int(timings.get("local_mapping", {}).get("count", 0))
+    est = sys_.trajectory_positions()
+    gt_c = centres(gt)
+    rmse = trajectory.ate_rmse(est, gt_c[len(gt_c) - len(est):], align_scale=True)
+    span = float(np.linalg.norm(gt_c[-1] - gt_c[0]))
+    log(f"{what}: initialized at frame {f0}, {MONO_FRAMES - f0} frames OK, "
+        f"{sys_.map.next_kf} keyframes inserted ({sys_.map.n_keyframes()} kept), "
+        f"{n_mapped} mapped, {sys_.map.n_points()} points; scale-aligned ATE {rmse:.6f} "
+        f"over a {span:.3f} m span (gate {MONO_ATE_GATE} x span)")
+    if sys_.map.n_keyframes() < MONO_MIN_KFS or sys_.map.n_points() < MONO_MIN_POINTS:
+        raise AssertionError(f"{what}: too few keyframes or points")
+    if not rmse < MONO_ATE_GATE * span:
+        raise AssertionError(f"{what}: ATE {rmse} over the gate")
+    log(f"{what}: {MONO_FRAMES / seconds:.2f} frames/s over the sequence ({seconds:.3f} s) "
+        f"on {power}; launches per mapped keyframe: " + ", ".join(
+            f"{k} {c[k] / max(n_mapped, 1):.2f}"
+            for k in ("masked_hamming_top2", "projection_hamming_top2", "pose_lm")))
+    for stage, st in sorted(timings.items()):
+        log(f"    {what} stage {stage}: {int(st['count'])} x {st['mean_ms']:.3f} ms "
+            f"(max {st['max_ms']:.3f}, total {st['total_s'] * 1e3:.1f} ms)")
+
+    profs = {}
+    sys2, _, _, _ = run_system(seq, n_frames=MONO_FRAMES, around=lambda i: (
+        profiled(profs, i) if 3 <= i < 15 else contextlib.nullcontext()))
+    kf_frames = {int(f) for f in sys2.map.kf_frame_id[:sys2.map.next_kf]}
+    for kind, frames in (("keyframe", sorted(kf_frames & set(profs))),
+                         ("plain", sorted(set(profs) - kf_frames))):
+        if not frames:
+            raise AssertionError(f"{what}: no {kind} frame among frames 3-14")
+        wall, busy, n_ops = (np.mean([profs[i][j] for i in frames]) for j in range(3))
+        log(f"profiled {what} {kind} frames {frames}: mean {wall:.3f} ms wall, "
+            f"{busy:.3f} ms device busy, idle share {1.0 - busy / wall:.4f}, "
+            f"{n_ops:.0f} device operations, on {power}")
+    mono_vs_cpu(seq, f0)
+
+    what = "System monocular kidnap"
+    _, _, _, gt = kidnap_seq
+    kid_caller, kid_problems = {}, {}
+    _build.reset_launches()
+    with k7_launches_by_caller(kid_caller, kid_problems):
+        sys_, states, poses, seconds = run_system(kidnap_seq, n_frames=MONO_FRAMES)
+    kc = dict(_build.launches)
+    log(f"{what} launches: {kc}; K7 under a mask by caller: {kid_caller} "
+        f"(problems {kid_problems}); states {''.join(st[0] for st in states)}")
+    tr = sys_.tracker
+    if "LOST" not in states[KIDNAP.start:KIDNAP.stop] or states[-1] != "OK" \
+            or tr.last_reloc_frame_id < KIDNAP.stop or kid_caller["relocalization"] < 1:
+        raise AssertionError(f"{what}: not lost during the occlusion, or not relocalized "
+                             f"after it (last relocalization at frame "
+                             f"{tr.last_reloc_frame_id})")
+    gt_c = centres(gt)
+    pre = [i for i in range(KIDNAP.start) if poses[i] is not None]
+    post = [i for i in range(KIDNAP.stop + 1, MONO_FRAMES) if poses[i] is not None]
+    s_, R_a, t_a = trajectory.umeyama_alignment(
+        centres([poses[i] for i in pre]), gt_c[pre], True)
+    err = np.linalg.norm(s_ * centres([poses[i] for i in post]) @ R_a.T + t_a - gt_c[post],
+                         axis=1)
+    span = float(np.linalg.norm(gt_c[-1] - gt_c[0]))
+    timings = sys_.timings()
+    log(f"{what}: relocalized at frame {tr.last_reloc_frame_id} against keyframe "
+        f"{tr.ref_kf}; {len(post)} frames tracked after it, median error "
+        f"{np.median(err):.6f} over a {span:.3f} m span (gate {KIDNAP_GATE} x span); "
+        + ", ".join(f"{k} {int(timings[k]['count'])} x {timings[k]['mean_ms']:.3f} ms "
+                    f"(max {timings[k]['max_ms']:.3f})"
+                    for k in ("track_reloc", "reloc_match", "reloc_epnp") if k in timings)
+        + f", on {power}")
+    if len(post) < 8 or not np.median(err) < KIDNAP_GATE * span:
+        raise AssertionError(f"{what}: recovered poses off the trajectory")
+    for k in K7_CALLERS:
+        by_caller[k] += kid_caller[k]
+        problems[k] += kid_problems[k]
+    return c, by_caller, problems
 
 
 # ---------------------------------------------------------------------------
@@ -1434,7 +1726,11 @@ def phase_kernel_timing(x, errs, counts, batched, power):
                 "library_ms": lib_ms,
             })
         else:
-            name = f"{name} ({caller}; {batched[caller]} launches in the System's RGB-D run)"
+            run = ("the monocular sweep and the kidnap sequence"
+                   if caller in ("monocular initialization",
+                                 "relocalization, batch axis, shared columns")
+                   else "the System's RGB-D run")
+            name = f"{name} ({caller}; {batched[caller]} launches in {run})"
         log(f"{name}: {ms:.4f} ms device busy, {events_ms:.4f} ms by events in a row "
             f"(plain {plain_ms:.4f} ms, library "
             f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
@@ -1613,8 +1909,16 @@ def phase_kernel_timing(x, errs, counts, batched, power):
     row(*k7_src, each(kmatching.masked_hamming_top2, x["sys_k7"] + x["sys_k7b"]),
         each(kmatching.masked_hamming_top2_plain, x["sys_k7"] + x["sys_k7b"]), None,
         *top2_work(x["sys_k7"] + x["sys_k7b"]))
+    log("K7 monocular initialization calls (N, N): " + ", ".join(
+        f"{tuple(a[2].shape)} {int(a[2].sum())} pairs" for a in x["mono_k7_init"]))
+    log("K7 relocalization calls (C, N_kf, N): " + ", ".join(
+        f"{tuple(a[2].shape)} {int(a[2].sum())} pairs, "
+        f"{int(a[2].any(-1).sum())} rows with a candidate" for a in x["mono_k7_reloc"]))
     for caller, calls in (("reference-keyframe match", x["sys_k7"]),
-                          ("triangulation, batch axis", x["sys_k7b"])):
+                          ("triangulation, batch axis", x["sys_k7b"]),
+                          ("monocular initialization", x["mono_k7_init"]),
+                          ("relocalization, batch axis, shared columns",
+                           x["mono_k7_reloc"])):
         row(*k7_src, each(kmatching.masked_hamming_top2, calls),
             each(kmatching.masked_hamming_top2_plain, calls), None, *top2_work(calls),
             caller=caller)
@@ -1689,10 +1993,14 @@ def main() -> int:
     x.update(stereo_path_inputs(*pairs["stereo"]))
     seqs = {sensor: system_sequence(sensor) for sensor in ("rgbd", "stereo")}
     x.update(system_path_inputs(seqs))
+    mono_seq = system_sequence("monocular")
+    kidnap_seq = system_sequence("monocular", kidnap=True)
+    x.update(mono_path_inputs(kidnap_seq))
     errs = phase_kernels(x)
     counts = {sensor: phase_pair(*pair) for sensor, pair in pairs.items()}
     phase_step(config, args)
     system_counts, system_batched = phase_system(seqs, power)
+    _, mono_k7, mono_problems = phase_mono(mono_seq, kidnap_seq, power)
     phase_step_timing(config, args, power)
     phase_pair_timing(*pairs["monocular"], x, power)
     for sensor in ("stereo", "rgbd"):
@@ -1708,7 +2016,11 @@ def main() -> int:
         "reference-keyframe match": (system_counts["rgbd"]["masked_hamming_top2"]
                                      - system_batched["rgbd"]["masked_hamming_top2"]),
         "triangulation, batch axis": system_batched["rgbd"]["masked_hamming_top2"],
-        "fuse, batch axis": system_batched["rgbd"]["projection_hamming_top2"]}, power)
+        "fuse, batch axis": system_batched["rgbd"]["projection_hamming_top2"],
+        "monocular initialization": mono_k7["initialization"],
+        "relocalization, batch axis, shared columns": mono_k7["relocalization"]}, power)
+    log(f"K7 under a mask over the monocular sweep and the kidnap sequence, by caller: "
+        f"launches {mono_k7}, problems {mono_problems}")
 
     log(json.dumps({"kernels": kernels}))
     log(power)

@@ -23,9 +23,11 @@
 // PyTorch compares with); one launch gives left -> right and right ->
 // left. Under a caller-supplied [M, N] bool mask (masked_hamming_top2)
 // it serves the dense-mask matchers: reference-keyframe tracking
-// (match_brute_force) and, with a leading batch axis of neighbour pairs,
-// the mapper's triangulation matcher (match_for_triangulation in
-// fused_triangulation_jit).
+// (match_brute_force), monocular initialization (match_for_initialization)
+// and, with a leading batch axis, the mapper's triangulation matcher over
+// neighbour pairs (match_for_triangulation in fused_triangulation_jit,
+// the row descriptors shared) and relocalization over candidate keyframes
+// (match_brute_force_many, the column descriptors shared).
 //
 // Semantics follow the Pallas kernels exactly, index fallbacks included.
 // Rows are reduced by the packed key (distance << COL_BITS) | column, so
@@ -466,14 +468,15 @@ __global__ void __launch_bounds__(BAND_THREADS) stereo_band_top2_kernel(
 
 __global__ void masked_top2_kernel(
     const int* __restrict__ desc_a, long long a_bstride, int m,
-    const int* __restrict__ desc_b, int n, const uint8_t* __restrict__ mask,
-    int* __restrict__ out) {
-  // Problem blockIdx.y of a batch: desc_a's rows a_bstride ints apart (0:
-  // shared), [B, N, 8] columns under [B, M, N] -> out [B, 4, M].
+    const int* __restrict__ desc_b, long long b_bstride, int n,
+    const uint8_t* __restrict__ mask, int* __restrict__ out) {
+  // Problem blockIdx.y of a batch: desc_a's rows a_bstride and desc_b's
+  // columns b_bstride ints apart (0: shared by the problems), under
+  // [B, M, N] -> out [B, 4, M].
   {
     const size_t b = blockIdx.y;
     desc_a += b * a_bstride;
-    desc_b += b * n * WORDS;
+    desc_b += b * b_bstride;
     mask += b * m * (size_t)n;
     out += b * 4 * (size_t)m;
   }
@@ -555,14 +558,15 @@ extern "C" int stereo_band_top2_launch(
   return (int)cudaGetLastError();
 }
 
-// batch problems: desc_a [m, 8] per problem, a_bstride ints apart (0:
-// shared), desc_b [batch, n, 8], mask [batch, m, n] -> out [batch, 4, m].
+// batch problems: desc_a [m, 8] per problem, a_bstride ints apart, desc_b
+// [n, 8] per problem, b_bstride ints apart (0: shared), mask [batch, m, n]
+// -> out [batch, 4, m].
 extern "C" int masked_top2_launch(
-    const void* desc_a, long long a_bstride, int m, const void* desc_b, int n,
-    const void* mask, int batch, void* out, void* stream) {
+    const void* desc_a, long long a_bstride, int m, const void* desc_b,
+    long long b_bstride, int n, const void* mask, int batch, void* out, void* stream) {
   const dim3 grid((m + WARPS - 1) / WARPS, batch);
   masked_top2_kernel<<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
-      (const int*)desc_a, a_bstride, m, (const int*)desc_b, n,
+      (const int*)desc_a, a_bstride, m, (const int*)desc_b, b_bstride, n,
       (const uint8_t*)mask, (int*)out);
   return (int)cudaGetLastError();
 }

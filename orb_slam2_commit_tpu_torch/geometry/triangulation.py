@@ -2,12 +2,14 @@
 Initializer::Triangulate, src/Initializer.cc:1018-1064, and the SVD
 triangulation of LocalMapping::CreateNewMapPoints,
 src/LocalMapping.cc:420-438). One batched 4x4 symmetric eigensolve per
-point. Leading batch dimensions broadcast.
+point (optim/linalg.eigh). Leading batch dimensions broadcast.
 """
 
 from __future__ import annotations
 
 import torch
+
+from orb_slam2_commit_tpu_torch.optim import linalg
 
 
 def projection_matrix(K: torch.Tensor, R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -32,7 +34,7 @@ def triangulate_dlt(
         uv2[..., 0, None] * P2[..., 2, :] - P2[..., 0, :],
         uv2[..., 1, None] * P2[..., 2, :] - P2[..., 1, :],
     ], dim=-2)                                            # [..., N, 4, 4]
-    _, V = torch.linalg.eigh(A.transpose(-1, -2) @ A)
+    _, V = linalg.eigh(A.transpose(-1, -2) @ A)
     x = V[..., :, 0]
     w = torch.where(torch.abs(x[..., 3]) > 1e-12, x[..., 3],
                     torch.full_like(x[..., 3], 1e-12))

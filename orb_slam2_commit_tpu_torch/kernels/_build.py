@@ -92,8 +92,8 @@ SIGNATURES = {
             _c_void_p, _c_void_p, _c_int, _c_void_p, _c_void_p, _c_void_p,
             _c_void_p, _c_int, _c_int, _c_void_p, _c_void_p),
         "masked_top2_launch": (
-            _c_void_p, ctypes.c_longlong, _c_int, _c_void_p, _c_int, _c_void_p, _c_int,
-            _c_void_p, _c_void_p),
+            _c_void_p, ctypes.c_longlong, _c_int, _c_void_p, ctypes.c_longlong, _c_int,
+            _c_void_p, _c_int, _c_void_p, _c_void_p),
         "stereo_band_top2_launch": (
             _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int,
             _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_float,

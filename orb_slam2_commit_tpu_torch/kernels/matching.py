@@ -7,12 +7,14 @@ ops/pallas_matching.py; kernels in csrc/matching.cu):
   (ops/stereo.py), left -> right and right -> left in one launch that
   tests the band itself;
 - K7 masked_hamming_top2: top-2 under a caller-supplied [M, N] candidate
-  mask (reference-keyframe tracking's match_brute_force).
+  mask (reference-keyframe tracking's match_brute_force, monocular
+  initialization's match_for_initialization).
 
 K6 and K7 under a mask also take a leading batch axis: one launch serves
 B problems (the mapper's fuse pass into B target keyframes, its
-triangulation matcher over B neighbour pairs) and counts as one launch;
-a single problem is a batch of one.
+triangulation matcher over B neighbour pairs, relocalization's matcher
+over B candidate keyframes) and counts as one launch; a single problem is
+a batch of one.
 
 On a CUDA tensor a wrapper launches its kernel; on a CPU tensor it runs
 the plain version. Both give the same four outputs, the Pallas kernels'
@@ -34,23 +36,44 @@ COL_BITS = 23     # the kernel's packed key holds the column in 23 bits
 Top2 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def masked_hamming_top2_plain(desc_a, desc_b, mask) -> Top2:
-    """Plain version of K7, the dense route: the [..., M, N] distance
-    matrix under the mask, then the top-2 of the Pallas kernels'
-    _top2_reduce: ties to the lowest column, BIG where there is no
-    candidate, and the second index the lowest column other than the best
-    when the row has fewer than two candidates. Leading batch dimensions
-    broadcast."""
-    dist = matching.hamming_distance_matrix(desc_a, desc_b)
-    d = torch.where(mask, dist, torch.full_like(dist, BIG_DIST))
+def _top2_rows(d: torch.Tensor) -> Top2:
+    """The Pallas kernels' _top2_reduce over the rows of d [K, N] (BIG
+    where no candidate): ties to the lowest column, the best column
+    dropped below every other for the second."""
     best_idx = matching._first_argmin(d)
     best = d.amin(dim=-1)
     cols = torch.arange(d.shape[-1], dtype=torch.int32, device=d.device)
-    # The best column drops below every other, candidate or not.
     d2 = torch.where(cols == best_idx[..., None], torch.full_like(d, BIG_DIST + 1), d)
-    second_idx = matching._first_argmin(d2)
-    second = torch.clamp_max(d2.amin(dim=-1), BIG_DIST)
-    return best, best_idx, second, second_idx
+    return best, best_idx, torch.clamp_max(d2.amin(dim=-1), BIG_DIST), matching._first_argmin(d2)
+
+
+def masked_hamming_top2_plain(desc_a, desc_b, mask) -> Top2:
+    """Plain version of K7, the dense route: per problem, the distance
+    matrix of the rows with a candidate under the mask, then the top-2 of
+    the Pallas kernels' _top2_reduce: ties to the lowest column, BIG where
+    there is no candidate, and the second index the lowest column other
+    than the best when the row has fewer than two candidates (a row with
+    none: BIG, 0, BIG, 1). mask [..., M, N] with desc_a [..., M, 8] or
+    [M, 8] and desc_b [..., N, 8] or [N, 8]."""
+    lead, (m, n) = mask.shape[:-2], mask.shape[-2:]
+    masks = mask.reshape(-1, m, n)
+    rows_a = desc_a.reshape(-1, m, 8) if desc_a.dim() > 2 else desc_a[None]
+    cols_b = desc_b.reshape(-1, n, 8) if desc_b.dim() > 2 else desc_b[None]
+    dev, i32 = mask.device, torch.int32
+    out = (torch.full(masks.shape[:2], BIG_DIST, dtype=i32, device=dev),
+           torch.zeros(masks.shape[:2], dtype=i32, device=dev),
+           torch.full(masks.shape[:2], BIG_DIST, dtype=i32, device=dev),
+           torch.full(masks.shape[:2], min(1, n - 1), dtype=i32, device=dev))
+    hit = masks.any(dim=-1)
+    for b in range(masks.shape[0]):
+        r = torch.nonzero(hit[b])[:, 0]
+        if r.numel():
+            a, c = rows_a[b % rows_a.shape[0]][r], cols_b[b % cols_b.shape[0]]
+            d = matching.hamming_distance_matrix(a, c)
+            top = _top2_rows(torch.where(masks[b, r], d, torch.full_like(d, BIG_DIST)))
+            for o, t in zip(out, top):
+                o[b, r] = t.to(i32)
+    return tuple(o.reshape(lead + (m,)) for o in out)
 
 
 def projection_hamming_top2_plain(
@@ -230,17 +253,20 @@ def masked_hamming_top2(
     second are BIG_DIST where the row has no (second) candidate, and a row
     with no candidate has best_idx 0, as jnp.argmin gives over a BIG row.
 
-    B problems in one launch: mask [B, M, N], desc_b [B, N, 8], desc_a
-    [B, M, 8] or [M, 8] (one keyframe's descriptors shared by the
-    problems), each output [B, M]; problem b's rows are exactly what the
-    call on its slices gives."""
+    B problems in one launch: mask [B, M, N], desc_a [B, M, 8] or [M, 8]
+    and desc_b [B, N, 8] or [N, 8] (a [M, 8] or [N, 8] table is shared by
+    the problems: one keyframe's descriptors against its neighbours, or
+    relocalization's candidate keyframes against one frame), each output
+    [B, M]; problem b's rows are exactly what the call on its slices
+    gives."""
     name = "masked_hamming_top2"
     k = mask.dim() - 2
     if k not in (0, 1):
         raise ValueError(f"{name}: mask [M, N] or [B, M, N], got {tuple(mask.shape)}")
     for t, what, dtype, ndim in ((desc_a, "desc_a", torch.int32,
                                   2 if desc_a.dim() == 2 else 2 + k),
-                                 (desc_b, "desc_b", torch.int32, 2 + k),
+                                 (desc_b, "desc_b", torch.int32,
+                                  2 if desc_b.dim() == 2 else 2 + k),
                                  (mask, "mask", torch.bool, 2 + k)):
         _build.require(t, f"{name} {what}", dtype, ndim)
         if t.device != desc_a.device:
@@ -249,7 +275,7 @@ def masked_hamming_top2(
     m, n = mask.shape[k:]
     bsz = lead[0] if lead else 1
     if tuple(desc_a.shape) not in ((m, 8), lead + (m, 8)) \
-            or tuple(desc_b.shape) != lead + (n, 8) \
+            or tuple(desc_b.shape) not in ((n, 8), lead + (n, 8)) \
             or not 1 <= n < (1 << COL_BITS) or not 1 <= bsz < (1 << 16):
         raise ValueError(
             f"{name}: descriptors {tuple(desc_a.shape)} x {tuple(desc_b.shape)}, "
@@ -260,7 +286,8 @@ def masked_hamming_top2(
     if m:
         err = _build.library("matching").masked_top2_launch(
             desc_a.data_ptr(), m * 8 if desc_a.dim() == 3 else 0, m, desc_b.data_ptr(),
-            n, mask.data_ptr(), bsz, out.data_ptr(), _build.stream_of(desc_a))
+            n * 8 if desc_b.dim() == 3 else 0, n, mask.data_ptr(), bsz, out.data_ptr(),
+            _build.stream_of(desc_a))
         _build.check(err, name)
         _build.launches[name] += 1
     return tuple(out.reshape(lead + (4, m)).unbind(-2))

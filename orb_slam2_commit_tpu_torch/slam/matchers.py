@@ -4,12 +4,13 @@ under a mask, kernels/matching.py) -> best/ratio gating -> rotation
 histogram -> duplicate resolution, over fixed-shape padded tensors.
 
 The variants: motion-model and local-map projection matching (K6),
-reference-keyframe brute force (K7 under a mask), the mapper's
-triangulation matcher under the epipolar mask (K7, one launch over a batch
-of neighbour pairs) and its fuse projection (K6, one launch over a batch
-of target keyframes).
-match_for_initialization, match_brute_force_many and match_by_sim3 are
-still to be ported."""
+reference-keyframe brute force (K7 under a mask), monocular
+initialization's matcher (K7 under the level-0 window mask),
+relocalization's brute force over a batch of candidate keyframes (K7, one
+launch, the frame's descriptors shared), the mapper's triangulation
+matcher under the epipolar mask (K7, one launch over a batch of neighbour
+pairs) and its fuse projection (K6, one launch over a batch of target
+keyframes). match_by_sim3 is still to be ported (loop closing)."""
 
 from __future__ import annotations
 
@@ -203,14 +204,45 @@ def match_brute_force(
     stand-in for SearchByBoW (src/ORBmatcher.cc:175-325) with its gates
     (TH_LOW, ratio 0.7, rotation histogram, one-to-one) over every valid
     pair, a superset of the BoW node buckets. K7 under the [N_a, N_b]
-    validity mask. Used for reference-keyframe tracking."""
-    mask = valid_a[:, None] & valid_b[None, :]
+    validity mask. Used for reference-keyframe tracking.
+
+    Side A may carry a leading axis of C candidate keyframes ([C, N_a, ...])
+    against one shared frame (side B, [N_b, ...]): relocalization's matcher,
+    the stand-in for its per-candidate SearchByBoW (src/Tracking.cc:1713-1762).
+    The C validity masks go through one K7 launch that reads the frame's
+    descriptor table once for all problems; idx, dist come out [C, N_a]."""
+    mask = valid_a[..., :, None] & valid_b[..., None, :]
     m = matching.match_from_top2(
         *matching_kernel.masked_hamming_top2(
             desc_a.contiguous(), desc_b.contiguous(), mask.contiguous()),
         max_dist, ratio)
     m = matching.rotation_consistency_filter(m, angle_a, angle_b)
     return matching.resolve_duplicate_targets(m, desc_b.shape[0])
+
+
+@full_float32
+def match_for_initialization(
+    xy1: torch.Tensor, desc1: torch.Tensor, angle1: torch.Tensor,
+    octave1: torch.Tensor, valid1: torch.Tensor,
+    xy2: torch.Tensor, desc2: torch.Tensor, angle2: torch.Tensor,
+    octave2: torch.Tensor, valid2: torch.Tensor,
+    window: float = 100.0, ratio: float = 0.9,
+) -> MatchResult:
+    """Frame-1 -> frame-2 matches for the monocular bootstrap
+    (SearchForInitialization, src/ORBmatcher.cc:442-587): level-0 features
+    only, a 100 px window, TH_LOW, best/second ratio 0.9, the rotation
+    histogram, one-to-one. K7 under the [N1, N2] mask."""
+    mask = (
+        (valid1 & (octave1 == 0))[:, None]
+        & (valid2 & (octave2 == 0))[None, :]
+        & matching.window_mask(xy1, xy2, window)
+    )
+    m = matching.match_from_top2(
+        *matching_kernel.masked_hamming_top2(
+            desc1.contiguous(), desc2.contiguous(), mask.contiguous()),
+        TH_LOW, ratio)
+    m = matching.rotation_consistency_filter(m, angle1, angle2)
+    return matching.resolve_duplicate_targets(m, desc2.shape[0])
 
 
 @full_float32

@@ -1,22 +1,24 @@
 """The tracking front end: the per-frame pose state machine (PyTorch port of
-slam/tracking.py, for the stereo and RGB-D sensors; reference:
-src/Tracking.cc).
+slam/tracking.py; reference: src/Tracking.cc).
 
 Same state machine (NOT_INITIALIZED -> OK <-> LOST, include/Tracking.h:81-87)
 and the same per-frame ladder:
 
-  motion-model tracking -> reference-keyframe fallback -> local-map
-  tracking -> keyframe decision
+  motion-model tracking -> reference-keyframe fallback ->
+  (relocalization when LOST) -> local-map tracking -> keyframe decision
 
 Every numeric stage runs on the tracker's device: projection matching (K6),
-brute-force matching (K7 under a mask), pose-only BA (K8) and, on the fused
+brute-force matching (K7 under a mask; batched over the relocalization
+candidates), pose-only BA (K8), the two-view bootstrap
+(geometry/twoview.py), EPnP RANSAC (geometry/pnp.py) and, on the fused
 route, the whole motion stage and the local-map stage as one call each
-(slam/jit_frontend.py). Host code orchestrates and keeps numpy bookkeeping.
+(slam/jit_frontend.py). Host code orchestrates and keeps numpy
+bookkeeping. The RANSAC sample sets come from the tracker's host sampler
+(geometry/ransac.py), so the card and the CPU draw the same sets.
 
-Still to be ported, and raising NotImplementedError: monocular two-view
-initialization and its global BA (geometry/twoview.py), relocalization
-(geometry/pnp.py, match_brute_force_many) and the localization-only / VO
-mode (ROADMAP queue 1, slice 2).
+Relocalization takes its candidates from the most recent keyframes (the
+JAX package's path without a keyframe database). Still to be ported: the
+localization-only / VO mode (ROADMAP queue 1, slice 2).
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from orb_slam2_commit_tpu_torch.geometry import pnp, twoview
+from orb_slam2_commit_tpu_torch.geometry.ransac import RansacSampler
 from orb_slam2_commit_tpu_torch.interop import resolve_device, to_device, to_host
 from orb_slam2_commit_tpu_torch.models.map_state import INVALID, MapState
 from orb_slam2_commit_tpu_torch.optim import ba, pose_opt
@@ -38,10 +42,10 @@ from orb_slam2_commit_tpu_torch.slam.frame import Frame
 from orb_slam2_commit_tpu_torch.utils.config import SLAMConfig
 from orb_slam2_commit_tpu_torch.utils.rotation import orthonormalize_rotation
 
-SLICE_2_MONO = ("monocular initialization (geometry/twoview.py, "
-                "match_for_initialization): ROADMAP queue 1, slice 2")
-SLICE_2_RELOC = ("relocalization (geometry/pnp.py, match_brute_force_many): "
-                 "ROADMAP queue 1, slice 2")
+# Relocalization matches and solves all its candidates in one batch each;
+# the batch is capped (best first) and padded to a power of two, as in the
+# JAX package.
+MAX_RELOC_CANDIDATES = 16
 
 
 class TrackingState(enum.Enum):
@@ -70,18 +74,24 @@ class Tracker:
         self.device = resolve_device(device)
         self.state = TrackingState.NO_IMAGES_YET
         self.last_frame: Optional[Frame] = None
+        self.init_ref_frame: Optional[Frame] = None
         self.velocity: Optional[Tuple[np.ndarray, np.ndarray]] = None
         self.ref_kf: int = -1
         self.last_kf_frame_id: int = 0
         self.last_reloc_frame_id: int = -(10 ** 9)
         self.trajectory: List[TrajectoryEntry] = []
         self.n_inliers: int = 0
+        # RANSAC sample sets for initialization and relocalization, drawn
+        # on the host from a fixed seed (a test may put JAX's draws here).
+        self.sampler = RansacSampler(seed=0)
         # Set when tracking is lost soon after initialization and the map
         # is too small to relocalize against: the System resets
         # (src/Tracking.cc:540-552).
         self.request_reset = False
         # Optional stage profiler (set by the System). Stages:
-        # track_motion, track_ref_kf, track_local_map.
+        # track_init (init_twoview, init_global_ba), track_motion,
+        # track_ref_kf, track_reloc (reloc_match, reloc_epnp),
+        # track_local_map.
         self.profiler = None
 
     def _dev(self, a) -> torch.Tensor:
@@ -135,10 +145,114 @@ class Tracker:
     # ------------------------------------------------------------------
 
     def _try_initialize_mono(self, frame: Frame) -> bool:
-        raise NotImplementedError(SLICE_2_MONO)
+        """Tracking::MonocularInitialization (src/Tracking.cc:661-757) and
+        CreateInitialMapMonocular (:759-888): match the reference frame
+        (K7 under a mask), the two-view bootstrap on the sampler's sets,
+        the JAX package's flow-parallax gate, median-depth normalization,
+        keyframes 0 and 1 and the initial global BA."""
+        cfg = self.config
+        if self.init_ref_frame is None or self.init_ref_frame.valid.sum() < 100:
+            self.init_ref_frame = frame
+            return False
+        if frame.valid.sum() < 100:
+            self.init_ref_frame = None
+            return False
+
+        ref = self.init_ref_frame
+        dev = self._dev
+        m = matchers.match_for_initialization(
+            dev(ref.xy), dev(ref.desc), dev(ref.angle), dev(ref.octave), dev(ref.valid),
+            dev(frame.xy), dev(frame.desc), dev(frame.angle), dev(frame.octave),
+            dev(frame.valid),
+        )
+        idx = to_host(m.idx)
+        if int((idx >= 0).sum()) < cfg.tracker.min_matches_init:
+            self.init_ref_frame = frame
+            return False
+
+        matched = idx >= 0
+        with self._timed("init_twoview"):
+            res = twoview.initialize_two_view(
+                dev(self.sampler.twoview(matched, twoview.N_RANSAC, twoview.SAMPLE_SIZE)),
+                dev(ref.xy), dev(frame.xy[np.maximum(idx, 0)]), dev(matched),
+                dev(np.asarray(cfg.camera.k_matrix)),
+                min_parallax=float(cfg.tracker.init_min_parallax_deg),
+            )
+            if not bool(res.ok):
+                return False
+        R21 = to_host(res.R21).astype(np.float64)
+        t21 = to_host(res.t21).astype(np.float64)
+        good = to_host(res.good) & matched
+
+        # The noise-robust parallax gate of the JAX package: warp the
+        # reference pixels by the infinite homography K R21 K^-1 and take
+        # the 50th-largest residual flow, which is f tan(parallax) to first
+        # order (the reference gates on the triangulated points' 51st
+        # parallax, src/Initializer.cc:1284-1295).
+        Kc = np.asarray(cfg.camera.k_matrix)
+        Hinf = Kc @ R21 @ np.linalg.inv(Kc)
+        warped = np.concatenate([ref.xy, np.ones((ref.n, 1))], axis=1) @ Hinf.T
+        warped = warped[:, :2] / np.maximum(warped[:, 2:3], 1e-9)
+        flow = np.linalg.norm(frame.xy[np.maximum(idx, 0)] - warped, axis=1)
+        sel = good if good.sum() >= 20 else matched
+        if not sel.any():
+            return False
+        flows = np.sort(flow[sel])[::-1]
+        flow_stat = float(flows[min(50, flows.size) - 1])
+        f_px = 0.5 * (cfg.camera.fx + cfg.camera.fy)
+        if flow_stat < f_px * np.tan(np.radians(cfg.tracker.init_min_parallax_deg)):
+            return False
+        pts = to_host(res.points).astype(np.float64)[good]
+
+        # Median-depth normalization (src/Tracking.cc:846-869).
+        med = np.median(pts[:, 2])
+        if med <= 0 or good.sum() < cfg.tracker.min_matches_init:
+            return False
+        pts = pts / med
+        t21 = t21 / med
+
+        ref_feat = np.where(good)[0]
+        cur_feat = idx[good]
+        ref.set_pose(np.eye(3), np.zeros(3))
+        frame.set_pose(R21, t21)
+        pt_ids = self.map.add_points(pts, first_kf=0)
+        ref_binding = np.full(ref.n, INVALID, np.int32)
+        ref_binding[ref_feat] = pt_ids
+        cur_binding = np.full(frame.n, INVALID, np.int32)
+        cur_binding[cur_feat] = pt_ids
+        kf0 = self.map.add_keyframe(
+            ref.R, ref.t, ref.xy, ref.octave, ref.angle, ref.desc,
+            ref.valid, ref_binding, ref.frame_id, ref.timestamp,
+        )
+        kf1 = self.map.add_keyframe(
+            frame.R, frame.t, frame.xy, frame.octave, frame.angle, frame.desc,
+            frame.valid, cur_binding, frame.frame_id, frame.timestamp,
+        )
+        frame.point_ids = cur_binding
+
+        # GlobalBundleAdjustemnt(20) with KF0 fixed (src/Tracking.cc:830).
+        with self._timed("init_global_ba"):
+            self._initial_global_ba(kf0, kf1)
+        self.map.refresh_point_stats()
+
+        self.ref_kf = kf1
+        self.last_kf_frame_id = frame.frame_id
+        self.state = TrackingState.OK
+        return True
 
     def _initial_global_ba(self, kf0: int, kf1: int, n_iters: int = 20) -> None:
-        raise NotImplementedError(SLICE_2_MONO)
+        """The initial map's BA: every valid point, KF1 free, KF0 fixed."""
+        cam = self.config.camera
+        assembled = build_ba_problem(
+            self.map, free_kfs=np.array([kf1]), fixed_kfs=np.array([kf0]),
+            point_ids=np.where(self.map.pt_valid)[0], orb_cfg=self.config.orb,
+            device=self.device,
+        )
+        out, result = ba.bundle_adjust(
+            assembled.problem, cam.fx, cam.fy, cam.cx, cam.cy, cam.bf,
+            n_iters=n_iters, point_chunk=512,
+        )
+        write_back_ba(self.map, assembled, out, result)
 
     def _try_initialize_depth(self, frame: Frame) -> bool:
         """Tracking::StereoInitialization (src/Tracking.cc:590-658): the
@@ -180,7 +294,7 @@ class Tracker:
             self.state == TrackingState.OK
             and self.velocity is not None
             and self.last_frame is not None
-            and self.config.sensor in ("stereo", "rgbd")
+            and self.config.sensor in ("monocular", "stereo", "rgbd")
             and int((self.last_frame.point_ids >= 0).sum()) >= 10
         )
 
@@ -189,9 +303,8 @@ class Tracker:
         image_right=None, depth_image=None,
     ) -> Tuple[Frame, bool]:
         """Extraction + motion-model matching + pose BA as one device call
-        (jit_frontend.fused_stereo_motion_track_packed or
-        fused_rgbd_motion_track_packed) and the host Frame built from its
-        outputs. Returns (frame, motion_ok); pass motion_ok to track() so
+        (jit_frontend.fused_motion_track_packed, or its stereo or RGB-D
+        twin) and the host Frame built from its outputs. Returns (frame, motion_ok); pass motion_ok to track() so
         the staged motion stage is skipped. Only when can_fuse_motion()."""
         self._update_last_frame_pose()
         last = self.last_frame
@@ -222,7 +335,8 @@ class Tracker:
             meta, feat, desc = jit_frontend.fused_rgbd_motion_track_packed(
                 self._dev(image), self._dev(np.asarray(depth_image, np.float32)), *args)
         else:
-            raise NotImplementedError(SLICE_2_MONO)
+            meta, feat, desc = jit_frontend.fused_motion_track_packed(
+                self._dev(image), *args)
         dev_feat, dev_desc = feat, desc
         meta, feat, desc = to_host(meta), to_host(feat), to_host(desc).view(np.uint32)
         frame = Frame(
@@ -348,7 +462,103 @@ class Tracker:
         return n_in >= self.config.tracker.min_inliers_track
 
     def _relocalize(self, frame: Frame) -> bool:
-        raise NotImplementedError(SLICE_2_RELOC)
+        """Tracking::Relocalization (src/Tracking.cc:1653-1884): candidate
+        keyframes -> one batched descriptor match (K7) -> one batched EPnP
+        RANSAC -> the pose-optimization ladder, best candidate first.
+        Candidates are the 10 most recent keyframes (the JAX package's
+        path without a keyframe database)."""
+        cfg = self.config
+        cam = cfg.camera
+        cand = [k for k in range(self.map.next_kf) if self.map.kf_valid[k]][-10:]
+        cand = [int(k) for k in reversed(cand)][:MAX_RELOC_CANDIDATES]
+        if not cand:
+            return False
+        C = len(cand)
+        Cp = max(4, 1 << (C - 1).bit_length())
+
+        # Phase A: one batched match over every candidate
+        # (src/Tracking.cc:1713-1727).
+        ck = np.asarray(cand)
+        pt_ids = np.maximum(self.map.kf_point_idx[ck], 0)
+        kf_ok = (self.map.kf_point_idx[ck] >= 0) & self.map.pt_valid[pt_ids]
+        n_kf = self.map.kf_desc.shape[1]
+        desc_a = np.zeros((Cp, n_kf, 8), np.uint32)
+        angle_a = np.zeros((Cp, n_kf), np.float32)
+        valid_a = np.zeros((Cp, n_kf), bool)
+        desc_a[:C] = self.map.kf_desc[ck]
+        angle_a[:C] = self.map.kf_angle[ck]
+        valid_a[:C] = kf_ok
+        with self._timed("reloc_match"):
+            m = matchers.match_brute_force(
+                self._dev(desc_a), self._dev(angle_a), self._dev(valid_a),
+                self._dev(frame.desc), self._dev(frame.angle), self._dev(frame.valid),
+            )
+            idx_all = to_host(m.idx)
+
+        # Phase B: the 2D-3D bindings of each candidate and one batched
+        # EPnP RANSAC (src/Tracking.cc:1729-1762).
+        bindings = np.full((Cp, frame.n), INVALID, np.int32)
+        for c in range(C):
+            rows = np.where(idx_all[c] >= 0)[0]
+            bindings[c, idx_all[c][rows]] = self.map.kf_point_idx[ck[c]][rows]
+        attempt = (bindings >= 0).sum(axis=1) >= 15
+        if not attempt.any():
+            return False
+        bound_masks = (bindings >= 0) & frame.valid[None, :] & attempt[:, None]
+        sigma2 = np.asarray(cfg.orb.level_sigma2())[
+            np.clip(frame.octave, 0, cfg.orb.n_levels - 1)]
+        with self._timed("reloc_epnp"):
+            res = pnp.epnp_ransac_many(
+                self._dev(self.sampler.pnp(bound_masks)),
+                self._dev(self.map.pt_pos[np.maximum(bindings, 0)]),
+                self._dev(frame.xy), self._dev(bound_masks), self._dev(sigma2),
+                cam.fx, cam.fy, cam.cx, cam.cy,
+            )
+            res_ok = to_host(res.ok)
+        res_R = to_host(res.R).astype(np.float64)
+        res_t = to_host(res.t).astype(np.float64)
+
+        # Phase C: the refinement ladder per candidate, best first
+        # (src/Tracking.cc:1764-1884).
+        for c in range(C):
+            if not attempt[c] or not res_ok[c]:
+                continue
+            k = cand[c]
+            frame.point_ids = bindings[c].copy()
+            R, t, _, n_in = self._optimize_pose(frame, res_R[c], res_t[c])
+            if n_in < 10:
+                continue
+
+            def widen(th):
+                """Project the candidate's not yet bound points through the
+                current pose and bind the matches."""
+                kf_pts = np.unique(self.map.kf_point_idx[k])
+                kf_pts = kf_pts[kf_pts >= 0]
+                kf_pts = kf_pts[self.map.pt_valid[kf_pts]]
+                bound_now = frame.point_ids[frame.point_ids >= 0]
+                if bound_now.size:
+                    kf_pts = kf_pts[~np.isin(kf_pts, bound_now)]
+                self._project_and_bind(frame, kf_pts, th=th)
+
+            if n_in < 50:
+                # Too few inliers: search the candidate's other points in a
+                # wide window and optimize again (:1814-1831); between 30
+                # and 50, once more in a narrow one (:1836-1860).
+                frame.set_pose(R, t)
+                widen(10.0)
+                R, t, _, n_in = self._optimize_pose(frame, R, t)
+                if 30 < n_in < 50:
+                    frame.set_pose(R, t)
+                    widen(3.0)
+                    R, t, _, n_in = self._optimize_pose(frame, R, t)
+            if n_in >= 50:
+                # The reference's accept gate, nGood >= 50 (:1864).
+                frame.set_pose(R, t)
+                self.n_inliers = n_in
+                self.ref_kf = k
+                self.last_reloc_frame_id = frame.frame_id
+                return True
+        return False
 
     # ------------------------------------------------------------------
     # Local map tracking
@@ -606,10 +816,11 @@ class Tracker:
             self.state = TrackingState.NOT_INITIALIZED
 
         if self.state == TrackingState.NOT_INITIALIZED:
-            if self.config.sensor == "monocular":
-                self._try_initialize_mono(frame)
-            else:
-                self._try_initialize_depth(frame)
+            with self._timed("track_init"):
+                if self.config.sensor == "monocular":
+                    self._try_initialize_mono(frame)
+                else:
+                    self._try_initialize_depth(frame)
             self.last_frame = frame
             if self.state == TrackingState.OK:
                 self._record_trajectory(frame, lost=False)

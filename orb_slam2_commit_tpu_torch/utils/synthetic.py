@@ -1,11 +1,12 @@
 """Synthetic scene rendering (host-side numpy) for the port's examples.
 
 A copy of the parts of the JAX package's renderer that `render_sequence`
-(with or without depth maps) and `render_stereo_sequence` need for their
-default forward motion without photometric degradation: a cloud of 3D
-landmarks, each splatted as a small random-texture patch with bilinear
-subpixel accuracy along a known trajectory. The same seed gives the same
-images, depth maps, poses and scene as the JAX package's renderer.
+(with or without depth maps; the forward march or the lateral sweep, any
+depth range, spread and planar fraction) and `render_stereo_sequence`
+need without photometric degradation: a cloud of 3D landmarks, each
+splatted as a small random-texture patch with bilinear subpixel accuracy
+along a known trajectory. The same seed gives the same images, depth maps,
+poses and scene as the JAX package's renderer.
 """
 
 from __future__ import annotations
@@ -31,15 +32,25 @@ def make_scene(
     depth_range: Tuple[float, float] = (4.0, 12.0),
     spread: float = 6.0,
     patch_size: int = 15,
+    planar_frac: float = 0.0,
 ) -> Scene:
     """Random landmark cloud in front of the origin (+z forward); each
     landmark's texture is a bright central disc (one strong FAST corner),
     random blocks (distinctive BRIEF) and a directional ramp (stable
-    intensity-centroid orientation)."""
+    intensity-centroid orientation). The first planar_frac of the
+    landmarks are moved onto a tilted ground plane."""
     z = rng.uniform(*depth_range, size=n_points)
     x = rng.uniform(-spread, spread, size=n_points)
     y = rng.uniform(-spread * 0.75, spread * 0.75, size=n_points)
     points = np.stack([x, y, z], axis=-1)
+    if planar_frac > 0.0:
+        k = int(n_points * planar_frac)
+        nrm = np.array([0.1, 1.0, -0.15])
+        nrm /= np.linalg.norm(nrm)
+        anchor = np.array([0.0, spread * 0.5, np.mean(depth_range)])
+        d = -nrm @ anchor
+        pts = points[:k]
+        points[:k] = pts - ((pts @ nrm + d)[:, None]) * nrm[None, :]
 
     s = max(patch_size, 17)
     half = s // 2
@@ -158,6 +169,33 @@ def look_ahead_trajectory(
     return poses
 
 
+def sweep_trajectory(
+    n_frames: int,
+    amp: float = 0.35,
+    z_step: float = 0.005,
+    yaw_amp: float = 0.12,
+    periods: float = 1.25,
+) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """Handheld lateral sweep (TUM fr1/xyz-like): a sinusoid in x with a
+    gentle vertical bob, a slow forward drift and a yaw that keeps the
+    scene centred; camera-from-world (R_cw, t_cw) per frame."""
+    poses = []
+    for k in range(n_frames):
+        ph = 2.0 * np.pi * periods * k / max(n_frames - 1, 1)
+        c = np.array([
+            amp * np.sin(ph),
+            0.35 * amp * np.sin(2.1 * ph + 0.7),
+            z_step * k,
+        ])
+        yaw = -yaw_amp * np.sin(ph)
+        cy, sy = np.cos(yaw), np.sin(yaw)
+        R_wc = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+        R_cw = R_wc.T
+        t_cw = -R_cw @ c
+        poses.append((R_cw, t_cw))
+    return poses
+
+
 def render_sequence(
     cam: CameraConfig,
     n_frames: int = 30,
@@ -165,13 +203,27 @@ def render_sequence(
     seed: int = 0,
     step: float = 0.06,
     with_depth: bool = False,
+    planar_frac: float = 0.0,
+    motion: str = "forward",
+    depth_range: Tuple[float, float] = (4.0, 12.0),
+    spread: float = 6.0,
 ):
     """Images [T, H, W] float32 + ground-truth (R_cw, t_cw) poses + scene
-    (+ depth maps [T, H, W] when with_depth), along the forward
-    trajectory."""
+    (+ depth maps [T, H, W] when with_depth). motion="forward" is the
+    forward march; motion="sweep" the lateral sweep, whose peak per-frame
+    translation is `step` (use it with depth_range=(1.5, 4.0), spread=2.0,
+    the monocular tests' scene)."""
     rng = np.random.default_rng(seed)
-    scene = make_scene(rng, n_points=n_points)
-    poses = look_ahead_trajectory(n_frames, step=step)
+    scene = make_scene(rng, n_points=n_points, planar_frac=planar_frac,
+                       depth_range=depth_range, spread=spread)
+    if motion == "sweep":
+        periods = 1.25
+        amp = step * (n_frames - 1) / (2.0 * np.pi * periods)
+        poses = sweep_trajectory(n_frames, amp=amp, periods=periods)
+    elif motion == "forward":
+        poses = look_ahead_trajectory(n_frames, step=step)
+    else:
+        raise ValueError(f"motion: 'forward' or 'sweep', got {motion!r}")
     if with_depth:
         rendered = [render(scene, R, t, cam, with_depth=True) for R, t in poses]
         images = np.stack([r[0] for r in rendered])

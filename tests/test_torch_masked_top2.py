@@ -5,7 +5,9 @@ tests/test_pallas_matching.py, rows with no candidate or one, an
 all-masked column in the transposed use (the stereo matcher's mutual
 check), and equal-distance ties. best/best_idx also agree with the dense
 route the JAX stereo matcher takes (`best_match_with_ratio`,
-`jnp.argmin(..., axis=0)`)."""
+`jnp.argmin(..., axis=0)`). With a leading batch axis: against jax.vmap of
+the Pallas kernel, with per-problem tables and with the row or the column
+table shared by the problems."""
 
 import jax
 import jax.numpy as jnp
@@ -194,6 +196,28 @@ def test_batched_plain_equals_vmapped_pallas(case):
             np.testing.assert_array_equal(g[b].numpy(), s.numpy())
     for b in BATCH_CASES[case].get("empty", ()):
         assert (got[0][b].numpy() == BIG).all() and (got[1][b].numpy() == 0).all()
+
+
+@pytest.mark.parametrize("case", sorted(BATCH_CASES))
+def test_batched_shared_columns_equal_vmapped_pallas(case):
+    """Column descriptors shared by the problems ([N, 8]; relocalization's
+    candidate keyframes against one frame) against jax.vmap of the Pallas
+    kernel with that table unbatched, and each problem against the [M, N]
+    form."""
+    da, db, mask = _batch(**BATCH_CASES[case])
+    with jax.enable_x64(False):
+        ref = jax.vmap(lambda a, m: jpm.masked_hamming_top2(a, jnp.asarray(db[0]), m,
+                                                             interpret=True))(
+            jnp.asarray(da), jnp.asarray(mask))
+        ref = [np.asarray(r) for r in ref]
+    got = kmatching.masked_hamming_top2(_t(da), _t(db[0]), _t(mask))
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.int32 and tuple(g.shape) == mask.shape[:2]
+        np.testing.assert_array_equal(g.numpy(), r)
+    for b in range(da.shape[0]):
+        single = kmatching.masked_hamming_top2(_t(da[b]), _t(db[0]), _t(mask[b]))
+        for g, s in zip(got, single):
+            np.testing.assert_array_equal(g[b].numpy(), s.numpy())
 
 
 def test_batched_wrapper_checks_its_inputs():

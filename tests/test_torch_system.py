@@ -22,7 +22,8 @@ converters), on the same inputs: integer tables equal, poses within
 different orders); with the mapper's abort flag set, both skip local BA
 and the new points, raw DLT triangulations, agree to 5e-4 relative. The
 trajectory exports hold the trajectory's positions. A short stereo run
-of the port is held by outcome, and the features still to come raise
+of the port is held by outcome, and the features still to come
+(asynchronous mapping, a vocabulary, the localization-only mode) raise
 NotImplementedError.
 """
 
@@ -346,10 +347,17 @@ def test_mapper_abort_skips_local_ba_as_jax(jax_run):
     (dict(), "monocular"),
 ])
 def test_features_still_to_come_raise(kwargs, sensor):
+    """Asynchronous mapping and a vocabulary raise at construction; a
+    monocular System builds, and its switch to the localization-only mode
+    raises."""
     cfg = synthetic_config(width=W, height=H, n_features=N_FEAT, sensor=sensor)
+    if sensor == "monocular":
+        sys_ = System(cfg, vocabulary=None, async_mapping=False, device="cpu", **kwargs)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            sys_.activate_localization_mode()
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        System(cfg, **{"vocabulary": None, "async_mapping": False, **kwargs},
-               device="cpu")
+        System(cfg, **{"vocabulary": None, "async_mapping": False, **kwargs}, device="cpu")
 
 
 def test_trajectory_exports(port_run, tmp_path):
