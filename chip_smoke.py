@@ -13,14 +13,21 @@ points (`fused_motion_track_packed` for a monocular frame,
 `fused_stereo_motion_track_packed` for a stereo pair,
 `fused_rgbd_motion_track_packed` for an image and its depth map), then
 `fused_local_map_track` against a 2048-row candidate table; and the
-System (`slam/system.py`, synchronous local mapping, no vocabulary) over a
+System (`slam/system.py`, synchronous local mapping, the bundled
+vocabulary: every keyframe into the keyframe database and through the
+loop closer, which needs more than 10 keyframes to look for a loop) over a
 30-frame RGB-D sequence (`System.track_rgbd`) and a 30-frame stereo
 sequence (`System.track_stereo`) of the synthetic scene (500 landmarks,
 seed 5, 0.05 m a frame); and the monocular System (`System.track_monocular`,
 two-view initialization at 2000 features, its global BA) over a 40-frame
 lateral sweep (500 landmarks, seed 3) and over the same sweep with a
 kidnap (frames 22-26 a flat grey image; relocalization without a
-vocabulary).
+vocabulary). The loop phase runs the monocular System with the bundled
+vocabulary (the keyframe database, loop closing after local mapping) over
+tests/test_loop_pipeline.py's 132-frame ring survey at that test's 400x300
+and 500 features (at 640x480 and 1000 features the JAX System never
+initializes on it), and over the kidnap sequence, which it relocalizes
+through the database's BoW candidates.
 
 Phases (any failure exits non-zero and prints no result line):
   1. the card: name, count, torch/CUDA versions, nvidia-smi name + power limit;
@@ -47,7 +54,12 @@ Phases (any failure exits non-zero and prints no result line):
      initialization's [2000, 2000] masks and, with a batch axis and the
      column table shared, on relocalization's candidates (also with an
      empty candidate and with every row empty), and K8 also on a problem
-     tiled past 1024 and past 7000 rows, launched twice;
+     tiled past 1024 and past 7000 rows, launched twice; the loop callers'
+     recorded calls (K6 in match_by_sim3 and the loop neighbourhood's
+     match_fuse, K7 over the loop candidates and over relocalization's BoW
+     candidates, from a warm-up run of each loop sequence), each launched
+     twice and exact, also with every row (K6: every column) empty and
+     with an empty first candidate;
   4. each main path through the port's entry points, with the kernels'
      launch counts reset just before and read just after it, and its
      result held against the same call on the CPU; the stereo matcher
@@ -60,13 +72,24 @@ Phases (any failure exits non-zero and prints no result line):
      initialization, and its first frames past the initialization against
      the CPU's (the same host sample sets); the kidnap sequence held to
      LOST during the occlusion, relocalized after it through K7 batched
-     over the candidates, and its recovered poses on the trajectory;
+     over the candidates, and its recovered poses on the trajectory; the
+     ring survey held to tests/test_loop_pipeline.py's four gates (a loop
+     closed, its edge and a map change, the corrected prefix's ATE below
+     the drifted one, the final ATE under 0.015 x span), K6 and K7 counted
+     by loop caller, the vocabulary's word and node ids of every keyframe
+     and the database's candidate lists against the CPU, and the accepted
+     candidate's sim3_ransac and optimize_sim3 against the CPU on the same
+     sample sets; the kidnap sequence with the vocabulary relocalized
+     through the database;
   5. timing: throughput of each path by the bench recipe (the System's
      frames/s over a sequence, after a warm-up sequence, with its stage
      times, initialization's and relocalization's among them, and, under
      torch.profiler, its keyframe frames and plain frames); per stage its
      synchronised wall time and device time; under torch.profiler the
-     device's busy time, idle share and operations per call; per kernel its
+     device's busy time, idle share and operations per call; the loop
+     closer's stages (detect_loop, compute_sim3, the essential graph,
+     global BA) each under torch.profiler, and one keyframe's vocabulary
+     descent; per kernel its
      device-busy time (and its CUDA-event time in a row), its plain
      version's and one library call's where one exists, and the least time
      the card could take (its bound).
@@ -82,6 +105,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -90,13 +114,16 @@ try:
     from orb_slam2_commit_tpu_torch import interop
     from orb_slam2_commit_tpu_torch.kernels import (
         _build, level, matching as kmatching, patches, pose_lm, select, subpix)
+    from orb_slam2_commit_tpu_torch.geometry import sim3_solver
+    from orb_slam2_commit_tpu_torch.models.kf_database import KeyFrameDatabase
     from orb_slam2_commit_tpu_torch.ops import extractor, pyramid, stereo
     from orb_slam2_commit_tpu_torch.ops import subpix as ops_subpix
     from orb_slam2_commit_tpu_torch.ops import packed_extractor as pe
-    from orb_slam2_commit_tpu_torch.optim import pose_opt
-    from orb_slam2_commit_tpu_torch.slam import jit_frontend, matchers
+    from orb_slam2_commit_tpu_torch.optim import pose_opt, sim3_opt
+    from orb_slam2_commit_tpu_torch.slam import jit_frontend, loop_closing, matchers
     from orb_slam2_commit_tpu_torch.slam.local_mapping import LocalMapper
     from orb_slam2_commit_tpu_torch.slam.system import System
+    from orb_slam2_commit_tpu_torch.slam.tracking import Tracker
     from orb_slam2_commit_tpu_torch.utils import synthetic, trajectory
     from orb_slam2_commit_tpu_torch.utils.config import synthetic_config
     from orb_slam2_commit_tpu_torch.slam.jit_frontend import (
@@ -179,6 +206,35 @@ MONO_CPU_FRAMES = 10
 # K7 under a mask has four callers; a recorded call is told apart by its
 # shapes (k7_caller).
 K7_CALLERS = ("reference keyframe", "initialization", "triangulation", "relocalization")
+
+# The loop phase: tests/test_loop_pipeline.py's ring survey (132 frames,
+# 1.35 turns, seed 4; 900 ring landmarks) at that test's size, 400x300 and
+# 500 features, monocular, the bundled vocabulary, synchronous mapping: at
+# 640x480 and 1000 features the JAX System never initializes on this
+# survey (a CPU run of it). Its gates: >= 1 loop closed and the state
+# OK at the end, a loop edge and a map change, the corrected prefix's
+# scale-aligned ATE below the drifted one, the final one under 0.015 x
+# span.
+LOOP_WIDTH, LOOP_HEIGHT, LOOP_FEATURES = 400, 300, 500
+LOOP_SCENE = dict(n_frames=132, frac=1.35, seed=4)
+LOOP_ATE_SPAN = 0.015
+# The new callers of K6 and K7 (chip_smoke.loop_kernel_calls tells them
+# apart by the loop method running).
+LOOP_CALLERS = ("match_by_sim3", "loop match_fuse", "compute_sim3", "BoW relocalization")
+LOOP_RECORDED = 4
+# compute_sim3's K7 also over this many candidates against one keyframe.
+LOOP_STACKED = 5
+# The loop closer's stages timed under torch.profiler in the warm-up run.
+LOOP_PROFILED = ("detect_loop", "compute_sim3", "_optimize_essential_graph", "run_global_ba")
+LOOP_PROFILE_CALLS = 4
+# sim3_ransac and optimize_sim3 card vs CPU on the same inputs and sample
+# sets: s and R within the tolerance, t within it times its largest
+# component (or 1 where that is smaller); 1e-4 for the closed-form RANSAC
+# fit, 5e-3 for the LM. The LM's limit lies between the card-vs-CPU
+# readings of six ring surveys (4.5e-6 to 1.41e-3, the largest where the
+# LM moved 0.27 from its start; NVIDIA H100 80GB HBM3, 700.00 W) and the
+# control's (the LM skipped: 0.0205 and more, PERF.md section 6).
+SIM3_TOL = {"sim3_ransac": 1e-4, "optimize_sim3": 5e-3}
 
 # K3 runs in its map form; K4 and K5 in one fused launch (describe_patches)
 # per extraction. K3's row form and the standalone K4 and K5 have no caller
@@ -1098,13 +1154,13 @@ def system_sequence(sensor, kidnap=False):
     return config, lefts, rights, poses
 
 
-def run_system(seq, device="cuda", n_frames=SYSTEM_FRAMES, around=None):
+def run_system(seq, device="cuda", n_frames=SYSTEM_FRAMES, around=None, vocabulary=None):
     """A System over the sequence through its entry point (track_monocular,
-    track_rgbd or track_stereo) on `device` -> (system, state name per
-    frame, pose per frame, seconds). around(i): a context manager around
-    frame i."""
+    track_rgbd or track_stereo) on `device`, without a vocabulary unless
+    one is given -> (system, state name per frame, pose per frame,
+    seconds). around(i): a context manager around frame i."""
     config, first, second, _ = seq
-    sys_ = System(config, vocabulary=None, async_mapping=False, device=device)
+    sys_ = System(config, vocabulary=vocabulary, async_mapping=False, device=device)
     if config.sensor == "monocular":
         def track(i):
             return sys_.track_monocular(first[i], i / config.camera.fps)
@@ -1169,7 +1225,7 @@ def system_path_inputs(seqs):
         with contextlib.ExitStack() as stack:
             for name in SYSTEM_KERNELS:
                 stack.enter_context(recording(kmatching, name, calls[name]))
-            sys_, states, _, seconds = run_system(seq)
+            sys_, states, _, seconds = run_system(seq, vocabulary="default")
         split = {(name, batched): [c[0] for c in calls[name]
                                    if has_batch_axis(name, c[0]) == batched]
                  for name in SYSTEM_KERNELS for batched in (False, True)}
@@ -1196,13 +1252,15 @@ def system_vs_cpu(seq):
     prev = os.environ.get("ORB_TPU_FUSED_TRACK")
     os.environ["ORB_TPU_FUSED_TRACK"] = "1"
     try:
-        cpu_sys, states, poses, seconds = run_system(seq, "cpu", SYSTEM_CPU_FRAMES)
+        cpu_sys, states, poses, seconds = run_system(seq, "cpu", SYSTEM_CPU_FRAMES,
+                                                     vocabulary="default")
     finally:
         if prev is None:
             del os.environ["ORB_TPU_FUSED_TRACK"]
         else:
             os.environ["ORB_TPU_FUSED_TRACK"] = prev
-    card_sys, card_states, card_poses, _ = run_system(seq, "cuda", SYSTEM_CPU_FRAMES)
+    card_sys, card_states, card_poses, _ = run_system(seq, "cuda", SYSTEM_CPU_FRAMES,
+                                                      vocabulary="default")
     n_lba = [int(s_.timings().get("map_lba", {}).get("count", 0)) for s_ in (card_sys, cpu_sys)]
     if min(n_lba) < 1:
         raise AssertionError(f"System RGB-D, first {SYSTEM_CPU_FRAMES} frames: local BA ran "
@@ -1238,11 +1296,12 @@ def phase_system(seqs, power):
     """Each sequence on the card through the System's entry point, the
     launch counts reset just before and read just after it: every frame
     after the first OK, the ATE gate, >= 2 keyframes, points made by
-    triangulation, a fuse pass, and every kernel of the path launched (K6
-    and K7 under a mask also with a batch axis);
-    frames/s over the sequence (after system_path_inputs' warm-up), the
-    stage times, and a third run with frames 3-14 each under
-    torch.profiler (keyframe frames and plain frames apart). The RGB-D
+    triangulation, a fuse pass, every kernel of the path launched (K6
+    and K7 under a mask also with a batch axis), and every keyframe in
+    the database and through the loop closer; frames/s over the sequence
+    (after system_path_inputs' warm-up), the stage times, and a third run
+    with frames 3-14 each under torch.profiler (keyframe frames and plain
+    frames apart). The RGB-D
     sequence's first frames also against the CPU. -> (launch counts,
     launches with a batch axis), each per sensor."""
     counts, batched_counts = {}, {}
@@ -1252,7 +1311,7 @@ def phase_system(seqs, power):
         made, batched = [], batched_counts.setdefault(sensor, {})
         _build.reset_launches()
         with triangulation_counted(made), batched_launches(batched):
-            sys_, states, poses, seconds = run_system(seq)
+            sys_, states, poses, seconds = run_system(seq, vocabulary="default")
         c = counts[sensor] = dict(_build.launches)
         log(f"{what} launches: {c}; of them with a batch axis: {batched}")
         want = SYSTEM_LAUNCHED + (("stereo_band_top2",) if sensor == "stereo" else ())
@@ -1265,6 +1324,10 @@ def phase_system(seqs, power):
         timings = sys_.timings()
         n_mapped = int(timings.get("local_mapping", {}).get("count", 0))
         n_fuse = int(timings.get("map_fuse", {}).get("count", 0))
+        m = sys_.map
+        if not np.array_equal(sys_.kf_database.present[:m.next_kf], m.kf_valid[:m.next_kf]) \
+                or int(timings["loop_closing"]["count"]) != n_mapped:
+            raise AssertionError(f"{what}: a keyframe missed the database or the loop closer")
         est = sys_.trajectory_positions()
         gt_c = np.asarray([-R.T @ t for R, t in gt])
         rmse = trajectory.ate_rmse(est, gt_c, align_scale=False)
@@ -1288,7 +1351,7 @@ def phase_system(seqs, power):
                 f"(max {st['max_ms']:.3f}, total {st['total_s'] * 1e3:.1f} ms)")
 
         profs = {}
-        sys3, _, _, _ = run_system(seq, around=lambda i: (
+        sys3, _, _, _ = run_system(seq, vocabulary="default", around=lambda i: (
             profiled(profs, i) if 3 <= i < 15 else contextlib.nullcontext()))
         kf_frames = {int(f) for f in sys3.map.kf_frame_id[:sys3.map.next_kf]}
         for kind, frames in (("keyframe", sorted(kf_frames & set(profs))),
@@ -1528,6 +1591,469 @@ def phase_mono(seq, kidnap_seq, power):
 
 
 # ---------------------------------------------------------------------------
+# Place recognition and loop closing: the ring survey with the bundled
+# vocabulary, and the kidnap sequence's BoW relocalization
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def loop_kernel_calls(counts, calls=None):
+    """counts[caller] += the launches of K6 and K7 by each loop caller:
+    K7 in compute_sim3 (every candidate's brute force in one launch), K6 in
+    its SearchBySim3 (match_by_sim3, one launch a direction) and in its
+    loop-neighbourhood projection (match_fuse), K7 in relocalization with a
+    keyframe database (BoW candidates). The caller of a launch is the loop
+    method running when it happens (a stack of spies). With `calls`, also
+    calls[caller].append(args) for each of them."""
+    stack = []
+    spied = [(loop_closing.LoopCloser, "compute_sim3"),
+             (loop_closing.LoopCloser, "_search_by_sim3"), (Tracker, "_relocalize")]
+    methods = {(cls, name): getattr(cls, name) for cls, name in spied}
+
+    def method_spy(cls, name):
+        fn = methods[cls, name]
+
+        def call(self, *args, **kwargs):
+            bow = name != "_relocalize" or self.kf_database is not None
+            stack.append(name if bow else None)
+            try:
+                return fn(self, *args, **kwargs)
+            finally:
+                stack.pop()
+        return call
+
+    kernels = {name: getattr(kmatching, name) for name in SYSTEM_KERNELS}
+
+    def caller_of(kernel):
+        top = stack[-1] if stack else None
+        if top == "_search_by_sim3":
+            return "match_by_sim3" if kernel == "projection_hamming_top2" else None
+        if top == "compute_sim3":
+            return ("compute_sim3" if kernel == "masked_hamming_top2"
+                    else "loop match_fuse")
+        if top == "_relocalize" and kernel == "masked_hamming_top2":
+            return "BoW relocalization"
+        return None
+
+    def kernel_spy(kernel):
+        fn = kernels[kernel]
+
+        def call(*args):
+            caller = caller_of(kernel)
+            before = _build.launches[kernel]
+            out = fn(*args)
+            if caller is not None:
+                counts[caller] += _build.launches[kernel] - before
+                if calls is not None:
+                    calls[caller].append(args)
+            return out
+        return call
+
+    for caller in LOOP_CALLERS:
+        counts[caller] = 0
+        if calls is not None:
+            calls.setdefault(caller, [])
+    for (cls, name) in spied:
+        setattr(cls, name, method_spy(cls, name))
+    for kernel in SYSTEM_KERNELS:
+        setattr(kmatching, kernel, kernel_spy(kernel))
+    try:
+        yield counts
+    finally:
+        for (cls, name), fn in methods.items():
+            setattr(cls, name, fn)
+        for kernel, fn in kernels.items():
+            setattr(kmatching, kernel, fn)
+
+
+def loop_sequence():
+    """(config, images [132, H, W], ground-truth poses) of the ring survey."""
+    config = synthetic_config(LOOP_WIDTH, LOOP_HEIGHT, LOOP_FEATURES)
+    images, poses, _ = synthetic.render_loop_sequence(config.camera, **LOOP_SCENE)
+    return config, images, poses
+
+
+def loop_ate(sys_, gt_c):
+    """Scale-aligned ATE of the tracked frames so far (tests/test_loop_pipeline.py)."""
+    est = sys_.trajectory_positions()
+    lost = np.asarray([e.lost for e in sys_.tracker.trajectory], bool)
+    off = len(gt_c) - len(est)
+    return trajectory.ate_rmse(est[~lost], gt_c[off:off + len(est)][~lost], align_scale=True)
+
+
+def run_loop(seq, device="cuda", on_close=None):
+    """The ring survey through System.track_monocular with the bundled
+    vocabulary -> (system, states, seconds, pre) where pre holds the ATE and
+    the trajectory's length when the first correction starts. on_close():
+    called as each correction starts."""
+    config, images, poses = seq
+    sys_ = System(config, async_mapping=False, device=device)
+    if sys_.loop_closer is None:
+        raise AssertionError("the System built no loop closer with the bundled vocabulary")
+    gt_c = centres(poses)
+    pre = {}
+    correct = sys_.loop_closer.correct_loop
+
+    def correct_spy(*args, **kwargs):
+        if "ate" not in pre:
+            pre.update(ate=loop_ate(sys_, gt_c), n=len(sys_.tracker.trajectory),
+                       frame=sys_.frame_count - 1)
+        if on_close is not None:
+            on_close()
+        return correct(*args, **kwargs)
+
+    sys_.loop_closer.correct_loop = correct_spy
+    states = []
+    t0 = time.perf_counter()
+    for i in range(images.shape[0]):
+        sys_.track_monocular(images[i], i / config.camera.fps)
+        states.append(sys_.tracking_state().name)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return sys_, states, seconds, pre
+
+
+def loop_gates(what, sys_, states, pre, gt_c):
+    """tests/test_loop_pipeline.py:67-105's four gates -> their numbers."""
+    closer = sys_.loop_closer
+    if states[-1] != "OK" or closer.n_loops_closed < 1:
+        raise AssertionError(f"{what}: state {states[-1]}, {closer.n_loops_closed} loops closed")
+    if not sys_.map.loop_edges or sys_.map.big_change_idx < 1:
+        raise AssertionError(f"{what}: no loop edge or map change")
+    est = sys_.trajectory_positions()
+    lost = np.asarray([e.lost for e in sys_.tracker.trajectory], bool)
+    off, n = len(gt_c) - len(est), pre["n"]
+    prefix = trajectory.ate_rmse(est[:n][~lost[:n]], gt_c[off:off + n][~lost[:n]],
+                                 align_scale=True)
+    final = loop_ate(sys_, gt_c)
+    span = float(np.abs(gt_c).max() * 2)
+    if not prefix < pre["ate"]:
+        raise AssertionError(f"{what}: corrected prefix ATE {prefix} not below {pre['ate']}")
+    if not final < LOOP_ATE_SPAN * span:
+        raise AssertionError(f"{what}: final ATE {final} over {LOOP_ATE_SPAN} x {span}")
+    return prefix, final, span
+
+
+@contextlib.contextmanager
+def loop_stages_profiled(profs):
+    """profs[stage] += (wall ms, device busy ms, device operations) of the
+    first LOOP_PROFILE_CALLS calls of each of the loop closer's stages, each
+    under torch.profiler: detect_loop, compute_sim3, and inside
+    correct_loop the essential graph and global BA."""
+    fns = {name: getattr(loop_closing.LoopCloser, name) for name in LOOP_PROFILED}
+
+    def spy(name):
+        fn = fns[name]
+
+        def call(self, *args, **kwargs):
+            if len(profs.setdefault(name, [])) >= LOOP_PROFILE_CALLS:
+                return fn(self, *args, **kwargs)
+            out = {}
+            with profiled(out, name):
+                result = fn(self, *args, **kwargs)
+            profs[name].append(out[name])
+            return result
+        return call
+
+    for name in LOOP_PROFILED:
+        setattr(loop_closing.LoopCloser, name, spy(name))
+    try:
+        yield profs
+    finally:
+        for name, fn in fns.items():
+            setattr(loop_closing.LoopCloser, name, fn)
+
+
+def loop_path_inputs(seq, kidnap_seq):
+    """One warm-up run of the ring survey on the card (the vocabulary's
+    tables uploaded, every kernel of the path built), the loop closer's
+    stages each under torch.profiler and the loop callers' K6 and K7 calls
+    recorded; then the kidnap sequence with the vocabulary, its BoW
+    relocalization calls recorded (those with a candidate pair), and the
+    survey's sim3_ransac and optimize_sim3 calls. -> (inputs: the first
+    LOOP_RECORDED calls of each caller, the stages' profiles, the Sim3
+    calls)."""
+    calls, counts, profs, sim3_calls = {}, {}, {}, ([], [])
+    with loop_kernel_calls(counts, calls), loop_stages_profiled(profs), \
+            sim3_recorded(*sim3_calls):
+        sys_, states, seconds, pre = run_loop(seq)
+    with loop_kernel_calls(counts, calls):
+        _, kid_states, _, _ = run_system(kidnap_seq, n_frames=MONO_FRAMES,
+                                         vocabulary="default")
+    log(f"ring survey warm-up: {seconds:.2f} s for {len(states)} frames (its loop stages "
+        f"under the profiler), {sys_.map.next_kf} keyframes inserted, loops closed at "
+        f"{[(s['kf'], s['loop_kf']) for s in sys_.loop_closer.correction_stats]} (frame "
+        f"{pre.get('frame')}); kidnap with the vocabulary: states "
+        f"{''.join(st[0] for st in kid_states)}; loop callers' K6/K7 calls: "
+        f"{ {c: len(v) for c, v in calls.items()} }")
+    calls["BoW relocalization"] = [a for a in calls["BoW relocalization"] if bool(a[2].any())]
+    for caller in LOOP_CALLERS:
+        if not calls[caller]:
+            raise AssertionError(f"the warm-up runs made no {caller} call with a candidate")
+    return {f"loop_{c}": v[:LOOP_RECORDED] for c, v in calls.items()}, profs, sim3_calls
+
+
+def loop_problems(x):
+    """(caller, what, kernel, plain, args) of the loop phase's phase-3
+    cases: every recorded call; K7's batched calls also with the first
+    candidate emptied and with every row empty; compute_sim3's also as
+    LOOP_STACKED candidates (every recorded call's, in turn) against the
+    first call's keyframe table, as is and with the first candidate
+    emptied; K6's also with every row invalid and with every column
+    invalid."""
+    k6 = (lambda *a: kmatching.projection_hamming_top2(*a)[0],
+          lambda *a: kmatching.projection_hamming_top2_plain(*a)[0])
+    k7 = (kmatching.masked_hamming_top2, kmatching.masked_hamming_top2_plain)
+    for caller in LOOP_CALLERS:
+        kernel = k6 if caller in ("match_by_sim3", "loop match_fuse") else k7
+        recorded = x[f"loop_{caller}"]
+        for i, args in enumerate(recorded):
+            yield caller, f"{caller} call {i}", kernel, args
+        args = recorded[0]
+        if kernel is k7:
+            da, db, mask = args
+            empty = mask.clone()
+            empty[0] = False
+            if mask.dim() == 3:
+                yield caller, f"{caller} call 0, first problem empty", kernel, (da, db, empty)
+            yield caller, f"{caller} call 0, every row empty", kernel, (
+                da, db, torch.zeros_like(mask))
+            if caller == "compute_sim3":
+                tables = [(b, k) for _, db_i, mask_i in recorded for b, k in zip(db_i, mask_i)]
+                tables = [tables[i % len(tables)] for i in range(LOOP_STACKED)]
+                db = torch.stack([b for b, _ in tables])
+                mask = torch.stack([k for _, k in tables])
+                what = f"{caller}, {LOOP_STACKED} candidates of {len(recorded)} calls"
+                yield caller, what, kernel, (da, db, mask)
+                empty = mask.clone()
+                empty[0] = False
+                yield caller, f"{what}, first candidate empty", kernel, (da, db, empty)
+        else:
+            rows, cols = list(args), list(args)
+            rows[5] = torch.zeros_like(args[5])
+            cols[9] = torch.zeros_like(args[9])
+            yield caller, f"{caller} call 0, every row invalid", kernel, tuple(rows)
+            yield caller, f"{caller} call 0, every column invalid", kernel, tuple(cols)
+
+
+def phase_loop_kernels(x):
+    """The loop callers' recorded K6 and K7 calls against the plain
+    versions on the card: all four outputs exact, and a second launch bit
+    for bit the first."""
+    for caller, what, (kernel, plain), args in loop_problems(x):
+        got = kernel(*args)
+        again = kernel(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        shape = tuple(args[2].shape) if len(args) == 3 else (
+            tuple(args[1].shape), tuple(args[6].shape))
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{what}: the kernel differs from its plain version")
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            raise AssertionError(f"{what}: two launches differ")
+        log(f"{what} {shape}: exact in all four outputs, two launches bit-identical "
+            f"({int((got[0] < kmatching.BIG_DIST).sum())} of {got[0].numel()} rows with a "
+            f"candidate)")
+
+
+def loop_vs_cpu(sys_, sim3_runs):
+    """The ring survey's card state against the CPU: every kept keyframe's
+    word and node ids (exact), the database's loop and relocalization
+    candidates against a CPU database built from the same descriptors
+    (the same lists), and every sim3_ransac and optimize_sim3 call of the
+    surveys in sim3_runs ({run: (ransac calls, optimize calls)}) on the
+    CPU with the same inputs and sample sets (inlier masks equal; the
+    transforms, where the RANSAC accepted one, within SIM3_TOL). Beside
+    each LM's reading: float32's own spread on that call (the CPU's LM in
+    float32 against float64) and the control (its initial transform, the
+    RANSAC's, against the CPU's LM: the LM skipped), of which the largest
+    must lie beyond the limit."""
+    m, voc, db = sys_.map, sys_.vocabulary, sys_.kf_database
+    kfs = [int(k) for k in np.where(m.kf_valid)[0]]
+    for k in kfs:
+        for a, b in zip(voc.transform(m.kf_desc[k], m.kf_feat_valid[k], device="cuda"),
+                        voc.transform(m.kf_desc[k], m.kf_feat_valid[k], device="cpu")):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"keyframe {k}: word or node ids differ card vs CPU")
+    cpu_db = KeyFrameDatabase(voc, db.present.shape[0], device="cpu")
+    cpu_db._ensure_cols(db.word_ids.shape[1])
+    for k in kfs:
+        cpu_db.add(k, m.kf_desc[k], m.kf_feat_valid[k])
+    n_lists = n_cands = 0
+    for k in kfs:
+        for s in (0.0, 0.05):
+            a = db.detect_loop_candidates(m, k, s)
+            if a != cpu_db.detect_loop_candidates(m, k, s):
+                raise AssertionError(f"keyframe {k}: loop candidates differ card vs CPU")
+            n_lists, n_cands = n_lists + 1, n_cands + len(a)
+        frame = types.SimpleNamespace(desc=m.kf_desc[k], valid=m.kf_feat_valid[k])
+        a = db.detect_relocalization_candidates(frame)
+        if a != cpu_db.detect_relocalization_candidates(frame):
+            raise AssertionError(f"keyframe {k}: relocalization candidates differ card vs CPU")
+        n_lists, n_cands = n_lists + 1, n_cands + len(a)
+    log(f"ring survey card vs CPU: word and node ids of {len(kfs)} keyframes exact; "
+        f"{n_lists} candidate lists ({n_cands} candidates) equal")
+
+    def cpu(args, dtype=None):
+        return tuple((a.cpu().to(dtype) if dtype and a.is_floating_point() else a.cpu())
+                     if isinstance(a, torch.Tensor) else a for a in args)
+
+    def gap(got, want):
+        t_scale = max(1.0, float(want[2].abs().max()))
+        return max(max_abs(got[0].cpu(), want[0]), max_abs(got[1].cpu(), want[1]),
+                   max_abs(got[2].cpu(), want[2]) / t_scale)
+
+    gaps = {"sim3_ransac": [], "optimize_sim3": []}
+    spreads, controls, bad = [], [], []
+    for run, (ransac_calls, opt_calls) in sim3_runs.items():
+        calls = [("sim3_ransac", c) for c in ransac_calls] + \
+            [("optimize_sim3", c) for c in opt_calls]
+        for what, (args, kwargs, card) in calls:
+            fn = sim3_solver.sim3_ransac if what == "sim3_ransac" else sim3_opt.optimize_sim3
+            got = fn(*cpu(args), **kwargs)
+            if not torch.equal(card.inliers.cpu(), got.inliers) or \
+                    int(card.n_inliers) != int(got.n_inliers):
+                bad.append(f"{run} {what}: inliers differ card vs CPU")
+            if what == "sim3_ransac" and not bool(got.ok):
+                continue
+            want = (got.s12, got.R12, got.t12)
+            gaps[what].append(gap((card.s12, card.R12, card.t12), want))
+            if what == "optimize_sim3":
+                got64 = fn(*cpu(args, torch.float64), **kwargs)
+                spreads.append(gap(want, (got64.s12, got64.R12, got64.t12)))
+                controls.append(gap(args[:3], want))
+        log(f"{run} survey's Sim3 calls card vs CPU: {len(ransac_calls)} sim3_ransac, "
+            f"{len(opt_calls)} optimize_sim3")
+    log(f"Sim3 card vs CPU (max |d| of s, R and t/max(1, |t|)): sim3_ransac "
+        f"{[float(f'{g:.3g}') for g in gaps['sim3_ransac']]}, optimize_sim3 "
+        f"{[float(f'{g:.3g}') for g in gaps['optimize_sim3']]}; float32's spread, the CPU's "
+        f"LM in float32 vs float64: {[float(f'{g:.3g}') for g in spreads]}; the control, "
+        f"each LM's initial transform vs the CPU's LM: {[float(f'{g:.3g}') for g in controls]}"
+        f" (tolerances {SIM3_TOL})")
+    for what, g in gaps.items():
+        if not g or not max(g) < SIM3_TOL[what]:
+            bad.append(f"{what}: card vs CPU {g} not under {SIM3_TOL[what]}")
+    if not max(controls, default=0.0) > SIM3_TOL["optimize_sim3"]:
+        bad.append(f"the LM skipped lands within {SIM3_TOL['optimize_sim3']} of the LM: "
+                   f"{controls}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+
+
+@contextlib.contextmanager
+def sim3_recorded(ransac_calls, opt_calls):
+    """Record (args, kwargs, result) of every sim3_ransac and optimize_sim3
+    call the loop closer makes."""
+    fns = (sim3_solver.sim3_ransac, sim3_opt.optimize_sim3)
+
+    def spy(fn, out):
+        def call(*args, **kwargs):
+            res = fn(*args, **kwargs)
+            out.append((args, kwargs, res))
+            return res
+        return call
+
+    sim3_solver.sim3_ransac = spy(fns[0], ransac_calls)
+    sim3_opt.optimize_sim3 = spy(fns[1], opt_calls)
+    try:
+        yield
+    finally:
+        sim3_solver.sim3_ransac, sim3_opt.optimize_sim3 = fns
+
+
+def phase_loop(seq, kidnap_seq, profs, warm_sim3, power):
+    """The ring survey on the card, the launch counts reset just before and
+    read just after it: the four gates of tests/test_loop_pipeline.py,
+    every kernel of the monocular path launched and K6 and K7 by each loop
+    caller; frames/s and the loop stages' times; the card against the CPU;
+    the warm-up's profiles of the loop stages. Then the kidnap sequence with the
+    vocabulary, counted the same way: relocalized through the database's
+    candidates. -> (launches by loop caller over both runs, their stage
+    timings)."""
+    what = "ring survey"
+    _, _, poses = seq
+    gt_c = centres(poses)
+    by_caller, ransac_calls, opt_calls, at_close = {}, [], [], []
+    _build.reset_launches()
+    with loop_kernel_calls(by_caller), sim3_recorded(ransac_calls, opt_calls):
+        sys_, states, seconds, pre = run_loop(
+            seq, on_close=lambda: at_close.append(len(opt_calls)))
+    c = dict(_build.launches)
+    log(f"{what} launches: {c}; K6/K7 by loop caller: {by_caller}")
+    if [k for k in SYSTEM_LAUNCHED if c[k] < 1] or [k for k in SYSTEM_UNUSED if c[k]] \
+            or c["stereo_band_top2"] or min(by_caller[k] for k in LOOP_CALLERS[:3]) < 1:
+        raise AssertionError(f"{what}: a kernel of the path or a loop caller's did not "
+                             f"launch, or one off the path did")
+    prefix, final, span = loop_gates(what, sys_, states, pre, gt_c)
+    closer = sys_.loop_closer
+    timings = sys_.timings()
+    n_kf = int(timings["loop_closing"]["count"])
+    log(f"{what}: {len(states)} frames, {sys_.map.next_kf} keyframes inserted "
+        f"({sys_.map.n_keyframes()} kept), {closer.n_loops_closed} loop(s) closed "
+        f"{[(s['kf'], s['loop_kf']) for s in closer.correction_stats]} at frame "
+        f"{pre['frame']}, loop edges {sys_.map.loop_edges}; scale-aligned ATE before the "
+        f"correction {pre['ate']:.6f}, of that prefix after it {prefix:.6f}, final "
+        f"{final:.6f} over a {span:.3f} span (gate {LOOP_ATE_SPAN} x span)")
+    log(f"{what}: {len(states) / seconds:.2f} frames/s over the sequence ({seconds:.3f} s) on "
+        f"{power}; correct_loop {[round(s['correct_s'], 4) for s in closer.correction_stats]} "
+        f"s; {n_kf} keyframes through loop_closing")
+    for stage, st in sorted(timings.items()):
+        log(f"    {what} stage {stage}: {int(st['count'])} x {st['mean_ms']:.3f} ms "
+            f"(max {st['max_ms']:.3f}, total {st['total_s'] * 1e3:.1f} ms)")
+    for stage in LOOP_PROFILED:
+        p = profs.get(stage, [])
+        if p:
+            wall, busy, n_ops = (float(np.mean([v[j] for v in p])) for j in range(3))
+            log(f"profiled {stage} ({len(p)} calls in the warm-up run): mean {wall:.3f} ms "
+                f"wall, {busy:.3f} ms device busy, idle share {1.0 - busy / wall:.4f}, "
+                f"{n_ops:.0f} device operations, on {power}")
+    if not at_close or not at_close[0]:
+        raise AssertionError(f"{what}: correct_loop never ran, or with no optimize_sim3")
+    loop_vs_cpu(sys_, {"warm-up": warm_sim3, "counted": (ransac_calls, opt_calls)})
+
+    # vocabulary.transform of one keyframe's descriptors: device busy and
+    # synced wall per call.
+    m = sys_.map
+    k = int(np.where(m.kf_valid)[0][-1])
+    desc, valid = m.kf_desc[k], m.kf_feat_valid[k]
+
+    def transform():
+        return sys_.vocabulary.transform(desc, valid, device="cuda")
+
+    busy, by_name = device_busy_ms(transform, 20)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        transform()
+    log(f"vocabulary.transform of keyframe {k}'s {int(valid.sum())} descriptors "
+        f"({sys_.vocabulary.levels} levels, k = {sys_.vocabulary.k}): "
+        f"{(time.perf_counter() - t0) / 20 * 1e3:.3f} ms synced wall, {busy:.4f} ms device "
+        f"busy per call, on {power}")
+
+    what = "System monocular kidnap with the vocabulary"
+    kid_caller = {}
+    _build.reset_launches()
+    with loop_kernel_calls(kid_caller):
+        kid, kid_states, kid_seconds, _ = run_system(kidnap_seq, n_frames=MONO_FRAMES,
+                                                     vocabulary="default")
+    tr = kid.tracker
+    kt = kid.timings()
+    log(f"{what} launches: {dict(_build.launches)}; K6/K7 by loop caller: {kid_caller}; "
+        f"states {''.join(st[0] for st in kid_states)}; relocalized at frame "
+        f"{tr.last_reloc_frame_id} against keyframe {tr.ref_kf}; "
+        + ", ".join(f"{s} {int(kt[s]['count'])} x {kt[s]['mean_ms']:.3f} ms "
+                    f"(max {kt[s]['max_ms']:.3f})"
+                    for s in ("track_reloc", "reloc_bow", "reloc_match", "reloc_epnp",
+                              "loop_closing") if s in kt) + f", on {power}")
+    if "LOST" not in kid_states[KIDNAP.start:KIDNAP.stop] or kid_states[-1] != "OK" \
+            or tr.last_reloc_frame_id < KIDNAP.stop or kid_caller["BoW relocalization"] < 1:
+        raise AssertionError(f"{what}: not lost during the occlusion, or not relocalized "
+                             f"after it through the database's candidates")
+    for k in LOOP_CALLERS:
+        by_caller[k] += kid_caller[k]
+    return by_caller
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: timing
 # ---------------------------------------------------------------------------
 
@@ -1698,6 +2224,22 @@ def phase_sensor_timing(config, motion, cands, x, power):
     profile_calls(what, lambda: run_pair(config, motion, cands), power)
 
 
+def k6_work(calls):
+    """(bytes, operations) of K6 calls without a batch axis: the inputs
+    read once and 4 x M results per window written; 8 operations per
+    window test of a valid row and 24 per candidate pair."""
+    n_bytes = n_ops = 0
+    for args in calls:
+        desc_a, proj, radii, lo, hi, valid_a, desc_b, xy_b, octave_b, valid_b = args
+        cand = (valid_a[:, None] & valid_b[None, :]
+                & kmatching.matching.window_mask(proj, xy_b, torch.stack(radii).amax(0))
+                & kmatching.matching.octave_band_mask(octave_b, lo, hi))
+        n_bytes += (nbytes(desc_a, proj, *radii, lo, hi, valid_a, desc_b, xy_b, octave_b,
+                           valid_b) + len(radii) * 4 * valid_a.numel() * 4)
+        n_ops += 8 * int(valid_a.sum()) * desc_b.shape[0] + 24 * int(cand.sum())
+    return n_bytes, n_ops
+
+
 def phase_kernel_timing(x, errs, counts, batched, power):
     th_hi, th_lo = x["ths"]
     canvas, blur = x["canvas"], x["blur"]
@@ -1729,7 +2271,8 @@ def phase_kernel_timing(x, errs, counts, batched, power):
             run = ("the monocular sweep and the kidnap sequence"
                    if caller in ("monocular initialization",
                                  "relocalization, batch axis, shared columns")
-                   else "the System's RGB-D run")
+                   else "the ring survey and the kidnap sequence with the vocabulary"
+                   if caller in LOOP_CALLERS else "the System's RGB-D run")
             name = f"{name} ({caller}; {batched[caller]} launches in {run})"
         log(f"{name}: {ms:.4f} ms device busy, {events_ms:.4f} ms by events in a row "
             f"(plain {plain_ms:.4f} ms, library "
@@ -1944,6 +2487,27 @@ def phase_kernel_timing(x, errs, counts, batched, power):
         each(kmatching.projection_hamming_top2_plain, x["sys_k6b"]), None,
         k6b_bytes, k6b_ops, caller="fuse, batch axis")
 
+    # The loop phase's callers: K6 in SearchBySim3 (one direction a call,
+    # [N_kf] rows) and in the loop neighbourhood's projection ([P] rows,
+    # a power of two), K7 over the loop candidates (the keyframe's table
+    # shared) and over relocalization's BoW candidates (the frame's table
+    # shared). Bytes and operations counted as above.
+    for caller in LOOP_CALLERS:
+        calls = x[f"loop_{caller}"]
+        log(f"{caller} calls: " + ", ".join(
+            f"{tuple(a[2].shape)} {int(a[2].sum())} pairs" if len(a) == 3 else
+            f"({a[1].shape[0]}, {a[6].shape[0]}) {int(a[5].sum())} valid rows" for a in calls))
+        if len(calls[0]) == 3:
+            row(*k7_src, each(kmatching.masked_hamming_top2, calls),
+                each(kmatching.masked_hamming_top2_plain, calls), None, *top2_work(calls),
+                caller=caller)
+        else:
+            row("projection_hamming_top2", "orb_slam2_commit_tpu_torch/csrc/matching.cu",
+                "orb_slam2_commit_tpu/ops/pallas_matching.py:246",
+                each(kmatching.projection_hamming_top2, calls),
+                each(kmatching.projection_hamming_top2_plain, calls), None,
+                *k6_work(calls), caller=caller)
+
     # K8, the pair's two launches: inputs read once, pose and inlier flags
     # written; operations from the evaluations each launch ran on this
     # input (the kernel reports them).
@@ -1996,11 +2560,16 @@ def main() -> int:
     mono_seq = system_sequence("monocular")
     kidnap_seq = system_sequence("monocular", kidnap=True)
     x.update(mono_path_inputs(kidnap_seq))
+    loop_seq = loop_sequence()
+    loop_x, loop_profs, loop_sim3 = loop_path_inputs(loop_seq, kidnap_seq)
+    x.update(loop_x)
     errs = phase_kernels(x)
+    phase_loop_kernels(x)
     counts = {sensor: phase_pair(*pair) for sensor, pair in pairs.items()}
     phase_step(config, args)
     system_counts, system_batched = phase_system(seqs, power)
     _, mono_k7, mono_problems = phase_mono(mono_seq, kidnap_seq, power)
+    loop_counts = phase_loop(loop_seq, kidnap_seq, loop_profs, loop_sim3, power)
     phase_step_timing(config, args, power)
     phase_pair_timing(*pairs["monocular"], x, power)
     for sensor in ("stereo", "rgbd"):
@@ -2018,7 +2587,8 @@ def main() -> int:
         "triangulation, batch axis": system_batched["rgbd"]["masked_hamming_top2"],
         "fuse, batch axis": system_batched["rgbd"]["projection_hamming_top2"],
         "monocular initialization": mono_k7["initialization"],
-        "relocalization, batch axis, shared columns": mono_k7["relocalization"]}, power)
+        "relocalization, batch axis, shared columns": mono_k7["relocalization"],
+        **loop_counts}, power)
     log(f"K7 under a mask over the monocular sweep and the kidnap sequence, by caller: "
         f"launches {mono_k7}, problems {mono_problems}")
 

@@ -11,9 +11,10 @@ proportional to the weights (the exponential race: the k smallest of
 E_i / w_i, E_i ~ Exp(1), in order). Drawing on the host gives the card and
 the CPU the same sets.
 
-The tracker keeps one sampler (`Tracker.sampler`); a test may replace it
-with any object that has the same two methods. `first_argmax` picks the
-winning round as jnp.argmax does, on every device.
+The tracker keeps one sampler (`Tracker.sampler`) and the loop closer
+another (`LoopCloser.sampler`); a test may replace either with any object
+that has the same methods. `first_argmax` picks the winning round as
+jnp.argmax does, on every device.
 """
 
 from __future__ import annotations
@@ -68,4 +69,8 @@ class RansacSampler:
 
     def pnp(self, valid: np.ndarray, n_iters: int = 128, size: int = 4) -> np.ndarray:
         """valid [C, N] -> [C, n_iters, size] sets for epnp_ransac_many."""
+        return weighted_samples(self.rng, np.asarray(valid, bool), n_iters, size)
+
+    def sim3(self, valid: np.ndarray, n_iters: int = 128, size: int = 3) -> np.ndarray:
+        """valid [n] -> [n_iters, size] sets for sim3_ransac."""
         return weighted_samples(self.rng, np.asarray(valid, bool), n_iters, size)

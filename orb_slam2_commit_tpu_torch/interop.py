@@ -35,6 +35,10 @@
   back into the port's objects. The `_to_numpy` side reads any object with
   the JAX package's attribute names, so a JAX System's state carries
   across into the port's.
+- `database_to_numpy` / `database_from_numpy`,
+  `loop_closer_state_to_numpy` / `loop_closer_state_into`: a keyframe
+  database's sparse rows and a loop closer's host state (its consistent
+  groups, last loop keyframe and loop count), the same way.
 
 Every entry point that places tensors takes `device`, "cuda" by default;
 without a card that default raises instead of falling back to the CPU.
@@ -567,3 +571,44 @@ def recent_points_from_numpy(a: np.ndarray):
     from orb_slam2_commit_tpu_torch.slam.local_mapping import RecentPoint
 
     return [RecentPoint(int(p), int(k)) for p, k in np.asarray(a).reshape(-1, 2)]
+
+
+LOOP_CLOSER_SCALARS = ("last_loop_kf", "n_loops_closed", "essential_min_weight")
+
+
+def database_to_numpy(db) -> Dict[str, object]:
+    """A KeyFrameDatabase (either package's) -> its rows: present [K],
+    word_ids [K, W] and weights [K, W] (None before the first add)."""
+    return dict(present=_copy(db.present), word_ids=_copy(db.word_ids),
+                weights=_copy(db.weights))
+
+
+def database_from_numpy(d: Dict[str, object], vocabulary, device="cuda"):
+    """database_to_numpy's dict and the port's vocabulary -> the port's
+    KeyFrameDatabase, its descents on `device`."""
+    from orb_slam2_commit_tpu_torch.models.kf_database import KeyFrameDatabase
+
+    db = KeyFrameDatabase(vocabulary, d["present"].shape[0], device)
+    db.present = np.array(d["present"], copy=True)
+    db.word_ids, db.weights = _copy(d["word_ids"]), _copy(d["weights"])
+    return db
+
+
+def loop_closer_state_to_numpy(closer) -> Dict[str, object]:
+    """A LoopCloser's host state (either package's): its consistent groups
+    as (sorted keyframes, consistency), last_loop_kf, n_loops_closed and
+    essential_min_weight."""
+    out = {k: int(getattr(closer, k)) for k in LOOP_CLOSER_SCALARS}
+    out["groups"] = [(sorted(int(k) for k in g.keyframes), int(g.consistency))
+                     for g in closer.consistent_groups]
+    return out
+
+
+def loop_closer_state_into(closer, d: Dict[str, object]) -> None:
+    """Set a port LoopCloser's host state from loop_closer_state_to_numpy's
+    dict."""
+    from orb_slam2_commit_tpu_torch.slam.loop_closing import ConsistentGroup
+
+    for k in LOOP_CLOSER_SCALARS:
+        setattr(closer, k, d[k])
+    closer.consistent_groups = [ConsistentGroup(set(ks), c) for ks, c in d["groups"]]

@@ -1,10 +1,10 @@
-"""SO3 / SE3 manifold operations (PyTorch port of the SO3 / SE3 half of
-ops/lie.py; the Sim3 half comes with loop closing).
+"""SO3 / SE3 / Sim3 manifold operations (PyTorch port of ops/lie.py).
 
 Conventions as in the JAX package: rotations are 3x3 matrices, rigid
-transforms (R, t) act as x_cam = R @ x_world + t, and se3 tangent vectors
-are [omega(3), upsilon(3)] (g2o's SE3Quat::exp ordering). Leading
-dimensions broadcast.
+transforms (R, t) act as x_cam = R @ x_world + t, se3 tangent vectors
+are [omega(3), upsilon(3)] (g2o's SE3Quat::exp ordering), similarities
+(s, R, t) act as x -> s R x + t with sim3 tangent vectors
+[omega(3), upsilon(3), sigma(1)]. Leading dimensions broadcast.
 """
 
 from __future__ import annotations
@@ -196,3 +196,78 @@ def quaternion_to_rotation(q: torch.Tensor) -> torch.Tensor:
         ],
         dim=-2,
     )
+
+
+# ---------------------------------------------------------------------------
+# Sim3 (g2o's types/sim3.h), used by loop closing: (s, R, t), x -> s R x + t.
+# ---------------------------------------------------------------------------
+
+
+def sim3_apply(s, R, t, x) -> torch.Tensor:
+    return s[..., None] * torch.einsum("...ij,...j->...i", R, x) + t
+
+
+def sim3_inverse(s, R, t) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    Rt = R.transpose(-1, -2)
+    s_inv = 1.0 / s
+    return s_inv, Rt, -s_inv[..., None] * torch.einsum("...ij,...j->...i", Rt, t)
+
+
+def sim3_compose(sa, Ra, ta, sb, Rb, tb):
+    """(sa, Ra, ta) * (sb, Rb, tb): apply b first."""
+    return sa * sb, Ra @ Rb, sa[..., None] * torch.einsum("...ij,...j->...i", Ra, tb) + ta
+
+
+def _sim3_w_matrix(w: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """The sim3 V matrix, t = V upsilon for exp([omega, upsilon, sigma]):
+    V = C I + A hat(w) + B hat(w)^2 with (s = e^sigma, theta = |w|,
+    a = s sin theta, b = s cos theta, c = sigma^2 + theta^2)
+      C = (s - 1) / sigma
+      A = (a sigma + (1 - b) theta) / (theta c)
+      B = (C - ((b - 1) sigma + a theta) / c) / theta^2
+    and the JAX package's Taylor-safe limits for small sigma and theta."""
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    s = torch.exp(sigma)
+    sig2 = sigma * sigma
+    sin_t, cos_t = torch.sin(theta), torch.cos(theta)
+    a = s * sin_t
+    b = s * cos_t
+    c = sig2 + theta2
+
+    small_sigma = torch.abs(sigma) < 1e-5
+    small_theta = theta2 < 1e-8
+
+    C = torch.where(small_sigma, 1.0 + sigma / 2.0 + sig2 / 6.0, (s - 1.0) / (sigma + _EPS))
+    a_gen = (a * sigma + (1.0 - b) * theta) / (theta * c + _EPS)
+    b_gen = (C - ((b - 1.0) * sigma + a * theta) / (c + _EPS)) / (theta2 + _EPS)
+    # sigma -> 0: the SE3 left Jacobian's coefficients.
+    a_sig0 = (1.0 - cos_t) / (theta2 + _EPS)
+    b_sig0 = (theta - sin_t) / (theta2 * theta + _EPS)
+    # theta -> 0, sigma != 0.
+    a_th0 = torch.where(small_sigma, 0.5 + sigma / 3.0,
+                        (s * (sigma - 1.0) + 1.0) / (sig2 + _EPS))
+    b_th0 = torch.where(small_sigma, 1.0 / 6.0 + sigma / 8.0,
+                        (s * (sig2 - 2.0 * sigma + 2.0) - 2.0) / (2.0 * sig2 * sigma + _EPS))
+
+    A = torch.where(small_theta, a_th0, torch.where(small_sigma, a_sig0, a_gen))
+    B = torch.where(small_theta, b_th0, torch.where(small_sigma, b_sig0, b_gen))
+    W = hat(w)
+    W2 = W @ W
+    return C[..., None, None] * _eye_like(W) + A[..., None, None] * W + B[..., None, None] * W2
+
+
+def sim3_exp(xi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """exp of the sim3 tangent xi[..., 7] = [omega, upsilon, sigma] -> (s, R, t)."""
+    w, v, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    V = _sim3_w_matrix(w, sigma)
+    return torch.exp(sigma), so3_exp(w), torch.einsum("...ij,...j->...i", V, v)
+
+
+def sim3_log(s, R, t) -> torch.Tensor:
+    """log of (s, R, t) -> xi[..., 7] = [omega, upsilon, sigma]."""
+    w = so3_log(R)
+    sigma = torch.log(s)
+    V = _sim3_w_matrix(w, sigma)
+    v = torch.linalg.solve(V, t[..., None])[..., 0]
+    return torch.cat([w, v, sigma[..., None]], dim=-1)

@@ -170,6 +170,17 @@ def resolve_duplicate_targets(match: MatchResult, n_targets: int) -> MatchResult
     )
 
 
+def mutual_consistency(ab: MatchResult, ba: MatchResult) -> MatchResult:
+    """Keep the a -> b matches whose b -> a match points back (the
+    cross-check of SearchBySim3, src/ORBmatcher.cc:1440-1459)."""
+    m = ab.idx
+    back = torch.where(m >= 0, ba.idx[torch.clamp_min(m, 0).long()], INVALID)
+    rows = torch.arange(m.shape[0], dtype=m.dtype, device=m.device)
+    ok = (m >= 0) & (back == rows)
+    return MatchResult(idx=torch.where(ok, m, INVALID).to(torch.int32),
+                       dist=torch.where(ok, ab.dist, BIG_DIST).to(torch.int32))
+
+
 def rotation_consistency_filter(
     match: MatchResult,
     angle_a: torch.Tensor,

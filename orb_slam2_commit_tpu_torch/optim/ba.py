@@ -14,10 +14,10 @@ The problem is dense fixed-shape tensors on one device:
 
 or, from 64 cameras on ("auto"), the implicit-Schur preconditioned CG
 (`_schur_pcg`) that never forms S. Levenberg-Marquardt accept/reject as in
-the JAX package; its early exit reads the convergence flag on the host
-once per iteration. Fixed poses get zeroed Jacobians. This slice runs on
-one device: the JAX package's `axis_name` all-reduce over an observation
-mesh comes with parallel/distributed_ba.py.
+the JAX package, and a non-finite step rejected; its early exit reads the
+convergence flag on the host once per iteration. Fixed poses get zeroed
+Jacobians. This slice runs on one device: the JAX package's `axis_name`
+all-reduce over an observation mesh comes with parallel/distributed_ba.py.
 
 The segment sums are `index_add_`, whose float additions on the card
 happen in no fixed order, so two runs on the card may differ in the last
@@ -209,8 +209,12 @@ def _solve_step(problem: BAProblem, cam_params, use_robust, active, lam,
         S = -S_corr
         ar = torch.arange(K, device=dev)
         S[ar, :, ar, :] += Hcc_d
-        delta_c = -torch.linalg.solve(
-            S.reshape(K * 6, K * 6), (g_c - b_corr).reshape(K * 6)).reshape(K, 6)
+        # solve_ex reports a singular system instead of raising (the card
+        # raises where the CPU returns inf); its step is then NaN, which
+        # bundle_adjust rejects.
+        sol, info = torch.linalg.solve_ex(S.reshape(K * 6, K * 6),
+                                          (g_c - b_corr).reshape(K * 6))
+        delta_c = -torch.where(info == 0, sol, torch.nan).reshape(K, 6)
         delta_c = torch.where(problem.fixed[:, None], zero, delta_c)
 
     Hpc_dc = _segment_sum(torch.einsum("oab,oa->ob", Hcp_o, delta_c[cam]), pt, P)
@@ -271,8 +275,11 @@ def bundle_adjust(
         p_new = _apply_step(problem, delta_c, delta_p)
         new_cost = cost_of(p_new)
         step_sq = torch.sum(delta_c * delta_c) + torch.sum(delta_p * delta_p)
+        # A failed solve (a singular Schur system in float32) gives a
+        # non-finite step; its projections then fail every depth gate, so
+        # its cost reads 0. Such a step is rejected, never accepted.
         accept, small = (bool(v) for v in torch.stack(
-            [new_cost < cost, step_sq < step_eps]).cpu())
+            [(new_cost < cost) & torch.isfinite(step_sq), step_sq < step_eps]).cpu())
         if accept:
             problem, cost = p_new, new_cost
             lam = lam * 0.5

@@ -10,7 +10,9 @@ relocalization's brute force over a batch of candidate keyframes (K7, one
 launch, the frame's descriptors shared), the mapper's triangulation
 matcher under the epipolar mask (K7, one launch over a batch of neighbour
 pairs) and its fuse projection (K6, one launch over a batch of target
-keyframes). match_by_sim3 is still to be ported (loop closing)."""
+keyframes), and loop closing's SearchBySim3 projection (K6, one launch a
+direction) and its brute force over the loop candidates (K7, one launch,
+the keyframe's descriptors shared)."""
 
 from __future__ import annotations
 
@@ -210,14 +212,53 @@ def match_brute_force(
     against one shared frame (side B, [N_b, ...]): relocalization's matcher,
     the stand-in for its per-candidate SearchByBoW (src/Tracking.cc:1713-1762).
     The C validity masks go through one K7 launch that reads the frame's
-    descriptor table once for all problems; idx, dist come out [C, N_a]."""
+    descriptor table once for all problems; idx, dist come out [C, N_a].
+    Or side B carries the candidate axis ([C, N_b, ...]) against one
+    shared keyframe (side A, [N_a, ...]): loop closing's matcher over its
+    candidates (ComputeSim3's SearchByBoW, src/LoopClosing.cc:313-327), in
+    one launch that reads the keyframe's table once; idx, dist come out
+    [C, N_a]."""
     mask = valid_a[..., :, None] & valid_b[..., None, :]
     m = matching.match_from_top2(
         *matching_kernel.masked_hamming_top2(
             desc_a.contiguous(), desc_b.contiguous(), mask.contiguous()),
         max_dist, ratio)
     m = matching.rotation_consistency_filter(m, angle_a, angle_b)
-    return matching.resolve_duplicate_targets(m, desc_b.shape[0])
+    return matching.resolve_duplicate_targets(m, desc_b.shape[-2])
+
+
+def match_by_sim3(
+    pt_cam: torch.Tensor,       # [M, 3] points already in the TARGET camera frame
+    pt_desc: torch.Tensor,      # [M, 8] int32
+    pt_min_dist: torch.Tensor,  # [M]
+    pt_max_dist: torch.Tensor,  # [M]
+    pt_valid: torch.Tensor,     # [M]
+    xy: torch.Tensor, desc: torch.Tensor, octave: torch.Tensor, valid: torch.Tensor,
+    fx: float, fy: float, cx: float, cy: float,
+    width: float, height: float,
+    th: float = 7.5, n_levels: int = 8, scale: float = 1.2,
+) -> MatchResult:
+    """One direction of SearchBySim3 (src/ORBmatcher.cc:1238-1487): points
+    already moved through the candidate Sim3 into the target camera, gated
+    by depth > 0, the image bounds and the scale-invariance band [0.8 min,
+    1.2 max] (:1311-1330); a window of th x sigma(predicted level) over
+    octaves [pred-1, pred+1] at TH_HIGH with no ratio test (:1342-1365),
+    through K6. The caller runs both directions and keeps the mutually
+    consistent pairs (:1442-1455)."""
+    z = pt_cam[:, 2]
+    inv_z = 1.0 / torch.where(torch.abs(z) > 1e-9, z, torch.full_like(z, 1e-9))
+    u = fx * pt_cam[:, 0] * inv_z + cx
+    v = fy * pt_cam[:, 1] * inv_z + cy
+    dist = torch.linalg.norm(pt_cam, dim=1)
+    log_scale = float(np.log(np.float32(scale)))
+    ratio_d = pt_max_dist / torch.clamp_min(dist, 1e-9)
+    pred = torch.ceil(torch.log(torch.clamp_min(ratio_d, 1e-9)) / log_scale).to(torch.int32)
+    pred = torch.clamp(pred, 0, n_levels - 1)
+    ok = (pt_valid & (z > 0.0) & (u >= 0) & (u < width) & (v >= 0) & (v < height)
+          & (dist >= 0.8 * pt_min_dist) & (dist <= 1.2 * pt_max_dist))
+    radius = th * _scale_sigmas(pt_cam.device, n_levels, scale)[pred.long()]
+    return _projection_match(pt_desc, torch.stack([u, v], dim=-1), (radius,), pred - 1,
+                             pred + 1, ok, xy, desc, octave, valid, TH_HIGH)[0]
 
 
 @full_float32

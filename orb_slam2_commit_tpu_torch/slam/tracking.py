@@ -84,13 +84,16 @@ class Tracker:
         # RANSAC sample sets for initialization and relocalization, drawn
         # on the host from a fixed seed (a test may put JAX's draws here).
         self.sampler = RansacSampler(seed=0)
+        # The place-recognition database (set by a System with a
+        # vocabulary): relocalization's candidates.
+        self.kf_database = None
         # Set when tracking is lost soon after initialization and the map
         # is too small to relocalize against: the System resets
         # (src/Tracking.cc:540-552).
         self.request_reset = False
         # Optional stage profiler (set by the System). Stages:
         # track_init (init_twoview, init_global_ba), track_motion,
-        # track_ref_kf, track_reloc (reloc_match, reloc_epnp),
+        # track_ref_kf, track_reloc (reloc_bow, reloc_match, reloc_epnp),
         # track_local_map.
         self.profiler = None
 
@@ -464,13 +467,19 @@ class Tracker:
     def _relocalize(self, frame: Frame) -> bool:
         """Tracking::Relocalization (src/Tracking.cc:1653-1884): candidate
         keyframes -> one batched descriptor match (K7) -> one batched EPnP
-        RANSAC -> the pose-optimization ladder, best candidate first.
-        Candidates are the 10 most recent keyframes (the JAX package's
-        path without a keyframe database)."""
+        RANSAC -> the pose-optimization ladder. Candidates come from the
+        keyframe database when there is one (BoW place recognition,
+        DetectRelocalizationCandidates), else they are the 10 most recent
+        keyframes; either list is taken in reverse, as in the JAX package."""
         cfg = self.config
         cam = cfg.camera
-        cand = [k for k in range(self.map.next_kf) if self.map.kf_valid[k]][-10:]
-        cand = [int(k) for k in reversed(cand)][:MAX_RELOC_CANDIDATES]
+        if self.kf_database is not None:
+            with self._timed("reloc_bow"):
+                cand = self.kf_database.detect_relocalization_candidates(frame)
+        else:
+            cand = [k for k in range(self.map.next_kf) if self.map.kf_valid[k]][-10:]
+        cand = [int(k) for k in reversed(list(cand)) if self.map.kf_valid[k]]
+        cand = cand[:MAX_RELOC_CANDIDATES]
         if not cand:
             return False
         C = len(cand)

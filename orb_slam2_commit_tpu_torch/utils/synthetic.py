@@ -5,7 +5,9 @@ A copy of the parts of the JAX package's renderer that `render_sequence`
 depth range, spread and planar fraction) and `render_stereo_sequence`
 need without photometric degradation: a cloud of 3D landmarks, each
 splatted as a small random-texture patch with bilinear subpixel accuracy
-along a known trajectory. The same seed gives the same images, depth maps,
+along a known trajectory; and the loop-closure survey
+(`render_loop_sequence`: a landmark ring around a circular path that
+revisits its start). The same seed gives the same images, depth maps,
 poses and scene as the JAX package's renderer.
 """
 
@@ -92,11 +94,13 @@ def render(
     cam: CameraConfig,
     background: float = 96.0,
     with_depth: bool = False,
+    max_depth: float = np.inf,
 ):
     """Render image [H, W] float32 from camera pose (world -> camera) of a
     distortion-free pinhole camera. With with_depth=True also returns a
     depth map [H, W] float32: the z of the landmark drawn at each pixel, 0
-    where none is (TUM RGB-D's invalid-depth convention)."""
+    where none is (TUM RGB-D's invalid-depth convention). Landmarks beyond
+    max_depth are not drawn (an opaque wall for scenes around the camera)."""
     if cam.has_distortion:
         raise ValueError("the port's renderer draws undistorted images only")
     h, w = cam.height, cam.width
@@ -104,7 +108,7 @@ def render(
     depth = np.zeros((h, w), dtype=np.float32)
     pc = scene.points @ R_cw.T + t_cw
     z = pc[:, 2]
-    order = np.where(z >= 0.5)[0]
+    order = np.where((z >= 0.5) & (z <= max_depth))[0]
     order = order[np.argsort(-z[order])]  # far first: near draws on top
     half = scene.patch_half
     s = 2 * half + 1
@@ -254,3 +258,71 @@ def render_stereo_sequence(
     lefts = [render(scene, R, t, cam) for R, t in poses]
     rights = [render(scene, *right_pose(R, t, cam.baseline), cam) for R, t in poses]
     return np.stack(lefts), np.stack(rights), poses, scene
+
+
+def ring_scene(
+    rng: np.random.Generator,
+    n_points: int = 700,
+    center: np.ndarray = None,
+    radius_range: Tuple[float, float] = (6.0, 12.0),
+    height: float = 2.5,
+    patch_size: int = 15,
+) -> Scene:
+    """A landmark annulus around a closed camera path (KITTI-00-class loop
+    geometry): every azimuth at radius_range from `center`, so a camera
+    circling inside sees a different sector at every angle and the same
+    sector when it returns. Landmarks sit on a jittered (azimuth, height)
+    grid, near-evenly spaced, so that the fixed-size sprites do not
+    overlap; textures as make_scene's."""
+    if center is None:
+        center = np.zeros(3)
+    n_az = int(np.ceil(np.sqrt(n_points * 8)))
+    n_h = -(-n_points // n_az)
+    az_idx, h_idx = np.meshgrid(np.arange(n_az), np.arange(n_h))
+    az_idx = az_idx.reshape(-1)[:n_points]
+    h_idx = h_idx.reshape(-1)[:n_points]
+    phi = (az_idx + rng.uniform(0.15, 0.85, n_points)) * (2.0 * np.pi / n_az)
+    y_g = (h_idx + rng.uniform(0.15, 0.85, n_points)) / n_h
+    rad = rng.uniform(*radius_range, n_points)
+    points = np.stack([center[0] + rad * np.sin(phi), center[1] + (2.0 * y_g - 1.0) * height,
+                       center[2] + rad * np.cos(phi)], axis=-1)
+    proto = make_scene(rng, n_points=n_points, patch_size=patch_size)
+    return Scene(points=points.astype(np.float64), patches=proto.patches,
+                 patch_half=proto.patch_half)
+
+
+def loop_trajectory(n_frames: int, radius: float = 2.0,
+                    frac: float = 1.25) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """A circular survey with tangential heading: from the origin looking
+    +z around a circle of `radius` (centre (radius, 0, 0)), and with
+    frac > 1 over the first sectors again, revisiting its own keyframes.
+    -> (R_cw, t_cw) per frame."""
+    poses = []
+    for k in range(n_frames):
+        th = 2.0 * np.pi * frac * k / max(n_frames - 1, 1)
+        c = np.array([radius * (1.0 - np.cos(th)), 0.0, radius * np.sin(th)])
+        cy, sy = np.cos(th), np.sin(th)
+        R_cw = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]]).T
+        poses.append((R_cw, -R_cw @ c))
+    return poses
+
+
+def render_loop_sequence(
+    cam: CameraConfig,
+    n_frames: int = 120,
+    n_points: int = 900,
+    seed: int = 0,
+    radius: float = 2.0,
+    frac: float = 1.2,
+    radius_range: Tuple[float, float] = (7.0, 9.0),
+    max_depth: float = 12.0,
+):
+    """(images [T, H, W], poses, scene) of the loop-closure survey:
+    ring_scene around loop_trajectory's circle, the ring's far side
+    hidden beyond max_depth as behind an opaque wall."""
+    rng = np.random.default_rng(seed)
+    scene = ring_scene(rng, n_points=n_points, center=np.array([radius, 0.0, 0.0]),
+                       radius_range=radius_range)
+    poses = loop_trajectory(n_frames, radius=radius, frac=frac)
+    images = np.stack([render(scene, R, t, cam, max_depth=max_depth) for R, t in poses])
+    return images, poses, scene

@@ -198,3 +198,29 @@ def test_stalled_lm_aborts_as_jax():
         np.testing.assert_array_equal(want[k], a[k], err_msg=k)
     assert not got["inlier"].any() and not want["inlier"].any()
     assert float(got["cost"]) == float(want["cost"]) == 0.0
+
+
+def test_failed_solve_is_rejected(monkeypatch):
+    """A singular Schur system in float32 gives a non-finite step, whose
+    projections fail every depth gate (cost 0): the step is rejected and
+    the LM goes on from the problem as it was (the mapper's local BA on a
+    monocular ring survey once took such a step and wrote NaN poses)."""
+    a, _, _ = make_problem(seed=6, noise=0.2)
+    problem = _problem(ba, BAObservations, a, torch.from_numpy)
+    solve = ba._solve_step
+    calls = []
+
+    def failing_first(*args, **kwargs):
+        delta_c, delta_p = solve(*args, **kwargs)
+        calls.append(1)
+        if len(calls) == 1:
+            return torch.full_like(delta_c, torch.nan), torch.full_like(delta_p, torch.nan)
+        return delta_c, delta_p
+
+    monkeypatch.setattr(ba, "_solve_step", failing_first)
+    out, res = ba.bundle_adjust(problem, FX, FY, CX, CY, 0.0, n_iters=1, solver="dense")
+    for k in ("R", "t", "points"):
+        np.testing.assert_array_equal(getattr(out, k).numpy(), a[k], err_msg=k)
+    assert float(res.cost) > 0
+    out, _ = ba.bundle_adjust(problem, FX, FY, CX, CY, 0.0, n_iters=6, solver="dense")
+    assert torch.isfinite(out.R).all() and not torch.equal(out.R, problem.R)

@@ -343,13 +343,15 @@ def test_mapper_abort_skips_local_ba_as_jax(jax_run):
 
 @pytest.mark.parametrize("kwargs, sensor", [
     (dict(async_mapping=True), "rgbd"),
-    (dict(vocabulary="voc.npz"), "rgbd"),
+    (dict(vocabulary="default"), "rgbd"),
     (dict(), "monocular"),
 ])
-def test_features_still_to_come_raise(kwargs, sensor):
-    """Asynchronous mapping and a vocabulary raise at construction; a
-    monocular System builds, and its switch to the localization-only mode
-    raises."""
+def test_features_still_to_come_raise(kwargs, sensor, monkeypatch):
+    """Asynchronous mapping, and global BA sharded over several cards
+    (ORB_DISTRIBUTED_GBA=1, with a vocabulary's loop closer), raise at
+    construction; a monocular System builds, and its switch to the
+    localization-only mode raises."""
+    monkeypatch.setenv("ORB_DISTRIBUTED_GBA", "1")
     cfg = synthetic_config(width=W, height=H, n_features=N_FEAT, sensor=sensor)
     if sensor == "monocular":
         sys_ = System(cfg, vocabulary=None, async_mapping=False, device="cpu", **kwargs)
