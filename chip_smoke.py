@@ -46,20 +46,26 @@ Phases (any failure exits non-zero and prints no result line):
      tests' cases with one window and with two, with a narrower second
      window, with every row invalid and past one shared-memory chunk, K7
      on the stereo band also on the CPU tests' band cases (one on every
-     edge of the band) and K7 under a mask on the stereo pair's band
-     masks and on the System's reference-keyframe matcher's input, K7
-     under a mask with a batch axis on the System's triangulation masks and
-     K6 with a batch axis on its fuse problems (each also with an empty
-     problem and with every row empty), K7 under a mask on the monocular
-     initialization's [2000, 2000] masks and, with a batch axis and the
-     column table shared, on relocalization's candidates (also with an
-     empty candidate and with every row empty), and K8 also on a problem
-     tiled past 1024 and past 7000 rows, launched twice; the loop callers'
-     recorded calls (K6 in match_by_sim3 and the loop neighbourhood's
-     match_fuse, K7 over the loop candidates and over relocalization's BoW
-     candidates, from a warm-up run of each loop sequence), each launched
-     twice and exact, also with every row (K6: every column) empty and
-     with an empty first candidate;
+     edge of the band) and K7 under a caller's mask on the stereo pair's
+     band masks; K7 under each candidate test (launched twice, and also
+     against K7 under the mask its plain version builds): under the
+     validity flags on the System's reference-keyframe matcher's input and
+     on relocalization's candidates (a batch axis, the column table
+     shared), under the epipolar band on the System's triangulation calls
+     (a batch axis, the row table shared), under the window on the
+     monocular initialization's [2000, 2000] calls, each batched call also
+     with an empty problem and with every row empty, and on interop's
+     CANDIDATE_CASES and CANDIDATE_CARD_CASES (2000 x 1000 with B = 8 and
+     either side shared, 5000 columns, ties, rows with no candidate and
+     with one, the tests' exact edges, degenerate epipolar lines, NaN
+     coordinates under clear flags); K6 with a batch axis on the System's
+     fuse problems (also with an empty problem and with every row empty),
+     and K8 also on a problem tiled past 1024 and past 7000 rows, launched
+     twice; the loop callers' recorded calls (K6 in match_by_sim3 and the
+     loop neighbourhood's match_fuse, K7 under the flags over the loop
+     candidates and over relocalization's BoW candidates, from a warm-up
+     run of each loop sequence), each launched twice and exact, also with
+     every row (K6: every column) empty and with an empty first candidate;
   4. each main path through the port's entry points, with the kernels'
      launch counts reset just before and read just after it, and its
      result held against the same call on the CPU; the stereo matcher
@@ -92,7 +98,10 @@ Phases (any failure exits non-zero and prints no result line):
      descent; per kernel its
      device-busy time (and its CUDA-event time in a row), its plain
      version's and one library call's where one exists, and the least time
-     the card could take (its bound).
+     the card could take (its bound); per caller of K7 under a candidate
+     test, in turns, the test in the kernel against the caller's mask built
+     by PyTorch and K7 under it (device busy, events, device operations,
+     idle share).
 Then a `kernels` JSON line, the nvidia-smi line, and last the result line
 {"ok": true, "device": {...}}.
 """
@@ -174,11 +183,19 @@ ATE_SPAN_GATE = 0.015
 # first local BA; the card's frame and keyframe poses held to the CPU's
 # within ROT_DEG_TOL / T_TOL.
 SYSTEM_CPU_FRAMES = 10
-# The System's kernels: each must launch in a sequence; K3's row form and
-# the standalone K4 and K5 have no caller there.
+# The System's kernels: each must launch in a sequence (K7 under the
+# validity flags for reference-keyframe tracking, under the epipolar band
+# for triangulation); K3's row form, the standalone K4 and K5 and K7 under
+# a caller's mask have no caller there, and K7 under the window (the
+# monocular initialization) none in the RGB-D and stereo Systems.
 SYSTEM_LAUNCHED = ("level_preprocess", "combine_nms", "cell_topk_map", "describe_patches",
-                   "projection_hamming_top2", "masked_hamming_top2", "pose_lm")
-SYSTEM_UNUSED = ("cell_topk", "extract_patches", "corner_subpix")
+                   "projection_hamming_top2", "valid_hamming_top2", "epipolar_hamming_top2",
+                   "pose_lm")
+SYSTEM_UNUSED = ("cell_topk", "extract_patches", "corner_subpix", "masked_hamming_top2")
+# The monocular sweep's: K7 under the window (initialization) in place of
+# the flags (reference-keyframe tracking may not run in a sweep).
+MONO_LAUNCHED = tuple(k for k in SYSTEM_LAUNCHED if k != "valid_hamming_top2") + (
+    "window_hamming_top2",)
 # Recorded calls kept per kernel for phase 3 and the kernel rows.
 SYSTEM_RECORDED = 4
 
@@ -203,9 +220,11 @@ KIDNAP_GATE = 0.05
 # sample sets): the same initialization frame and keyframes, poses
 # within ROT_DEG_TOL / T_TOL.
 MONO_CPU_FRAMES = 10
-# K7 under a mask has four callers; a recorded call is told apart by its
-# shapes (k7_caller).
+# K7 under a candidate test has four callers in the monocular System; a
+# recorded call is told apart by its form and shapes (k7_caller).
 K7_CALLERS = ("reference keyframe", "initialization", "triangulation", "relocalization")
+# K7's forms with the caller's test in the kernel, and the MASK form.
+K7_FORMS = ("valid_hamming_top2", "window_hamming_top2", "epipolar_hamming_top2")
 
 # The loop phase: tests/test_loop_pipeline.py's ring survey (132 frames,
 # 1.35 turns, seed 4; 900 ring landmarks) at that test's size, 400x300 and
@@ -238,12 +257,14 @@ SIM3_TOL = {"sim3_ransac": 1e-4, "optimize_sim3": 5e-3}
 
 # K3 runs in its map form; K4 and K5 in one fused launch (describe_patches)
 # per extraction. K3's row form and the standalone K4 and K5 have no caller
-# on the main paths; K7 under a mask has its callers in the System only, as
-# have K6 and K7 with a batch axis.
+# on the main paths, nor has K7 under a caller's mask; K7 under a
+# candidate test has its callers in the System only, as have K6 and K7 with
+# a batch axis.
 STEP_WANT = {"level_preprocess": 1, "combine_nms": 1, "cell_topk_map": 1,
              "cell_topk": 0, "describe_patches": 1, "extract_patches": 0,
              "corner_subpix": 0, "projection_hamming_top2": 1, "stereo_band_top2": 0,
-             "masked_hamming_top2": 0, "pose_lm": 1}
+             "masked_hamming_top2": 0, "valid_hamming_top2": 0, "window_hamming_top2": 0,
+             "epipolar_hamming_top2": 0, "pose_lm": 1}
 # The motion stage's two searches (th, 2 th) share one K6 launch.
 PAIR_WANT = dict(STEP_WANT, projection_hamming_top2=2, pose_lm=2)
 # Two extractions and the stereo matcher's one K7 band launch (both
@@ -293,29 +314,51 @@ def device_ops(prof):
     return len(ops), sum(e.time_range.elapsed_us() for e in ops) / 1e3
 
 
-def device_busy_ms(fn, iters, warmup=3):
-    """Device time per call of fn(): the summed durations of the device
-    operations it ran, under torch.profiler over `iters` calls, and the
-    same per operation name. The host's gaps between them are not counted,
-    so a call whose launches take less device time than the host needs to
-    issue them reads its device time (CUDA events over calls in a row would
-    read the host's issue rate)."""
+def traced_calls(fn, iters, warmup=3, sessions=2):
+    """fn() `iters` times under torch.profiler (the device traced alone),
+    after `warmup` calls; of `sessions` such sessions the one with the most
+    device time -> (wall ms, device busy ms, device operations, busy ms by
+    operation name), each per call; busy None where no session saw a
+    device operation. Late in a long process a session's device records
+    can come back short (on the card a K7 row once read 0.0010 ms against
+    0.0042 ms for the same call a row later, and a 5-call session of one
+    launch a call none at all)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    best = (0.0, None, 0.0, {})
+    for _ in range(sessions):
         torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = e.name.replace("(anonymous namespace)::", "").split("(")[0][:48]
-            by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
-    return device_ops(prof)[1] / iters, by_name
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / iters * 1e3
+        ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in ops) / 1e3 / iters
+        if ops and (best[1] is None or busy > best[1]):
+            by_name = {}
+            for e in ops:
+                name = e.name.replace("(anonymous namespace)::", "").split("(")[0][:48]
+                by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+            best = (wall, busy, len(ops) / iters, by_name)
+    return best
+
+
+def device_busy_ms(fn, iters, warmup=3):
+    """Device time per call of fn(): the summed durations of the device
+    operations it ran, under torch.profiler over `iters` calls, and the
+    same per operation name (traced_calls). The host's gaps between them
+    are not counted, so a call whose launches take less device time than
+    the host needs to issue them reads its device time (CUDA events over
+    calls in a row would read the host's issue rate)."""
+    _, busy, _, by_name = traced_calls(fn, iters, warmup)
+    if busy is None:
+        raise AssertionError("the profiler saw no device operation")
+    return busy, by_name
 
 
 def smi_clocks():
@@ -671,34 +714,88 @@ def check_top2(name, what, kernel, plain, args, shape):
         f"({int((got[0] <= 256).sum())} of {got[0].numel()} rows with a candidate)")
 
 
-def batched_k7_problems(x):
-    """(what, args) of the phase-3 cases of K7 with a batch axis: the
-    System's recorded triangulation calls, the first with its first pair
-    emptied, and with every pair emptied."""
-    for i, args in enumerate(x["sys_k7b"]):
-        yield f"System triangulation call {i}", args
-    da, db, mask = x["sys_k7b"][0]
-    empty = mask.clone()
-    empty[0] = False
-    yield "triangulation call 0, first pair empty", (da, db, empty)
-    yield "triangulation call 0, every row empty", (da, db, torch.zeros_like(mask))
+K7_RANKS = {"valid_hamming_top2": (2, 2, 1, 1), "window_hamming_top2": (2, 2, 1, 1, 2, 2),
+             "epipolar_hamming_top2": (2, 2, 1, 1, 2, 2, 2, 1)}
 
 
-def mono_k7_problems(x):
-    """(what, args) of the phase-3 cases of K7 under a mask from the
-    monocular System: the recorded initialization calls ([2000, 2000]),
-    and the relocalization calls (a batch of candidates, the frame's
-    descriptor table shared), the first also with its first candidate
-    emptied and with every row empty."""
-    for i, args in enumerate(x["mono_k7_init"]):
-        yield f"monocular initialization call {i}", args
-    for i, args in enumerate(x["mono_k7_reloc"]):
-        yield f"relocalization call {i} (shared columns)", args
-    da, db, mask = x["mono_k7_reloc"][0]
-    empty = mask.clone()
-    empty[0] = False
-    yield "relocalization call 0, first candidate empty", (da, db, empty)
-    yield "relocalization call 0, every row empty", (da, db, torch.zeros_like(mask))
+def k7_batch(name, args):
+    """() or (B,): the batch axis of a call of K7 under a candidate test."""
+    return kmatching._lead(*zip(args, K7_RANKS[name]))
+
+
+def k7_mask(name, args):
+    """The [*B, M, N] mask that the form's plain version builds (its
+    caller's mask before this kernel tested it)."""
+    return kmatching.CANDIDATE_MASKS[name](*args).contiguous()
+
+
+def emptied(args, first=True):
+    """A call's arguments with its first problem's row flags cleared (its
+    column flags where the rows are shared by the problems), or with every
+    row flag cleared."""
+    args = list(args)
+    if not first:
+        args[2] = torch.zeros_like(args[2])
+        return tuple(args)
+    i = 2 if args[2].dim() == 2 else 3
+    flags = args[i].clone()
+    flags[0] = False
+    args[i] = flags
+    return tuple(args)
+
+
+def candidate_cases(device):
+    """(what, form, args) of interop's K7 cases under a candidate test, the
+    CPU tests' and the card's (past one chunk of columns; B = 8 with either
+    side shared), as tensors on `device`."""
+    for name, kw in {**interop.CANDIDATE_CASES, **interop.CANDIDATE_CARD_CASES}.items():
+        args = interop.candidate_problem(**kw)
+        yield f"case {name}", f"{kw['test']}_hamming_top2", tuple(
+            a if isinstance(a, float) else interop.to_device(a, device) for a in args)
+
+
+def k7_problems(x):
+    """(what, form, args) of the phase-3 cases of K7 under a candidate
+    test: the System's recorded reference-keyframe (validity flags) and
+    triangulation (the epipolar band, a batch of neighbour pairs) calls,
+    the monocular System's initialization (the window, [2000, 2000]) and
+    relocalization (the flags, a batch of candidates, the frame's table
+    shared) calls, each batched call's first also with its first problem
+    emptied and with every row empty; and interop's cases."""
+    for key, name, what in (("sys_k7", "valid_hamming_top2", "System reference-keyframe match"),
+                            ("sys_k7b", "epipolar_hamming_top2", "System triangulation"),
+                            ("mono_k7_init", "window_hamming_top2",
+                             "monocular initialization"),
+                            ("mono_k7_reloc", "valid_hamming_top2",
+                             "relocalization (shared columns)")):
+        for i, args in enumerate(x[key]):
+            yield f"{what} call {i}", name, args
+        if k7_batch(name, x[key][0]):
+            yield f"{what} call 0, first problem empty", name, emptied(x[key][0])
+            yield f"{what} call 0, every row empty", name, emptied(x[key][0], first=False)
+    yield from candidate_cases("cuda")
+
+
+def check_form(what, name, args, twice=True):
+    """K7 under a candidate test against its plain version and against K7
+    under the mask that plain version builds, and (twice) a second launch
+    against the first: all four outputs exact."""
+    fn = getattr(kmatching, name)
+    got = fn(*args)
+    again = fn(*args) if twice else got
+    want = kmatching.CANDIDATE_PLAINS[name](*args)
+    mask = k7_mask(name, args)
+    under = kmatching.masked_hamming_top2(args[0], args[1], mask)
+    torch.cuda.synchronize()
+    for other, against in ((want, "its plain version"), (under, "K7 under its mask"),
+                           (again, "a second launch")):
+        if not all(torch.equal(g, w) for g, w in zip(got, other)):
+            raise AssertionError(f"K7 {name} differs from {against} on {what}: " + ", ".join(
+                f"{int((g != w).sum())} rows" for g, w in zip(got, other)))
+    log(f"K7 {name}, {what} {tuple(mask.shape)}: exact against its plain version and K7 "
+        f"under its mask{', twice bit-identical' if twice else ''} "
+        f"({int(mask.sum())} candidate pairs, {int((got[0] <= 256).sum())} of "
+        f"{got[0].numel()} rows with a candidate)")
 
 
 def batched_k6_problems(x):
@@ -795,18 +892,17 @@ def phase_kernels(x):
         check_band(what, args)
     rows["stereo_band_top2"] = 0.0
 
-    # K7 under a mask on the stereo band's masks, on the System's
-    # reference-keyframe matcher's input and on the monocular
-    # initialization's [2000, 2000] masks, and with a batch axis on the
-    # System's triangulation masks (the row table shared) and on
-    # relocalization's candidates (the column table shared); K6 with a
-    # batch axis on its fuse problems.
-    for what, args in [("stereo band mask", a) for a in x["k7"]] + \
-            [("System reference-keyframe match", a) for a in x["sys_k7"]] + \
-            list(batched_k7_problems(x)) + list(mono_k7_problems(x)):
+    # K7 under a caller's mask on the stereo band's masks; K7 under each
+    # candidate test on its callers' recorded calls and on interop's cases
+    # (also against K7 under the mask it replaces); K6 with a batch axis on
+    # its fuse problems.
+    for what, args in [("stereo band mask", a) for a in x["k7"]]:
         check_top2("K7 masked_hamming_top2", what, kmatching.masked_hamming_top2,
                    kmatching.masked_hamming_top2_plain, args, args[2].shape)
     rows["masked_hamming_top2"] = 0.0
+    for what, name, args in k7_problems(x):
+        check_form(what, name, args)
+    rows.update({name: 0.0 for name in K7_FORMS})
     for what, args in batched_k6_problems(x):
         check_top2("K6 projection_hamming_top2", what,
                    lambda *a: kmatching.projection_hamming_top2(*a)[0],
@@ -1100,19 +1196,21 @@ def phase_pair(config, motion, cands):
 # ---------------------------------------------------------------------------
 
 # The kernels whose System inputs phase 3 and the kernel rows use.
-SYSTEM_KERNELS = ("masked_hamming_top2", "projection_hamming_top2")
+SYSTEM_KERNELS = K7_FORMS + ("projection_hamming_top2",)
 
 
 def has_batch_axis(name, args):
-    """Whether a recorded call of K7 under a mask or of K6 has a leading
-    batch axis (the mapper's calls)."""
-    return (args[2] if name == "masked_hamming_top2" else args[1]).dim() == 3
+    """Whether a recorded call of K7 under a candidate test or of K6 has a
+    leading batch axis (the mapper's calls, relocalization's, loop
+    closing's)."""
+    return bool(k7_batch(name, args)) if name in K7_FORMS else args[1].dim() == 3
 
 
 @contextlib.contextmanager
 def batched_launches(counts):
-    """counts[name] += 1 for each launch of K7 under a mask or of K6 with
-    a batch axis (read off the kernel's launch counter around the call)."""
+    """counts[name] += 1 for each launch of K7 under a candidate test or
+    of K6 with a batch axis (read off the kernel's launch counter around
+    the call)."""
     fns = {name: getattr(kmatching, name) for name in SYSTEM_KERNELS}
 
     def spy(name):
@@ -1216,9 +1314,10 @@ def profiled(out, key):
 def system_path_inputs(seqs):
     """One warm-up run of each sequence on the card (every kernel built and
     every table made before the timed runs), recording the System's calls
-    of K7 under a mask (reference-keyframe tracking; with a batch axis,
-    triangulation) and of K6 with a batch axis (the forward fuse pass) on
-    the RGB-D sequence: the first SYSTEM_RECORDED calls of each."""
+    of K7 under the validity flags (reference-keyframe tracking) and under
+    the epipolar band (triangulation, with a batch axis) and of K6 with a
+    batch axis (the forward fuse pass) on the RGB-D sequence: the first
+    SYSTEM_RECORDED calls of each."""
     out = {}
     for sensor, seq in seqs.items():
         calls = {name: [] for name in SYSTEM_KERNELS}
@@ -1233,8 +1332,8 @@ def system_path_inputs(seqs):
             f"{sys_.map.next_kf} keyframes inserted; calls (kernel, batch axis): "
             f"{ {k: len(v) for k, v in split.items()} }")
         if sensor == "rgbd":
-            out = dict(sys_k7=split["masked_hamming_top2", False],
-                       sys_k7b=split["masked_hamming_top2", True],
+            out = dict(sys_k7=split["valid_hamming_top2", False],
+                       sys_k7b=split["epipolar_hamming_top2", True],
                        sys_k6b=split["projection_hamming_top2", True])
             for key, c in out.items():
                 if not c:
@@ -1297,7 +1396,7 @@ def phase_system(seqs, power):
     launch counts reset just before and read just after it: every frame
     after the first OK, the ATE gate, >= 2 keyframes, points made by
     triangulation, a fuse pass, every kernel of the path launched (K6
-    and K7 under a mask also with a batch axis), and every keyframe in
+    and K7 under the epipolar band with a batch axis), and every keyframe in
     the database and through the loop closer; frames/s over the sequence
     (after system_path_inputs' warm-up), the stage times, and a third run
     with frames 3-14 each under torch.profiler (keyframe frames and plain
@@ -1316,7 +1415,8 @@ def phase_system(seqs, power):
         log(f"{what} launches: {c}; of them with a batch axis: {batched}")
         want = SYSTEM_LAUNCHED + (("stereo_band_top2",) if sensor == "stereo" else ())
         if [k for k in want if c[k] < 1] or [k for k in SYSTEM_UNUSED if c[k]] or \
-                (sensor == "rgbd" and c["stereo_band_top2"]) or min(batched.values()) < 1:
+                (sensor == "rgbd" and c["stereo_band_top2"]) or c["window_hamming_top2"] or \
+                min(batched["epipolar_hamming_top2"], batched["projection_hamming_top2"]) < 1:
             raise AssertionError(f"{what}: a kernel of the path did not launch, or "
                                  f"one off the path did")
         if any(st != "OK" for st in states) or any(p is None for p in poses):
@@ -1345,7 +1445,11 @@ def phase_system(seqs, power):
                 [f"{k} with a batch axis {batched[k] / max(n_mapped, 1):.2f}"
                  for k in SYSTEM_KERNELS]
                 + [f"{k} {c[k] / max(n_mapped, 1):.2f}"
-                   for k in ("masked_hamming_top2", "projection_hamming_top2", "pose_lm")]))
+                   for k in K7_FORMS + ("projection_hamming_top2", "pose_lm")]))
+        per_kf = {k: timings[k]["total_s"] * 1e3 / max(n_mapped, 1)
+                  for k in ("map_tri", "local_mapping") if k in timings}
+        log(f"{what}: ms per mapped keyframe (host clock; they follow the host, PERF.md "
+            f"section 5): " + ", ".join(f"{k} {v:.3f}" for k, v in per_kf.items()))
         for stage, st in sorted(timings.items()):
             log(f"    {what} stage {stage}: {int(st['count'])} x {st['mean_ms']:.3f} ms "
                 f"(max {st['max_ms']:.3f}, total {st['total_s'] * 1e3:.1f} ms)")
@@ -1375,62 +1479,72 @@ def phase_system(seqs, power):
 # relocalization after a kidnap
 # ---------------------------------------------------------------------------
 
-def k7_caller(args):
-    """The caller of a recorded K7-under-a-mask call, from its shapes:
-    relocalization (a batch of candidates against the frame's shared
-    descriptor table), triangulation (a batch of neighbour pairs, the
-    keyframe's table shared), initialization (a [2 N, 2 N] mask between
-    two frames extracted at twice the features) or reference-keyframe
-    tracking."""
-    desc_a, desc_b, mask = args
-    if mask.dim() == 3:
-        return "relocalization" if desc_b.dim() == 2 else "triangulation"
-    if tuple(mask.shape) == (2 * N_FEATURES, 2 * N_FEATURES):
+def k7_caller(name, args):
+    """The caller of a recorded call of K7 under a candidate test, from its
+    form and shapes: initialization (the window), triangulation (the
+    epipolar band), relocalization (the flags, a batch of candidates
+    against the frame's shared descriptor table) or reference-keyframe
+    tracking (the flags, one problem)."""
+    if name == "window_hamming_top2":
         return "initialization"
+    if name == "epipolar_hamming_top2":
+        return "triangulation"
+    if args[0].dim() == 3:
+        return "relocalization"
+    if args[1].dim() == 3:
+        raise AssertionError("a monocular run without a vocabulary matched loop candidates")
     return "reference keyframe"
 
 
 @contextlib.contextmanager
 def k7_launches_by_caller(counts, problems):
-    """counts[caller] += launches of K7 under a mask by each caller, and
-    problems[caller] += the problems they carried (read off the launch
-    counter around each call)."""
-    fn = kmatching.masked_hamming_top2
+    """counts[caller] += launches of K7 under a candidate test by each
+    caller, and problems[caller] += the problems they carried (read off
+    the launch counters around each call)."""
+    fns = {name: getattr(kmatching, name) for name in K7_FORMS}
 
-    def call(*args):
-        before = _build.launches["masked_hamming_top2"]
-        out = fn(*args)
-        caller = k7_caller(args)
-        n = _build.launches["masked_hamming_top2"] - before
-        counts[caller] += n
-        problems[caller] += n * (args[2].shape[0] if args[2].dim() == 3 else 1)
-        return out
+    def spy(name):
+        def call(*args):
+            before = _build.launches[name]
+            out = fns[name](*args)
+            caller = k7_caller(name, args)
+            n = _build.launches[name] - before
+            counts[caller] += n
+            problems[caller] += n * (k7_batch(name, args) or (1,))[0]
+            return out
+        return call
 
     for caller in K7_CALLERS:
         counts[caller] = problems[caller] = 0
-    kmatching.masked_hamming_top2 = call
+    for name in K7_FORMS:
+        setattr(kmatching, name, spy(name))
     try:
         yield counts
     finally:
-        kmatching.masked_hamming_top2 = fn
+        for name, fn in fns.items():
+            setattr(kmatching, name, fn)
 
 
 def mono_path_inputs(kidnap_seq):
     """One warm-up run of the kidnap sequence on the card (every kernel of
     the monocular path built, both feature budgets' tables made),
-    recording the calls of K7 under a mask at initialization and at
-    relocalization (those with a candidate pair): the first
-    SYSTEM_RECORDED of each."""
-    calls = []
-    with recording(kmatching, "masked_hamming_top2", calls):
+    recording the calls of K7 at initialization (under the window) and at
+    relocalization (under the flags, those with a candidate pair): the
+    first SYSTEM_RECORDED of each."""
+    calls = {name: [] for name in K7_FORMS}
+    with contextlib.ExitStack() as stack:
+        for name in K7_FORMS:
+            stack.enter_context(recording(kmatching, name, calls[name]))
         sys_, states, _, seconds = run_system(kidnap_seq, n_frames=MONO_FRAMES)
-    by = {c: [a for a, _ in calls if k7_caller(a) == c] for c in K7_CALLERS}
+    by = {c: [a for name in K7_FORMS for a, _ in calls[name] if k7_caller(name, a) == c]
+          for c in K7_CALLERS}
     log(f"System monocular kidnap warm-up: {seconds:.2f} s for {MONO_FRAMES} frames, "
         f"{sys_.map.next_kf} keyframes inserted, states {''.join(st[0] for st in states)}; "
         f"K7 calls by caller: { {c: len(v) for c, v in by.items()} }")
     # An occluded frame has no feature, so its relocalization call has no
     # candidate pair: keep the calls that have.
-    by["relocalization"] = [a for a in by["relocalization"] if bool(a[2].any())]
+    by["relocalization"] = [a for a in by["relocalization"]
+                            if bool(k7_mask("valid_hamming_top2", a).any())]
     for c in ("initialization", "relocalization"):
         if not by[c]:
             raise AssertionError(f"the monocular kidnap run made no K7 call at {c} "
@@ -1489,7 +1603,7 @@ def centres(poses):
 def phase_mono(seq, kidnap_seq, power):
     """The sweep on the card through track_monocular, the launch counts
     reset just before and read just after it: it initializes (K7 under the
-    [2000, 2000] mask), every frame after that OK, >= 3 keyframes, >= 150
+    window, [2000, 2000]), every frame after that OK, >= 3 keyframes, >= 150
     points, the scale-aligned ATE gate, every kernel of the path launched;
     frames/s (after mono_path_inputs' warm-up), stage times, a second run
     with frames 3-14 under torch.profiler, and the first frames against
@@ -1504,9 +1618,8 @@ def phase_mono(seq, kidnap_seq, power):
     with k7_launches_by_caller(by_caller, problems):
         sys_, states, poses, seconds = run_system(seq, n_frames=MONO_FRAMES)
     c = dict(_build.launches)
-    log(f"{what} launches: {c}; K7 under a mask by caller: {by_caller} "
-        f"(problems {problems})")
-    if [k for k in SYSTEM_LAUNCHED if c[k] < 1] or [k for k in SYSTEM_UNUSED if c[k]] \
+    log(f"{what} launches: {c}; K7 by caller: {by_caller} (problems {problems})")
+    if [k for k in MONO_LAUNCHED if c[k] < 1] or [k for k in SYSTEM_UNUSED if c[k]] \
             or c["stereo_band_top2"] or by_caller["initialization"] < 1:
         raise AssertionError(f"{what}: a kernel of the path did not launch, one off the "
                              f"path did, or the initialization's K7 did not launch")
@@ -1532,7 +1645,7 @@ def phase_mono(seq, kidnap_seq, power):
     log(f"{what}: {MONO_FRAMES / seconds:.2f} frames/s over the sequence ({seconds:.3f} s) "
         f"on {power}; launches per mapped keyframe: " + ", ".join(
             f"{k} {c[k] / max(n_mapped, 1):.2f}"
-            for k in ("masked_hamming_top2", "projection_hamming_top2", "pose_lm")))
+            for k in K7_FORMS + ("projection_hamming_top2", "pose_lm")))
     for stage, st in sorted(timings.items()):
         log(f"    {what} stage {stage}: {int(st['count'])} x {st['mean_ms']:.3f} ms "
             f"(max {st['max_ms']:.3f}, total {st['total_s'] * 1e3:.1f} ms)")
@@ -1558,7 +1671,7 @@ def phase_mono(seq, kidnap_seq, power):
     with k7_launches_by_caller(kid_caller, kid_problems):
         sys_, states, poses, seconds = run_system(kidnap_seq, n_frames=MONO_FRAMES)
     kc = dict(_build.launches)
-    log(f"{what} launches: {kc}; K7 under a mask by caller: {kid_caller} "
+    log(f"{what} launches: {kc}; K7 by caller: {kid_caller} "
         f"(problems {kid_problems}); states {''.join(st[0] for st in states)}")
     tr = sys_.tracker
     if "LOST" not in states[KIDNAP.start:KIDNAP.stop] or states[-1] != "OK" \
@@ -1628,9 +1741,9 @@ def loop_kernel_calls(counts, calls=None):
         if top == "_search_by_sim3":
             return "match_by_sim3" if kernel == "projection_hamming_top2" else None
         if top == "compute_sim3":
-            return ("compute_sim3" if kernel == "masked_hamming_top2"
-                    else "loop match_fuse")
-        if top == "_relocalize" and kernel == "masked_hamming_top2":
+            return {"valid_hamming_top2": "compute_sim3",
+                    "projection_hamming_top2": "loop match_fuse"}.get(kernel)
+        if top == "_relocalize" and kernel == "valid_hamming_top2":
             return "BoW relocalization"
         return None
 
@@ -1786,7 +1899,8 @@ def loop_path_inputs(seq, kidnap_seq):
         f"{pre.get('frame')}); kidnap with the vocabulary: states "
         f"{''.join(st[0] for st in kid_states)}; loop callers' K6/K7 calls: "
         f"{ {c: len(v) for c, v in calls.items()} }")
-    calls["BoW relocalization"] = [a for a in calls["BoW relocalization"] if bool(a[2].any())]
+    calls["BoW relocalization"] = [a for a in calls["BoW relocalization"]
+                                   if bool(k7_mask("valid_hamming_top2", a).any())]
     for caller in LOOP_CALLERS:
         if not calls[caller]:
             raise AssertionError(f"the warm-up runs made no {caller} call with a candidate")
@@ -1794,40 +1908,31 @@ def loop_path_inputs(seq, kidnap_seq):
 
 
 def loop_problems(x):
-    """(caller, what, kernel, plain, args) of the loop phase's phase-3
-    cases: every recorded call; K7's batched calls also with the first
-    candidate emptied and with every row empty; compute_sim3's also as
-    LOOP_STACKED candidates (every recorded call's, in turn) against the
-    first call's keyframe table, as is and with the first candidate
-    emptied; K6's also with every row invalid and with every column
-    invalid."""
-    k6 = (lambda *a: kmatching.projection_hamming_top2(*a)[0],
-          lambda *a: kmatching.projection_hamming_top2_plain(*a)[0])
-    k7 = (kmatching.masked_hamming_top2, kmatching.masked_hamming_top2_plain)
+    """(caller, what, kernel, args) of the loop phase's phase-3 cases
+    (kernel: "K6" or K7's form under the validity flags): every recorded
+    call; K7's batched calls also with the first candidate emptied and
+    with every row empty; compute_sim3's also as LOOP_STACKED candidates
+    (every recorded call's, in turn) against the first call's keyframe
+    table, as is and with the first candidate emptied; K6's also with every
+    row invalid and with every column invalid."""
     for caller in LOOP_CALLERS:
-        kernel = k6 if caller in ("match_by_sim3", "loop match_fuse") else k7
+        kernel = "K6" if caller in ("match_by_sim3", "loop match_fuse") else "valid_hamming_top2"
         recorded = x[f"loop_{caller}"]
         for i, args in enumerate(recorded):
             yield caller, f"{caller} call {i}", kernel, args
         args = recorded[0]
-        if kernel is k7:
-            da, db, mask = args
-            empty = mask.clone()
-            empty[0] = False
-            if mask.dim() == 3:
-                yield caller, f"{caller} call 0, first problem empty", kernel, (da, db, empty)
-            yield caller, f"{caller} call 0, every row empty", kernel, (
-                da, db, torch.zeros_like(mask))
+        if kernel != "K6":
+            if k7_batch(kernel, args):
+                yield caller, f"{caller} call 0, first problem empty", kernel, emptied(args)
+            yield caller, f"{caller} call 0, every row empty", kernel, emptied(args, False)
             if caller == "compute_sim3":
-                tables = [(b, k) for _, db_i, mask_i in recorded for b, k in zip(db_i, mask_i)]
+                tables = [(b, k) for _, db_i, _, ok_i in recorded for b, k in zip(db_i, ok_i)]
                 tables = [tables[i % len(tables)] for i in range(LOOP_STACKED)]
-                db = torch.stack([b for b, _ in tables])
-                mask = torch.stack([k for _, k in tables])
+                stacked = (args[0], torch.stack([b for b, _ in tables]), args[2],
+                           torch.stack([k for _, k in tables]))
                 what = f"{caller}, {LOOP_STACKED} candidates of {len(recorded)} calls"
-                yield caller, what, kernel, (da, db, mask)
-                empty = mask.clone()
-                empty[0] = False
-                yield caller, f"{what}, first candidate empty", kernel, (da, db, empty)
+                yield caller, what, kernel, stacked
+                yield caller, f"{what}, first candidate empty", kernel, emptied(stacked)
         else:
             rows, cols = list(args), list(args)
             rows[5] = torch.zeros_like(args[5])
@@ -1838,15 +1943,17 @@ def loop_problems(x):
 
 def phase_loop_kernels(x):
     """The loop callers' recorded K6 and K7 calls against the plain
-    versions on the card: all four outputs exact, and a second launch bit
-    for bit the first."""
-    for caller, what, (kernel, plain), args in loop_problems(x):
-        got = kernel(*args)
-        again = kernel(*args)
-        want = plain(*args)
+    versions on the card (K7 also against K7 under its mask): all four
+    outputs exact, and a second launch bit for bit the first."""
+    for caller, what, kernel, args in loop_problems(x):
+        if kernel != "K6":
+            check_form(what, kernel, args)
+            continue
+        got = kmatching.projection_hamming_top2(*args)[0]
+        again = kmatching.projection_hamming_top2(*args)[0]
+        want = kmatching.projection_hamming_top2_plain(*args)[0]
         torch.cuda.synchronize()
-        shape = tuple(args[2].shape) if len(args) == 3 else (
-            tuple(args[1].shape), tuple(args[6].shape))
+        shape = (tuple(args[1].shape), tuple(args[6].shape))
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
             raise AssertionError(f"{what}: the kernel differs from its plain version")
         if not all(torch.equal(g, a) for g, a in zip(got, again)):
@@ -2097,24 +2204,30 @@ def time_stages(name, stages, power, reps=10):
             f"{gpu_time_ms(fn, reps):.3f} ms device events, per call, on {power}")
 
 
-def profile_calls(name, fn, power):
-    """Under torch.profiler over PROFILE_CALLS calls: the device's busy
-    time per call, its idle share of the wall time, the device operations
-    per call, and the kernels by device time."""
+def profiled_calls(fn, calls=PROFILE_CALLS):
+    """fn under torch.profiler over `calls` calls -> (wall ms, device busy
+    ms, device operations), each per call, and the profile."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(PROFILE_CALLS):
+        for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / PROFILE_CALLS * 1e3
+        wall = (time.perf_counter() - t0) / calls * 1e3
     n_ops, busy = device_ops(prof)
-    busy /= PROFILE_CALLS
+    return wall, busy / calls, n_ops / calls, prof
+
+
+def profile_calls(name, fn, power):
+    """Under torch.profiler over PROFILE_CALLS calls: the device's busy
+    time per call, its idle share of the wall time, the device operations
+    per call, and the kernels by device time."""
+    wall, busy, n_ops, prof = profiled_calls(fn)
     log(f"profiled {name} ({PROFILE_CALLS} calls): {wall:.3f} ms wall, {busy:.3f} ms "
         f"device busy, idle share {1.0 - busy / wall:.4f}, "
-        f"{n_ops / PROFILE_CALLS:.0f} device operations per call, on {power}")
+        f"{n_ops:.0f} device operations per call, on {power}")
     log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=12))
 
 
@@ -2238,6 +2351,56 @@ def k6_work(calls):
                            valid_b) + len(radii) * 4 * valid_a.numel() * 4)
         n_ops += 8 * int(valid_a.sum()) * desc_b.shape[0] + 24 * int(cand.sum())
     return n_bytes, n_ops
+
+
+# K7's operations per pair with both flags set for its candidate test: two
+# differences, two magnitudes and two compares for the window; the line's
+# value (two products, two sums), its square, the threshold's product, a
+# compare and, near the band's edge, a division for the epipolar band.
+K7_TEST_OPS = {"valid_hamming_top2": 0, "window_hamming_top2": 6, "epipolar_hamming_top2": 8}
+
+
+def k7_work(name, calls):
+    """(bytes, operations) of calls of K7 under a candidate test: every
+    input table read once and 4 x M results written per problem; 24
+    operations per candidate pair and K7_TEST_OPS[name] per pair with both
+    flags set."""
+    n_bytes = n_ops = 0
+    for args in calls:
+        mask = k7_mask(name, args)
+        flags = kmatching._flags_mask(k7_batch(name, args), args[0].shape[-2],
+                                      args[1].shape[-2], args[2], args[3])
+        n_bytes += nbytes(*(a for a in args if torch.is_tensor(a))) + 16 * mask[..., 0].numel()
+        n_ops += 24 * int(mask.sum()) + K7_TEST_OPS[name] * int(flags.sum())
+    return n_bytes, n_ops
+
+
+def k7_routes(caller, name, calls, power):
+    """A K7 caller's recorded calls two ways, in turns (test, mask, mask,
+    test): K7 with the caller's candidate test in the kernel, and the
+    caller's mask built by PyTorch then K7 under it (its route before the
+    test moved into the kernel). Each reading: under torch.profiler
+    (traced_calls) the device-busy ms, the device operations and the idle
+    share of the traced calls' wall time, a call; and ms by CUDA events
+    over calls in a row."""
+    fn = getattr(kmatching, name)
+    routes = {"test in the kernel": lambda: [fn(*a) for a in calls],
+              "mask built + K7 under it": lambda: [kmatching.masked_hamming_top2(
+                  a[0], a[1], k7_mask(name, a)) for a in calls]}
+    readings = {label: [] for label in routes}
+    for label in (*routes, *reversed(routes)):
+        wall, busy, n_ops, _ = traced_calls(routes[label], 50)
+        events = gpu_time_ms(routes[label], 50)
+        readings[label].append((busy, events, n_ops, wall))
+    for label, r in readings.items():
+        measured = [v for v in r if v[0] is not None]
+        log(f"K7 {caller}, {label} ({len(calls)} calls): device busy ms "
+            f"{[round(v[0], 4) for v in measured]}, events ms "
+            f"{[round(v[1], 4) for v in r]}, device operations "
+            f"{[round(v[2], 1) for v in measured]}, idle share "
+            f"{[round(1.0 - v[0] / v[3], 4) for v in measured]} "
+            f"({len(r) - len(measured)} of {len(r)} readings saw no device operation), "
+            f"on {power}")
 
 
 def phase_kernel_timing(x, errs, counts, batched, power):
@@ -2430,12 +2593,15 @@ def phase_kernel_timing(x, errs, counts, batched, power):
         lambda: kmatching.stereo_band_top2(*band),
         lambda: kmatching.stereo_band_top2_plain(*band), None, band_bytes, band_ops)
 
-    # K7 under a mask on its callers' inputs, the System's recorded calls:
-    # the reference-keyframe matcher's ([N_kf, N] validity mask) and the
-    # triangulation matcher's (B neighbour pairs of [N, N] masks a call,
-    # the keyframe's descriptors shared). A call reads its two descriptor
-    # tables and its mask once and writes 4 x M results per problem; one
-    # operation per mask entry and 24 per candidate pair.
+    # K7 under a caller's mask (no caller on the main paths) on the masks
+    # that the RGB-D System's recorded reference-keyframe and triangulation
+    # calls build: it reads its two descriptor tables and its mask once and
+    # writes 4 x M results per problem; one operation per mask entry and 24
+    # per candidate pair. K7 under a candidate test on its callers'
+    # recorded calls reads its tables (descriptors, flags, coordinates,
+    # F12, sigma^2) once and writes the same results; 24 operations per
+    # candidate pair and the test's own per pair with both flags set
+    # (K7_TEST_OPS).
     def top2_work(calls):
         n_bytes = sum(nbytes(*args) + 4 * args[2].shape[-2] * args[2].shape[:-2].numel() * 4
                       for args in calls)
@@ -2445,26 +2611,30 @@ def phase_kernel_timing(x, errs, counts, batched, power):
     def each(fn, calls):
         return lambda: [fn(*args) for args in calls]
 
-    log("K7 triangulation calls (B, N, N): " + ", ".join(
-        f"{tuple(a[2].shape)} {int(a[2].sum())} pairs" for a in x["sys_k7b"]))
-    k7_src = ("masked_hamming_top2", "orb_slam2_commit_tpu_torch/csrc/matching.cu",
+    k7_src = ("orb_slam2_commit_tpu_torch/csrc/matching.cu",
               "orb_slam2_commit_tpu/ops/pallas_matching.py:113")
-    row(*k7_src, each(kmatching.masked_hamming_top2, x["sys_k7"] + x["sys_k7b"]),
-        each(kmatching.masked_hamming_top2_plain, x["sys_k7"] + x["sys_k7b"]), None,
-        *top2_work(x["sys_k7"] + x["sys_k7b"]))
-    log("K7 monocular initialization calls (N, N): " + ", ".join(
-        f"{tuple(a[2].shape)} {int(a[2].sum())} pairs" for a in x["mono_k7_init"]))
-    log("K7 relocalization calls (C, N_kf, N): " + ", ".join(
-        f"{tuple(a[2].shape)} {int(a[2].sum())} pairs, "
-        f"{int(a[2].any(-1).sum())} rows with a candidate" for a in x["mono_k7_reloc"]))
-    for caller, calls in (("reference-keyframe match", x["sys_k7"]),
-                          ("triangulation, batch axis", x["sys_k7b"]),
-                          ("monocular initialization", x["mono_k7_init"]),
-                          ("relocalization, batch axis, shared columns",
-                           x["mono_k7_reloc"])):
-        row(*k7_src, each(kmatching.masked_hamming_top2, calls),
-            each(kmatching.masked_hamming_top2_plain, calls), None, *top2_work(calls),
+    masked = [(a[0], a[1], k7_mask("valid_hamming_top2", a)) for a in x["sys_k7"]] + \
+        [(a[0], a[1], k7_mask("epipolar_hamming_top2", a)) for a in x["sys_k7b"]]
+    row("masked_hamming_top2", *k7_src, each(kmatching.masked_hamming_top2, masked),
+        each(kmatching.masked_hamming_top2_plain, masked), None, *top2_work(masked))
+    k7_callers = (("reference-keyframe match", "valid_hamming_top2", x["sys_k7"]),
+                  ("triangulation, batch axis", "epipolar_hamming_top2", x["sys_k7b"]),
+                  ("monocular initialization", "window_hamming_top2", x["mono_k7_init"]),
+                  ("relocalization, batch axis, shared columns", "valid_hamming_top2",
+                   x["mono_k7_reloc"]),
+                  ("compute_sim3", "valid_hamming_top2", x["loop_compute_sim3"]),
+                  ("BoW relocalization", "valid_hamming_top2", x["loop_BoW relocalization"]))
+    for caller, name, calls in k7_callers[:3]:
+        row(name, *k7_src, each(getattr(kmatching, name), calls),
+            each(kmatching.CANDIDATE_PLAINS[name], calls), None, *k7_work(name, calls))
+    for caller, name, calls in k7_callers:
+        log(f"K7 {caller} calls (B, M, N): " + ", ".join(
+            f"{tuple(m.shape)} {int(m.sum())} pairs, {int(m.any(-1).sum())} rows with a "
+            f"candidate" for m in (k7_mask(name, a) for a in calls)))
+        row(name, *k7_src, each(getattr(kmatching, name), calls),
+            each(kmatching.CANDIDATE_PLAINS[name], calls), None, *k7_work(name, calls),
             caller=caller)
+        k7_routes(caller, name, calls, power)
 
     # K6 with a batch axis on the System's recorded fuse calls (one
     # keyframe's points, their descriptors shared, into B targets): inputs
@@ -2487,26 +2657,19 @@ def phase_kernel_timing(x, errs, counts, batched, power):
         each(kmatching.projection_hamming_top2_plain, x["sys_k6b"]), None,
         k6b_bytes, k6b_ops, caller="fuse, batch axis")
 
-    # The loop phase's callers: K6 in SearchBySim3 (one direction a call,
-    # [N_kf] rows) and in the loop neighbourhood's projection ([P] rows,
-    # a power of two), K7 over the loop candidates (the keyframe's table
-    # shared) and over relocalization's BoW candidates (the frame's table
-    # shared). Bytes and operations counted as above.
-    for caller in LOOP_CALLERS:
+    # The loop phase's K6 callers: SearchBySim3 (one direction a call,
+    # [N_kf] rows) and the loop neighbourhood's projection ([P] rows, a
+    # power of two); its K7 callers are timed above. Bytes and operations
+    # counted as above.
+    for caller in ("match_by_sim3", "loop match_fuse"):
         calls = x[f"loop_{caller}"]
         log(f"{caller} calls: " + ", ".join(
-            f"{tuple(a[2].shape)} {int(a[2].sum())} pairs" if len(a) == 3 else
             f"({a[1].shape[0]}, {a[6].shape[0]}) {int(a[5].sum())} valid rows" for a in calls))
-        if len(calls[0]) == 3:
-            row(*k7_src, each(kmatching.masked_hamming_top2, calls),
-                each(kmatching.masked_hamming_top2_plain, calls), None, *top2_work(calls),
-                caller=caller)
-        else:
-            row("projection_hamming_top2", "orb_slam2_commit_tpu_torch/csrc/matching.cu",
-                "orb_slam2_commit_tpu/ops/pallas_matching.py:246",
-                each(kmatching.projection_hamming_top2, calls),
-                each(kmatching.projection_hamming_top2_plain, calls), None,
-                *k6_work(calls), caller=caller)
+        row("projection_hamming_top2", "orb_slam2_commit_tpu_torch/csrc/matching.cu",
+            "orb_slam2_commit_tpu/ops/pallas_matching.py:246",
+            each(kmatching.projection_hamming_top2, calls),
+            each(kmatching.projection_hamming_top2_plain, calls), None,
+            *k6_work(calls), caller=caller)
 
     # K8, the pair's two launches: inputs read once, pose and inlier flags
     # written; operations from the evaluations each launch ran on this
@@ -2568,29 +2731,35 @@ def main() -> int:
     counts = {sensor: phase_pair(*pair) for sensor, pair in pairs.items()}
     phase_step(config, args)
     system_counts, system_batched = phase_system(seqs, power)
-    _, mono_k7, mono_problems = phase_mono(mono_seq, kidnap_seq, power)
+    mono_counts, mono_k7, mono_problems = phase_mono(mono_seq, kidnap_seq, power)
     loop_counts = phase_loop(loop_seq, kidnap_seq, loop_profs, loop_sim3, power)
     phase_step_timing(config, args, power)
     phase_pair_timing(*pairs["monocular"], x, power)
     for sensor in ("stereo", "rgbd"):
         phase_sensor_timing(*pairs[sensor], x, power)
     # Launches per call: K1-K6 and K8 on the monocular pair (their timed
-    # inputs), K7's band form on the stereo pair, K7 under a mask over the
-    # System's RGB-D sequence; the callers' lines of K6 and K7 under a mask
-    # with their launches with a batch axis in that sequence.
+    # inputs), K7's band form on the stereo pair, K7 under a caller's mask,
+    # under the flags and under the epipolar band over the System's RGB-D
+    # sequence, under the window over the monocular sweep; the callers'
+    # lines of K6 and K7 with their launches (with a batch axis) in those
+    # runs.
+    rgbd = system_counts["rgbd"]
     kernels = phase_kernel_timing(x, errs, dict(
         counts["monocular"],
         stereo_band_top2=counts["stereo"]["stereo_band_top2"],
-        masked_hamming_top2=system_counts["rgbd"]["masked_hamming_top2"]), {
-        "reference-keyframe match": (system_counts["rgbd"]["masked_hamming_top2"]
-                                     - system_batched["rgbd"]["masked_hamming_top2"]),
-        "triangulation, batch axis": system_batched["rgbd"]["masked_hamming_top2"],
+        masked_hamming_top2=rgbd["masked_hamming_top2"],
+        valid_hamming_top2=rgbd["valid_hamming_top2"],
+        epipolar_hamming_top2=rgbd["epipolar_hamming_top2"],
+        window_hamming_top2=mono_counts["window_hamming_top2"]), {
+        "reference-keyframe match": (rgbd["valid_hamming_top2"]
+                                     - system_batched["rgbd"]["valid_hamming_top2"]),
+        "triangulation, batch axis": system_batched["rgbd"]["epipolar_hamming_top2"],
         "fuse, batch axis": system_batched["rgbd"]["projection_hamming_top2"],
         "monocular initialization": mono_k7["initialization"],
         "relocalization, batch axis, shared columns": mono_k7["relocalization"],
         **loop_counts}, power)
-    log(f"K7 under a mask over the monocular sweep and the kidnap sequence, by caller: "
-        f"launches {mono_k7}, problems {mono_problems}")
+    log(f"K7 under a candidate test over the monocular sweep and the kidnap sequence, by "
+        f"caller: launches {mono_k7}, problems {mono_problems}")
 
     log(json.dumps({"kernels": kernels}))
     log(power)

@@ -21,13 +21,18 @@
 // both are valid, |y_l - y_r| <= 2 scale_l, octave_r is within octave_l
 // +- 1 and -2 <= x_l - x_r <= max_d (float32, max_d the float32 value
 // PyTorch compares with); one launch gives left -> right and right ->
-// left. Under a caller-supplied [M, N] bool mask (masked_hamming_top2)
-// it serves the dense-mask matchers: reference-keyframe tracking
-// (match_brute_force), monocular initialization (match_for_initialization)
-// and, with a leading batch axis, the mapper's triangulation matcher over
-// neighbour pairs (match_for_triangulation in fused_triangulation_jit,
-// the row descriptors shared) and relocalization over candidate keyframes
-// (match_brute_force_many, the column descriptors shared).
+// left. Under a candidate test (candidate_top2_kernel), one blocked kernel
+// with the test compiled in: T_MASK, a caller-supplied [M, N] bool mask
+// (masked_hamming_top2, the Pallas kernel's exact counterpart, no caller
+// on the main paths); T_FLAGS, row flag x column flag (valid_hamming_top2:
+// match_brute_force for reference-keyframe tracking, for relocalization
+// over candidate keyframes, the column table shared, and for loop
+// closing over its candidates, the row table shared); T_WINDOW, the flags
+// and |dx|, |dy| <= r (window_hamming_top2: match_for_initialization);
+// T_EPIPOLAR, the flags and ((l0 x + l1 y) + l2)^2 / den < thr
+// (epipolar_hamming_top2: the mapper's match_for_triangulation over B
+// neighbour pairs, the row table shared). So none of these callers builds
+// a [B, M, N] mask on the card.
 //
 // Semantics follow the Pallas kernels exactly, index fallbacks included.
 // Rows are reduced by the packed key (distance << COL_BITS) | column, so
@@ -90,32 +95,74 @@
 // per block (0.0104 ms) were slower, 16 rows per block level
 // (0.0061-0.0063 ms).
 //
-// Batches. Both K6 and K7 under a mask take a leading batch axis: the
-// grid's y index is the problem, whose rows, columns, mask and outputs sit
-// at its own offsets (the row descriptors may be shared by every
+// Batches. Both K6 and K7 under a candidate test take a leading batch
+// axis: the grid's y index is the problem, whose rows, columns and
+// outputs sit at its own offsets (any table may be shared by every
 // problem: the mapper's fuse pass projects one keyframe's points into B
-// target keyframes, and its triangulation matcher matches one keyframe's
-// features against B neighbours). One launch serves all B problems; a problem's
-// blocks run exactly the code of a launch of that problem alone, so each
-// result is bit-identical to it, and the single-problem launches are
-// batches of one. On an H100 80GB HBM3 at 700 W (chip_smoke.py, the
-// System's recorded calls) a batched K7 launch over 4-8 neighbour pairs of
-// [1000, 1000] masks takes ~0.009 ms, and a batched K6 launch over 4
-// targets of 1024 points against 1000 keypoints ~0.010 ms.
+// target keyframes, its triangulation matcher matches one keyframe's
+// features against B neighbours, relocalization B candidate keyframes
+// against one frame). One launch serves all B problems; a problem's blocks
+// run exactly the code of a launch of that problem alone, so each result
+// is bit-identical to it, and the single-problem launches are batches of
+// one. A batched K6 launch over 4 targets of 1024 points against 1000
+// keypoints takes ~0.010 ms (H100 80GB HBM3, 700 W, chip_smoke.py).
 //
-// K7 under a mask: one warp per row, 8 rows per block. The row's
-// descriptor lives in registers; lanes stride over the N columns, so the
-// row's mask bytes are read coalesced, and a column's 32 descriptor bytes
-// are read only when it is a candidate (__popc on the 8 XORed words). Each
-// lane keeps its two smallest keys; five shuffle rounds merge them across
-// the warp. Only the 4 x M results reach memory.
+// K7 under a candidate test. Unlike K6's, its validity product is a dense
+// popcount product: at 8 popcounts a pair on CUDA cores (16 a clock per
+// SM, 4.1 T/s measured) relocalization's [8, 2000, 1000] alone is ~30 us
+// of popcounts, and the test of the sparse callers (the epipolar band,
+// the window) costs more than the distance. So a block of 16 rows runs 8
+// warps on them, each on every eighth 8-column tile of the staged columns
+// (two tiles a trip): the tensor cores' 1-bit product (mma.sync
+// m16n8k256 .b1, AND + popcount, 10.3 P bit operations/s measured) gives
+// popc(a & b) for a 16 x 8 tile, and d = popc(a) + popc(b) - 2 popc(a & b)
+// with each descriptor's popcount taken once (the rows' from the A
+// fragment, the columns' when staged). The block stages only the columns
+// whose flag is set (every column under T_MASK), packed in shared memory
+// with their key base (pb << COL_BITS | column) and the test's values, a
+// chunk of MT_CHUNK columns at a time (any N < 2^23). A lane's four pairs a
+// tile (rows g, g + 8; columns 2t, 2t + 1) each get a key
+// (pa + pb - 2 popc) << COL_BITS | column, ORed with all ones where the
+// row's flag is clear or the test fails; the test runs for every pair
+// without a branch, in the mask's float32 operations, and the epipolar one
+// divides only within 2^-20 of the band's edge. The keys are merged by
+// the quad, then by the row's 8 warps through shared memory; the index
+// fallbacks are filled in after the merge, as K6's. A 16-row tile with no
+// flag set scans nothing, and a block none of whose rows has one stages
+// nothing. What bounds it: the per-pair epilogue (key, flags, test,
+// top-2 insert), ~10-25 instructions a pair, run by too few warps at the
+// callers' sizes (1000-2000 rows, 1-8 problems): latency more than
+// operations; the product itself is ~1% of the time.
+// On an H100 80GB HBM3 at 700 W (scripts/kernel_variants.py matching-k7m,
+// device-busy ms of each caller's recorded calls, median of 4 in turns;
+// the previous design, one warp a row under the caller's mask built
+// beforehand, in brackets):
+// reference keyframe 0.0050 (0.0150), initialization (3 calls) 0.0189
+// (0.0356), relocalization [8, 2000, 1000] 0.0131 (0.0558), BoW
+// relocalization 0.0085 (0.0330), loop candidates 0.0050 (0.0150);
+// triangulation (4 calls) 0.0286 of kernel (0.0387), plus its lines'
+// PyTorch operations. Slower: popcounts on CUDA cores (design (a), 8 a
+// pair; relocalization 0.0246, reference keyframe 0.0083); 4 warps on the
+// 16 rows (0.0072, 0.0281 initialization) and 16 (relocalization 0.0201:
+// a block of 512 threads leaves too few blocks resident); 32, 64 and 128
+// rows a block (too few blocks at 1000-2000 rows: 0.0067-0.0144 reference
+// keyframe) and two 16-row tiles a warp (0.0207); 512-column chunks
+// (0.0059); one tile a trip (triangulation 0.0811 against 0.0799 a call);
+// the test behind a branch, run only where the key would enter the top-2
+// (0.0848); B fragments read from L1/L2 in place of staged (0.0053);
+// 2048-column chunks tie (initialization 0.0180, one pass over its 2000
+// columns, but twice the shared memory). K7 under a caller's mask reads a
+// mask byte per pair, four from each of eight rows a tile, and is slower
+// than the previous design on the triangulation masks (0.0803 against
+// 0.0390);
+// it has no caller on the main paths. ptxas takes wgmma's 1-bit form
+// (m64nNk256 .b1 .and.popc) for sm_90a: a later step.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int WARPS = 8;                  // K7's rows per block
 constexpr int ROWS = 8;                   // K6's rows per block
 constexpr int WPR = 2;                    // K6's warps per row
 constexpr int THREADS = ROWS * WPR * 32;  // K6's block
@@ -125,6 +172,13 @@ constexpr int BAND_ROWS = 8;              // K7 band's rows per block
 constexpr int BAND_WPR = 2;               // K7 band's warps per row
 constexpr int BAND_THREADS = BAND_ROWS * BAND_WPR * 32;
 constexpr int BAND_CHUNK = 2048;          // K7 band's columns staged per pass
+constexpr int MT_WARPS = 8;               // K7 under a test: warps per block,
+constexpr int MT_WPR = 8;                 // warps sharing 16 x MT_RT rows,
+constexpr int MT_RT = 1;                  // 16-row tiles per warp
+constexpr int MT_THREADS = MT_WARPS * 32;
+constexpr int MT_ROWS = MT_WARPS / MT_WPR * 16 * MT_RT;
+constexpr int MT_CHUNK = 1024;            // its columns staged per pass
+constexpr int MT_ROUND = 4 * MT_THREADS;  // its columns staged per round of loads
 constexpr int WORDS = 8;                  // 256-bit descriptor
 constexpr int COL_BITS = 23;
 constexpr unsigned COL_MASK = (1u << COL_BITS) - 1u;
@@ -466,43 +520,313 @@ __global__ void __launch_bounds__(BAND_THREADS) stereo_band_top2_kernel(
   }
 }
 
-__global__ void masked_top2_kernel(
-    const int* __restrict__ desc_a, long long a_bstride, int m,
-    const int* __restrict__ desc_b, long long b_bstride, int n,
-    const uint8_t* __restrict__ mask, int* __restrict__ out) {
-  // Problem blockIdx.y of a batch: desc_a's rows a_bstride and desc_b's
-  // columns b_bstride ints apart (0: shared by the problems), under
-  // [B, M, N] -> out [B, 4, M].
-  {
-    const size_t b = blockIdx.y;
-    desc_a += b * a_bstride;
-    desc_b += b * b_bstride;
-    mask += b * m * (size_t)n;
-    out += b * 4 * (size_t)m;
-  }
-  const int warp = threadIdx.x / 32;
+// ---------------------------------------------------------------------------
+// K7 under a candidate test: one blocked kernel, the test compiled in.
+// ---------------------------------------------------------------------------
+
+enum Test { T_MASK = 0, T_FLAGS = 1, T_WINDOW = 2, T_EPIPOLAR = 3 };
+
+// Which tables carry a batch axis (bit set) or are shared by the
+// problems (clear). The mask always has one.
+enum Batched : unsigned {
+  B_DESC_A = 1, B_ROW_OK = 2, B_ROW_V = 4, B_DEN = 8,
+  B_DESC_B = 16, B_COL_OK = 32, B_COL_XY = 64, B_THR = 128,
+};
+
+struct TestArgs {
+  const unsigned* desc_a;   // [M, 8]
+  const uint4* desc_b;      // [N, 8] as two 16-byte words a column
+  const uint8_t* mask;      // T_MASK: [M, N]
+  const uint8_t* row_ok;    // T_FLAGS, T_WINDOW, T_EPIPOLAR: [M]
+  const uint8_t* col_ok;    // [N]
+  const float* row_v;       // T_WINDOW: [M, 2] (x, y); T_EPIPOLAR: [M, 3] line
+  const float* den;         // T_EPIPOLAR: [M] clamped l0^2 + l1^2
+  const float2* col_xy;     // T_WINDOW, T_EPIPOLAR: [N]
+  const float* thr;         // T_EPIPOLAR: [N] 3.84 sigma2
+  float r;                  // T_WINDOW: the window's half size
+  int m, n;
+  unsigned batched;         // Batched bits
+  int* out;                 // [B, 4, M]
+};
+
+// Problem b's tables.
+__device__ __forceinline__ TestArgs problem(TestArgs p, size_t b) {
+  const size_t m = p.m, n = p.n;
+  auto off = [&](unsigned bit, size_t per) { return (p.batched & bit) ? b * per : 0; };
+  p.desc_a += off(B_DESC_A, 8 * m);
+  p.desc_b += off(B_DESC_B, 2 * n);
+  if (p.mask) p.mask += b * m * n;
+  if (p.row_ok) p.row_ok += off(B_ROW_OK, m);
+  if (p.col_ok) p.col_ok += off(B_COL_OK, n);
+  if (p.row_v) p.row_v += off(B_ROW_V, (p.den ? 3 : 2) * m);
+  if (p.den) p.den += off(B_DEN, m);
+  if (p.col_xy) p.col_xy += off(B_COL_XY, n);
+  if (p.thr) p.thr += off(B_THR, n);
+  p.out += b * 4 * m;
+  return p;
+}
+
+// c[2h + e] = popcount(row_h & column_e) over the 256 bits, for a 16-row
+// tile's rows g + 8h and an 8-column tile's columns 2t + e (g = lane / 4,
+// t = lane % 4): the tensor cores' 1-bit product. a: the rows' A fragment
+// (words t and t + 4 of rows g and g + 8), b0, b1: words t and t + 4 of
+// column g.
+__device__ __forceinline__ void and_popc(const unsigned (&a)[4], unsigned b0, unsigned b1,
+                                         int (&c)[4]) {
+  asm("mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};"
+      : "=r"(c[0]), "=r"(c[1]), "=r"(c[2]), "=r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "r"(0), "r"(0), "r"(0), "r"(0));
+}
+
+// The candidate columns of [c0, c0 + cw) of problem p (their flag set;
+// every column under T_MASK) into shared memory, packed in slots 0, 1, ...
+// in no fixed order (a warp's in column order, warps by an atomic count),
+// then empty slots up to a multiple of 8: each column's descriptor as four
+// (word t, word t + 4) pairs (a warp reads an 8-slot tile's B fragments as
+// 256 consecutive bytes), its key base (popcount << COL_BITS | column:
+// a key carries its own column, so the order of the slots changes no
+// result) and its mask (0, all ones for an empty slot), and the test's
+// coordinates and threshold. Every load of a round is issued before its
+// first store. -> the count of slots (a multiple of 8).
+template <int T>
+__device__ __forceinline__ int stage_tested_columns(
+    const TestArgs& p, int c0, int cw, uint2* sdesc, uint2* scol, float2* sxy, float* sthr,
+    int* count) {
+  constexpr int CPT = MT_ROUND / MT_THREADS;
   const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * WARPS + warp;
-  if (row >= m) return;
-
-  unsigned a[WORDS];
+  if (threadIdx.x == 0) *count = 0;
+  __syncthreads();
+  for (int base = 0; base < cw; base += MT_ROUND) {
+    uint4 w0[CPT], w1[CPT];
+    bool ok[CPT];
+    float2 xy[CPT];
+    float th[CPT];
 #pragma unroll
-  for (int w = 0; w < WORDS; ++w) a[w] = (unsigned)__ldg(desc_a + (size_t)row * WORDS + w);
-  const uint8_t* mrow = mask + (size_t)row * n;
-
-  unsigned k1 = NO_KEY, k2 = NO_KEY;
-  for (int j = lane; j < n; j += 32) {
-    unsigned d = EMPTY;
-    if (__ldg(mrow + j) != 0) {
-      d = 0;
-      const int* b = desc_b + (size_t)j * WORDS;
-#pragma unroll
-      for (int w = 0; w < WORDS; ++w) d += __popc(a[w] ^ (unsigned)__ldg(b + w));
+    for (int k = 0; k < CPT; ++k) {
+      const int j = base + threadIdx.x + k * MT_THREADS;
+      ok[k] = j < cw && (T == T_MASK || __ldg(p.col_ok + c0 + j) != 0);
+      if (ok[k]) {
+        w0[k] = __ldg(p.desc_b + 2 * (size_t)(c0 + j));
+        w1[k] = __ldg(p.desc_b + 2 * (size_t)(c0 + j) + 1);
+        if (T == T_WINDOW || T == T_EPIPOLAR) xy[k] = __ldg(p.col_xy + c0 + j);
+        if (T == T_EPIPOLAR) th[k] = __ldg(p.thr + c0 + j);
+      }
     }
-    insert((d << COL_BITS) | (unsigned)j, k1, k2);
+#pragma unroll
+    for (int k = 0; k < CPT; ++k) {
+      const unsigned vote = __ballot_sync(0xffffffffu, ok[k]);
+      int slot = 0;
+      if (lane == 0 && vote) slot = atomicAdd(count, __popc(vote));
+      slot = __shfl_sync(0xffffffffu, slot, 0) + __popc(vote & ((1u << lane) - 1u));
+      if (!ok[k]) continue;
+      const unsigned pb = __popc(w0[k].x) + __popc(w0[k].y) + __popc(w0[k].z) +
+                          __popc(w0[k].w) + __popc(w1[k].x) + __popc(w1[k].y) +
+                          __popc(w1[k].z) + __popc(w1[k].w);
+      uint4* d = reinterpret_cast<uint4*>(sdesc + 4 * slot);
+      d[0] = make_uint4(w0[k].x, w1[k].x, w0[k].y, w1[k].y);
+      d[1] = make_uint4(w0[k].z, w1[k].z, w0[k].w, w1[k].w);
+      const int c = c0 + base + threadIdx.x + k * MT_THREADS;
+      scol[slot] = make_uint2((pb << COL_BITS) | (unsigned)c, 0u);
+      if (T == T_WINDOW || T == T_EPIPOLAR) sxy[slot] = xy[k];
+      if (T == T_EPIPOLAR) sthr[slot] = th[k];
+    }
   }
-  warp_merge(k1, k2);
-  if (lane == 0) store_top2(k1, k2, row, m, n, out);
+  __syncthreads();
+  const int n = *count, padded = (n + 7) / 8 * 8;
+  if ((int)threadIdx.x < padded - n) {
+    uint4* d = reinterpret_cast<uint4*>(sdesc + 4 * (n + threadIdx.x));
+    d[0] = d[1] = make_uint4(0u, 0u, 0u, 0u);
+    scol[n + threadIdx.x] = make_uint2(0u, NO_KEY);
+  }
+  return padded;
+}
+
+// The test of a pair beyond both flags (the row's values v, the column's
+// coordinates xy and threshold thr), in the float32 operations and order
+// of the mask it replaces, without a branch -> 1 (a candidate), 0 (not)
+// or -1 (exact_test decides: the mask byte, or the division near the
+// band's edge; sq: the epipolar distance's numerator).
+template <int T>
+__device__ __forceinline__ int pair_verdict(const float (&v)[4], float2 xy, float thr,
+                                            float r, float& sq) {
+  if (T == T_WINDOW)
+    return fabsf(__fsub_rn(v[0], xy.x)) <= r && fabsf(__fsub_rn(v[1], xy.y)) <= r;
+  if (T == T_EPIPOLAR) {
+    const float num = __fadd_rn(__fadd_rn(__fmul_rn(v[0], xy.x), __fmul_rn(v[1], xy.y)), v[2]);
+    sq = __fmul_rn(num, num);
+    // sq / den < thr without the division where sq lies clear of thr den:
+    // each rounding moves a side by at most 2^-24, well inside the 2^-20
+    // margins, so fl(sq / den) < thr holds below the first and fails above
+    // the second. A td outside [1e-30, FLT_MAX] (subnormal, inf or NaN)
+    // takes the division.
+    const float td = __fmul_rn(thr, v[3]);
+    if (!(td >= 1e-30f && td <= 3.4028235e38f)) return -1;
+    if (sq < __fmul_rn(td, 0.99999905f)) return 1;    // 1 - 2^-20
+    return sq > __fmul_rn(td, 1.00000095f) ? 0 : -1;  // 1 + 2^-20
+  }
+  return T == T_MASK ? -1 : 1;
+}
+
+// The exact test of a pair (row, column c) whose verdict was -1.
+template <int T>
+__device__ __forceinline__ bool exact_test(const TestArgs& p, int row, int c, float sq,
+                                           float den, float thr) {
+  if (T == T_MASK) return __ldg(p.mask + (size_t)row * p.n + c) != 0;
+  return __fdiv_rn(sq, den) < thr;
+}
+
+// A block of MT_ROWS rows: MT_WARPS / MT_WPR groups of MT_WPR warps, a
+// group on 16 x MT_RT rows, its warps on alternate 8-column tiles. Lane
+// (g, t) keeps the two smallest candidate keys of rows g and g + 8 of each
+// of its warp's 16-row tiles, over columns 2t and 2t + 1 of each tile.
+template <int T>
+__global__ void __launch_bounds__(MT_THREADS) candidate_top2_kernel(TestArgs p, int cap) {
+  p = problem(p, blockIdx.y);
+  extern __shared__ uint4 smem[];
+  uint2* sdesc = reinterpret_cast<uint2*>(smem);
+  uint2* scol = sdesc + 4 * cap;
+  float2* sxy = reinterpret_cast<float2*>(scol + cap);
+  float* sthr = reinterpret_cast<float*>(sxy + cap);
+  // Each warp's keys of its rows, for the merge of a group's warps; the
+  // count of staged columns.
+  __shared__ uint2 parts[MT_WARPS][16 * MT_RT];
+  __shared__ int count;
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int part = warp % MT_WPR;
+  const int r0 = blockIdx.x * MT_ROWS + warp / MT_WPR * 16 * MT_RT;
+  const int m = p.m, n = p.n;
+
+  unsigned a[MT_RT][4];
+  unsigned row_base[2 * MT_RT], row_mask[2 * MT_RT], k1[2 * MT_RT], k2[2 * MT_RT];
+  float v[2 * MT_RT][4];
+  bool live[MT_RT];
+  bool any = false;
+#pragma unroll
+  for (int q = 0; q < 2 * MT_RT; ++q) {
+    const int row = r0 + 16 * (q / 2) + g + 8 * (q % 2);
+    const bool in = row < m;
+    const bool ok = in && (T == T_MASK || __ldg(p.row_ok + row) != 0);
+    const unsigned lo = in ? __ldg(p.desc_a + (size_t)row * WORDS + t) : 0u;
+    const unsigned hi = in ? __ldg(p.desc_a + (size_t)row * WORDS + t + 4) : 0u;
+    a[q / 2][q % 2] = lo;
+    a[q / 2][2 + q % 2] = hi;
+    unsigned pa = __popc(lo) + __popc(hi);
+    pa += __shfl_xor_sync(0xffffffffu, pa, 1);
+    pa += __shfl_xor_sync(0xffffffffu, pa, 2);
+    row_base[q] = pa << COL_BITS;
+    row_mask[q] = ok ? 0u : NO_KEY;
+    k1[q] = k2[q] = NO_KEY;
+    v[q][0] = v[q][1] = v[q][2] = v[q][3] = 0.f;
+    if (ok && T == T_WINDOW) {
+      v[q][0] = __ldg(p.row_v + 2 * (size_t)row);
+      v[q][1] = __ldg(p.row_v + 2 * (size_t)row + 1);
+    }
+    if (ok && T == T_EPIPOLAR) {
+#pragma unroll
+      for (int e = 0; e < 3; ++e) v[q][e] = __ldg(p.row_v + 3 * (size_t)row + e);
+      v[q][3] = __ldg(p.den + row);
+    }
+    any |= ok;
+  }
+#pragma unroll
+  for (int i = 0; i < MT_RT; ++i) {
+    live[i] = __any_sync(0xffffffffu, row_mask[2 * i] == 0u || row_mask[2 * i + 1] == 0u);
+  }
+
+  if (__syncthreads_or(any)) {
+    for (int c0 = 0; c0 < n; c0 += cap) {
+      if (c0) __syncthreads();   // every warp is done with the last chunk
+      const int slots = stage_tested_columns<T>(p, c0, min(cap, n - c0), sdesc, scol, sxy,
+                                                sthr, &count);
+      __syncthreads();
+#pragma unroll 2
+      for (int jt = part; jt < slots / 8; jt += MT_WPR) {
+        const uint2 bw = sdesc[32 * jt + lane];
+        const uint4 cb = *reinterpret_cast<const uint4*>(scol + 8 * jt + 2 * t);
+        // The test's values of the lane's two columns (2t, 2t + 1).
+        float4 cxy = make_float4(0.f, 0.f, 0.f, 0.f);
+        float2 cthr = make_float2(0.f, 0.f);
+        if (T == T_WINDOW || T == T_EPIPOLAR) {
+          cxy = *reinterpret_cast<const float4*>(sxy + 8 * jt + 2 * t);
+        }
+        if (T == T_EPIPOLAR) cthr = *reinterpret_cast<const float2*>(sthr + 8 * jt + 2 * t);
+#pragma unroll
+        for (int i = 0; i < MT_RT; ++i) {
+          if (!live[i]) continue;
+          int c[4];
+          and_popc(a[i], bw.x, bw.y, c);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int q = 2 * i + h;
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float thr = e ? cthr.y : cthr.x;
+              float sq = 0.f;
+              const int verdict = pair_verdict<T>(
+                  v[q], e ? make_float2(cxy.z, cxy.w) : make_float2(cxy.x, cxy.y), thr, p.r, sq);
+              // (pa + pb - 2 popc(a & b)) << COL_BITS | column, or all ones
+              // where a flag is clear or the test fails.
+              const unsigned key = ((e ? cb.z : cb.x) + row_base[q] -
+                                    ((unsigned)c[2 * h + e] << (COL_BITS + 1))) |
+                                   (e ? cb.w : cb.y) | row_mask[q] | (verdict ? 0u : NO_KEY);
+              if (key < k2[q] &&
+                  (verdict > 0 || exact_test<T>(p, r0 + 16 * i + g + 8 * h,
+                                                key & COL_MASK, sq, v[q][3], thr))) {
+                insert(key, k1[q], k2[q]);
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+
+  // Merge the quad's keys (its four lanes hold the same rows), then the
+  // group's warps into its first.
+#pragma unroll
+  for (int q = 0; q < 2 * MT_RT; ++q) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      const unsigned o1 = __shfl_xor_sync(0xffffffffu, k1[q], off);
+      const unsigned o2 = __shfl_xor_sync(0xffffffffu, k2[q], off);
+      k2[q] = min(max(k1[q], o1), min(k2[q], o2));
+      k1[q] = min(k1[q], o1);
+    }
+  }
+  if constexpr (MT_WPR > 1) {
+    if (t == 0) {
+#pragma unroll
+      for (int q = 0; q < 2 * MT_RT; ++q) {
+        parts[warp][16 * (q / 2) + g + 8 * (q % 2)] = make_uint2(k1[q], k2[q]);
+      }
+    }
+    __syncthreads();
+    if (part != 0) return;
+#pragma unroll
+    for (int w = 1; w < MT_WPR; ++w) {
+#pragma unroll
+      for (int q = 0; q < 2 * MT_RT; ++q) {
+        const uint2 o = parts[warp + w][16 * (q / 2) + g + 8 * (q % 2)];
+        insert(o.x, k1[q], k2[q]);
+        insert(o.y, k1[q], k2[q]);
+      }
+    }
+  }
+  if (t != 0) return;
+#pragma unroll
+  for (int q = 0; q < 2 * MT_RT; ++q) {
+    const int row = r0 + 16 * (q / 2) + g + 8 * (q % 2);
+    if (row >= m) continue;
+    // Fewer than two candidates: the lowest non-candidate columns, as the
+    // Pallas kernel's reduction over every column gives them.
+    if (k1[q] == NO_KEY) k1[q] = EMPTY << COL_BITS;
+    if (k2[q] == NO_KEY) k2[q] = (EMPTY << COL_BITS) | ((k1[q] & COL_MASK) == 0u ? 1u : 0u);
+    store_top2(k1[q], k2[q], row, m, n, p.out);
+  }
 }
 
 }  // namespace
@@ -558,15 +882,40 @@ extern "C" int stereo_band_top2_launch(
   return (int)cudaGetLastError();
 }
 
-// batch problems: desc_a [m, 8] per problem, a_bstride ints apart, desc_b
-// [n, 8] per problem, b_bstride ints apart (0: shared), mask [batch, m, n]
-// -> out [batch, 4, m].
-extern "C" int masked_top2_launch(
-    const void* desc_a, long long a_bstride, int m, const void* desc_b,
-    long long b_bstride, int n, const void* mask, int batch, void* out, void* stream) {
-  const dim3 grid((m + WARPS - 1) / WARPS, batch);
-  masked_top2_kernel<<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
-      (const int*)desc_a, a_bstride, m, (const int*)desc_b, b_bstride, n,
-      (const uint8_t*)mask, (int*)out);
+// test: a Test. The tables are TestArgs' (null where the test reads none),
+// each [m, ...] or [n, ...] per problem, with a batch axis where `batched`
+// says so; desc_b must be 16-byte and col_xy 8-byte aligned. -> out
+// [batch, 4, m].
+extern "C" int candidate_top2_launch(
+    int test, const void* desc_a, const void* desc_b, const void* mask, const void* row_ok,
+    const void* col_ok, const void* row_v, const void* den, const void* col_xy,
+    const void* thr, float r, int m, int n, int batch, unsigned batched, void* out,
+    void* stream) {
+  void (*kernel)(TestArgs, int);
+  switch (test) {
+    case T_MASK: kernel = candidate_top2_kernel<T_MASK>; break;
+    case T_FLAGS: kernel = candidate_top2_kernel<T_FLAGS>; break;
+    case T_WINDOW: kernel = candidate_top2_kernel<T_WINDOW>; break;
+    case T_EPIPOLAR: kernel = candidate_top2_kernel<T_EPIPOLAR>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  const TestArgs p{(const unsigned*)desc_a, (const uint4*)desc_b, (const uint8_t*)mask,
+                   (const uint8_t*)row_ok, (const uint8_t*)col_ok, (const float*)row_v,
+                   (const float*)den, (const float2*)col_xy, (const float*)thr, r, m, n,
+                   batched, (int*)out};
+  // Per staged column: its descriptor, key base and mask (40 bytes), the
+  // coordinates (8) and the threshold (4) where the test reads them.
+  const int cap = min((n + 7) / 8 * 8, MT_CHUNK);
+  const size_t smem = (size_t)cap * (5 * sizeof(uint2) +
+                                     (test >= T_WINDOW ? sizeof(float2) : 0) +
+                                     (test == T_EPIPOLAR ? sizeof(float) : 0));
+  // Past 48 KB with the merge's static parts, the block needs the opt-in.
+  if (smem + MT_WARPS * 16 * MT_RT * sizeof(uint2) + sizeof(int) > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((m + MT_ROWS - 1) / MT_ROWS, batch);
+  kernel<<<grid, MT_THREADS, smem, (cudaStream_t)stream>>>(p, cap);
   return (int)cudaGetLastError();
 }

@@ -25,6 +25,10 @@
 - `band_problem`, `BAND_CASES`, `BAND_MAX_D`, `BAND_SCALES`: K7 stereo-band
   problems from a seed (numpy), one of them built on the band test's exact
   edges, for the same two uses.
+- `candidate_problem`, `CANDIDATE_CASES`, `CANDIDATE_CARD_CASES`: K7
+  problems under a candidate test (validity flags, a window, the epipolar
+  band) from a seed, batched with either side shared and with the tests'
+  edges, for the same two uses.
 - `patch_edge_yx`: keypoint centres at and past every edge of an image,
   for the patch kernels (K4 and the fused K4 + K5), for the same two uses.
 - `map_state_to_numpy` / `map_state_from_numpy`, `frame_to_numpy` /
@@ -445,6 +449,143 @@ def patch_edge_yx(h, w):
     yx += [(y, x) for y in (0, h - 1) for x in (0, w - 1)]
     yx += [(y, x) for y in (-1, h) for x in (-1, w)]
     return np.asarray(yx, np.int32)
+
+
+# K7 under a candidate test (valid_hamming_top2, window_hamming_top2,
+# epipolar_hamming_top2): a case per test, one of each batched with the row
+# tables and one with the column tables shared, one with ties, one with
+# the edges below; and a case past one shared-memory chunk of the kernel
+# (1024 columns) for the card (the CPU tests' Pallas reference takes at
+# most 4096 columns).
+CANDIDATE_TESTS = ("valid", "window", "epipolar")
+CANDIDATE_CASES = {
+    **{f"{test}_{name}": dict(test=test, **kw) for test in CANDIDATE_TESTS for name, kw in {
+        "single": dict(seed=31, m=150, n=230),
+        "edges": dict(seed=32, m=40, n=90, edges=True),
+        "ties": dict(seed=33, m=96, n=140, ties=True),
+        "B4_rows_shared": dict(seed=34, m=70, n=110, b=4, shared="rows", edges=True),
+        "B4_cols_shared": dict(seed=35, m=70, n=110, b=4, shared="cols", edges=True),
+        "B3": dict(seed=36, m=50, n=60, b=3, ties=True),
+    }.items()},
+}
+CANDIDATE_CARD_CASES = {
+    f"{test}_{name}": dict(test=test, **kw) for test in CANDIDATE_TESTS for name, kw in {
+        "N5000": dict(seed=37, m=300, n=5000),
+        "B8_rows_shared": dict(seed=38, m=2000, n=1000, b=8, shared="rows", edges=True),
+        "B8_cols_shared": dict(seed=39, m=2000, n=1000, b=8, shared="cols", edges=True),
+    }.items()}
+CANDIDATE_RADIUS = 100.0
+
+
+def _fundamental(rng):
+    """A float64 F12 of two views 0.1-0.3 m apart, a few degrees turned,
+    through K = (500, 500, 320, 240): image-1 points to image-2 lines."""
+    w = rng.normal(0, 0.05, 3)
+    th = np.linalg.norm(w)
+    k = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]]) / th
+    R = np.eye(3) + np.sin(th) * k + (1 - np.cos(th)) * k @ k
+    t = rng.normal(0, 1, 3)
+    t *= rng.uniform(0.1, 0.3) / np.linalg.norm(t)
+    tx = np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]])
+    K = np.array([[500.0, 0, 320], [0, 500, 240], [0, 0, 1]])
+    Ki = np.linalg.inv(K)
+    return Ki.T @ tx @ R @ Ki
+
+
+def candidate_problem(test, seed, m, n, b=0, shared="", edges=False, ties=False):
+    """A K7 problem under `test` ("valid", "window" or "epipolar") in numpy,
+    in its wrapper's argument order: (desc_a, desc_b, row_ok, col_ok) and
+    for "window" (xy_a, xy_b, CANDIDATE_RADIUS), for "epipolar" (xy_a, xy_b,
+    F12, sigma2_b); descriptors uint32, pixels float32 in 640 x 480, NaN
+    wherever a flag is clear. b > 0: B problems, every table [B, ...]
+    except the row side's (shared="rows") or the column side's
+    (shared="cols"), which the problems share; F12 is per problem. edges
+    (m >= 8, n >= 16, problem 0's tables, or the shared ones): row 0's flag
+    clear; row 1 with its flag set and no candidate (far away for "window",
+    NaN coordinates for "epipolar"); "window": row 2 with columns at dx and
+    dy of exactly the radius and one float32 step either side, rows 3 and
+    4 with one candidate each (column 7, column 0); "epipolar": columns 0-6
+    at the distance of row 2's band edge times 1 + k 1e-7 (k = -3..3),
+    columns 7 and 0 inside the bands of rows 3 and 4, and with b >= 4:
+    problem 1's F12 = 0 (every line degenerate: l0^2 + l1^2 clamped, every
+    pair a candidate), problem 2's F12 x 1e-8 (clamped, some pairs) and,
+    unless the columns are shared, problem 3's columns at 1e19-1e25 px
+    (num^2 overflows); "valid": problem 1 with column 0 its only valid
+    one, problem 2 with column n - 1, problem 3 with none (a shared or
+    single column table: column 0 its only valid one)."""
+    rng = np.random.default_rng(seed)
+    bb = max(b, 1)
+    rows_b = 1 if shared == "rows" else bb
+    cols_b = 1 if shared == "cols" else bb
+    da = rng.integers(0, 2 ** 32, size=(rows_b, m, 8), dtype=np.uint32)
+    db = rng.integers(0, 2 ** 32, size=(cols_b, n, 8), dtype=np.uint32)
+    if ties:
+        # Few distinct descriptors: many equal distances per row.
+        da = da[:, rng.integers(0, 3, m)]
+        db = da[:1, rng.integers(0, 3, n)].repeat(cols_b, 0)
+    row_ok = rng.random((rows_b, m)) < 0.8
+    col_ok = rng.random((cols_b, n)) < 0.8
+    xy_a = np.stack([rng.uniform(0, 640, (rows_b, m)), rng.uniform(0, 480, (rows_b, m))], -1)
+    xy_b = np.stack([rng.uniform(0, 640, (cols_b, n)), rng.uniform(0, 480, (cols_b, n))], -1)
+    F = np.stack([_fundamental(rng) for _ in range(bb)])
+    octave = rng.integers(0, 8, (cols_b, n))
+    sigma2 = (np.float32(1.2) ** (2 * octave)).astype(np.float32)
+    f32 = np.float32
+    if edges:
+        row_ok[0, :5] = [False, True, True, True, True]
+        col_ok[0, :8] = True
+        xy_a[0, 1] = (-9000.0, -9000.0) if test == "window" else (np.nan, np.nan)
+        if test == "window":
+            r = f32(CANDIDATE_RADIUS)
+            x0, y0 = f32(300), f32(200)
+            xy_a[0, 2] = (x0, y0)
+            up, down = (lambda v: np.nextafter(f32(v), f32(np.inf))), \
+                (lambda v: np.nextafter(f32(v), f32(-np.inf)))
+            for j, (x, y) in enumerate([(x0 + r, y0), (up(x0 + r), y0), (down(x0 + r), y0),
+                                        (x0, y0 - r), (x0, up(y0 - r)), (x0, down(y0 - r))]):
+                xy_b[0, 1 + j] = (x, y)
+            xy_a[0, 3], xy_b[0, 7] = (-5000.0, -5000.0), (-4950.0, -5040.0)
+            xy_a[0, 4], xy_b[0, 0] = (5000.0, 5000.0), (5000.0, 5000.0)
+        if test == "epipolar":
+            F0 = F[0].astype(f32).astype(np.float64)
+            for row, cols in ((2, range(7)), (3, (7,)), (4, (0,))):
+                xa = xy_a[0, row].astype(f32).astype(np.float64)
+                line = F0 @ np.array([xa[0], xa[1], 1.0])
+                nrm = np.hypot(line[0], line[1])
+                foot = -line[2] * line[:2] / nrm ** 2 + np.array([-line[1], line[0]]) / nrm \
+                    * rng.uniform(-200, 200)
+                for k, j in enumerate(cols):
+                    dist = np.sqrt(3.84 * float(sigma2[0, j])) * (
+                        1 + (k - 3) * 1e-7 if row == 2 else rng.uniform(0, 0.5))
+                    xy_b[0, j] = foot + dist * line[:2] / nrm
+            if b >= 4:
+                F[1] = 0.0
+                F[2] *= 1e-8
+            if cols_b >= 4:
+                big = rng.uniform(19, 25, (n, 2))
+                xy_b[3] = np.where(rng.random((n, 1)) < 0.5, 10 ** big, -(10 ** big))
+        if test == "valid" and cols_b >= 4:
+            col_ok[1] = np.arange(n) == 0
+            col_ok[2] = np.arange(n) == n - 1
+            col_ok[3] = False
+        elif test == "valid":
+            col_ok[0] = np.arange(n) == 0
+    xy_a = np.where(row_ok[..., None], xy_a, np.nan).astype(f32)
+    xy_b = np.where(col_ok[..., None], xy_b, np.nan).astype(f32)
+    sigma2 = sigma2.astype(f32)
+    F = F.astype(f32)
+
+    def side(a, nb):
+        return a[0] if b == 0 or nb == 1 and b > 1 else a
+
+    row_tabs = [side(t, rows_b) for t in (da, row_ok, xy_a)]
+    col_tabs = [side(t, cols_b) for t in (db, col_ok, xy_b, sigma2)]
+    out = (row_tabs[0], col_tabs[0], row_tabs[1], col_tabs[1])
+    if test == "window":
+        return out + (row_tabs[2], col_tabs[2], CANDIDATE_RADIUS)
+    if test == "epipolar":
+        return out + (row_tabs[2], col_tabs[2], F[0] if b == 0 else F, col_tabs[3])
+    return out
 
 
 # ---------------------------------------------------------------------------

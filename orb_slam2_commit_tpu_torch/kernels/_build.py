@@ -91,9 +91,10 @@ SIGNATURES = {
             _c_void_p, ctypes.c_longlong, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
             _c_void_p, _c_void_p, _c_int, _c_void_p, _c_void_p, _c_void_p,
             _c_void_p, _c_int, _c_int, _c_void_p, _c_void_p),
-        "masked_top2_launch": (
-            _c_void_p, ctypes.c_longlong, _c_int, _c_void_p, ctypes.c_longlong, _c_int,
-            _c_void_p, _c_int, _c_void_p, _c_void_p),
+        "candidate_top2_launch": (
+            _c_int, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+            _c_void_p, _c_void_p, _c_void_p, _c_float, _c_int, _c_int, _c_int,
+            ctypes.c_uint, _c_void_p, _c_void_p),
         "stereo_band_top2_launch": (
             _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int,
             _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_float,
@@ -111,7 +112,8 @@ launches: Dict[str, int] = {
     "level_preprocess": 0, "combine_nms": 0, "cell_topk_map": 0, "cell_topk": 0,
     "describe_patches": 0, "extract_patches": 0, "corner_subpix": 0,
     "projection_hamming_top2": 0,
-    "stereo_band_top2": 0, "masked_hamming_top2": 0, "pose_lm": 0,
+    "stereo_band_top2": 0, "masked_hamming_top2": 0, "valid_hamming_top2": 0,
+    "window_hamming_top2": 0, "epipolar_hamming_top2": 0, "pose_lm": 0,
 }
 
 _libraries: Dict[str, ctypes.CDLL] = {}

@@ -6,15 +6,24 @@ ops/pallas_matching.py; kernels in csrc/matching.cu):
 - K7 stereo_band_top2: top-2 under the stereo matcher's candidate band
   (ops/stereo.py), left -> right and right -> left in one launch that
   tests the band itself;
-- K7 masked_hamming_top2: top-2 under a caller-supplied [M, N] candidate
-  mask (reference-keyframe tracking's match_brute_force, monocular
-  initialization's match_for_initialization).
+- K7 under a candidate test, one kernel with the test compiled in:
+  - masked_hamming_top2: a caller-supplied [M, N] candidate mask, the
+    exact counterpart of the Pallas kernel (no caller on the main paths);
+  - valid_hamming_top2: row flags x column flags (match_brute_force:
+    reference-keyframe tracking, relocalization over candidate keyframes,
+    loop closing over its candidates);
+  - window_hamming_top2: flags and a square window (monocular
+    initialization's match_for_initialization);
+  - epipolar_hamming_top2: flags and the epipolar band (the mapper's
+    match_for_triangulation).
+  The last three build no [M, N] mask on the card; each plain version
+  builds its caller's mask and takes masked_hamming_top2's.
 
-K6 and K7 under a mask also take a leading batch axis: one launch serves
+K6 and K7 under a test also take a leading batch axis: one launch serves
 B problems (the mapper's fuse pass into B target keyframes, its
-triangulation matcher over B neighbour pairs, relocalization's matcher
-over B candidate keyframes) and counts as one launch; a single problem is
-a batch of one.
+triangulation matcher over B neighbour pairs, relocalization's and loop
+closing's matchers over B candidate keyframes) and counts as one launch;
+a single problem is a batch of one.
 
 On a CUDA tensor a wrapper launches its kernel; on a CPU tensor it runs
 the plain version. Both give the same four outputs, the Pallas kernels'
@@ -30,8 +39,13 @@ import torch
 from orb_slam2_commit_tpu_torch.kernels import _build
 from orb_slam2_commit_tpu_torch.ops import matching
 from orb_slam2_commit_tpu_torch.ops.matching import BIG_DIST
+from orb_slam2_commit_tpu_torch.utils.precision import full_float32
 
 COL_BITS = 23     # the kernel's packed key holds the column in 23 bits
+# K7's candidate tests (csrc/matching.cu, Test) and the bits that mark a
+# table with a batch axis (Batched).
+T_MASK, T_FLAGS, T_WINDOW, T_EPIPOLAR = range(4)
+BATCHED = dict(desc_a=1, row_ok=2, row_v=4, den=8, desc_b=16, col_ok=32, col_xy=64, thr=128)
 
 Top2 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -282,12 +296,221 @@ def masked_hamming_top2(
             f"mask {tuple(mask.shape)}")
     if not _build.on_card(desc_a, name):
         return masked_hamming_top2_plain(desc_a, desc_b, mask)
+    batched = dict(desc_a=desc_a.dim() == 3, desc_b=desc_b.dim() == 3)
+    return _launch(name, T_MASK, lead, m, n, batched, desc_a, desc_b, mask=mask)
+
+
+def _launch(name, test, lead, m, n, batched, desc_a, desc_b, mask=None, row_ok=None,
+            col_ok=None, row_v=None, den=None, col_xy=None, thr=None, radius=0.0) -> Top2:
+    """One launch of K7 under `test` over the problems of `lead` (() or
+    (B,)); `batched`: which tables carry the batch axis."""
+    bsz = lead[0] if lead else 1
+    # The kernel reads desc_b 16 bytes and col_xy 8 bytes at a time.
+    desc_b = _build.aligned(desc_b)
+    col_xy = None if col_xy is None else _build.aligned(col_xy)
     out = torch.empty((bsz, 4, m), dtype=torch.int32, device=desc_a.device)
     if m:
-        err = _build.library("matching").masked_top2_launch(
-            desc_a.data_ptr(), m * 8 if desc_a.dim() == 3 else 0, m, desc_b.data_ptr(),
-            n * 8 if desc_b.dim() == 3 else 0, n, mask.data_ptr(), bsz, out.data_ptr(),
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+
+        bits = sum(BATCHED[k] for k, v in batched.items() if v)
+        # PyTorch compares a float32 tensor with a Python float in float32:
+        # the kernel gets that float32 value (ctypes rounds the double).
+        err = _build.library("matching").candidate_top2_launch(
+            test, ptr(desc_a), ptr(desc_b), ptr(mask), ptr(row_ok), ptr(col_ok), ptr(row_v),
+            ptr(den), ptr(col_xy), ptr(thr), radius, m, n, bsz, bits, ptr(out),
             _build.stream_of(desc_a))
         _build.check(err, name)
         _build.launches[name] += 1
     return tuple(out.reshape(lead + (4, m)).unbind(-2))
+
+
+def _check_tables(name, desc_a, desc_b, tables):
+    """The checks of a K7 wrapper with a candidate test: the descriptors
+    and each (tensor, what, dtype, rows, trailing shape) of the dtype
+    given, contiguous, on desc_a's device, [rows, *trailing] (shared by the
+    problems) or [B, rows, *trailing] with one B for all; rows is "M" for a
+    row table, "N" for a column table, "" for F12. -> (lead: () or (B,), M,
+    N, {what: has a batch axis})."""
+    if desc_a.dim() not in (2, 3) or desc_b.dim() not in (2, 3):
+        raise ValueError(f"{name}: descriptors {tuple(desc_a.shape)} x "
+                         f"{tuple(desc_b.shape)}, expected [M, 8] / [B, M, 8] and "
+                         f"[N, 8] / [B, N, 8]")
+    size = {"M": (desc_a.shape[-2],), "N": (desc_b.shape[-2],), "": ()}
+    lead, batched = (), {}
+    for t, what, dtype, rows, trail in ((desc_a, "desc_a", torch.int32, "M", (8,)),
+                                        (desc_b, "desc_b", torch.int32, "N", (8,)),
+                                        *tables):
+        base = size[rows] + trail
+        _build.require(t, f"{name} {what}", dtype, t.dim())
+        if t.device != desc_a.device:
+            raise ValueError(f"{name} {what}: on {t.device}, expected {desc_a.device}")
+        if tuple(t.shape) == base:
+            batched[what] = False
+        elif t.dim() == len(base) + 1 and tuple(t.shape[1:]) == base \
+                and lead in ((), tuple(t.shape[:1])):
+            lead, batched[what] = tuple(t.shape[:1]), True
+        else:
+            raise ValueError(f"{name} {what}: shape {tuple(t.shape)}, expected {base} or "
+                             f"[B, *{base}] with one B for every table")
+    m, n = size["M"][0], size["N"][0]
+    if not 1 <= n < (1 << COL_BITS) or not 1 <= (lead[0] if lead else 1) < (1 << 16):
+        raise ValueError(f"{name}: N = {n} and B = {lead} out of range")
+    return lead, m, n, batched
+
+
+def _flags_mask(lead, m, n, row_ok, col_ok, test=None):
+    """row_ok x col_ok (and the test's [..., M, N] mask) as [*lead, M, N]."""
+    mask = row_ok[..., :, None] & col_ok[..., None, :]
+    if test is not None:
+        mask = mask & test
+    return mask.expand(lead + (m, n))
+
+
+def _lead(*tensors_and_ranks):
+    """The batch shape, () or (B,), of (tensor, rank without a batch axis)
+    pairs."""
+    for t, rank in tensors_and_ranks:
+        if t.dim() > rank:
+            return tuple(t.shape[:1])
+    return ()
+
+
+def valid_candidate_mask(desc_a, desc_b, row_ok, col_ok) -> torch.Tensor:
+    """match_brute_force's [*lead, M, N] validity mask."""
+    lead = _lead((desc_a, 2), (desc_b, 2), (row_ok, 1), (col_ok, 1))
+    return _flags_mask(lead, desc_a.shape[-2], desc_b.shape[-2], row_ok, col_ok)
+
+
+def valid_hamming_top2_plain(desc_a, desc_b, row_ok, col_ok) -> Top2:
+    """Plain version of K7 under row x column flags: match_brute_force's
+    validity mask, then masked_hamming_top2_plain."""
+    return masked_hamming_top2_plain(
+        desc_a, desc_b, valid_candidate_mask(desc_a, desc_b, row_ok, col_ok))
+
+
+def valid_hamming_top2(
+    desc_a: torch.Tensor,     # [M, 8] or [B, M, 8] int32 (uint32 bits)
+    desc_b: torch.Tensor,     # [N, 8] or [B, N, 8] int32
+    row_ok: torch.Tensor,     # [M] or [B, M] bool
+    col_ok: torch.Tensor,     # [N] or [B, N] bool
+) -> Top2:
+    """K7 over the pairs whose row and column flags are both set ->
+    (best, best_idx, second, second_idx), each [M] or [B, M] int32, as
+    masked_hamming_top2 gives them under row_ok[:, None] & col_ok[None, :].
+    Any table may carry the batch axis; one without it is shared by the B
+    problems. On the card the flags are tested in the kernel: no [B, M, N]
+    mask exists."""
+    name = "valid_hamming_top2"
+    lead, m, n, batched = _check_tables(name, desc_a, desc_b, (
+        (row_ok, "row_ok", torch.bool, "M", ()), (col_ok, "col_ok", torch.bool, "N", ())))
+    if not _build.on_card(desc_a, name):
+        return valid_hamming_top2_plain(desc_a, desc_b, row_ok, col_ok)
+    return _launch(name, T_FLAGS, lead, m, n, batched, desc_a, desc_b, row_ok=row_ok,
+                   col_ok=col_ok)
+
+
+def window_candidate_mask(desc_a, desc_b, row_ok, col_ok, xy_a, xy_b,
+                          radius: float) -> torch.Tensor:
+    """match_for_initialization's [*lead, M, N] mask: the flags, then
+    window_mask."""
+    lead = _lead((desc_a, 2), (desc_b, 2), (row_ok, 1), (col_ok, 1), (xy_a, 2), (xy_b, 2))
+    return _flags_mask(lead, desc_a.shape[-2], desc_b.shape[-2], row_ok, col_ok,
+                       matching.window_mask(xy_a, xy_b, radius))
+
+
+def window_hamming_top2_plain(desc_a, desc_b, row_ok, col_ok, xy_a, xy_b,
+                              radius: float) -> Top2:
+    """Plain version of K7 under flags and a square window:
+    window_candidate_mask, then masked_hamming_top2_plain."""
+    return masked_hamming_top2_plain(desc_a, desc_b, window_candidate_mask(
+        desc_a, desc_b, row_ok, col_ok, xy_a, xy_b, radius))
+
+
+def window_hamming_top2(
+    desc_a: torch.Tensor,     # [M, 8] or [B, M, 8] int32 (uint32 bits)
+    desc_b: torch.Tensor,     # [N, 8] or [B, N, 8] int32
+    row_ok: torch.Tensor,     # [M] or [B, M] bool
+    col_ok: torch.Tensor,     # [N] or [B, N] bool
+    xy_a: torch.Tensor,       # [M, 2] or [B, M, 2] float32 pixels
+    xy_b: torch.Tensor,       # [N, 2] or [B, N, 2] float32
+    radius: float,            # the window's half size, compared in float32
+) -> Top2:
+    """K7 over the pairs with both flags set and |x_a - x_b| <= radius,
+    |y_a - y_b| <= radius (float32) -> the four [M] or [B, M] outputs of
+    masked_hamming_top2 under that mask. Batch axes as valid_hamming_top2;
+    on the card no [B, M, N] mask exists."""
+    name = "window_hamming_top2"
+    lead, m, n, batched = _check_tables(name, desc_a, desc_b, (
+        (row_ok, "row_ok", torch.bool, "M", ()), (col_ok, "col_ok", torch.bool, "N", ()),
+        (xy_a, "xy_a", torch.float32, "M", (2,)), (xy_b, "xy_b", torch.float32, "N", (2,))))
+    if not _build.on_card(desc_a, name):
+        return window_hamming_top2_plain(desc_a, desc_b, row_ok, col_ok, xy_a, xy_b, radius)
+    batched["row_v"], batched["col_xy"] = batched.pop("xy_a"), batched.pop("xy_b")
+    return _launch(name, T_WINDOW, lead, m, n, batched, desc_a, desc_b, row_ok=row_ok,
+                   col_ok=col_ok, row_v=xy_a, col_xy=xy_b, radius=radius)
+
+
+@full_float32
+def epipolar_candidate_mask(desc_a, desc_b, row_ok, col_ok, xy_a, xy_b, F12,
+                            sigma2_b) -> torch.Tensor:
+    """match_for_triangulation's [*lead, M, N] mask: the flags, then
+    epipolar_mask (triangulation_mask with far_from_epipole in col_ok)."""
+    lead = _lead((desc_a, 2), (desc_b, 2), (row_ok, 1), (col_ok, 1), (xy_a, 2), (xy_b, 2),
+                 (F12, 2), (sigma2_b, 1))
+    return _flags_mask(lead, desc_a.shape[-2], desc_b.shape[-2], row_ok, col_ok,
+                       matching.epipolar_mask(xy_a, xy_b, F12, sigma2_b))
+
+
+def epipolar_hamming_top2_plain(desc_a, desc_b, row_ok, col_ok, xy_a, xy_b, F12,
+                                sigma2_b) -> Top2:
+    """Plain version of K7 under flags and the epipolar band:
+    epipolar_candidate_mask, then masked_hamming_top2_plain."""
+    return masked_hamming_top2_plain(desc_a, desc_b, epipolar_candidate_mask(
+        desc_a, desc_b, row_ok, col_ok, xy_a, xy_b, F12, sigma2_b))
+
+
+@full_float32
+def epipolar_hamming_top2(
+    desc_a: torch.Tensor,     # [M, 8] or [B, M, 8] int32 (uint32 bits)
+    desc_b: torch.Tensor,     # [N, 8] or [B, N, 8] int32
+    row_ok: torch.Tensor,     # [M] or [B, M] bool
+    col_ok: torch.Tensor,     # [N] or [B, N] bool
+    xy_a: torch.Tensor,       # [M, 2] or [B, M, 2] float32 pixels in image a
+    xy_b: torch.Tensor,       # [N, 2] or [B, N, 2] float32 pixels in image b
+    F12: torch.Tensor,        # [3, 3] or [B, 3, 3] float32: a's point -> its line in b
+    sigma2_b: torch.Tensor,   # [N] or [B, N] float32 sigma^2 of b's octave
+) -> Top2:
+    """K7 over the pairs with both flags set and b inside the chi2(1) =
+    3.84 band of a's epipolar line (ops/matching.epipolar_mask) -> the four
+    [M] or [B, M] outputs of masked_hamming_top2 under that mask. The lines,
+    their clamped l0^2 + l1^2 and b's thresholds come from
+    ops/matching.epipolar_terms (O(M + N) operations); the kernel computes
+    each pair's ((l0 x + l1 y) + l2)^2 / den < thr in IEEE float32, in
+    epipolar_mask's order, so no [B, M, N] tensor exists on the card."""
+    name = "epipolar_hamming_top2"
+    lead, m, n, batched = _check_tables(name, desc_a, desc_b, (
+        (row_ok, "row_ok", torch.bool, "M", ()), (col_ok, "col_ok", torch.bool, "N", ()),
+        (xy_a, "xy_a", torch.float32, "M", (2,)), (xy_b, "xy_b", torch.float32, "N", (2,)),
+        (F12, "F12", torch.float32, "", (3, 3)),
+        (sigma2_b, "sigma2_b", torch.float32, "N", ())))
+    if not _build.on_card(desc_a, name):
+        return epipolar_hamming_top2_plain(desc_a, desc_b, row_ok, col_ok, xy_a, xy_b, F12,
+                                           sigma2_b)
+    lines, den, thr = matching.epipolar_terms(xy_a, F12, sigma2_b)
+    batched = dict(desc_a=batched["desc_a"], desc_b=batched["desc_b"],
+                   row_ok=batched["row_ok"], col_ok=batched["col_ok"],
+                   row_v=lines.dim() == 3, den=den.dim() == 2,
+                   col_xy=batched["xy_b"], thr=thr.dim() == 2)
+    return _launch(name, T_EPIPOLAR, lead, m, n, batched, desc_a, desc_b, row_ok=row_ok,
+                   col_ok=col_ok, row_v=lines.contiguous(), den=den.contiguous(),
+                   col_xy=xy_b, thr=thr.contiguous())
+
+
+# Each form's mask builder and plain version, by wrapper name.
+CANDIDATE_MASKS = {"valid_hamming_top2": valid_candidate_mask,
+                   "window_hamming_top2": window_candidate_mask,
+                   "epipolar_hamming_top2": epipolar_candidate_mask}
+CANDIDATE_PLAINS = {"valid_hamming_top2": valid_hamming_top2_plain,
+                    "window_hamming_top2": window_hamming_top2_plain,
+                    "epipolar_hamming_top2": epipolar_hamming_top2_plain}

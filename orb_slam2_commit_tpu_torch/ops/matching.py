@@ -15,7 +15,7 @@ torch's argmin/topk do not promise it on the card.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -221,6 +221,20 @@ def rotation_consistency_filter(
     )
 
 
+def epipolar_terms(
+    xy_a: torch.Tensor,
+    F12: torch.Tensor,
+    sigma2_b: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The per-row and per-column parts of `epipolar_mask`: a's epipolar
+    lines in image b [..., M, 3] (l = F12 @ [x, y, 1]), their l0^2 + l1^2
+    clamped to 1e-12 [..., M], and b's thresholds 3.84 * sigma2 [..., N]."""
+    pa = torch.cat([xy_a, torch.ones_like(xy_a[..., :1])], dim=-1)   # [..., M, 3]
+    lines = pa @ F12.transpose(-1, -2)                                # [..., M, 3]
+    den = torch.clamp_min(lines[..., 0] ** 2 + lines[..., 1] ** 2, 1e-12)
+    return lines, den, 3.84 * sigma2_b
+
+
 def epipolar_mask(
     xy_a: torch.Tensor,
     xy_b: torch.Tensor,
@@ -232,13 +246,11 @@ def epipolar_mask(
     point-line distance < 3.84 * sigma2 of b's octave. F12 maps an image-a
     point to its line in image b (l = F12 @ [x, y, 1]). Leading batch
     dimensions broadcast: xy [..., M, 2], F12 [..., 3, 3]."""
-    pa = torch.cat([xy_a, torch.ones_like(xy_a[..., :1])], dim=-1)   # [..., M, 3]
-    lines = pa @ F12.transpose(-1, -2)                                # [..., M, 3]
+    lines, den, thr = epipolar_terms(xy_a, F12, sigma2_b)
     num = (
         lines[..., :, None, 0] * xy_b[..., None, :, 0]
         + lines[..., :, None, 1] * xy_b[..., None, :, 1]
         + lines[..., :, None, 2]
     )
-    den = lines[..., 0] ** 2 + lines[..., 1] ** 2
-    dsqr = (num * num) / torch.clamp_min(den[..., :, None], 1e-12)
-    return dsqr < 3.84 * sigma2_b[..., None, :]
+    dsqr = (num * num) / den[..., :, None]
+    return dsqr < thr[..., None, :]

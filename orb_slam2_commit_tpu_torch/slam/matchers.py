@@ -1,14 +1,14 @@
 """Tracker- and mapper-level matching (PyTorch port of slam/matchers.py):
 a candidate set -> Hamming top-2 per row (K6 for projection windows, K7
-under a mask, kernels/matching.py) -> best/ratio gating -> rotation
+under a candidate test, kernels/matching.py) -> best/ratio gating -> rotation
 histogram -> duplicate resolution, over fixed-shape padded tensors.
 
 The variants: motion-model and local-map projection matching (K6),
-reference-keyframe brute force (K7 under a mask), monocular
-initialization's matcher (K7 under the level-0 window mask),
+reference-keyframe brute force (K7 under validity flags), monocular
+initialization's matcher (K7 under the level-0 flags and a window),
 relocalization's brute force over a batch of candidate keyframes (K7, one
 launch, the frame's descriptors shared), the mapper's triangulation
-matcher under the epipolar mask (K7, one launch over a batch of neighbour
+matcher under the epipolar band (K7, one launch over a batch of neighbour
 pairs) and its fuse projection (K6, one launch over a batch of target
 keyframes), and loop closing's SearchBySim3 projection (K6, one launch a
 direction) and its brute force over the loop candidates (K7, one launch,
@@ -205,23 +205,24 @@ def match_brute_force(
     """Whole-frame descriptor matching with ratio + rotation checks: the
     stand-in for SearchByBoW (src/ORBmatcher.cc:175-325) with its gates
     (TH_LOW, ratio 0.7, rotation histogram, one-to-one) over every valid
-    pair, a superset of the BoW node buckets. K7 under the [N_a, N_b]
-    validity mask. Used for reference-keyframe tracking.
+    pair, a superset of the BoW node buckets. K7 over the pairs of valid
+    features, the flags tested in the kernel on the card. Used for
+    reference-keyframe tracking.
 
     Side A may carry a leading axis of C candidate keyframes ([C, N_a, ...])
     against one shared frame (side B, [N_b, ...]): relocalization's matcher,
     the stand-in for its per-candidate SearchByBoW (src/Tracking.cc:1713-1762).
-    The C validity masks go through one K7 launch that reads the frame's
-    descriptor table once for all problems; idx, dist come out [C, N_a].
+    The C problems go through one K7 launch that reads the frame's
+    descriptor table once for all of them; idx, dist come out [C, N_a].
     Or side B carries the candidate axis ([C, N_b, ...]) against one
     shared keyframe (side A, [N_a, ...]): loop closing's matcher over its
     candidates (ComputeSim3's SearchByBoW, src/LoopClosing.cc:313-327), in
     one launch that reads the keyframe's table once; idx, dist come out
     [C, N_a]."""
-    mask = valid_a[..., :, None] & valid_b[..., None, :]
     m = matching.match_from_top2(
-        *matching_kernel.masked_hamming_top2(
-            desc_a.contiguous(), desc_b.contiguous(), mask.contiguous()),
+        *matching_kernel.valid_hamming_top2(
+            desc_a.contiguous(), desc_b.contiguous(), valid_a.contiguous(),
+            valid_b.contiguous()),
         max_dist, ratio)
     m = matching.rotation_consistency_filter(m, angle_a, angle_b)
     return matching.resolve_duplicate_targets(m, desc_b.shape[-2])
@@ -272,15 +273,12 @@ def match_for_initialization(
     """Frame-1 -> frame-2 matches for the monocular bootstrap
     (SearchForInitialization, src/ORBmatcher.cc:442-587): level-0 features
     only, a 100 px window, TH_LOW, best/second ratio 0.9, the rotation
-    histogram, one-to-one. K7 under the [N1, N2] mask."""
-    mask = (
-        (valid1 & (octave1 == 0))[:, None]
-        & (valid2 & (octave2 == 0))[None, :]
-        & matching.window_mask(xy1, xy2, window)
-    )
+    histogram, one-to-one. K7 under the level-0 flags and the window, both
+    tested in the kernel on the card."""
     m = matching.match_from_top2(
-        *matching_kernel.masked_hamming_top2(
-            desc1.contiguous(), desc2.contiguous(), mask.contiguous()),
+        *matching_kernel.window_hamming_top2(
+            desc1.contiguous(), desc2.contiguous(), valid1 & (octave1 == 0),
+            valid2 & (octave2 == 0), xy1.contiguous(), xy2.contiguous(), window),
         TH_LOW, ratio)
     m = matching.rotation_consistency_filter(m, angle1, angle2)
     return matching.resolve_duplicate_targets(m, desc2.shape[0])
@@ -297,15 +295,22 @@ def triangulation_mask(
     (:831-838) and inside the epipolar band of the image-1 feature
     (CheckDistEpipolarLine). Leading batch dimensions broadcast: xy2
     [..., N2, 2], F12 [..., 3, 3], epipole2 [..., 2]."""
-    sigmas2 = _scale_sigmas(xy1.device, n_levels, scale) ** 2
-    sig2 = sigmas2[torch.clamp(octave2, 0, sigmas2.shape[0] - 1).long()]
-    de = xy2 - epipole2[..., None, :]
-    far_from_epipole = torch.sum(de * de, dim=-1) >= min_epipole_dist2
+    sig2, far_from_epipole = _triangulation_terms(xy2, octave2, epipole2, min_epipole_dist2,
+                                                  n_levels, scale)
     return (
         free1[..., :, None]
         & (free2 & far_from_epipole)[..., None, :]
         & matching.epipolar_mask(xy1, xy2, F12, sig2)
     )
+
+
+def _triangulation_terms(xy2, octave2, epipole2, min_epipole_dist2, n_levels, scale):
+    """-> (sigma^2 of each image-2 feature's octave, whether it lies at
+    least sqrt(min_epipole_dist2) px from the epipole), [..., N2] each."""
+    sigmas2 = _scale_sigmas(xy2.device, n_levels, scale) ** 2
+    sig2 = sigmas2[torch.clamp(octave2, 0, sigmas2.shape[0] - 1).long()]
+    de = xy2 - epipole2[..., None, :]
+    return sig2, torch.sum(de * de, dim=-1) >= min_epipole_dist2
 
 
 def match_for_triangulation(
@@ -321,15 +326,18 @@ def match_for_triangulation(
 ) -> MatchResult:
     """KF1 -> KF2 matches for new-point triangulation (SearchForTriangulation,
     src/ORBmatcher.cc:738-911): free features only, the epipolar band,
-    epipole proximity rejection, TH_LOW, rotation histogram. K7 under
-    `triangulation_mask`. One keyframe against B neighbours: the neighbour
-    side (xy2, desc2, angle2, free2, octave2 [B, N2, ...], F12 [B, 3, 3],
+    epipole proximity rejection, TH_LOW, rotation histogram. K7 under the
+    epipolar band, the pairs of `triangulation_mask`, tested in the kernel
+    on the card. One keyframe against B neighbours: the neighbour side
+    (xy2, desc2, angle2, free2, octave2 [B, N2, ...], F12 [B, 3, 3],
     epipole2 [B, 2]) and free1 ([B, N1]) take a leading batch axis, and
-    idx, dist come out [B, N1]; the B masks go through one K7 launch."""
-    mask = triangulation_mask(xy1, free1, xy2, free2, F12, octave2, epipole2,
-                              min_epipole_dist2, n_levels, scale)
-    top2 = matching_kernel.masked_hamming_top2(
-        desc1.contiguous(), desc2.contiguous(), mask.contiguous())
+    idx, dist come out [B, N1]; the B problems go through one K7 launch."""
+    sig2, far_from_epipole = _triangulation_terms(xy2, octave2, epipole2, min_epipole_dist2,
+                                                  n_levels, scale)
+    top2 = matching_kernel.epipolar_hamming_top2(
+        desc1.contiguous(), desc2.contiguous(), free1.contiguous(),
+        (free2 & far_from_epipole).contiguous(), xy1.contiguous(), xy2.contiguous(),
+        F12.contiguous(), sig2.contiguous())
     m = matching.match_from_top2(*top2, TH_LOW)
     m = matching.rotation_consistency_filter(m, angle1, angle2)
     return matching.resolve_duplicate_targets(m, desc2.shape[-2])

@@ -37,6 +37,18 @@ under torch.profiler in the order A B .. B A twice:
   launch, or, for the previous design and the redesigned standalone
   kernels, as extract_patches twice and corner_subpix (three launches);
   also the two K4 launches alone and K5 alone on the pair's windows;
+- K7 under a candidate test (matching-k7m): each form (flags, window,
+  epipolar band) exact against its plain version and against K7 under the
+  mask it replaces on the recorded calls of its callers (an RGB-D System
+  run and a monocular kidnap run, recorded with the committed build) and
+  on interop's cases; timed per caller at its recorded shapes (reference
+  keyframe, triangulation, initialization, relocalization, BoW
+  relocalization as 4 of relocalization's candidates, loop candidates as
+  one reference-keyframe call with a batch axis of 1), the previous design
+  under the caller's mask built beforehand, and K7 under the triangulation
+  masks; the set also prints the 1-bit tensor-core product's rate, the
+  CUDA cores' popcount rate, and whether ptxas takes wgmma with 1-bit
+  operands for sm_90a;
 - K8 within chip_smoke.py's bounds on its six problems, two launches
   bit-identical. K8 variants also report their evaluations, which differ
   between builds because the LM's path depends on float rounding, and the
@@ -53,6 +65,7 @@ Run from the repository root on a machine with the card:
     python3 scripts/kernel_variants.py matching-k7 --previous DIR
     python3 scripts/kernel_variants.py select-k3 --previous DIR
     python3 scripts/kernel_variants.py patches-k4k5 --previous DIR
+    python3 scripts/kernel_variants.py matching-k7m --previous DIR
 """
 
 from __future__ import annotations
@@ -81,9 +94,15 @@ _c_void_p, _c_int = ctypes.c_void_p, ctypes.c_int
 # The entry points of a set's previous design where they differ from the
 # committed ones: matching-k6's (the one-window K6, no radius2) and
 # matching-k7's (the two-window K6); neither has the batch argument that
-# K6 and K7 under a mask take now.
+# K6 and K7 take now; matching-k7m's (K7 under a mask with a batch axis,
+# one warp a row, before the candidate tests).
 _PREVIOUS_MASKED = (_c_void_p, _c_int, _c_void_p, _c_int, _c_void_p, _c_void_p, _c_void_p)
 PREVIOUS_SIGNATURES = {
+    "matching-k7m": {
+        "masked_top2_launch": (
+            _c_void_p, ctypes.c_longlong, _c_int, _c_void_p, ctypes.c_longlong, _c_int,
+            _c_void_p, _c_int, _c_void_p, _c_void_p),
+    },
     "matching-k6": {
         "projection_top2_launch": (
             _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int,
@@ -503,6 +522,73 @@ _K2_ONE_LAUNCH = [
 """, ""),
 ]
 
+# K7 under a candidate test on CUDA cores (design (a)): each lane gathers
+# its two rows' whole descriptors from its quad once, and in place of the
+# tensor cores' product reads its two columns' descriptors from shared
+# memory and counts popcount(row & column) itself, 8 popcounts a pair
+# (each column read serves two rows, four with MT_RT = 2).
+_K7M_POPC = [
+    ("#pragma unroll\n  for (int i = 0; i < MT_RT; ++i) {\n    live[i] = ",
+     "unsigned ra[2 * MT_RT][WORDS];\n#pragma unroll\n"
+     "  for (int q = 0; q < 2 * MT_RT; ++q) {\n#pragma unroll\n"
+     "    for (int w = 0; w < 4; ++w) {\n"
+     "      ra[q][w] = __shfl_sync(0xffffffffu, a[q / 2][q % 2], (lane & ~3) | w);\n"
+     "      ra[q][w + 4] = __shfl_sync(0xffffffffu, a[q / 2][2 + q % 2], (lane & ~3) | w);\n"
+     "    }\n  }\n"
+     "#pragma unroll\n  for (int i = 0; i < MT_RT; ++i) {\n    live[i] = "),
+    ("          and_popc(a[i], bw.x, bw.y, c);\n",
+     "          const uint4* cd = reinterpret_cast<const uint4*>(sdesc + 4 * (8 * jt + 2 * t));\n"
+     "#pragma unroll\n          for (int e = 0; e < 2; ++e) {\n"
+     "            const uint4 p0 = cd[2 * e], p1 = cd[2 * e + 1];\n"
+     "#pragma unroll\n            for (int h = 0; h < 2; ++h) {\n"
+     "              const unsigned* r = ra[2 * i + h];\n"
+     "              c[2 * h + e] = __popc(r[0] & p0.x) + __popc(r[4] & p0.y) + "
+     "__popc(r[1] & p0.z) + __popc(r[5] & p0.w) + __popc(r[2] & p1.x) + "
+     "__popc(r[6] & p1.y) + __popc(r[3] & p1.z) + __popc(r[7] & p1.w);\n"
+     "            }\n          }\n"),
+]
+# K7 under a candidate test reading each tile's B fragments from L1/L2
+# (two 4-byte loads a lane) in place of the staged copy; the columns' key
+# bases, masks and test values are still staged.
+_K7M_L1 = [
+    ("      d[0] = make_uint4(w0[k].x, w1[k].x, w0[k].y, w1[k].y);\n"
+     "      d[1] = make_uint4(w0[k].z, w1[k].z, w0[k].w, w1[k].w);\n", "      (void)d;\n"),
+    ("        const uint2 bw = sdesc[32 * jt + lane];\n",
+     "        const unsigned* bcol = reinterpret_cast<const unsigned*>(p.desc_b) +\n"
+     "                               (size_t)(scol[8 * jt + g].x & COL_MASK) * WORDS;\n"
+     "        const uint2 bw = make_uint2(__ldg(bcol + t), __ldg(bcol + t + 4));\n"),
+]
+# K7 under a candidate test with its first epilogue: the test of a pair
+# run only where its key would enter the row's top-2 (behind a branch,
+# the column's values read from shared memory per pair), in place of
+# every pair's verdict without a branch and the division only near the
+# band's edge.
+_K7M_LAZY = [
+    ("// The test of a pair beyond both flags (the row's values v, the column's\n// coordinates xy and threshold thr), in the float32 operations and order\n// of the mask it replaces, without a branch -> 1 (a candidate), 0 (not)\n// or -1 (exact_test decides: the mask byte, or the division near the\n// band's edge; sq: the epipolar distance's numerator).\ntemplate <int T>\n__device__ __forceinline__ int pair_verdict(const float (&v)[4], float2 xy, float thr,\n                                            float r, float& sq) {\n  if (T == T_WINDOW)\n    return fabsf(__fsub_rn(v[0], xy.x)) <= r && fabsf(__fsub_rn(v[1], xy.y)) <= r;\n  if (T == T_EPIPOLAR) {\n    const float num = __fadd_rn(__fadd_rn(__fmul_rn(v[0], xy.x), __fmul_rn(v[1], xy.y)), v[2]);\n    sq = __fmul_rn(num, num);\n    // sq / den < thr without the division where sq lies clear of thr den:\n    // each rounding moves a side by at most 2^-24, well inside the 2^-20\n    // margins, so fl(sq / den) < thr holds below the first and fails above\n    // the second. A td outside [1e-30, FLT_MAX] (subnormal, inf or NaN)\n    // takes the division.\n    const float td = __fmul_rn(thr, v[3]);\n    if (!(td >= 1e-30f && td <= 3.4028235e38f)) return -1;\n    if (sq < __fmul_rn(td, 0.99999905f)) return 1;    // 1 - 2^-20\n    return sq > __fmul_rn(td, 1.00000095f) ? 0 : -1;  // 1 + 2^-20\n  }\n  return T == T_MASK ? -1 : 1;\n}\n\n// The exact test of a pair (row, column c) whose verdict was -1.\ntemplate <int T>\n__device__ __forceinline__ bool exact_test(const TestArgs& p, int row, int c, float sq,\n                                           float den, float thr) {\n  if (T == T_MASK) return __ldg(p.mask + (size_t)row * p.n + c) != 0;\n  return __fdiv_rn(sq, den) < thr;\n}\n\n",
+     '// The test of the pair (row, column c in staged slot j) beyond both flags, in the\n// float32 operations (and order) of the mask it replaces.\ntemplate <int T>\n__device__ __forceinline__ bool pair_test(const TestArgs& p, const float (&v)[4], int row,\n                                          int c, int j, const float2* sxy, const float* sthr) {\n  if (T == T_MASK) return __ldg(p.mask + (size_t)row * p.n + c) != 0;\n  if (T == T_WINDOW) {\n    const float2 q = sxy[j];\n    return fabsf(__fsub_rn(v[0], q.x)) <= p.r && fabsf(__fsub_rn(v[1], q.y)) <= p.r;\n  }\n  if (T == T_EPIPOLAR) {\n    const float2 q = sxy[j];\n    const float num = __fadd_rn(__fadd_rn(__fmul_rn(v[0], q.x), __fmul_rn(v[1], q.y)), v[2]);\n    const float sq = __fmul_rn(num, num), thr = sthr[j];\n    // sq / den < thr without the division where sq lies clear of thr den:\n    // each rounding moves a side by at most 2^-24, well inside the 2^-20\n    // margins, so fl(sq / den) < thr holds below the first and fails above\n    // the second. A td outside [1e-30, FLT_MAX] (subnormal, inf or NaN)\n    // takes the division.\n    const float td = __fmul_rn(thr, v[3]);\n    if (td >= 1e-30f && td <= 3.4028235e38f) {\n      if (sq < __fmul_rn(td, 0.99999905f)) return true;    // 1 - 2^-20\n      if (sq > __fmul_rn(td, 1.00000095f)) return false;   // 1 + 2^-20\n    }\n    return __fdiv_rn(sq, v[3]) < thr;\n  }\n  return true;\n}\n\n'),
+    ("        // The test's values of the lane's two columns (2t, 2t + 1).\n        float4 cxy = make_float4(0.f, 0.f, 0.f, 0.f);\n        float2 cthr = make_float2(0.f, 0.f);\n        if (T == T_WINDOW || T == T_EPIPOLAR) {\n          cxy = *reinterpret_cast<const float4*>(sxy + 8 * jt + 2 * t);\n        }\n        if (T == T_EPIPOLAR) cthr = *reinterpret_cast<const float2*>(sthr + 8 * jt + 2 * t);\n", ""),
+    ('              const float thr = e ? cthr.y : cthr.x;\n              float sq = 0.f;\n              const int verdict = pair_verdict<T>(\n                  v[q], e ? make_float2(cxy.z, cxy.w) : make_float2(cxy.x, cxy.y), thr, p.r, sq);\n              // (pa + pb - 2 popc(a & b)) << COL_BITS | column, or all ones\n              // where a flag is clear or the test fails.\n              const unsigned key = ((e ? cb.z : cb.x) + row_base[q] -\n                                    ((unsigned)c[2 * h + e] << (COL_BITS + 1))) |\n                                   (e ? cb.w : cb.y) | row_mask[q] | (verdict ? 0u : NO_KEY);\n              if (key < k2[q] &&\n                  (verdict > 0 || exact_test<T>(p, r0 + 16 * i + g + 8 * h,\n                                                key & COL_MASK, sq, v[q][3], thr))) {\n                insert(key, k1[q], k2[q]);\n',
+     '              // (pa + pb - 2 popc(a & b)) << COL_BITS | column, or all ones\n              // where a flag is clear.\n              const unsigned key = ((e ? cb.z : cb.x) + row_base[q] -\n                                    ((unsigned)c[2 * h + e] << (COL_BITS + 1))) |\n                                   (e ? cb.w : cb.y) | row_mask[q];\n              if (key < k2[q]) {\n                const int j = 8 * jt + 2 * t + e;\n                const int row = r0 + 16 * i + g + 8 * h;\n                if (pair_test<T>(p, v[q], row, key & COL_MASK, j, sxy, sthr)) {\n                  insert(key, k1[q], k2[q]);\n                }\n'),
+]
+_MT_WARPS, _MT_WPR, _MT_RT, _MT_CHUNK = (
+    "constexpr int MT_WARPS = 8;", "constexpr int MT_WPR = 8;", "constexpr int MT_RT = 1;",
+    "constexpr int MT_CHUNK = 1024;")
+# One column tile a trip of the scan loop, in place of two (their loads and
+# products issued together).
+_K7M_UNROLL1 = [("#pragma unroll 2\n      for (int jt = part; jt < slots / 8; jt += MT_WPR) {\n",
+                 "      for (int jt = part; jt < slots / 8; jt += MT_WPR) {\n")]
+
+
+def _k7m(warps=8, wpr=8, rt=1, chunk=1024):
+    """Substitutions that set K7's block in csrc/matching.cu: `warps` a
+    block, `wpr` of them on the same 16 x `rt` rows, `chunk` columns staged
+    a pass (the committed 8, 8, 1, 1024 by default)."""
+    return [(_MT_WARPS, f"constexpr int MT_WARPS = {warps};"),
+            (_MT_WPR, f"constexpr int MT_WPR = {wpr};"),
+            (_MT_RT, f"constexpr int MT_RT = {rt};"),
+            (_MT_CHUNK, f"constexpr int MT_CHUNK = {chunk};")]
+
+
 # name -> (library, {tag: substitutions}, kernels whose SASS is counted)
 SETS = {
     # K8's block size: the committed 256 threads against 128, 384 and 512.
@@ -569,6 +655,39 @@ SETS = {
         "warps8": [(_K3_WARPS, "constexpr int WARPS = 8;")],
         "warps4-registers": _K3_REGISTERS,
     }, ("cell_topk_kernel",)),
+    # K7 under a candidate test: the previous design (K7 under a mask, one
+    # warp a row, on the caller's mask built beforehand) against the committed
+    # 16 rows a block (8 warps on the same 16 rows, each on every eighth
+    # 8-slot tile, two tiles a trip; tensor cores; the candidate columns of
+    # 1024-column chunks packed into shared memory; every pair's verdict
+    # without a branch); 16 rows with 4 or 16 warps; 32, 64 and 128 rows a
+    # block with 1, 2 or 4 warps on the same rows; two 16-row tiles a warp;
+    # 512- and 2048-column chunks; one tile a trip; B fragments read from
+    # L1/L2; popcounts on CUDA cores in place of the tensor cores; the first
+    # epilogue (each pair's test behind a branch, run only where its key
+    # would enter the top-2).
+    "matching-k7m": ("matching", {
+        PREVIOUS: [],
+        "rows16-w8-wpr8": [],
+        "rows16-w4-wpr4": _k7m(warps=4, wpr=4),
+        "rows16-w16-wpr16": _k7m(warps=16, wpr=16),
+        "rows32-w8-wpr4": _k7m(wpr=4),
+        "rows32-w4-wpr2": _k7m(warps=4, wpr=2),
+        "rows64-w4": _k7m(warps=4, wpr=1),
+        "rows64-w8-wpr2": _k7m(wpr=2),
+        "rows128-w8": _k7m(wpr=1),
+        "rows64-w2-rt2": _k7m(warps=2, wpr=1, rt=2),
+        "rows16-w8-wpr8-chunk512": _k7m(chunk=512),
+        "rows16-w8-wpr8-chunk2048": _k7m(chunk=2048),
+        "rows16-w8-wpr8-unroll1": _K7M_UNROLL1,
+        "rows16-w8-wpr8-b-l1": _K7M_L1,
+        "rows16-w8-wpr8-popc": _K7M_POPC,
+        "rows16-w8-wpr8-lazy": _K7M_LAZY,
+        "rows16-w16-wpr16-lazy": _k7m(warps=16, wpr=16) + _K7M_LAZY,
+        "rows16-w4-wpr4-lazy": _k7m(warps=4, wpr=4) + _K7M_LAZY,
+        "rows64-w4-lazy": _k7m(warps=4, wpr=1) + _K7M_LAZY,
+        "rows64-w4-lazy-popc": _k7m(warps=4, wpr=1) + _K7M_LAZY + _K7M_POPC,
+    }, ("candidate_top2_kernel", "masked_top2_kernel")),
     # K4 + K5: the previous designs (two K4 launches and one K5, one
     # thread per keypoint) against the committed fused launch (blocks of
     # one window each: 128 copying threads, and beside them in a 31x31
@@ -697,6 +816,112 @@ def previous_masked(dll):
             mask.data_ptr(), out.data_ptr(), _build.stream_of(desc_a)),
             "previous masked_top2")
         return out[0], out[1], out[2], out[3]
+    return top2
+
+
+# The 1-bit tensor-core product's rate (the H100's data sheet gives
+# none), CUDA cores' popcount rate beside it, and whether ptxas takes
+# wgmma with 1-bit operands for sm_90a (compiled, not run).
+_RATE_CU = r"""
+#include <cuda_runtime.h>
+__global__ void b1_mma_rate(int iters, int* out) {
+  const unsigned a0 = threadIdx.x * 2654435761u, a1 = ~a0, a2 = a0 ^ 0x5bd1e995u,
+                 a3 = blockIdx.x * 40503u, b0 = a0 >> 3, b1 = a1 << 5;
+  int c[8][4] = {};
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      asm volatile("mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+                   "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+                   : "+r"(c[k][0]), "+r"(c[k][1]), "+r"(c[k][2]), "+r"(c[k][3])
+                   : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+    }
+  }
+  int s = 0;
+  for (int k = 0; k < 8; ++k) s += c[k][0] + c[k][1] + c[k][2] + c[k][3];
+  if (s == 0x7fffffff) out[0] = s;
+}
+__global__ void popc_rate(int iters, int* out) {
+  unsigned x[8];
+  for (int k = 0; k < 8; ++k) x[k] = threadIdx.x * (k + 1) * 2654435761u;
+  int acc[8] = {};
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      acc[k] += __popc(x[k]);
+      x[k] = x[k] * 1664525u + 1013904223u;
+    }
+  }
+  int s = 0;
+  for (int k = 0; k < 8; ++k) s += acc[k];
+  if (s == 0x7fffffff) out[0] = s;
+}
+extern "C" int rate_launch(int which, int blocks, int iters, void* out, void* stream) {
+  if (which == 0) b1_mma_rate<<<blocks, 256, 0, (cudaStream_t)stream>>>(iters, (int*)out);
+  else popc_rate<<<blocks, 256, 0, (cudaStream_t)stream>>>(iters, (int*)out);
+  return (int)cudaGetLastError();
+}
+"""
+_WGMMA_B1_CU = r"""
+__global__ void wgmma_b1(unsigned long long da, unsigned long long db, int* out) {
+  int d0 = 0, d1 = 0, d2 = 0, d3 = 0;
+  asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %6, 0;\n"
+               " wgmma.mma_async.sync.aligned.m64n8k256.s32.b1.b1.and.popc"
+               " {%0, %1, %2, %3}, %4, %5, p;\n}"
+               : "+r"(d0), "+r"(d1), "+r"(d2), "+r"(d3) : "l"(da), "l"(db), "r"(0));
+  out[threadIdx.x] = d0 + d1 + d2 + d3;
+}
+"""
+
+
+def one_bit_rates():
+    """Print the 1-bit MMA's and the popcount's rates on this card (all SMs,
+    8 blocks of 256 threads each, independent chains), and what ptxas says
+    to wgmma with 1-bit operands."""
+    nvcc = "/usr/local/cuda/bin/nvcc"
+    src, so = OUT / "k7m_rates.cu", OUT / "k7m_rates.so"
+    src.write_text(_RATE_CU)
+    subprocess.run([nvcc, *_build.nvcc_flags("matching"), "-o", str(so), str(src)],
+                   check=True, capture_output=True, text=True)
+    dll = ctypes.CDLL(str(so))
+    dll.rate_launch.argtypes = [_c_int, _c_int, _c_int, _c_void_p, _c_void_p]
+    blocks = 8 * torch.cuda.get_device_properties(0).multi_processor_count
+    out = torch.zeros(1, dtype=torch.int32, device="cuda")
+    for which, what, per_call in ((0, "mma.sync m16n8k256 .b1 AND + popc", 16 * 8 * 256 * 2),
+                                  (1, "__popc (CUDA cores)", 1)):
+        iters = 4096 if which == 0 else 65536
+
+        def run():
+            _build.check(dll.rate_launch(which, blocks, iters, out.data_ptr(),
+                                         _build.stream_of(out)), "rate_launch")
+
+        ms = cs.gpu_time_ms(run, 5)
+        n = blocks * 256 * iters * 8 * (per_call / 32 if which == 0 else per_call)
+        unit = "bit operations (AND and add)" if which == 0 else "popcounts"
+        print(f"rate: {what}: {n / ms / 1e9:.1f} T {unit}/s ({ms:.3f} ms for "
+              f"{n:.3g}); {cs.smi_clocks()}")
+    src = OUT / "k7m_wgmma_b1.cu"
+    src.write_text(_WGMMA_B1_CU)
+    r = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-c", "-o",
+                        str(src.with_suffix(".o")), str(src)], capture_output=True, text=True)
+    print(f"wgmma m64n8k256 .b1 .and.popc on sm_90a: "
+          f"{'ptxas takes it' if r.returncode == 0 else 'refused'}"
+          + (f": {r.stderr.strip()[:400]}" if r.returncode else ""))
+
+
+def previous_masked_batched(dll):
+    """The previous design's K7 under a mask, with a batch axis, behind
+    the masked wrapper's interface."""
+    def top2(desc_a, desc_b, mask):
+        m, n = mask.shape[-2:]
+        lead = tuple(mask.shape[:-2])
+        out = torch.empty((lead[0] if lead else 1, 4, m), dtype=torch.int32,
+                          device=desc_a.device)
+        _build.check(dll.masked_top2_launch(
+            desc_a.data_ptr(), m * 8 if desc_a.dim() == 3 else 0, m, desc_b.data_ptr(),
+            n * 8 if desc_b.dim() == 3 else 0, n, mask.data_ptr(), out.shape[0],
+            out.data_ptr(), _build.stream_of(desc_a)), "previous masked_top2")
+        return tuple(out.reshape(lead + (4, m)).unbind(-2))
     return top2
 
 
@@ -861,10 +1086,75 @@ def patches_checks(x, state):
     }, 200
 
 
+def k7m_checks(x, state):
+    """K7 under a candidate test: each form on the recorded calls of its
+    callers (the RGB-D System's reference-keyframe and triangulation
+    calls, the monocular kidnap run's initialization and relocalization
+    calls, recorded with the committed build) and on interop's cases,
+    against its plain version and against K7 under the mask it replaces;
+    the previous design under the callers' masks. Timed per caller, at its
+    recorded shapes: the form, or (previous) K7 under the caller's mask
+    built beforehand; BoW relocalization as the first 4 candidates of a
+    relocalization call, the loop candidates as one reference-keyframe
+    call with its column table given a batch axis of 1."""
+    x.update(cs.system_path_inputs({"rgbd": cs.system_sequence("rgbd")}))
+    x.update(cs.mono_path_inputs(cs.system_sequence("monocular", kidnap=True)))
+    one_bit_rates()
+    reloc = x["mono_k7_reloc"][0]
+    ref = x["sys_k7"][0]
+    callers = {
+        "reference keyframe": ("valid_hamming_top2", x["sys_k7"]),
+        "triangulation": ("epipolar_hamming_top2", x["sys_k7b"]),
+        "initialization": ("window_hamming_top2", x["mono_k7_init"]),
+        "relocalization": ("valid_hamming_top2", x["mono_k7_reloc"]),
+        "BoW relocalization": ("valid_hamming_top2", [
+            (reloc[0][:4].contiguous(), reloc[1], reloc[2][:4].contiguous(), reloc[3])]),
+        "loop candidates": ("valid_hamming_top2", [
+            (ref[0], ref[1][None].contiguous(), ref[2], ref[3][None].contiguous())]),
+    }
+    masks = {c: [(a[0], a[1], cs.k7_mask(name, a)) for a in calls]
+             for c, (name, calls) in callers.items()}
+    problems = [(what, name, a) for what, name, a in cs.k7_problems(x)] + [
+        (f"{c} call {i}", name, a) for c, (name, calls) in callers.items()
+        if c in ("BoW relocalization", "loop candidates") for i, a in enumerate(calls)]
+    want_masked = {c: [kmatching.masked_hamming_top2_plain(*a) for a in m]
+                   for c, m in masks.items()}
+
+    def check():
+        if is_previous(state):
+            top2 = previous_masked_batched(_build._libraries["matching"])
+            for c, m in masks.items():
+                for a, w in zip(m, want_masked[c]):
+                    if not all(torch.equal(g, v) for g, v in zip(top2(*a), w)):
+                        raise SystemExit(f"the previous K7 differs on the {c} calls")
+            return
+        for what, name, a in problems:
+            cs.check_form(what, name, a, twice=False)
+
+    def timed_caller(c):
+        name, calls = callers[c]
+
+        def run():
+            if is_previous(state):
+                top2 = previous_masked_batched(_build._libraries["matching"])
+                return [top2(*a) for a in masks[c]]
+            return [getattr(kmatching, name)(*a) for a in calls]
+        return run
+
+    def timed_masked():
+        top2 = (previous_masked_batched(_build._libraries["matching"])
+                if is_previous(state) else kmatching.masked_hamming_top2)
+        return [top2(*a) for a in masks["triangulation"]]
+
+    timed = {f"K7 {c}": timed_caller(c) for c in callers}
+    timed["K7 under the triangulation masks"] = timed_masked
+    return check, timed, 200
+
+
 CHECKS = {"pose_lm-threads": pose_checks, "level-tile": level_checks,
           "level-combine": combine_checks, "matching-k6": matching_checks,
           "matching-k7": band_checks, "select-k3": select_checks,
-          "patches-k4k5": patches_checks}
+          "patches-k4k5": patches_checks, "matching-k7m": k7m_checks}
 
 
 def k7_clocks(dll):
