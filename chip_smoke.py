@@ -27,7 +27,17 @@ vocabulary (the keyframe database, loop closing after local mapping) over
 tests/test_loop_pipeline.py's 132-frame ring survey at that test's 400x300
 and 500 features (at 640x480 and 1000 features the JAX System never
 initializes on it), and over the kidnap sequence, which it relocalizes
-through the database's BoW candidates.
+through the database's BoW candidates. Then three paths of the
+asynchronous System and the localization-only mode, at full width: a
+localization session (an RGB-D System maps the first 15 frames of an RGB-D
+survey along the ring survey's path, a second loads the saved map,
+`activate_localization_mode()`, and tracks frames 7-39, past the mapped
+sectors, in visual odometry from about frame 30); the RGB-D sequence
+through an asynchronous System (`async_mapping=True`: mapping and loop
+closing on a worker thread, global BA on its own, each on its own CUDA
+stream), then `shutdown()`; and tests/test_async_pipeline.py's global BA
+stress over the monocular sweep, asynchronous (every global BA held in
+flight and relaunched every 5 frames).
 
 Phases (any failure exits non-zero and prints no result line):
   1. the card: name, count, torch/CUDA versions, nvidia-smi name + power limit;
@@ -61,7 +71,9 @@ Phases (any failure exits non-zero and prints no result line):
      coordinates under clear flags); K6 with a batch axis on the System's
      fuse problems (also with an empty problem and with every row empty),
      and K8 also on a problem tiled past 1024 and past 7000 rows, launched
-     twice; the loop callers' recorded calls (K6 in match_by_sim3 and the
+     twice; the ring survey's first global BA and essential graph, each
+     solved twice from its recorded problem and required bit-identical;
+     the loop callers' recorded calls (K6 in match_by_sim3 and the
      loop neighbourhood's match_fuse, K7 under the flags over the loop
      candidates and over relocalization's BoW candidates, from a warm-up
      run of each loop sequence), each launched twice and exact, also with
@@ -86,7 +98,19 @@ Phases (any failure exits non-zero and prints no result line):
      and the database's candidate lists against the CPU, and the accepted
      candidate's sim3_ransac and optimize_sim3 against the CPU on the same
      sample sets; the kidnap sequence with the vocabulary relocalized
-     through the database;
+     through the database. Every synchronous System sequence's runs in the
+     process (a warm-up, the counted run, a profiled run) are held to each
+     other bit for bit: trajectory entries, keyframes, keyframe poses,
+     point positions. The localization session held to
+     tests/test_localization_vo.py's gates (the map unchanged after every
+     frame, no temporal point left, >= 8 frames tracked), a frame in VO,
+     the ATE gate, K6 and K8 launched, its first 3 frames against the same
+     session on the CPU; the asynchronous RGB-D System to every frame OK,
+     the ATE gate, keyframes mapped on the worker, both threads ended with
+     no error; the global BA stress to tests/test_async_pipeline.py's
+     gates (>= 2 launches, >= 1 relaunch over a run in flight, every
+     launch merged or aborted, none running, OK, the scale-aligned ATE
+     under 0.10 x span);
   5. timing: throughput of each path by the bench recipe (the System's
      frames/s over a sequence, after a warm-up sequence, with its stage
      times, initialization's and relocalization's among them, and, under
@@ -101,7 +125,9 @@ Phases (any failure exits non-zero and prints no result line):
      the card could take (its bound); per caller of K7 under a candidate
      test, in turns, the test in the kernel against the caller's mask built
      by PyTorch and K7 under it (device busy, events, device operations,
-     idle share).
+     idle share); the RGB-D System asynchronous and synchronous in turns
+     (frames/s, the tracker thread's ms per frame, device idle share under
+     torch.profiler).
 Then a `kernels` JSON line, the nvidia-smi line, and last the result line
 {"ok": true, "device": {...}}.
 """
@@ -113,6 +139,8 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 import types
 
@@ -128,7 +156,7 @@ try:
     from orb_slam2_commit_tpu_torch.ops import extractor, pyramid, stereo
     from orb_slam2_commit_tpu_torch.ops import subpix as ops_subpix
     from orb_slam2_commit_tpu_torch.ops import packed_extractor as pe
-    from orb_slam2_commit_tpu_torch.optim import pose_opt, sim3_opt
+    from orb_slam2_commit_tpu_torch.optim import ba, pose_graph, pose_opt, sim3_opt
     from orb_slam2_commit_tpu_torch.slam import jit_frontend, loop_closing, matchers
     from orb_slam2_commit_tpu_torch.slam.local_mapping import LocalMapper
     from orb_slam2_commit_tpu_torch.slam.system import System
@@ -254,6 +282,34 @@ LOOP_PROFILE_CALLS = 4
 # LM moved 0.27 from its start; NVIDIA H100 80GB HBM3, 700.00 W) and the
 # control's (the LM skipped: 0.0205 and more, PERF.md section 6).
 SIM3_TOL = {"sim3_ransac": 1e-4, "optimize_sim3": 5e-3}
+
+# The localization session (Tracker.localization_only): an RGB-D System
+# with the bundled vocabulary maps the first LOC_MAPPED frames of an RGB-D
+# survey along the ring survey's path and scene (LOOP_SCENE; the ring's
+# landmarks, radii and far wall as render_loop_sequence's) at full width
+# and saves the map; a second System loads it, switches to the
+# localization-only mode and tracks frames LOC_FIRST to LOC_FRAMES - 1.
+# The path turns away from the mapped sectors: from about frame 30 on
+# almost no map point is in view, and the tracker rides its temporal VO
+# points (a CPU run of this session). The RGB-D System's own sequence
+# cannot show that: every one of its 30 frames keeps ~800 map inliers of
+# a map made from frames 0-14 (a CPU run). Gates of
+# tests/test_localization_vo.py: the map unchanged after every frame (no
+# keyframe, no point, the allocation cursor as loaded), no temporal point
+# left after a frame, >= LOC_MIN_TRACKED frames tracked; and a frame in VO,
+# temporal points spawned, the tracked frames' ATE under ATE_SPAN_GATE x
+# their span, K6 and K8 launched; the first LOC_CPU_FRAMES frames against
+# the same session on the CPU.
+LOC_MAPPED, LOC_FIRST, LOC_FRAMES = 15, 7, 40
+LOC_MIN_TRACKED, LOC_CPU_FRAMES = 8, 3
+# The global BA runner under tracking (tests/test_async_pipeline.py's
+# stress): the monocular sweep, asynchronous, with the bundled vocabulary;
+# every global BA held until released, relaunched every GBA_EVERY frames
+# once the map has GBA_MIN_KFS keyframes; scale-aligned ATE under
+# GBA_ATE_GATE x span (that test's gate).
+GBA_EVERY, GBA_MIN_KFS, GBA_ATE_GATE = 5, 4, 0.10
+# Asynchronous against synchronous RGB-D System runs, in turns.
+ASYNC_TURNS = 2
 
 # K3 runs in its map form; K4 and K5 in one fused launch (describe_patches)
 # per extraction. K3's row form and the standalone K4 and K5 have no caller
@@ -1252,13 +1308,20 @@ def system_sequence(sensor, kidnap=False):
     return config, lefts, rights, poses
 
 
-def run_system(seq, device="cuda", n_frames=SYSTEM_FRAMES, around=None, vocabulary=None):
+def run_system(seq, device="cuda", n_frames=SYSTEM_FRAMES, around=None, vocabulary=None,
+               async_mapping=False, track_s=None, first_frame=0, sys_=None):
     """A System over the sequence through its entry point (track_monocular,
     track_rgbd or track_stereo) on `device`, without a vocabulary unless
-    one is given -> (system, state name per frame, pose per frame,
-    seconds). around(i): a context manager around frame i."""
+    one is given, then its shutdown (an asynchronous System's queue
+    drained, its threads joined) -> (system, state name per frame, pose per
+    frame, seconds). around(i): a context manager around frame i; track_s:
+    a list that gets each entry call's seconds (the caller's thread); the
+    frames from first_frame on; sys_: a System to drive in place of a new
+    one."""
     config, first, second, _ = seq
-    sys_ = System(config, vocabulary=vocabulary, async_mapping=False, device=device)
+    if sys_ is None:
+        sys_ = System(config, vocabulary=vocabulary, async_mapping=async_mapping,
+                      device=device)
     if config.sensor == "monocular":
         def track(i):
             return sys_.track_monocular(first[i], i / config.camera.fps)
@@ -1269,13 +1332,81 @@ def run_system(seq, device="cuda", n_frames=SYSTEM_FRAMES, around=None, vocabula
             return entry(first[i], second[i], i / config.camera.fps)
     states, poses = [], []
     t0 = time.perf_counter()
-    for i in range(n_frames):
+    for i in range(first_frame, first_frame + n_frames):
+        t1 = time.perf_counter()
         with around(i) if around else contextlib.nullcontext():
             poses.append(track(i))
+        if track_s is not None:
+            track_s.append(time.perf_counter() - t1)
         states.append(sys_.tracking_state().name)
+    sys_.shutdown()
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     return sys_, states, poses, time.perf_counter() - t0
+
+
+def system_name(sensor):
+    return f"System {'RGB-D' if sensor == 'rgbd' else sensor}"
+
+
+# Each synchronous System sequence's runs in this process (name -> [(run,
+# fingerprint)]), held bit for bit to its first run: every run builds a
+# fresh System, every sampler is seeded, and BA's and the pose graph's
+# sums add in an order fixed by the data (optim/segment.py).
+RUNS = {}
+# Each synchronous System sequence's frames/s in phase_system.
+SYSTEM_FPS = {}
+
+
+def fingerprint(sys_):
+    """What a run leaves behind: each frame's trajectory entry (its
+    reference keyframe, pose relative to it, lost or not), the keyframes
+    (frame ids, kept or culled, poses) and the points (positions, kept)."""
+    m = sys_.map
+    n = m.next_kf
+    tr = sys_.tracker.trajectory
+    return {
+        "frames' reference keyframes": np.asarray([e.ref_kf for e in tr]),
+        "frames lost": np.asarray([e.lost for e in tr]),
+        "frames' relative poses": np.asarray(
+            [np.concatenate([e.R_rel.ravel(), e.t_rel]) for e in tr]).reshape(len(tr), 12),
+        "keyframes' frame ids": m.kf_frame_id[:n].copy(),
+        "keyframes kept": m.kf_valid[:n].copy(),
+        "keyframe poses": np.concatenate([m.kf_pose_R[:n].reshape(n, 9), m.kf_pose_t[:n]], 1),
+        "point positions": m.pt_pos[:m.next_pt].copy(),
+        "points kept": m.pt_valid[:m.next_pt].copy(),
+    }
+
+
+def remember(name, run, sys_):
+    RUNS.setdefault(name, []).append((run, fingerprint(sys_)))
+
+
+def first_difference(a, b):
+    """Where two fingerprint arrays first differ (row index, and both rows
+    or shapes)."""
+    if a.shape != b.shape:
+        return f"shapes {a.shape} and {b.shape}"
+    rows = np.nonzero(~np.all((a == b).reshape(a.shape[0], -1), axis=1))[0]
+    i = int(rows[0])
+    return f"{rows.size} rows differ, first row {i}: {a[i].tolist()} against {b[i].tolist()}"
+
+
+def check_same_bits(name):
+    """Every run of the sequence against its first, bit for bit."""
+    runs = RUNS.get(name, [])
+    if len(runs) < 2:
+        raise AssertionError(f"{name}: {len(runs)} runs to compare")
+    first_run, first = runs[0]
+    for run, fp in runs[1:]:
+        for key, want in first.items():
+            got = fp[key]
+            if got.shape != want.shape or not np.array_equal(got, want):
+                raise AssertionError(f"{name}: the {run} run differs from the {first_run} run "
+                                     f"in its {key}: {first_difference(got, want)}")
+    log(f"{name}: {len(runs)} runs ({', '.join(r for r, _ in runs)}) bit-identical: "
+        f"{first['frames lost'].size} frames' trajectory entries, "
+        f"{first['keyframes kept'].size} keyframes, {first['points kept'].size} points")
 
 
 @contextlib.contextmanager
@@ -1325,6 +1456,7 @@ def system_path_inputs(seqs):
             for name in SYSTEM_KERNELS:
                 stack.enter_context(recording(kmatching, name, calls[name]))
             sys_, states, _, seconds = run_system(seq, vocabulary="default")
+        remember(system_name(sensor), "warm-up", sys_)
         split = {(name, batched): [c[0] for c in calls[name]
                                    if has_batch_axis(name, c[0]) == batched]
                  for name in SYSTEM_KERNELS for batched in (False, True)}
@@ -1405,12 +1537,13 @@ def phase_system(seqs, power):
     launches with a batch axis), each per sensor."""
     counts, batched_counts = {}, {}
     for sensor, seq in seqs.items():
-        what = f"System {'RGB-D' if sensor == 'rgbd' else sensor}"
+        what = system_name(sensor)
         _, _, _, gt = seq
         made, batched = [], batched_counts.setdefault(sensor, {})
         _build.reset_launches()
         with triangulation_counted(made), batched_launches(batched):
             sys_, states, poses, seconds = run_system(seq, vocabulary="default")
+        remember(what, "counted", sys_)
         c = counts[sensor] = dict(_build.launches)
         log(f"{what} launches: {c}; of them with a batch axis: {batched}")
         want = SYSTEM_LAUNCHED + (("stereo_band_top2",) if sensor == "stereo" else ())
@@ -1440,6 +1573,7 @@ def phase_system(seqs, power):
             raise AssertionError(f"{what}: too few keyframes, triangulated points or fuses")
         if not rmse < ATE_SPAN_GATE * span:
             raise AssertionError(f"{what}: ATE {rmse} over the gate")
+        SYSTEM_FPS[sensor] = SYSTEM_FRAMES / seconds
         log(f"{what}: {SYSTEM_FRAMES / seconds:.2f} frames/s over the sequence "
             f"({seconds:.3f} s) on {power}; launches per mapped keyframe: " + ", ".join(
                 [f"{k} with a batch axis {batched[k] / max(n_mapped, 1):.2f}"
@@ -1457,6 +1591,8 @@ def phase_system(seqs, power):
         profs = {}
         sys3, _, _, _ = run_system(seq, vocabulary="default", around=lambda i: (
             profiled(profs, i) if 3 <= i < 15 else contextlib.nullcontext()))
+        remember(what, "profiled", sys3)
+        check_same_bits(what)
         kf_frames = {int(f) for f in sys3.map.kf_frame_id[:sys3.map.next_kf]}
         for kind, frames in (("keyframe", sorted(kf_frames & set(profs))),
                              ("plain", sorted(set(profs) - kf_frames))):
@@ -1536,6 +1672,7 @@ def mono_path_inputs(kidnap_seq):
         for name in K7_FORMS:
             stack.enter_context(recording(kmatching, name, calls[name]))
         sys_, states, _, seconds = run_system(kidnap_seq, n_frames=MONO_FRAMES)
+    remember("System monocular kidnap", "warm-up", sys_)
     by = {c: [a for name in K7_FORMS for a, _ in calls[name] if k7_caller(name, a) == c]
           for c in K7_CALLERS}
     log(f"System monocular kidnap warm-up: {seconds:.2f} s for {MONO_FRAMES} frames, "
@@ -1617,6 +1754,7 @@ def phase_mono(seq, kidnap_seq, power):
     _build.reset_launches()
     with k7_launches_by_caller(by_caller, problems):
         sys_, states, poses, seconds = run_system(seq, n_frames=MONO_FRAMES)
+    remember(what, "counted", sys_)
     c = dict(_build.launches)
     log(f"{what} launches: {c}; K7 by caller: {by_caller} (problems {problems})")
     if [k for k in MONO_LAUNCHED if c[k] < 1] or [k for k in SYSTEM_UNUSED if c[k]] \
@@ -1653,6 +1791,8 @@ def phase_mono(seq, kidnap_seq, power):
     profs = {}
     sys2, _, _, _ = run_system(seq, n_frames=MONO_FRAMES, around=lambda i: (
         profiled(profs, i) if 3 <= i < 15 else contextlib.nullcontext()))
+    remember(what, "profiled", sys2)
+    check_same_bits(what)
     kf_frames = {int(f) for f in sys2.map.kf_frame_id[:sys2.map.next_kf]}
     for kind, frames in (("keyframe", sorted(kf_frames & set(profs))),
                          ("plain", sorted(set(profs) - kf_frames))):
@@ -1670,6 +1810,8 @@ def phase_mono(seq, kidnap_seq, power):
     _build.reset_launches()
     with k7_launches_by_caller(kid_caller, kid_problems):
         sys_, states, poses, seconds = run_system(kidnap_seq, n_frames=MONO_FRAMES)
+    remember(what, "counted", sys_)
+    check_same_bits(what)
     kc = dict(_build.launches)
     log(f"{what} launches: {kc}; K7 by caller: {kid_caller} "
         f"(problems {kid_problems}); states {''.join(st[0] for st in states)}")
@@ -1886,13 +2028,15 @@ def loop_path_inputs(seq, kidnap_seq):
     survey's sim3_ransac and optimize_sim3 calls. -> (inputs: the first
     LOOP_RECORDED calls of each caller, the stages' profiles, the Sim3
     calls)."""
-    calls, counts, profs, sim3_calls = {}, {}, {}, ([], [])
+    calls, counts, profs, sim3_calls, solves = {}, {}, {}, ([], []), {}
     with loop_kernel_calls(counts, calls), loop_stages_profiled(profs), \
-            sim3_recorded(*sim3_calls):
+            sim3_recorded(*sim3_calls), loop_solves_recorded(solves):
         sys_, states, seconds, pre = run_loop(seq)
+    remember("ring survey", "warm-up", sys_)
     with loop_kernel_calls(counts, calls):
-        _, kid_states, _, _ = run_system(kidnap_seq, n_frames=MONO_FRAMES,
-                                         vocabulary="default")
+        kid, kid_states, _, _ = run_system(kidnap_seq, n_frames=MONO_FRAMES,
+                                           vocabulary="default")
+    remember("System monocular kidnap with the vocabulary", "warm-up", kid)
     log(f"ring survey warm-up: {seconds:.2f} s for {len(states)} frames (its loop stages "
         f"under the profiler), {sys_.map.next_kf} keyframes inserted, loops closed at "
         f"{[(s['kf'], s['loop_kf']) for s in sys_.loop_closer.correction_stats]} (frame "
@@ -1904,7 +2048,76 @@ def loop_path_inputs(seq, kidnap_seq):
     for caller in LOOP_CALLERS:
         if not calls[caller]:
             raise AssertionError(f"the warm-up runs made no {caller} call with a candidate")
-    return {f"loop_{c}": v[:LOOP_RECORDED] for c, v in calls.items()}, profs, sim3_calls
+    if set(solves) != {"global BA", "essential graph"}:
+        raise AssertionError(f"the ring survey's warm-up recorded only {sorted(solves)}")
+    return ({f"loop_{c}": v[:LOOP_RECORDED] for c, v in calls.items()}, profs, sim3_calls,
+            solves)
+
+
+@contextlib.contextmanager
+def loop_solves_recorded(store):
+    """store["global BA"] and store["essential graph"]: the arguments of
+    the first bundle_adjust call inside LoopCloser.run_global_ba and of the
+    first optimize_sim3_graph call (the essential graph)."""
+    gba = loop_closing.LoopCloser.run_global_ba
+    bundle, graph = ba.bundle_adjust, pose_graph.optimize_sim3_graph
+    inside = []
+
+    def run_global_ba(self, *args, **kwargs):
+        inside.append(1)
+        try:
+            return gba(self, *args, **kwargs)
+        finally:
+            inside.pop()
+
+    def bundle_adjust(*args, **kwargs):
+        if inside:
+            store.setdefault("global BA", (args, kwargs))
+        return bundle(*args, **kwargs)
+
+    def optimize_sim3_graph(*args, **kwargs):
+        store.setdefault("essential graph", (args, kwargs))
+        return graph(*args, **kwargs)
+
+    loop_closing.LoopCloser.run_global_ba = run_global_ba
+    ba.bundle_adjust = bundle_adjust
+    pose_graph.optimize_sim3_graph = optimize_sim3_graph
+    try:
+        yield store
+    finally:
+        loop_closing.LoopCloser.run_global_ba = gba
+        ba.bundle_adjust = bundle
+        pose_graph.optimize_sim3_graph = graph
+
+
+def solve_tensors(out):
+    """The tensors of a solve's result, flattened in order."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in solve_tensors(o)]
+    return []
+
+
+def phase_solves_twice(solves):
+    """Global BA and the essential graph of the ring survey's first loop
+    closure, each solved twice on the card from its recorded problem: the
+    same bits (their sums over observations and edges add in a fixed
+    order, optim/segment.py)."""
+    fns = {"global BA": ba.bundle_adjust, "essential graph": pose_graph.optimize_sim3_graph}
+    for name, fn in fns.items():
+        args, kwargs = solves[name]
+        outs = [solve_tensors(fn(*args, **kwargs)) for _ in range(2)]
+        torch.cuda.synchronize()
+        if len(outs[0]) != len(outs[1]) or not all(
+                torch.equal(a, b) for a, b in zip(*outs)):
+            raise AssertionError(f"{name} solved twice on one problem: the bits differ")
+        problem = args[0]
+        size = (f"{problem.R.shape[0]} cameras, {problem.points.shape[0]} points, "
+                f"{problem.obs.cam_idx.shape[0]} observations" if name == "global BA" else
+                f"{problem.s.shape[0]} vertices, {problem.edge_i.shape[0]} edges")
+        log(f"{name} of the ring survey's loop closure ({size}) solved twice: "
+            f"{len(outs[0])} result tensors bit-identical")
 
 
 def loop_problems(x):
@@ -2085,6 +2298,8 @@ def phase_loop(seq, kidnap_seq, profs, warm_sim3, power):
     with loop_kernel_calls(by_caller), sim3_recorded(ransac_calls, opt_calls):
         sys_, states, seconds, pre = run_loop(
             seq, on_close=lambda: at_close.append(len(opt_calls)))
+    remember(what, "counted", sys_)
+    check_same_bits(what)
     c = dict(_build.launches)
     log(f"{what} launches: {c}; K6/K7 by loop caller: {by_caller}")
     if [k for k in SYSTEM_LAUNCHED if c[k] < 1] or [k for k in SYSTEM_UNUSED if c[k]] \
@@ -2142,6 +2357,8 @@ def phase_loop(seq, kidnap_seq, profs, warm_sim3, power):
     with loop_kernel_calls(kid_caller):
         kid, kid_states, kid_seconds, _ = run_system(kidnap_seq, n_frames=MONO_FRAMES,
                                                      vocabulary="default")
+    remember(what, "counted", kid)
+    check_same_bits(what)
     tr = kid.tracker
     kt = kid.timings()
     log(f"{what} launches: {dict(_build.launches)}; K6/K7 by loop caller: {kid_caller}; "
@@ -2158,6 +2375,245 @@ def phase_loop(seq, kidnap_seq, profs, warm_sim3, power):
     for k in LOOP_CALLERS:
         by_caller[k] += kid_caller[k]
     return by_caller
+
+
+# ---------------------------------------------------------------------------
+# The localization-only mode, the asynchronous System, the global BA runner
+# ---------------------------------------------------------------------------
+
+def localization_sequence():
+    """(config, images [LOC_FRAMES, H, W], depth maps, ground-truth poses)
+    of the RGB-D survey along the ring survey's path, at full width."""
+    config = synthetic_config(WIDTH, HEIGHT, N_FEATURES, sensor="rgbd")
+    rng = np.random.default_rng(LOOP_SCENE["seed"])
+    scene = synthetic.ring_scene(rng, n_points=900, center=np.array([2.0, 0.0, 0.0]),
+                                 radius_range=(7.0, 9.0))
+    poses = synthetic.loop_trajectory(LOOP_SCENE["n_frames"], radius=2.0,
+                                      frac=LOOP_SCENE["frac"])[:LOC_FRAMES]
+    rendered = [synthetic.render(scene, R, t, config.camera, with_depth=True, max_depth=12.0)
+                for R, t in poses]
+    return (config, np.stack([r[0] for r in rendered]), np.stack([r[1] for r in rendered]),
+            poses)
+
+
+def map_sizes(m):
+    return m.n_keyframes(), m.n_points(), m.next_pt
+
+
+def phase_localization(seq, power):
+    """The localization session on the card (see LOC_MAPPED), the launch
+    counts reset just before the localized frames and read just after
+    them, with its gates; then its first frames on the CPU. -> launch
+    counts."""
+    what = "localization session"
+    config, images, depths, gt = seq
+    mapper, states, _, seconds = run_system(seq, n_frames=LOC_MAPPED, vocabulary="default")
+    if any(st != "OK" for st in states):
+        raise AssertionError(f"{what}: mapping states {states}")
+    loc = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "map.npz")
+        mapper.save_map(path)
+        for device in ("cuda", "cpu"):
+            loc[device] = System(config, async_mapping=False, device=device)
+            loc[device].load_map(path)
+            loc[device].activate_localization_mode()
+    card = loc["cuda"]
+    loaded = map_sizes(card.map)
+    spawned = []
+    spawn = card.tracker._spawn_temporal_vo_points
+
+    def spawn_counted():
+        spawn()
+        spawned.append(int(card.tracker._temporal_points.size))
+
+    card.tracker._spawn_temporal_vo_points = spawn_counted
+    frames = range(LOC_FIRST, LOC_FRAMES)
+    poses, vo = [], []
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    for i in frames:
+        poses.append(card.track_rgbd(images[i], depths[i], i / config.camera.fps))
+        vo.append(bool(card.tracker.vo_only))
+        if map_sizes(card.map) != loaded or card.tracker._temporal_points.size:
+            raise AssertionError(f"{what}, frame {i}: the map changed ({map_sizes(card.map)} "
+                                 f"against {loaded} loaded) or temporal points were left")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    c = dict(_build.launches)
+    tracked = [i for i, p in zip(frames, poses) if p is not None]
+    vo_frames = [i for i, v in zip(frames, vo) if v]
+    est = card.trajectory_positions()
+    lost = np.asarray([e.lost for e in card.tracker.trajectory], bool)
+    gt_c = centres(gt)[LOC_FIRST:]
+    gt_c = gt_c[len(gt_c) - len(est):]
+    rmse = trajectory.ate_rmse(est[~lost], gt_c[~lost], align_scale=False)
+    span = float(np.linalg.norm(gt_c[-1] - gt_c[0]))
+    log(f"{what}: a map of frames 0-{LOC_MAPPED - 1} ({loaded[0]} keyframes, {loaded[1]} "
+        f"points) loaded on the card; frames {LOC_FIRST}-{LOC_FRAMES - 1}: {len(tracked)} "
+        f"tracked, in VO {vo_frames}, temporal points spawned {spawned}; the map unchanged "
+        f"after every frame; ATE {rmse:.6f} over a {span:.3f} m span (gate {ATE_SPAN_GATE} x "
+        f"span); {len(frames) / seconds:.2f} frames/s on {power}; launches {c}")
+    if len(tracked) < LOC_MIN_TRACKED or not vo_frames or not any(spawned):
+        raise AssertionError(f"{what}: too few frames tracked, none in VO or no temporal point")
+    if not rmse < ATE_SPAN_GATE * span:
+        raise AssertionError(f"{what}: ATE {rmse} over the gate")
+    if [k for k in ("level_preprocess", "combine_nms", "cell_topk_map", "describe_patches",
+                    "projection_hamming_top2", "pose_lm") if c[k] < 1] or \
+            [k for k in SYSTEM_UNUSED if c[k]]:
+        raise AssertionError(f"{what}: a kernel of the staged path did not launch, or one "
+                             f"off the path did")
+    cpu = loc["cpu"]
+    worst = (0.0, 0.0)
+    for k, i in enumerate(frames[:LOC_CPU_FRAMES]):
+        want = cpu.track_rgbd(images[i], depths[i], i / config.camera.fps)
+        if (want is None) != (poses[k] is None) or bool(cpu.tracker.vo_only) != vo[k]:
+            raise AssertionError(f"{what}, frame {i}: card and CPU differ in state or VO")
+        if want is not None:
+            d = (rot_angle_deg(want[0], poses[k][0]),
+                 float(np.linalg.norm(want[1] - poses[k][1])))
+            worst = tuple(max(a, b) for a, b in zip(worst, d))
+    log(f"{what}, frames {LOC_FIRST}-{LOC_FIRST + LOC_CPU_FRAMES - 1} card vs cpu: poses "
+        f"within rot {worst[0]:.5f} deg, |dt| {worst[1]:.6f}")
+    if not (worst[0] < ROT_DEG_TOL and worst[1] < T_TOL):
+        raise AssertionError(f"{what}: card and CPU poses differ beyond the bounds")
+    return c
+
+
+def background_threads_done(what, sys_):
+    """After shutdown: the mapping worker and the global BA runner have
+    ended and raised nothing."""
+    w = sys_.mapping_worker
+    gba = sys_.loop_closer.gba_runner if sys_.loop_closer is not None else None
+    if w.thread.is_alive() or w.error is not None or (
+            gba is not None and (gba.running or gba.error is not None)):
+        raise AssertionError(f"{what}: a background thread is alive or failed")
+
+
+def phase_async(seq, sync_fps, power):
+    """The 30-frame RGB-D sequence through an asynchronous System (the
+    bundled vocabulary, mapping and loop closing on the worker's thread and
+    stream), then shutdown, the launch counts reset just before and read
+    just after: every frame OK, the ATE gate, keyframes mapped, the threads
+    ended with no error, the path's kernels launched. -> launch counts."""
+    what = "System RGB-D asynchronous"
+    _, _, _, gt = seq
+    _build.reset_launches()
+    sys_, states, poses, seconds = run_system(seq, vocabulary="default", async_mapping=True)
+    c = dict(_build.launches)
+    w = sys_.mapping_worker
+    background_threads_done(what, sys_)
+    if any(st != "OK" for st in states) or any(p is None for p in poses) or w.processed < 1:
+        raise AssertionError(f"{what}: states {states}, {w.processed} keyframes mapped")
+    want = [k for k in SYSTEM_LAUNCHED if k != "valid_hamming_top2"]
+    if [k for k in want if c[k] < 1] or [k for k in SYSTEM_UNUSED if c[k]]:
+        raise AssertionError(f"{what}: a kernel of the path did not launch, or one off the "
+                             f"path did")
+    gt_c = centres(gt)
+    rmse = trajectory.ate_rmse(sys_.trajectory_positions(), gt_c, align_scale=False)
+    span = float(np.linalg.norm(gt_c[-1] - gt_c[0]))
+    log(f"{what}: {SYSTEM_FRAMES} frames all OK, {sys_.map.next_kf} keyframes inserted "
+        f"({sys_.map.n_keyframes()} kept), {w.processed} mapped on the worker ({local_bas(sys_)} "
+        f"local BAs), {w.dropped} dropped; ATE {rmse:.6f} m over a {span:.3f} m span (gate {ATE_SPAN_GATE} x span); "
+        f"{SYSTEM_FRAMES / seconds:.2f} frames/s to the end of shutdown (synchronous: "
+        f"{sync_fps:.2f}), on {power}; launches {c}")
+    if not rmse < ATE_SPAN_GATE * span:
+        raise AssertionError(f"{what}: ATE {rmse} over the gate")
+    return c
+
+
+def local_bas(sys_):
+    """How many local BAs the System's mapper ran (skipped while keyframes
+    wait)."""
+    return int(sys_.timings().get("map_lba", {}).get("count", 0))
+
+
+def phase_gba_stress(seq, power):
+    """tests/test_async_pipeline.py's stress at full width: the monocular
+    sweep through an asynchronous System with the bundled vocabulary, every
+    global BA held until released and relaunched every GBA_EVERY frames
+    once the map has GBA_MIN_KFS keyframes; release, shutdown. Gates: >= 2
+    launches, >= 1 relaunch over a run in flight, every launch (and every
+    launch by a loop closure) merged or aborted, none running, OK at the
+    end, the scale-aligned ATE gate. -> launch counts."""
+    what = "global BA runner under tracking"
+    config, images, _, gt = seq
+    sys_ = System(config, async_mapping=True, device="cuda")
+    gba = sys_.loop_closer.gba_runner
+    gate = threading.Event()
+    run = gba._run
+
+    def gated_run(m, anchor_kf, n_iters, gen):
+        gate.wait(timeout=120.0)
+        return run(m, anchor_kf, n_iters, gen)
+
+    gba._run = gated_run
+    launched = relaunched = 0
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        for i in range(MONO_FRAMES):
+            sys_.track_monocular(images[i], i / config.camera.fps)
+            if sys_.map.n_keyframes() >= GBA_MIN_KFS and i % GBA_EVERY == 0:
+                relaunched += gba.running
+                gba.launch(sys_.map, anchor_kf=0)
+                launched += 1
+    finally:
+        gate.set()
+    sys_.shutdown()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    c = dict(_build.launches)
+    background_threads_done(what, sys_)
+    by_closer = len(sys_.loop_closer.correction_stats)
+    est = sys_.trajectory_positions()
+    lost = np.asarray([e.lost for e in sys_.tracker.trajectory], bool)
+    gt_c = centres(gt)[MONO_FRAMES - len(est):]
+    rmse = trajectory.ate_rmse(est[~lost], gt_c[~lost], align_scale=True)
+    span = float(np.linalg.norm(gt_c[-1] - gt_c[0]))
+    log(f"{what}: {launched} launches ({relaunched} over a run in flight) and {by_closer} by "
+        f"loop closures, {gba.n_merged} merged, {gba.n_aborted} aborted; state "
+        f"{sys_.tracking_state().name}, {sys_.map.n_keyframes()} keyframes, "
+        f"{sys_.mapping_worker.processed} mapped ({local_bas(sys_)} local BAs), "
+        f"{sys_.mapping_worker.dropped} dropped; scale-aligned ATE {rmse:.6f} over a {span:.3f} m span (gate {GBA_ATE_GATE} x span); "
+        f"{MONO_FRAMES / seconds:.2f} frames/s on {power}; launches {c}")
+    if launched < 2 or relaunched < 1 or gba.n_merged + gba.n_aborted != launched + by_closer:
+        raise AssertionError(f"{what}: launches and merges or aborts do not add up")
+    if sys_.tracking_state().name != "OK" or not rmse < GBA_ATE_GATE * span:
+        raise AssertionError(f"{what}: state {sys_.tracking_state().name}, ATE {rmse}")
+    return c
+
+
+def phase_async_timing(seq, power):
+    """The RGB-D System asynchronous and synchronous in turns
+    (ASYNC_TURNS each, the same process): frames/s to the end of shutdown
+    and the tracker thread's ms per frame (each track_rgbd call); then one
+    run of each under torch.profiler: device busy and idle share over the
+    run (busy summed over both streams)."""
+    rows = {True: [], False: []}
+    for _ in range(ASYNC_TURNS):
+        for async_mapping in (True, False):
+            track_s = []
+            sys_, _, _, seconds = run_system(seq, vocabulary="default",
+                                             async_mapping=async_mapping, track_s=track_s)
+            rows[async_mapping].append((SYSTEM_FRAMES / seconds, 1e3 * float(np.mean(track_s)),
+                                        1e3 * float(np.max(track_s)), sys_.map.next_kf,
+                                        local_bas(sys_)))
+    profs = {}
+    for async_mapping in (True, False):
+        with profiled(profs, async_mapping):
+            run_system(seq, vocabulary="default", async_mapping=async_mapping)
+    for async_mapping in (True, False):
+        name = "asynchronous" if async_mapping else "synchronous"
+        wall, busy, n_ops = profs[async_mapping]
+        log(f"System RGB-D {name}, in turns: frames/s "
+            f"{[round(r[0], 2) for r in rows[async_mapping]]}, tracker thread ms per frame "
+            f"mean {[round(r[1], 3) for r in rows[async_mapping]]} max "
+            f"{[round(r[2], 3) for r in rows[async_mapping]]}, keyframes "
+            f"{[r[3] for r in rows[async_mapping]]}, local BAs {[r[4] for r in rows[async_mapping]]}"
+            f"; one run under torch.profiler: {wall:.1f} "
+            f"ms wall, {busy:.1f} ms device busy, idle share {1.0 - busy / wall:.4f}, {n_ops} "
+            f"device operations, on {power}")
 
 
 # ---------------------------------------------------------------------------
@@ -2724,19 +3180,25 @@ def main() -> int:
     kidnap_seq = system_sequence("monocular", kidnap=True)
     x.update(mono_path_inputs(kidnap_seq))
     loop_seq = loop_sequence()
-    loop_x, loop_profs, loop_sim3 = loop_path_inputs(loop_seq, kidnap_seq)
+    loop_x, loop_profs, loop_sim3, loop_solves = loop_path_inputs(loop_seq, kidnap_seq)
     x.update(loop_x)
     errs = phase_kernels(x)
     phase_loop_kernels(x)
+    phase_solves_twice(loop_solves)
     counts = {sensor: phase_pair(*pair) for sensor, pair in pairs.items()}
     phase_step(config, args)
     system_counts, system_batched = phase_system(seqs, power)
     mono_counts, mono_k7, mono_problems = phase_mono(mono_seq, kidnap_seq, power)
     loop_counts = phase_loop(loop_seq, kidnap_seq, loop_profs, loop_sim3, power)
+    new_counts = {"localization session": phase_localization(localization_sequence(), power),
+                  "asynchronous RGB-D System": phase_async(seqs["rgbd"], SYSTEM_FPS["rgbd"],
+                                                           power),
+                  "global BA runner stress": phase_gba_stress(mono_seq, power)}
     phase_step_timing(config, args, power)
     phase_pair_timing(*pairs["monocular"], x, power)
     for sensor in ("stereo", "rgbd"):
         phase_sensor_timing(*pairs[sensor], x, power)
+    phase_async_timing(seqs["rgbd"], power)
     # Launches per call: K1-K6 and K8 on the monocular pair (their timed
     # inputs), K7's band form on the stereo pair, K7 under a caller's mask,
     # under the flags and under the epipolar band over the System's RGB-D
@@ -2760,6 +3222,8 @@ def main() -> int:
         **loop_counts}, power)
     log(f"K7 under a candidate test over the monocular sweep and the kidnap sequence, by "
         f"caller: launches {mono_k7}, problems {mono_problems}")
+    for path, c in new_counts.items():
+        log(f"launches over the {path}: " + ", ".join(f"{k} {v}" for k, v in c.items() if v))
 
     log(json.dumps({"kernels": kernels}))
     log(power)

@@ -12,7 +12,11 @@ are loaded with ctypes: pointers and the CUDA stream travel as
 `check` turns into an exception.
 
 `launches` counts, per kernel wrapper, the calls that launched the
-kernel on the card (plain-version calls on CPU tensors are not counted).
+kernel on the card (plain-version calls on CPU tensors are not counted);
+a wrapper counts through `count_launch`, under a lock, since an
+asynchronous System launches from several threads. Building and loading a
+library take a lock too: two threads that first need one library would
+otherwise both run nvcc into the same temporary file.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Tuple
@@ -117,11 +122,20 @@ launches: Dict[str, int] = {
 }
 
 _libraries: Dict[str, ctypes.CDLL] = {}
+_launch_lock = threading.Lock()
+_build_lock = threading.RLock()
+
+
+def count_launch(name: str) -> None:
+    """launches[name] += 1, for a launch of the kernel on the card."""
+    with _launch_lock:
+        launches[name] += 1
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _launch_lock:
+        for name in launches:
+            launches[name] = 0
 
 
 def _nvcc() -> str:
@@ -160,6 +174,11 @@ def build(names=SOURCES) -> Dict[str, Tuple[float, str]]:
     """Compile the named sources that are not built yet, all nvcc
     processes at once. -> {name: (seconds, compiler log)} for each source
     compiled now; raises if any compile fails."""
+    with _build_lock:
+        return _compile(names)
+
+
+def _compile(names) -> Dict[str, Tuple[float, str]]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
@@ -188,16 +207,20 @@ def build(names=SOURCES) -> Dict[str, Tuple[float, str]]:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built first if needed."""
     lib = _libraries.get(name)
-    if lib is None:
-        path = _library_path(name)
-        if not path.exists():
-            build((name,))
-        lib = ctypes.CDLL(str(path))
-        for fn_name, argtypes in SIGNATURES[name].items():
-            fn = getattr(lib, fn_name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        _libraries[name] = lib
+    if lib is not None:
+        return lib
+    with _build_lock:
+        lib = _libraries.get(name)
+        if lib is None:
+            path = _library_path(name)
+            if not path.exists():
+                _compile((name,))
+            lib = ctypes.CDLL(str(path))
+            for fn_name, argtypes in SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _libraries[name] = lib
     return lib
 
 

@@ -97,7 +97,7 @@ def level_preprocess(
         hi.data_ptr(), lo.data_ptr(), hp, wp, float(th_hi), float(th_lo), taps,
         _build.stream_of(image))
     _build.check(err, "level_preprocess")
-    _build.launches["level_preprocess"] += 1
+    _build.count_launch("level_preprocess")
     return blur, hi, lo
 
 
@@ -149,5 +149,5 @@ def combine_nms(
         bounds.shape[1], flags.data_ptr(), out.data_ptr(), hp, wp,
         _build.stream_of(score_hi))
     _build.check(err, "combine_nms")
-    _build.launches["combine_nms"] += 1
+    _build.count_launch("combine_nms")
     return out

@@ -173,7 +173,7 @@ def projection_hamming_top2(
             desc_b.data_ptr(), xy_b.data_ptr(), octave_b.data_ptr(),
             valid_b.data_ptr(), n, bsz, out.data_ptr(), _build.stream_of(desc_a))
         _build.check(err, name)
-        _build.launches[name] += 1
+        _build.count_launch(name)
     out = out.reshape(lead + (len(radii), 4, m)).movedim(-3, 0)
     return tuple(tuple(o.unbind(-2)) for o in out)
 
@@ -254,7 +254,7 @@ def stereo_band_top2(
         valid_l.data_ptr(), nl, desc_r.data_ptr(), xy_r.data_ptr(), octave_r.data_ptr(),
         valid_r.data_ptr(), nr, max_d, out.data_ptr(), _build.stream_of(desc_l))
     _build.check(err, "stereo_band_top2")
-    _build.launches["stereo_band_top2"] += 1
+    _build.count_launch("stereo_band_top2")
     return tuple(out[:, :nl]), tuple(out[:, nl:])
 
 
@@ -321,7 +321,7 @@ def _launch(name, test, lead, m, n, batched, desc_a, desc_b, mask=None, row_ok=N
             ptr(den), ptr(col_xy), ptr(thr), radius, m, n, bsz, bits, ptr(out),
             _build.stream_of(desc_a))
         _build.check(err, name)
-        _build.launches[name] += 1
+        _build.count_launch(name)
     return tuple(out.reshape(lead + (4, m)).unbind(-2))
 
 

@@ -58,7 +58,7 @@ def extract_patches(image: torch.Tensor, yx: torch.Tensor, patch: int) -> torch.
         image.data_ptr(), h, w, yx.data_ptr(), k, patch, out.data_ptr(),
         _build.stream_of(image))
     _build.check(err, "extract_patches")
-    _build.launches["extract_patches"] += 1
+    _build.count_launch("extract_patches")
     return out
 
 
@@ -105,5 +105,5 @@ def describe_patches(
             ic.data_ptr(), brief.data_ptr(), offsets.data_ptr() if refine else None,
             _build.stream_of(canvas))
         _build.check(err, "describe_patches")
-        _build.launches["describe_patches"] += 1
+        _build.count_launch("describe_patches")
     return ic, brief, offsets

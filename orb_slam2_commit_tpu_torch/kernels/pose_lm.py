@@ -57,7 +57,7 @@ def _launch(R0, t0, points, obs, fx, fy, cx, cy, bf, n_rounds, iters_per_round
         pose.data_ptr(), inliers.data_ptr(), n_inliers.data_ptr(),
         _build.stream_of(points))
     _build.check(err, "pose_lm")
-    _build.launches["pose_lm"] += 1
+    _build.count_launch("pose_lm")
     return pose, inliers, n_inliers
 
 

@@ -85,7 +85,7 @@ def cell_topk(cells: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
             cells.data_ptr(), c, s, _round_up(s, LANE), k, vals.data_ptr(),
             args.data_ptr(), _build.stream_of(cells))
         _build.check(err, "cell_topk")
-        _build.launches["cell_topk"] += 1
+        _build.count_launch("cell_topk")
     return vals, args
 
 
@@ -112,5 +112,5 @@ def cell_topk_map(
             score.data_ptr(), hc, w, cell_size, k, vals.data_ptr(), args.data_ptr(),
             _build.stream_of(score))
         _build.check(err, "cell_topk_map")
-        _build.launches["cell_topk_map"] += 1
+        _build.count_launch("cell_topk_map")
     return vals, args

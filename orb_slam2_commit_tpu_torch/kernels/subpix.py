@@ -41,5 +41,5 @@ def corner_subpix_from_patches(
             patches.data_ptr(), k, ph, center_y, center_x, out.data_ptr(),
             _build.stream_of(patches))
         _build.check(err, "corner_subpix")
-        _build.launches["corner_subpix"] += 1
+        _build.count_launch("corner_subpix")
     return out

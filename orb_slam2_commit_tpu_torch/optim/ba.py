@@ -19,9 +19,12 @@ convergence flag on the host once per iteration. Fixed poses get zeroed
 Jacobians. This slice runs on one device: the JAX package's `axis_name`
 all-reduce over an observation mesh comes with parallel/distributed_ba.py.
 
-The segment sums are `index_add_`, whose float additions on the card
-happen in no fixed order, so two runs on the card may differ in the last
-bits; the JAX package sums sorted segments.
+The segment sums over observations (per camera, per point, and per
+(camera, point) slot of the Schur chunks' W, where a keyframe that binds
+one point to several features puts several observations) add in an order
+fixed by the problem (optim/segment.py: the maps sorted once per solve,
+rows with `obs.valid` False left out, since their weights are 0), so a
+solve gives the same bits on every run on the card.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 
 from orb_slam2_commit_tpu_torch.ops import lie
 from orb_slam2_commit_tpu_torch.optim import residuals as res
+from orb_slam2_commit_tpu_torch.optim.segment import Segments, segment_sum, segments
 from orb_slam2_commit_tpu_torch.optim.residuals import (
     BAObservations, CHI2_MONO, CHI2_STEREO,
 )
@@ -107,26 +111,40 @@ def _inv3x3(M: torch.Tensor) -> torch.Tensor:
     return adj / det[..., None, None]
 
 
-def _segment_sum(vals: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    """out[j] = sum of vals[o] over the observations o with idx[o] == j."""
-    out = torch.zeros((n,) + vals.shape[1:], dtype=vals.dtype, device=vals.device)
-    return out.index_add_(0, idx, vals)
+class ObsSegments(NamedTuple):
+    """The observations of each camera, of each point and, per chunk of
+    point_chunk points, of each (camera, point) slot of the chunk
+    (optim/segment.py); no chunks for the PCG solver."""
+
+    cam: Segments
+    pt: Segments
+    chunks: Tuple[Segments, ...]
 
 
-def _schur_pcg(Hcc_d, Hpp_inv, Hcp_o, cam, pt, b, fixed,
+def obs_segments(problem: BAProblem, point_chunk: int, solver: str) -> ObsSegments:
+    obs = problem.obs
+    K, P = problem.R.shape[0], problem.points.shape[0]
+    cam, pt = obs.cam_idx.long(), obs.pt_idx.long()
+    chunks = []
+    if solver == "dense":
+        for lo in range(0, P, point_chunk):
+            hi = min(lo + point_chunk, P)
+            slot = cam * (hi - lo) + torch.clamp(pt - lo, 0, hi - lo - 1)
+            chunks.append(segments(slot, K * (hi - lo), obs.valid & (pt >= lo) & (pt < hi)))
+    return ObsSegments(segments(cam, K, obs.valid), segments(pt, P, obs.valid), tuple(chunks))
+
+
+def _schur_pcg(Hcc_d, Hpp_inv, Hcp_o, cam, pt, segs: ObsSegments, b, fixed,
                n_iters: int = 64, tol: float = 1e-8):
     """Solve S dc = b with S = Hcc_d - W Hpp^-1 W^T without forming S or W:
     the matvec streams over observations (two segment sums, two batched
     small products), block-Jacobi preconditioned by Hcc_d^-1 ("Bundle
     Adjustment in the Large", implicit Schur)."""
-    K = Hcc_d.shape[0]
-    P = Hpp_inv.shape[0]
-
     def S_mv(x):                      # x [K, 6]
         y = torch.einsum("kab,kb->ka", Hcc_d, x)
-        u = _segment_sum(torch.einsum("oab,oa->ob", Hcp_o, x[cam]), pt, P)
+        u = segment_sum(torch.einsum("oab,oa->ob", Hcp_o, x[cam]), segs.pt)
         v = torch.einsum("pab,pb->pa", Hpp_inv, u)
-        y2 = _segment_sum(torch.einsum("oab,ob->oa", Hcp_o, v[pt]), cam, K)
+        y2 = segment_sum(torch.einsum("oab,ob->oa", Hcp_o, v[pt]), segs.cam)
         return y - y2
 
     M_inv = torch.linalg.inv(Hcc_d)
@@ -157,7 +175,7 @@ def _schur_pcg(Hcc_d, Hpp_inv, Hcp_o, cam, pt, b, fixed,
     return torch.where(fixed[:, None], torch.zeros_like(x), x)
 
 
-def _solve_step(problem: BAProblem, cam_params, use_robust, active, lam,
+def _solve_step(problem: BAProblem, segs: ObsSegments, cam_params, use_robust, active, lam,
                 point_chunk: int, solver: str = "dense"):
     """One damped Gauss-Newton step -> (delta_c [K, 6], delta_p [P, 3])."""
     K = problem.R.shape[0]
@@ -169,10 +187,10 @@ def _solve_step(problem: BAProblem, cam_params, use_robust, active, lam,
     e, w, chi2, Jc, Jp, z = _evaluate(problem, cam_params, use_robust, active)
     Jc_w = Jc * w[..., None]
     Jp_w = Jp * w[..., None]
-    Hcc = _segment_sum(torch.einsum("ora,orb->oab", Jc_w, Jc), cam, K)
-    Hpp = _segment_sum(torch.einsum("ora,orb->oab", Jp_w, Jp), pt, P)
-    g_c = _segment_sum(torch.einsum("ora,or->oa", Jc_w, e), cam, K)
-    g_p = _segment_sum(torch.einsum("ora,or->oa", Jp_w, e), pt, P)
+    Hcc = segment_sum(torch.einsum("ora,orb->oab", Jc_w, Jc), segs.cam)
+    Hpp = segment_sum(torch.einsum("ora,orb->oab", Jp_w, Jp), segs.pt)
+    g_c = segment_sum(torch.einsum("ora,or->oa", Jc_w, e), segs.cam)
+    g_p = segment_sum(torch.einsum("ora,or->oa", Jp_w, e), segs.pt)
 
     # LM damping (diagonal scaling) + tiny Tikhonov for rank safety.
     eye6 = torch.eye(6, dtype=dtype, device=dev)
@@ -189,20 +207,16 @@ def _solve_step(problem: BAProblem, cam_params, use_robust, active, lam,
 
     if solver == "pcg":
         v = torch.einsum("pab,pb->pa", Hpp_inv, g_p)
-        b_corr = _segment_sum(torch.einsum("oab,ob->oa", Hcp_o, v[pt]), cam, K)
-        delta_c = _schur_pcg(Hcc_d, Hpp_inv, Hcp_o, cam, pt, -(g_c - b_corr),
+        b_corr = segment_sum(torch.einsum("oab,ob->oa", Hcp_o, v[pt]), segs.cam)
+        delta_c = _schur_pcg(Hcc_d, Hpp_inv, Hcp_o, cam, pt, segs, -(g_c - b_corr),
                              problem.fixed)
     else:
         # Schur reduction over point chunks: W [K, chunk, 6, 3] per chunk.
         S_corr = torch.zeros((K, 6, K, 6), dtype=dtype, device=dev)
         b_corr = torch.zeros((K, 6), dtype=dtype, device=dev)
-        for lo in range(0, P, point_chunk):
+        for lo, chunk in zip(range(0, P, point_chunk), segs.chunks):
             hi = min(lo + point_chunk, P)
-            in_chunk = (pt >= lo) & (pt < hi)
-            W = torch.zeros((K * (hi - lo), 6, 3), dtype=dtype, device=dev)
-            flat = cam * (hi - lo) + torch.clamp(pt - lo, 0, hi - lo - 1)
-            W.index_add_(0, flat, torch.where(in_chunk[:, None, None], Hcp_o, zero))
-            W = W.reshape(K, hi - lo, 6, 3)
+            W = segment_sum(Hcp_o, chunk).reshape(K, hi - lo, 6, 3)
             Y = torch.einsum("kpab,pbc->kpac", W, Hpp_inv[lo:hi])
             S_corr = S_corr + torch.einsum("kpac,lpdc->kald", Y, W)
             b_corr = b_corr + torch.einsum("kpac,pc->ka", Y, g_p[lo:hi])
@@ -217,7 +231,7 @@ def _solve_step(problem: BAProblem, cam_params, use_robust, active, lam,
         delta_c = -torch.where(info == 0, sol, torch.nan).reshape(K, 6)
         delta_c = torch.where(problem.fixed[:, None], zero, delta_c)
 
-    Hpc_dc = _segment_sum(torch.einsum("oab,oa->ob", Hcp_o, delta_c[cam]), pt, P)
+    Hpc_dc = segment_sum(torch.einsum("oab,oa->ob", Hcp_o, delta_c[cam]), segs.pt)
     delta_p = -torch.einsum("pab,pb->pa", Hpp_inv, g_p + Hpc_dc)
     delta_p = torch.where(problem.point_valid[:, None], delta_p, zero)
     return delta_c, delta_p
@@ -263,13 +277,14 @@ def bundle_adjust(
         _, _, chi2, _, _, z = _evaluate(p, cam_params, use_robust, active)
         return _robust_total_cost(chi2, delta2, active & (z > 0), use_robust)
 
+    segs = obs_segments(problem, point_chunk, solver)
     lam = 1.0 * lam0
     cost = cost_of(problem)
     for _ in range(n_iters):
         if lam >= 1e8:
             break
         delta_c, delta_p = _solve_step(
-            problem, cam_params, use_robust, active,
+            problem, segs, cam_params, use_robust, active,
             torch.tensor(lam, dtype=dtype, device=problem.points.device),
             point_chunk, solver)
         p_new = _apply_step(problem, delta_c, delta_p)

@@ -17,7 +17,11 @@ Two solvers, chosen by size as in the JAX package: "dense" scatters the
 blocks into a [7K, 7K] system (K <= 256 vertices under "auto"), "pcg"
 never forms it: block-Jacobi preconditioned CG with a matvec over the
 edge list. Every LM step and CG iteration runs on the device with no host
-round trip: accept tests and the CG stop are selects.
+round trip: accept tests and the CG stop are selects. The sums over edges
+(into the vertices' gradients and diagonal blocks, the dense system's
+off-diagonal blocks, the CG matvec) add in an order fixed by the edge list
+(optim/segment.py, its tables made once per solve), so a solve gives the
+same bits on every run on the card.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from typing import NamedTuple
 import torch
 
 from orb_slam2_commit_tpu_torch.ops import lie
+from orb_slam2_commit_tpu_torch.optim.segment import Segments, segment_sum, segments
 from orb_slam2_commit_tpu_torch.utils.precision import full_float32
 
 
@@ -82,13 +87,15 @@ def _cost(g: Sim3Graph) -> torch.Tensor:
     return torch.sum(torch.where(g.edge_valid[:, None], r * r, 0.0))
 
 
-def _pcg_solve(D, dscalar, Aij, edge_i, edge_j, b, lam, n_cg: int, tol: float = 1e-16):
+def _pcg_solve(D, dscalar, Aij, edge_i, edge_j, ends: Segments, b, lam, n_cg: int,
+               tol: float = 1e-16):
     """Solve (H + lam diag(H) + 1e-9 I) x = b without forming H.
 
     D [K, 7, 7] vertex diagonal blocks (identity rows for unused or fixed
     vertices already added), dscalar [K, 7] their diagonals, Aij [E, 7, 7]
     the i -> j off-diagonal blocks (Ji^T Jj; j -> i is its transpose), b
-    [K, 7]. Block-Jacobi preconditioned CG.
+    [K, 7], ends the segments of cat(edge_i, edge_j). Block-Jacobi
+    preconditioned CG.
 
     The JAX package's while_loop stops at n_cg iterations or once
     |r|^2 <= tol |b|^2. In float32 a relative tol of 1e-16 is never met
@@ -99,8 +106,8 @@ def _pcg_solve(D, dscalar, Aij, edge_i, edge_j, b, lam, n_cg: int, tol: float = 
 
     def H_mv(x):
         y = torch.einsum("kab,kb->ka", D, x) + damp * x
-        y = y.index_add(0, edge_i, torch.einsum("eab,eb->ea", Aij, x[edge_j]))
-        return y.index_add(0, edge_j, torch.einsum("eab,ea->eb", Aij, x[edge_i]))
+        return y + segment_sum(torch.cat([torch.einsum("eab,eb->ea", Aij, x[edge_j]),
+                                          torch.einsum("eab,ea->eb", Aij, x[edge_i])]), ends)
 
     eye7 = torch.eye(7, dtype=b.dtype, device=b.device)
     # inv_ex reports a singular block instead of raising (the card raises);
@@ -152,6 +159,10 @@ def optimize_sim3_graph(
     w = graph.edge_valid.to(dtype)
     drop_i = graph.fixed[ei][:, None, None]
     drop_j = graph.fixed[ej][:, None, None]
+    # Each edge's terms go to both its vertices; the dense system's
+    # off-diagonal blocks (i, j) and (j, i) sit at i * K + j and j * K + i.
+    ends = segments(torch.cat([ei, ej]), K)
+    blocks = None if use_pcg else segments(torch.cat([ei * K + ej, ej * K + ei]), K * K)
 
     g = graph
     lam = torch.tensor(1e-4, dtype=dtype, device=dev)
@@ -161,27 +172,22 @@ def optimize_sim3_graph(
         Ji = torch.where(drop_i, 0.0, Ji * w[:, None, None])
         Jj = torch.where(drop_j, 0.0, Jj * w[:, None, None])
         rw = r * w[:, None]
-        b = torch.zeros((K, 7), dtype=dtype, device=dev)
-        b = b.index_add(0, ei, torch.einsum("era,er->ea", Ji, rw))
-        b = b.index_add(0, ej, torch.einsum("era,er->ea", Jj, rw))
-        Dii = torch.einsum("era,erb->eab", Ji, Ji)
-        Djj = torch.einsum("era,erb->eab", Jj, Jj)
+        b = segment_sum(torch.cat([torch.einsum("era,er->ea", Ji, rw),
+                                   torch.einsum("era,er->ea", Jj, rw)]), ends)
         Aij = torch.einsum("era,erb->eab", Ji, Jj)
-        D = torch.zeros((K, 7, 7), dtype=dtype, device=dev).index_add(0, ei, Dii)
-        D = D.index_add(0, ej, Djj)
+        D = segment_sum(torch.cat([torch.einsum("era,erb->eab", Ji, Ji),
+                                   torch.einsum("era,erb->eab", Jj, Jj)]), ends)
         # Fixed and unconstrained vertices get identity rows.
         unused = (torch.abs(D).sum(dim=(1, 2)) == 0) | graph.fixed
         D = D + torch.where(unused[:, None, None], eye7, 0.0)
         if use_pcg:
             # CG moves information one edge a iteration: the cap covers
             # the graph's diameter (a loop's cycle is ~K long) and more.
-            delta = -_pcg_solve(D, torch.diagonal(D, dim1=1, dim2=2), Aij, ei, ej, b, lam,
-                                n_cg=4 * K + 128)
+            delta = -_pcg_solve(D, torch.diagonal(D, dim1=1, dim2=2), Aij, ei, ej, ends, b,
+                                lam, n_cg=4 * K + 128)
         else:
-            H = torch.zeros((K, K, 7, 7), dtype=dtype, device=dev)
-            H[torch.arange(K, device=dev), torch.arange(K, device=dev)] = D
-            H.index_put_((ei, ej), Aij, accumulate=True)
-            H.index_put_((ej, ei), Aij.transpose(1, 2), accumulate=True)
+            H = segment_sum(torch.cat([Aij, Aij.transpose(1, 2)]), blocks).reshape(K, K, 7, 7)
+            H[torch.arange(K, device=dev), torch.arange(K, device=dev)] += D
             Hm = H.permute(0, 2, 1, 3).reshape(K * 7, K * 7)
             Hm = Hm + lam * torch.diag(torch.diagonal(Hm)) + 1e-9 * torch.eye(
                 K * 7, dtype=dtype, device=dev)

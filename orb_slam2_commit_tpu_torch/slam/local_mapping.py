@@ -1,6 +1,7 @@
 """Local mapping: keyframe insertion processing (PyTorch port of
 slam/local_mapping.py; reference: src/LocalMapping.cc). The System calls
-process_keyframe once per new keyframe, synchronously:
+process_keyframe once per new keyframe, on its own thread or, with
+asynchronous mapping, on the mapping worker's (slam/async_pipeline.py):
 
   1. recent-map-point culling           (MapPointCulling, :231-279)
   2. triangulate new points             (CreateNewMapPoints, :281-558)
@@ -13,7 +14,12 @@ Triangulation and the forward fuse pass take the batched route
 keyframe); the JAX package's per-neighbour staged route
 (ORB_TPU_STAGED_MAPPER=1) is still to be ported and raises
 NotImplementedError. Map tables stay numpy on the host; what a kernel or
-the BA reads goes to the mapper's device at its call.
+the BA reads goes to the mapper's device at its call. `map_lock` (the
+asynchronous System's RLock) guards the host map mutations, as in the JAX
+package. The mapping worker holds the same lock across the whole call, so
+no global BA merges between the local BA's pack and its write-back (the
+reference's RunGlobalBundleAdjustment stops local mapping before it
+merges).
 """
 
 from __future__ import annotations
@@ -60,6 +66,9 @@ class LocalMapper:
         # Abort flag: a pending keyframe interrupts local BA
         # (reference: mbAbortBA, src/LocalMapping.cc:149-154).
         self.abort_ba = False
+        # The asynchronous System's coarse map lock (an RLock) around host
+        # map mutations; the mapping worker also holds it across the call.
+        self.map_lock = contextlib.nullcontext()
         # Optional sub-stage profiler (set by the System). Stages:
         # map_refresh, map_cullpts, map_tri, map_fuse, map_lba, map_cullkfs.
         self.profiler = None
@@ -77,22 +86,24 @@ class LocalMapper:
     def process_keyframe(self, kf: int) -> None:
         if os.environ.get("ORB_TPU_STAGED_MAPPER") == "1":
             raise NotImplementedError(SLICE_2_STAGED)
-        # Stats refresh restricted to the points this keyframe touches.
-        with self._timed("map_refresh"):
-            self.map.refresh_point_stats(self._window_points(kf))
-        with self._timed("map_cullpts"):
-            self._cull_recent_points(kf)
-        with self._timed("map_tri"):
-            self._create_new_points_batched(kf)
-        with self._timed("map_fuse"):
-            self._fuse_neighbors(kf)
-        with self._timed("map_refresh"):
-            self.map.refresh_point_stats(self._window_points(kf))
+        with self.map_lock:
+            # Stats refresh restricted to the points this keyframe touches.
+            with self._timed("map_refresh"):
+                self.map.refresh_point_stats(self._window_points(kf))
+            with self._timed("map_cullpts"):
+                self._cull_recent_points(kf)
+            with self._timed("map_tri"):
+                self._create_new_points_batched(kf)
+            with self._timed("map_fuse"):
+                self._fuse_neighbors(kf)
+            with self._timed("map_refresh"):
+                self.map.refresh_point_stats(self._window_points(kf))
         if self.map.n_keyframes() > 2 and not self.abort_ba:
             with self._timed("map_lba"):
                 self._local_ba(kf)
-        with self._timed("map_cullkfs"):
-            self._cull_keyframes(kf)
+        with self.map_lock:
+            with self._timed("map_cullkfs"):
+                self._cull_keyframes(kf)
 
     # ------------------------------------------------------------------
 
@@ -526,21 +537,23 @@ class LocalMapper:
         if not free:
             return
 
-        assembled = build_ba_problem(
-            self.map,
-            free_kfs=np.asarray(free),
-            fixed_kfs=np.asarray(fixed),
-            point_ids=pts,
-            orb_cfg=self.config.orb,
-            device=self.device,
-        )
+        with self.map_lock:
+            assembled = build_ba_problem(
+                self.map,
+                free_kfs=np.asarray(free),
+                fixed_kfs=np.asarray(fixed),
+                point_ids=pts,
+                orb_cfg=self.config.orb,
+                device=self.device,
+            )
         out, result = ba.local_bundle_adjust(
             assembled.problem, cam.fx, cam.fy, cam.cx, cam.cy, cam.bf,
             point_chunk=1024,
         )
-        write_back_ba(self.map, assembled, out, result)
-        # Only the solved points' stats can have changed.
-        self.map.refresh_point_stats(pts)
+        with self.map_lock:
+            write_back_ba(self.map, assembled, out, result)
+            # Only the solved points' stats can have changed.
+            self.map.refresh_point_stats(pts)
 
     # ------------------------------------------------------------------
 

@@ -1,8 +1,9 @@
 """Loop closing: detection, Sim3 alignment, map correction, global BA
 (PyTorch port of slam/loop_closing.py; reference: src/LoopClosing.cc).
 
-A per-keyframe stage the System runs after local mapping, synchronously
-(the reference's thread and queue come with asynchronous mapping):
+A per-keyframe stage the System runs after local mapping, on the caller's
+thread or, with asynchronous mapping, on the mapping worker's
+(slam/async_pipeline.py), under the map lock:
 
   detect_loop    BoW candidates above the covisible keyframes' lowest
                  score, with covisibility-group temporal consistency >= 3
@@ -13,7 +14,9 @@ A per-keyframe stage the System runs after local mapping, synchronously
                  projected into the keyframe (K6) (:287-534)
   correct_loop   the corrected Sim3 through the covisible neighbourhood,
                  its points moved, the loop's matches bound, the essential
-                 graph, global BA (:545-880, :884-1020)
+                 graph, global BA (:545-880, :884-1020): inline, or with a
+                 `gba_runner` (slam/global_ba.py) on its own thread, the
+                 run in flight aborted as a correction starts
 
 Device work (the matchers' kernels, the RANSAC, both LMs, the BA) runs on
 the closer's device; the map and the decisions stay on the host, as in
@@ -87,7 +90,7 @@ class LoopCloser:
         # One record per closure: {kf, loop_kf, n_keyframes, n_points,
         # correct_s}.
         self.correction_stats: List[dict] = []
-        # The threaded global BA runner comes with asynchronous mapping;
+        # The asynchronous System's global BA runner (slam/global_ba.py);
         # None runs global BA inline.
         self.gba_runner = None
         # Optional stage profiler (set by the System). Stages: loop_detect,
@@ -342,6 +345,11 @@ class LoopCloser:
         """CorrectLoop (src/LoopClosing.cc:545-880)."""
         m = self.map
         fix_scale = self.config.sensor != "monocular"
+        # A global BA still in flight for an earlier loop is stale now:
+        # abort it before the map moves (:556-572). It does not wait: the
+        # runner checks its generation again under the map lock.
+        if self.gba_runner is not None:
+            self.gba_runner.request_abort()
         # The essential graph measures old edges on the poses before the
         # correction (NonCorrectedSim3, :604-633).
         poses_R_old = m.kf_pose_R.copy()
@@ -394,9 +402,14 @@ class LoopCloser:
                                            set(neighborhood))
         m.add_loop_edge(kf, loop_kf)
 
-        # 6. Global BA (RunGlobalBundleAdjustment, :801), inline.
+        # 6. Global BA (RunGlobalBundleAdjustment, :801): on the runner's
+        #    thread, which packs the map once the correction lets the lock
+        #    go, or inline.
         with self._timed("loop_gba"):
-            self.run_global_ba(anchor_kf=loop_kf)
+            if self.gba_runner is not None:
+                self.gba_runner.launch(m, anchor_kf=loop_kf)
+            else:
+                self.run_global_ba(anchor_kf=loop_kf)
         m.refresh_point_stats()
         m.big_change_idx += 1
 

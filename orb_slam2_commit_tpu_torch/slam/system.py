@@ -2,8 +2,8 @@
 reference: src/System.cc, include/System.h:63-124).
 
 It builds the map, the tracker and the local mapper, takes frames through
-`track_monocular` / `track_rgbd` / `track_stereo`, runs local mapping
-synchronously after each new keyframe, and exports the trajectory. A
+`track_monocular` / `track_rgbd` / `track_stereo`, maps each new keyframe,
+and exports the trajectory. A
 monocular System extracts twice the features until it has initialized
 (the reference's initialization extractor, src/Tracking.cc:121-126), so
 its map holds keyframes of the larger width. Every device call runs on the
@@ -21,14 +21,27 @@ database: every keyframe is registered, relocalization takes its BoW
 candidates, and loop closing runs after local mapping on each new
 keyframe (detection, Sim3, correction, the essential graph, global BA).
 
-Still to be ported, and raising NotImplementedError: the localization-only
-mode (slice 2) and asynchronous mapping (slice 3).
+Mapping is asynchronous unless the configuration or the caller says
+otherwise (config.system.async_mapping, True by default; synthetic_config
+turns it off): local mapping and loop closing run on a worker thread fed
+by a keyframe queue (slam/async_pipeline.py), global BA after a loop
+correction on a thread of its own (slam/global_ba.py), each on its own
+CUDA stream on the card, with one coarse map lock (an RLock) between them
+and the tracker. `shutdown` drains the queue and joins both threads, and
+raises what either of them raised. Synchronous mapping runs both stages on
+the caller's thread after each new keyframe, global BA inline.
+
+`activate_localization_mode` stops keyframe insertion and map changes;
+`load_map` then `activate_localization_mode` is a localization session
+against a saved map (the tracker's visual-odometry points ride the gaps).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
+import threading
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -38,16 +51,15 @@ from orb_slam2_commit_tpu_torch.models import serialization
 from orb_slam2_commit_tpu_torch.models.kf_database import KeyFrameDatabase
 from orb_slam2_commit_tpu_torch.models.map_state import MapState
 from orb_slam2_commit_tpu_torch.models.vocabulary import default_vocabulary, load_vocabulary
+from orb_slam2_commit_tpu_torch.slam.async_pipeline import MappingWorker
 from orb_slam2_commit_tpu_torch.slam.frame import Frame, make_frame, make_stereo_frame
+from orb_slam2_commit_tpu_torch.slam.global_ba import GlobalBARunner
 from orb_slam2_commit_tpu_torch.slam.local_mapping import LocalMapper, RecentPoint
 from orb_slam2_commit_tpu_torch.slam.loop_closing import LoopCloser
-from orb_slam2_commit_tpu_torch.slam.tracking import Tracker, TrackingState
+from orb_slam2_commit_tpu_torch.slam.tracking import Tracker, TrackingState, close_depth_points
 from orb_slam2_commit_tpu_torch.utils import trajectory as traj
 from orb_slam2_commit_tpu_torch.utils.config import SLAMConfig
 from orb_slam2_commit_tpu_torch.utils.profiling import Profiler
-
-SLICE_2_LOCALIZATION = "the localization-only / VO mode: ROADMAP queue 1, slice 2"
-SLICE_3_ASYNC = "asynchronous mapping (slam/async_pipeline.py): ROADMAP queue 1, slice 3"
 
 
 class System:
@@ -57,13 +69,13 @@ class System:
         layout), "default" (the bundled vocabulary when
         config.system.use_vocabulary, else none), or None / False for no
         place recognition.
-        async_mapping: False, or None to take config.system.async_mapping.
+        async_mapping: True (mapping and loop closing on a worker thread),
+        False (on the caller's thread), or None to take
+        config.system.async_mapping.
         device: where every device call runs ("cuda" by default; "cpu"
         runs the kernels' plain versions)."""
         if async_mapping is None:
             async_mapping = config.system.async_mapping
-        if async_mapping:
-            raise NotImplementedError(SLICE_3_ASYNC)
         if isinstance(vocabulary, str) and vocabulary == "default":
             vocabulary = default_vocabulary() if config.system.use_vocabulary else None
         elif isinstance(vocabulary, str):
@@ -82,16 +94,25 @@ class System:
         if self.vocabulary is not None:
             self.kf_database = KeyFrameDatabase(self.vocabulary, config.map.max_keyframes,
                                                 self.device)
+        self.map_lock = threading.RLock() if async_mapping else None
+        self.mapping_worker: Optional[MappingWorker] = None
+        self._gba: Optional[GlobalBARunner] = None
         self._build()
+
+    def _locked(self):
+        return self.map_lock if self.map_lock is not None else contextlib.nullcontext()
 
     def _build(self) -> None:
         """A fresh map with its tracker, mapper and, with a vocabulary, the
-        database (cleared) and loop closer wired to it (construction,
-        Reset)."""
+        database (cleared) and loop closer wired to it; with asynchronous
+        mapping the worker and the global BA runner rewired to them
+        (construction, Reset). The localization-only flag survives."""
+        localization_only = self.tracker.localization_only if hasattr(self, "tracker") else False
         n_feat = max(sum(c.orb.features_per_level()) for c in (self.config, self.init_config))
         self.map = MapState.create(self.config.map, n_feat)
         self.tracker = Tracker(self.config, self.map, self.device)
         self.tracker.profiler = self.profiler
+        self.tracker.localization_only = localization_only
         self.mapper = LocalMapper(self.config, self.map, self.device)
         self.mapper.profiler = self.profiler
         self.loop_closer = None
@@ -105,6 +126,21 @@ class System:
                 essential_min_weight=min(100, max(20, self.config.orb.n_features // 10)),
                 device=self.device)
             self.loop_closer.profiler = self.profiler
+        if self.map_lock is None:
+            return
+        self.mapper.map_lock = self.map_lock
+        if self.mapping_worker is None:
+            self.mapping_worker = MappingWorker(self.mapper, self.loop_closer, self.map_lock,
+                                                device=self.device)
+        self.mapping_worker.mapper = self.mapper
+        self.mapping_worker.loop_closer = self.loop_closer
+        self.tracker.mapping_worker = self.mapping_worker
+        if self.loop_closer is not None:
+            # Global BA after a loop correction runs on its own abortable
+            # thread (the reference's GBA thread, src/LoopClosing.cc:801).
+            if self._gba is None:
+                self._gba = GlobalBARunner(self.config, self.map_lock, device=self.device)
+            self.loop_closer.gba_runner = self._gba
 
     def _wire_database(self) -> None:
         self.kf_database.grow("keyframes", self.map.cfg.max_keyframes)
@@ -181,62 +217,64 @@ class System:
         return self.device.type != "cpu"
 
     def _track_frame(self, frame: Frame, motion_ok=None):
-        was_initialized = self.tracker.state in (TrackingState.OK, TrackingState.LOST)
-        pose = self.tracker.track(frame, motion_ok=motion_ok)
-
-        if self.tracker.request_reset:
+        """Track the frame and, when it becomes a keyframe, map it here or
+        hand it to the mapping worker. With asynchronous mapping the
+        tracker's map reads and writes happen under the map lock."""
+        kf = None
+        with self._locked():
+            was_initialized = self.tracker.state in (TrackingState.OK, TrackingState.LOST)
+            pose = self.tracker.track(frame, motion_ok=motion_ok)
+            reset = self.tracker.request_reset
+            if not reset and not was_initialized and self.tracker.state == TrackingState.OK:
+                # The map was just created: its keyframes go into the database.
+                if self.kf_database is not None:
+                    for k in range(self.map.next_kf):
+                        if self.map.kf_valid[k] and not self.kf_database.present[k]:
+                            self.kf_database.add(k, self.map.kf_desc[k],
+                                                 self.map.kf_feat_valid[k])
+            elif not reset:
+                with self.profiler.timed("track_need_kf"):
+                    need_kf = pose is not None and self.tracker.need_new_keyframe(frame)
+                if need_kf:
+                    kf = self._new_keyframe(frame)
+        if reset:
             # Lost right after initialization: restart from scratch
             # (src/Tracking.cc:540-552).
             self.reset()
             return None
-        if not was_initialized and self.tracker.state == TrackingState.OK:
-            # The map was just created: its keyframes go into the database.
-            if self.kf_database is not None:
-                for k in range(self.map.next_kf):
-                    if self.map.kf_valid[k] and not self.kf_database.present[k]:
-                        self.kf_database.add(k, self.map.kf_desc[k], self.map.kf_feat_valid[k])
-            return pose
+        if kf is not None and self.mapping_worker is not None:
+            self.mapping_worker.insert_keyframe(kf)
+        return pose
 
-        with self.profiler.timed("track_need_kf"):
-            need_kf = pose is not None and self.tracker.need_new_keyframe(frame)
-        if need_kf:
-            # The anchor rebind happens before mapping moves the new
-            # keyframe (CreateNewKeyFrame before the bookkeeping).
-            with self.profiler.timed("keyframe_insert"):
-                kf = self._insert_keyframe(frame)
-            self.tracker.bind_keyframe_anchor(frame, kf)
+    def _new_keyframe(self, frame: Frame) -> int:
+        """Make the frame a keyframe and, with synchronous mapping, map it."""
+        # The anchor rebind happens before mapping moves the new keyframe
+        # (CreateNewKeyFrame before the bookkeeping).
+        with self.profiler.timed("keyframe_insert"):
+            kf = self._insert_keyframe(frame)
+        self.tracker.bind_keyframe_anchor(frame, kf)
+        if self.mapping_worker is None:
             with self.profiler.timed("local_mapping"):
                 self.mapper.process_keyframe(kf)
             if self.loop_closer is not None:
                 with self.profiler.timed("loop_closing"):
                     self.loop_closer.process_keyframe(kf)
-            self.tracker.ref_kf = kf
-            self.tracker.last_kf_frame_id = frame.frame_id
-        return pose
+        self.tracker.ref_kf = kf
+        self.tracker.last_kf_frame_id = frame.frame_id
+        return kf
 
     def _insert_keyframe(self, frame: Frame) -> int:
         """Tracking::CreateNewKeyFrame (src/Tracking.cc:1311-1401): for
         stereo and RGB-D, unbound features with close depth spawn new map
         points, nearest first, at least 100 or all closer than th_depth
         (:1335-1392); a monocular frame has no depth (depth -1)."""
-        cam = self.config.camera
-        close_th = cam.baseline * cam.th_depth
-        unbound = frame.valid & (frame.point_ids < 0) & (frame.depth > 0)
-        feats = np.where(unbound)[0]
-        if feats.size:
-            order = feats[np.argsort(frame.depth[feats])]
-            n_close = int((frame.depth[order] < close_th).sum())
-            take = order[: max(min(100, order.size), n_close)]
-            zt = frame.depth[take].astype(np.float64)
-            x = (frame.xy[take, 0] - cam.cx) / cam.fx * zt
-            y = (frame.xy[take, 1] - cam.cy) / cam.fy * zt
-            pw = (np.stack([x, y, zt], -1) - frame.t) @ frame.R
-            take = take[: self.map.cfg.max_points - self.map.next_pt]
-            if take.size:
-                ids = self.map.add_points(pw[: take.size], self.map.next_kf)
-                frame.point_ids[take] = ids
-                for pid in ids:
-                    self.mapper.recent_points.append(RecentPoint(int(pid), self.map.next_kf))
+        take, pw = close_depth_points(frame, self.config.camera)
+        take = take[: self.map.cfg.max_points - self.map.next_pt]
+        if take.size:
+            ids = self.map.add_points(pw[: take.size], self.map.next_kf)
+            frame.point_ids[take] = ids
+            for pid in ids:
+                self.mapper.recent_points.append(RecentPoint(int(pid), self.map.next_kf))
         return self.map.add_keyframe(
             frame.R, frame.t, frame.xy, frame.octave, frame.angle, frame.desc,
             frame.valid, frame.point_ids, frame.frame_id, frame.timestamp,
@@ -249,13 +287,29 @@ class System:
     # ------------------------------------------------------------------
 
     def activate_localization_mode(self) -> None:
-        raise NotImplementedError(SLICE_2_LOCALIZATION)
+        """Track against the map without changing it: no keyframe, no map
+        point (a depth sensor's temporal VO points live one frame)."""
+        self.tracker.localization_only = True
+
+    def deactivate_localization_mode(self) -> None:
+        self.tracker.localization_only = False
+
+    def _drain(self) -> None:
+        """Abort a global BA in flight and let the worker empty its queue,
+        both before the map lock is taken (the runner may wait for it to
+        merge)."""
+        if self._gba is not None:
+            self._gba.abort_and_join()
+        if self.mapping_worker is not None:
+            self.mapping_worker.wait_idle()
 
     def reset(self) -> None:
         """Tracking::Reset (src/Tracking.cc:1886-1932): clear the map, the
         keyframe database and the loop closer's state, and restart tracking
-        from scratch."""
-        self._build()
+        from scratch; the localization-only flag stays as it was."""
+        self._drain()
+        with self._locked():
+            self._build()
 
     def save_map(self, path: str) -> None:
         """Write the whole map to an .npz (models/serialization.py), in the
@@ -266,6 +320,11 @@ class System:
         """Load a map and rewire every stage to it: tracking starts LOST
         against its newest keyframe (relocalization takes over), and the
         database is rebuilt from its keyframes' descriptors."""
+        self._drain()
+        with self._locked():
+            self._load_map(path)
+
+    def _load_map(self, path: str) -> None:
         self.map = serialization.load_map(path)
         self.tracker.map = self.map
         self.mapper.map = self.map
@@ -278,6 +337,24 @@ class System:
             serialization.rebuild_database(self.map, self.kf_database)
         if self.loop_closer is not None:
             self.loop_closer.map = self.map
+
+    def shutdown(self) -> None:
+        """Drain the keyframe queue, then finish the mapping worker and wait
+        for a global BA in flight to merge (System::Shutdown,
+        src/System.cc:315-334); raises what a background thread raised."""
+        worker = self.mapping_worker
+        try:
+            if worker is not None:
+                worker.wait_idle()
+        finally:
+            if worker is not None:
+                worker.join()
+            if self._gba is not None:
+                self._gba.join()
+
+    def map_changed(self) -> int:
+        """The map's big-change count: loop corrections and global BAs."""
+        return self.map.big_change_idx
 
     def timings(self):
         """Per-stage timing summary (utils/profiling.Profiler):

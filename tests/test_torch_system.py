@@ -22,8 +22,8 @@ converters), on the same inputs: integer tables equal, poses within
 different orders); with the mapper's abort flag set, both skip local BA
 and the new points, raw DLT triangulations, agree to 5e-4 relative. The
 trajectory exports hold the trajectory's positions. A short stereo run
-of the port is held by outcome, and the features still to come
-(asynchronous mapping, a vocabulary, the localization-only mode) raise
+of the port is held by outcome, and the features still to come (global BA
+sharded over several cards, the staged mapper route) raise
 NotImplementedError.
 """
 
@@ -341,25 +341,21 @@ def test_mapper_abort_skips_local_ba_as_jax(jax_run):
     np.testing.assert_array_equal(got["kf_pose_R"], d["kf_pose_R"])   # no BA moved them
 
 
-@pytest.mark.parametrize("kwargs, sensor", [
-    (dict(async_mapping=True), "rgbd"),
-    (dict(vocabulary="default"), "rgbd"),
-    (dict(), "monocular"),
-])
-def test_features_still_to_come_raise(kwargs, sensor, monkeypatch):
-    """Asynchronous mapping, and global BA sharded over several cards
-    (ORB_DISTRIBUTED_GBA=1, with a vocabulary's loop closer), raise at
-    construction; a monocular System builds, and its switch to the
-    localization-only mode raises."""
-    monkeypatch.setenv("ORB_DISTRIBUTED_GBA", "1")
-    cfg = synthetic_config(width=W, height=H, n_features=N_FEAT, sensor=sensor)
-    if sensor == "monocular":
-        sys_ = System(cfg, vocabulary=None, async_mapping=False, device="cpu", **kwargs)
+@pytest.mark.parametrize("switch", ["ORB_DISTRIBUTED_GBA", "ORB_TPU_STAGED_MAPPER"])
+def test_features_still_to_come_raise(switch, monkeypatch):
+    """Global BA sharded over several cards (ORB_DISTRIBUTED_GBA=1, with a
+    vocabulary's loop closer) raises at construction; the staged mapper
+    route (ORB_TPU_STAGED_MAPPER=1) raises at the first keyframe the
+    mapper takes."""
+    monkeypatch.setenv(switch, "1")
+    cfg = synthetic_config(width=W, height=H, n_features=N_FEAT, sensor="rgbd")
+    if switch == "ORB_DISTRIBUTED_GBA":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sys_.activate_localization_mode()
+            System(cfg, vocabulary="default", async_mapping=False, device="cpu")
         return
+    sys_ = System(cfg, vocabulary=None, async_mapping=False, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        System(cfg, **{"vocabulary": None, "async_mapping": False, **kwargs}, device="cpu")
+        sys_.mapper.process_keyframe(0)
 
 
 def test_trajectory_exports(port_run, tmp_path):

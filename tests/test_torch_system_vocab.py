@@ -12,7 +12,7 @@
   and tracks with the vocabulary; the monocular map's initial keyframes
   go into the database when the map is created.
 - Reset clears the database and the loop closer's state.
-- Asynchronous mapping and ORB_DISTRIBUTED_GBA=1 still raise.
+- ORB_DISTRIBUTED_GBA=1 and ORB_TPU_STAGED_MAPPER=1 still raise.
 - A map saved by the port loads in the JAX package and the other way
   round (models/serialization.py), and System.load_map rebuilds the
   database from the loaded keyframes.
@@ -135,14 +135,16 @@ def test_monocular_registers_initial_keyframes():
     assert sys_.map.remove_kf_hooks == [sys_.kf_database.erase]
 
 
-@pytest.mark.parametrize("kwargs, env", [(dict(async_mapping=True), None),
-                                         (dict(), "1")])
-def test_routes_still_to_come_raise(kwargs, env, monkeypatch):
-    if env is not None:
-        monkeypatch.setenv("ORB_DISTRIBUTED_GBA", env)
+@pytest.mark.parametrize("switch", ["ORB_TPU_STAGED_MAPPER", "ORB_DISTRIBUTED_GBA"])
+def test_routes_still_to_come_raise(switch, monkeypatch):
+    """With the vocabulary: global BA over several cards raises as the
+    loop closer is built, the staged mapper route at the first keyframe
+    the mapper takes. (Asynchronous mapping no longer raises:
+    tests/test_torch_async_pipeline.py.)"""
+    monkeypatch.setenv(switch, "1")
     cfg = synthetic_config(width=W, height=H, n_features=N_FEAT, sensor="rgbd")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, slice [35]"):
-        System(cfg, **{"async_mapping": False, **kwargs}, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, slice [25]"):
+        System(cfg, async_mapping=False, device="cpu").mapper.process_keyframe(0)
 
 
 def test_serialization_across_packages(rgbd_runs, tmp_path):
