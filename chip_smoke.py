@@ -37,7 +37,15 @@ through an asynchronous System (`async_mapping=True`: mapping and loop
 closing on a worker thread, global BA on its own, each on its own CUDA
 stream), then `shutdown()`; and tests/test_async_pipeline.py's global BA
 stress over the monocular sweep, asynchronous (every global BA held in
-flight and relaunched every 5 frames).
+flight and relaunched every 5 frames). Last, the datasets phase: the
+port's writers lay out four mini datasets at the published settings of
+the reference's Examples/*.yaml in a temporary directory (KITTI 00-02
+stereo, 1241x376 and 2000 features, 60 frames of the KITTI-class drive
+under CAMERA_PHOTO; TUM fr1 RGB-D, the RGB-D System's scene through
+TUM1's lens, 16-bit depth; EuRoC stereo, raw pairs through the published
+cameras and mounting rotations, rectified by the driver; TUM fr1
+monocular, the sweep through TUM1's lens), and the port's driver
+(examples/run_dataset.py) runs each from disk, as a user runs it.
 
 Phases (any failure exits non-zero and prints no result line):
   1. the card: name, count, torch/CUDA versions, nvidia-smi name + power limit;
@@ -69,7 +77,14 @@ Phases (any failure exits non-zero and prints no result line):
      either side shared, 5000 columns, ties, rows with no candidate and
      with one, the tests' exact edges, degenerate epipolar lines, NaN
      coordinates under clear flags); K6 with a batch axis on the System's
-     fuse problems (also with an empty problem and with every row empty),
+     fuse problems (also with an empty problem and with every row empty);
+     at the dataset paths' shapes, on the calls recorded in each dataset
+     cell's first --sync run through the driver and in the KITTI cell's
+     first 5 frames through kitti-mono (held after phase 4's dataset
+     runs): K1-K5 on the 1241x376, 752x480 and 640x480 canvases, K6, K7's
+     band at 2000 and 1200 features a side, K7 under the flags, under the
+     epipolar band and under the window (four 1024-column passes at twice
+     2000 features in kitti-mono), K8 at up to 2000 observations,
      and K8 also on a problem tiled past 1024 and past 7000 rows, launched
      twice; the ring survey's first global BA and essential graph, each
      solved twice from its recorded problem and required bit-identical;
@@ -110,7 +125,21 @@ Phases (any failure exits non-zero and prints no result line):
      no error; the global BA stress to tests/test_async_pipeline.py's
      gates (>= 2 launches, >= 1 relaunch over a run in flight, every
      launch merged or aborted, none running, OK, the scale-aligned ATE
-     under 0.10 x span);
+     under 0.10 x span); each dataset cell twice with --sync, the launch
+     counts reset before and read after each run: every frame OK after
+     the first OK, >= 2 keyframes, the ATE of the exported trajectory under
+     tests/test_dataset_drivers.py's gate for the mode, every kernel of
+     the path launched and none off it, the two runs' trajectory files
+     equal byte for byte; the KITTI cell once more with the driver's
+     defaults (asynchronous, the bundled vocabulary) under the same gate;
+     the KITTI cell's first 5 frames and the TUM RGB-D cell's first 10
+     (TUM1's lens) on the card and the CPU: the same keyframes, frame and
+     keyframe poses within ROT_DEG_TOL / T_TOL, raw keypoints within
+     XY_TOL and undistorted ones within UNDIST_XY_TOL on all but
+     FEATURE_FLIP_TOL of the valid features; the KITTI cell's first 5
+     frames through kitti-mono (K7 under the initialization's window);
+     each run's frames, keyframes, ATE, the driver's tracking times,
+     frames/s, PNG read time and (EuRoC) the rectification's time a pair;
   5. timing: throughput of each path by the bench recipe (the System's
      frames/s over a sequence, after a warm-up sequence, with its stage
      times, initialization's and relocalization's among them, and, under
@@ -127,7 +156,8 @@ Phases (any failure exits non-zero and prints no result line):
      by PyTorch and K7 under it (device busy, events, device operations,
      idle share); the RGB-D System asynchronous and synchronous in turns
      (frames/s, the tracker thread's ms per frame, device idle share under
-     torch.profiler).
+     torch.profiler); K1, K7's band, K7 under the window and K8 also at the
+     dataset paths' shapes (logged only).
 Then a `kernels` JSON line, the nvidia-smi line, and last the result line
 {"ok": true, "device": {...}}.
 """
@@ -135,6 +165,7 @@ Then a `kernels` JSON line, the nvidia-smi line, and last the result line
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -143,6 +174,7 @@ import tempfile
 import threading
 import time
 import types
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -161,8 +193,11 @@ try:
     from orb_slam2_commit_tpu_torch.slam.local_mapping import LocalMapper
     from orb_slam2_commit_tpu_torch.slam.system import System
     from orb_slam2_commit_tpu_torch.slam.tracking import Tracker
-    from orb_slam2_commit_tpu_torch.utils import synthetic, trajectory
-    from orb_slam2_commit_tpu_torch.utils.config import synthetic_config
+    from orb_slam2_commit_tpu_torch.examples import run_dataset
+    from orb_slam2_commit_tpu_torch.utils import mini_dataset, synthetic, trajectory
+    from orb_slam2_commit_tpu_torch.utils.config import (
+        EUROC_RAW_CAMERAS, euroc_stereo_config, kitti_00_02_config, synthetic_config,
+        tum_fr1_config)
     from orb_slam2_commit_tpu_torch.slam.jit_frontend import (
         fused_local_map_track, fused_motion_track_packed,
         fused_rgbd_motion_track_packed, fused_stereo_motion_track_packed,
@@ -311,6 +346,63 @@ GBA_EVERY, GBA_MIN_KFS, GBA_ATE_GATE = 5, 4, 0.10
 # Asynchronous against synchronous RGB-D System runs, in turns.
 ASYNC_TURNS = 2
 
+# The datasets phase: four mini datasets written by the port's writers at
+# the published settings of the reference's Examples/*.yaml (absent from
+# the snapshot, SURVEY.md; their values are utils/config's
+# kitti_00_02_config, euroc_stereo_config with EUROC_RAW_CAMERAS, and
+# tum_fr1_config), each run through the port's driver. Only the frame
+# counts are cut.
+# The EuRoC raw cameras' mounting rotations (degrees) and the scene and
+# path of tests/test_dataset_drivers.py's EuRoC stereo case.
+EUROC_MOUNTS = {"LEFT": dict(yaw=1.2, pitch=0.5), "RIGHT": dict(yaw=-0.8, pitch=0.7, roll=0.4)}
+EUROC_SCENE = dict(seed=9, n_points=500, step=0.06)
+# scripts/scale_drive.py's circuit (1600 frames, 0.185 m a frame), its
+# first 60 frames.
+KITTI_DRIVE = dict(n_frames=1600, stereo=True, seed=7)
+DATASET_FRAMES = {"kitti_00-02_stereo": 60, "tum_fr1_rgbd": 30, "euroc_stereo": 30,
+                  "tum_fr1_mono": 40}
+# ATE gates, x the path's span: tests/test_dataset_drivers.py's for the
+# same mode (TUM monocular scale-aligned).
+DATASET_GATES = {"kitti_00-02_stereo": 0.02, "tum_fr1_rgbd": 0.02, "euroc_stereo": 0.025,
+                 "tum_fr1_mono": 0.03}
+# The cells whose first frames run on the card and on the CPU (KITTI's
+# canvas; TUM1's lens through the fused RGB-D stages), and how many.
+DATASET_VS_CPU = {"kitti_00-02_stereo": 5, "tum_fr1_rgbd": 10}
+# px, the undistorted keypoints (Frame.xy) card vs CPU: the raw keypoints'
+# XY_TOL through TUM1's undistortion, whose gain is at most 1.0005 over
+# the image, plus the float32 rounding of its iterations near 640 px
+# (6.1e-5 px an ulp).
+UNDIST_XY_TOL = 2e-4
+# Share of the valid features whose valid flag, octave or keypoint may
+# differ card vs CPU end to end: responses above level 0 differ in their
+# last bits (ROADMAP.md section 3), so a cell's choice may flip where two
+# candidates tie (STEREO_FLIP_TOL's reason).
+FEATURE_FLIP_TOL = STEREO_FLIP_TOL
+# Every dataset run launches these (the stereo runs also K7's band, the
+# monocular ones K7 under the window) and none of SYSTEM_UNUSED.
+DATASET_LAUNCHED = ("level_preprocess", "combine_nms", "cell_topk_map", "describe_patches",
+                    "projection_hamming_top2", "epipolar_hamming_top2", "pose_lm")
+DATASET_FILES = ("_tum.txt", "_kf_tum.txt", "_kitti.txt")
+# The kernel rows timed at the dataset paths' shapes, and the run whose
+# launches each reports.
+DATASET_TIMED = {
+    "KITTI canvas 1241x376": "the KITTI cell's first --sync run",
+    "KITTI pair, 2000 x 2000": "the KITTI cell's first --sync run",
+    "KITTI monocular initialization": "the KITTI cell's first 5 frames through kitti-mono",
+    "KITTI stereo frame, 2000 observations": "the KITTI cell's first --sync run"}
+# The kernels recorded in each cell's first --sync run: (module, calls
+# kept: the first ones, or all of them, to keep the largest).
+DATASET_RECORDED = {
+    "level_preprocess": (level, 2), "combine_nms": (level, 2), "cell_topk_map": (select, 2),
+    "describe_patches": (patches, 2), "projection_hamming_top2": (kmatching, SYSTEM_RECORDED),
+    "stereo_band_top2": (kmatching, 2), "valid_hamming_top2": (kmatching, SYSTEM_RECORDED),
+    "epipolar_hamming_top2": (kmatching, SYSTEM_RECORDED), "pose_lm": (pose_lm, None),
+    "window_hamming_top2": (kmatching, None)}
+# K7 under the KITTI initialization's window (twice 2000 features): more
+# columns than any earlier phase gives it (the monocular sweep's 2000),
+# four of the kernel's 1024-column passes (MT_CHUNK, csrc/matching.cu).
+K7_WINDOW_MIN_COLUMNS = 2049
+
 # K3 runs in its map form; K4 and K5 in one fused launch (describe_patches)
 # per extraction. K3's row form and the standalone K4 and K5 have no caller
 # on the main paths, nor has K7 under a caller's mask; K7 under a
@@ -446,12 +538,14 @@ def as_tensors(arrays, device):
 
 
 @contextlib.contextmanager
-def recording(module, name, calls):
-    """Record the arguments of every call of module.name into calls."""
+def recording(module, name, calls, keep=None):
+    """Record the arguments of every call of module.name into calls (of
+    the first `keep` calls only, where keep is given)."""
     fn = getattr(module, name)
 
     def spy(*args, **kwargs):
-        calls.append((args, kwargs))
+        if keep is None or len(calls) < keep:
+            calls.append((args, kwargs))
         return fn(*args, **kwargs)
 
     setattr(module, name, spy)
@@ -459,6 +553,20 @@ def recording(module, name, calls):
         yield calls
     finally:
         setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def fused_route_forced():
+    """ORB_TPU_FUSED_TRACK=1 inside the block: the CPU on the card's route."""
+    prev = os.environ.get("ORB_TPU_FUSED_TRACK")
+    os.environ["ORB_TPU_FUSED_TRACK"] = "1"
+    try:
+        yield
+    finally:
+        if prev is None:
+            del os.environ["ORB_TPU_FUSED_TRACK"]
+        else:
+            os.environ["ORB_TPU_FUSED_TRACK"] = prev
 
 
 def phase_device():
@@ -972,29 +1080,7 @@ def phase_kernels(x):
     problems += [("stereo pair, tiled", tiled_problem(x["k8_stereo"][0], n))
                  for n in K8_TILED_ROWS]
     for path, args in problems:
-        got = pose_lm.pose_lm(*args)
-        again = pose_lm.pose_lm(*args)
-        want = pose_opt.pose_optimization_plain(*args)
-        torch.cuda.synchronize()
-        d_rot = rot_angle_deg(got.R.cpu(), want.R.cpu())
-        d_t = float((got.t - want.t).norm())
-        obs = args[3]
-        n_obs = obs.valid.shape[0]
-        differ = int((got.inliers != want.inliers).sum())
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        log(f"K8 pose_lm on the {path}, O={n_obs} ({int((obs.is_stereo & obs.valid).sum())} "
-            f"stereo rows): rot {d_rot:.3g} deg, |dt| {d_t:.3g}, max|dR| "
-            f"{max_abs(got.R, want.R):.3g}, inliers {int(got.n_inliers)} vs "
-            f"{int(want.n_inliers)}, {differ} flags differ; repeat bit-identical: {same}")
-        if not (d_rot < ROT_DEG_TOL and d_t < T_TOL and differ <= K8_INLIER_TOL * n_obs):
-            raise AssertionError("K8 differs from its plain version beyond the bounds")
-        if not same:
-            raise AssertionError("two K8 launches on one input differ")
-        n = got.n_inliers
-        if n.dtype != torch.int64 or n.dim() != 0 or n.device != args[2].device \
-                or int(n) != int(got.inliers.sum()):
-            raise AssertionError(f"K8 n_inliers {n!r} is not the inliers' int64 count")
-        worst = max(worst, max_abs(got.R, want.R), max_abs(got.t, want.t))
+        worst = max(worst, check_k8(path, args))
     if not int((x["k8_stereo"][0][3].is_stereo & x["k8_stereo"][0][3].valid).sum()):
         raise AssertionError("the stereo pair gave K8 no stereo row")
     # With no valid observation every step is rejected: the pose stays put.
@@ -1008,6 +1094,36 @@ def phase_kernels(x):
     log("K8 pose_lm with no valid observation: pose unchanged, 0 inliers")
     rows["pose_lm"] = worst
     return rows
+
+
+def check_k8(path, args):
+    """K8 against its plain version on one problem, launched twice (the
+    same bits): the pose within ROT_DEG_TOL / T_TOL, at most K8_INLIER_TOL
+    of the inlier flags differing, n_inliers the flags' int64 count ->
+    the largest |d| of R and t."""
+    got = pose_lm.pose_lm(*args)
+    again = pose_lm.pose_lm(*args)
+    want = pose_opt.pose_optimization_plain(*args)
+    torch.cuda.synchronize()
+    d_rot = rot_angle_deg(got.R.cpu(), want.R.cpu())
+    d_t = float((got.t - want.t).norm())
+    obs = args[3]
+    n_obs = obs.valid.shape[0]
+    differ = int((got.inliers != want.inliers).sum())
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    log(f"K8 pose_lm on the {path}, O={n_obs} ({int((obs.is_stereo & obs.valid).sum())} "
+        f"stereo rows): rot {d_rot:.3g} deg, |dt| {d_t:.3g}, max|dR| "
+        f"{max_abs(got.R, want.R):.3g}, inliers {int(got.n_inliers)} vs "
+        f"{int(want.n_inliers)}, {differ} flags differ; repeat bit-identical: {same}")
+    if not (d_rot < ROT_DEG_TOL and d_t < T_TOL and differ <= K8_INLIER_TOL * n_obs):
+        raise AssertionError("K8 differs from its plain version beyond the bounds")
+    if not same:
+        raise AssertionError("two K8 launches on one input differ")
+    n = got.n_inliers
+    if n.dtype != torch.int64 or n.dim() != 0 or n.device != args[2].device \
+            or int(n) != int(got.inliers.sum()):
+        raise AssertionError(f"K8 n_inliers {n!r} is not the inliers' int64 count")
+    return max(max_abs(got.R, want.R), max_abs(got.t, want.t))
 
 
 # ---------------------------------------------------------------------------
@@ -1480,16 +1596,9 @@ def system_vs_cpu(seq):
     keyframe poses the BAs left within ROT_DEG_TOL / T_TOL of each other.
     The card's and the CPU's pyramids differ above level 0 (ROADMAP queue
     3), so this holds the outcome, not the bits."""
-    prev = os.environ.get("ORB_TPU_FUSED_TRACK")
-    os.environ["ORB_TPU_FUSED_TRACK"] = "1"
-    try:
+    with fused_route_forced():
         cpu_sys, states, poses, seconds = run_system(seq, "cpu", SYSTEM_CPU_FRAMES,
                                                      vocabulary="default")
-    finally:
-        if prev is None:
-            del os.environ["ORB_TPU_FUSED_TRACK"]
-        else:
-            os.environ["ORB_TPU_FUSED_TRACK"] = prev
     card_sys, card_states, card_poses, _ = run_system(seq, "cuda", SYSTEM_CPU_FRAMES,
                                                       vocabulary="default")
     n_lba = [int(s_.timings().get("map_lba", {}).get("count", 0)) for s_ in (card_sys, cpu_sys)]
@@ -1697,15 +1806,8 @@ def mono_vs_cpu(seq, init_frame):
     frame and keyframes, frame and keyframe poses within ROT_DEG_TOL /
     T_TOL (in the map's units, the median depth at initialization)."""
     n = init_frame + 1 + MONO_CPU_FRAMES
-    prev = os.environ.get("ORB_TPU_FUSED_TRACK")
-    os.environ["ORB_TPU_FUSED_TRACK"] = "1"
-    try:
+    with fused_route_forced():
         cpu_sys, states, poses, seconds = run_system(seq, "cpu", n)
-    finally:
-        if prev is None:
-            del os.environ["ORB_TPU_FUSED_TRACK"]
-        else:
-            os.environ["ORB_TPU_FUSED_TRACK"] = prev
     card_sys, card_states, card_poses, _ = run_system(seq, "cuda", n)
     if states != card_states:
         raise AssertionError(f"System monocular states: card {card_states}, cpu {states}")
@@ -2617,6 +2719,387 @@ def phase_async_timing(seq, power):
 
 
 # ---------------------------------------------------------------------------
+# The datasets phase: the System run from files on disk by the port's driver
+# (examples/run_dataset.py), at the published settings of the reference's
+# Examples/*.yaml
+# ---------------------------------------------------------------------------
+
+class DatasetCell(NamedTuple):
+    mode: str           # the driver's mode
+    args: tuple         # its arguments after the mode, before the out prefix
+    poses: list         # ground-truth (R_cw, t_cw) per frame
+    config: object      # the settings' SLAMConfig
+    gate: float         # ATE gate, x the path's span
+    align_scale: bool   # monocular: the ATE after a similarity alignment
+
+
+def stamps(n, fps):
+    return [i / fps for i in range(n)]
+
+
+def write_kitti_cell(root):
+    """KITTI 00-02 stereo: the first DATASET_FRAMES frames of the drive, and
+    a copy of its first DATASET_VS_CPU frames -> (cell, that copy's cell)."""
+    cfg = kitti_00_02_config()
+    frames, poses, _ = synthetic.drive_frames(cfg.camera, photo=synthetic.CAMERA_PHOTO,
+                                              **KITTI_DRIVE)
+    n = DATASET_FRAMES["kitti_00-02_stereo"]
+    lefts, rights = [], []
+    for _, left, right in frames():
+        lefts.append(left)
+        rights.append(right)
+        if len(lefts) == n:
+            break
+    yaml = mini_dataset.write_settings_yaml(os.path.join(root, "KITTI00-02.yaml"), cfg)
+    ts = stamps(n, cfg.camera.fps)
+    cells = []
+    for name, k in (("kitti", n), ("kitti_first", DATASET_VS_CPU["kitti_00-02_stereo"])):
+        seq = mini_dataset.write_kitti(os.path.join(root, name), lefts[:k], ts[:k], rights[:k])
+        cells.append(DatasetCell("kitti-stereo", (seq, yaml), poses[:k], cfg,
+                                 DATASET_GATES["kitti_00-02_stereo"], False))
+    return cells
+
+
+def write_tum_rgbd_cell(root):
+    """TUM fr1 RGB-D: the RGB-D System's scene through TUM1's lens, depth
+    as 16-bit PNGs at DepthMapFactor 5000, and a copy of its first
+    DATASET_VS_CPU frames -> (cell, that copy's cell)."""
+    cfg = tum_fr1_config("rgbd")
+    n = DATASET_FRAMES["tum_fr1_rgbd"]
+    images, poses, _, depths = synthetic.render_sequence(cfg.camera, n_frames=n,
+                                                         with_depth=True, **SYSTEM_SCENE)
+    yaml = mini_dataset.write_settings_yaml(os.path.join(root, "TUM1_rgbd.yaml"), cfg,
+                                            depth_map_factor=cfg.camera.depth_map_factor)
+    cells = []
+    for name, k in (("tum_rgbd", n), ("tum_rgbd_first", DATASET_VS_CPU["tum_fr1_rgbd"])):
+        seq = os.path.join(root, name)
+        assoc = mini_dataset.write_tum_rgbd(seq, images[:k], depths[:k],
+                                            stamps(k, cfg.camera.fps),
+                                            depth_map_factor=cfg.camera.depth_map_factor)
+        cells.append(DatasetCell("tum-rgbd", (seq, assoc, yaml), poses[:k], cfg,
+                                 DATASET_GATES["tum_fr1_rgbd"], False))
+    return cells
+
+
+def write_euroc_cell(root):
+    """EuRoC stereo: raw pairs through the published cameras (K, D) and
+    sub-degree mounting rotations, as tests/test_dataset_drivers.py renders
+    them; the settings' LEFT.* / RIGHT.* blocks (R from those rotations)
+    for the driver's rectification."""
+    cfg = euroc_stereo_config()
+    n = DATASET_FRAMES["euroc_stereo"]
+    b = cfg.camera.baseline
+    raw = {side: dataclasses.replace(cfg.camera, fx=k[0], fy=k[1], cx=k[2], cy=k[3],
+                                     k1=d[0], k2=d[1], p1=d[2], p2=d[3], k3=d[4])
+           for side, (k, d) in EUROC_RAW_CAMERAS.items()}
+    mounts = {side: synthetic.mount_rotation(**{a: np.radians(v) for a, v in m.items()})
+              for side, m in EUROC_MOUNTS.items()}
+    scene = synthetic.make_scene(np.random.default_rng(EUROC_SCENE["seed"]),
+                                 n_points=EUROC_SCENE["n_points"])
+    poses = synthetic.look_ahead_trajectory(n, step=EUROC_SCENE["step"])
+    images = {"LEFT": [], "RIGHT": []}
+    for R, t in poses:
+        for side, shift in (("LEFT", 0.0), ("RIGHT", b)):
+            C = -R.T @ (t - np.array([shift, 0.0, 0.0]))
+            Rm = mounts[side] @ R
+            images[side].append(synthetic.render(scene, Rm, -Rm @ C, raw[side]))
+    seq = mini_dataset.write_euroc(os.path.join(root, "euroc"), images["LEFT"],
+                                   stamps(n, cfg.camera.fps), rights=images["RIGHT"])
+    yaml = mini_dataset.write_settings_yaml(os.path.join(root, "EuRoC.yaml"), cfg)
+    K = {side: np.array([[c.fx, 0, c.cx], [0, c.fy, c.cy], [0, 0, 1.0]])
+         for side, c in raw.items()}
+    D = {side: np.array(d) for side, (_, d) in EUROC_RAW_CAMERAS.items()}
+    P = np.array([[cfg.camera.fx, 0, cfg.camera.cx, 0], [0, cfg.camera.fy, cfg.camera.cy, 0],
+                  [0, 0, 1.0, 0]])
+    P_r = P.copy()
+    P_r[0, 3] = -cfg.camera.bf
+    # The raw cameras were rendered with x_raw = mount @ x_rect: R = mount^T.
+    mini_dataset.append_euroc_stereo_blocks(yaml, K["LEFT"], D["LEFT"], mounts["LEFT"].T, P,
+                                            K["RIGHT"], D["RIGHT"], mounts["RIGHT"].T, P_r)
+    return DatasetCell("euroc-stereo", (seq, yaml), poses, cfg, DATASET_GATES["euroc_stereo"],
+                       False)
+
+
+def write_tum_mono_cell(root):
+    """TUM fr1 monocular: the monocular sweep through TUM1's lens."""
+    cfg = tum_fr1_config("monocular")
+    n = DATASET_FRAMES["tum_fr1_mono"]
+    images, poses, _ = synthetic.render_sequence(cfg.camera, n_frames=n, **MONO_SCENE)
+    seq = mini_dataset.write_tum_mono(os.path.join(root, "tum_mono"), images,
+                                      stamps(n, cfg.camera.fps))
+    yaml = mini_dataset.write_settings_yaml(os.path.join(root, "TUM1_mono.yaml"), cfg)
+    return DatasetCell("tum-mono", (seq, yaml), poses, cfg, DATASET_GATES["tum_fr1_mono"], True)
+
+
+def write_datasets(root):
+    """The four cells' mini datasets under root (the port's writers) ->
+    ({name: cell}, {name: the cell's first frames as a cell of their own}
+    for the DATASET_VS_CPU cells)."""
+    t0 = time.perf_counter()
+    kitti, kitti_first = write_kitti_cell(root)
+    tum_rgbd, tum_rgbd_first = write_tum_rgbd_cell(root)
+    cells = {"kitti_00-02_stereo": kitti, "tum_fr1_rgbd": tum_rgbd,
+             "euroc_stereo": write_euroc_cell(root), "tum_fr1_mono": write_tum_mono_cell(root)}
+    log(f"datasets: {', '.join(f'{k} ({len(c.poses)} frames)' for k, c in cells.items())} "
+        f"rendered and written in {time.perf_counter() - t0:.1f} s")
+    return cells, {"kitti_00-02_stereo": kitti_first, "tum_fr1_rgbd": tum_rgbd_first}
+
+
+def run_cell(cell, out, *flags):
+    """The port's driver on a cell, as a user runs it -> its DatasetRun."""
+    run = run_dataset.run([cell.mode, *cell.args, out, *flags])
+    if run is None:
+        raise AssertionError(f"the driver refused {cell.mode} {cell.args}")
+    if run.system.device.type == "cuda":
+        torch.cuda.synchronize()
+    return run
+
+
+def cell_ate(cell, run):
+    """The ATE of the run's exported trajectory against the renderer's
+    ground truth, frames matched by timestamp -> (rmse, span)."""
+    ts, est = mini_dataset.load_tum_trajectory(run.out + "_tum.txt")
+    gt = centres(cell.poses)[np.round(ts * cell.config.camera.fps).astype(int)]
+    rmse = trajectory.ate_rmse(est, gt, align_scale=cell.align_scale)
+    return rmse, float(np.linalg.norm(gt[-1] - gt[0]))
+
+
+def kept_calls(calls):
+    """One run's recorded calls ({kernel: [(args, kwargs)]}) -> {kernel:
+    [args]}, K8's kept to the SYSTEM_RECORDED with the most observations
+    and K7 under the window's to the 2 with the most columns."""
+    out = {name: [args for args, _ in c] for name, c in calls.items() if c}
+    if "pose_lm" in out:
+        out["pose_lm"] = sorted(out["pose_lm"],
+                                key=lambda a: -a[3].valid.shape[0])[:SYSTEM_RECORDED]
+    if "window_hamming_top2" in out:
+        out["window_hamming_top2"] = sorted(out["window_hamming_top2"],
+                                            key=lambda a: -a[1].shape[-2])[:2]
+    return out
+
+
+def phase_dataset_kernels(d, errs):
+    """Phase 3 at the dataset paths' shapes: each kernel against its plain
+    version on every call kept from each cell's first --sync run and from
+    the KITTI cell's kitti-mono run (phase_datasets; d: {run: (config,
+    calls)}), exact where phase_kernels is exact; errs (the kernels'
+    largest errors) updated."""
+    win = d["kitti-mono"][1].get("window_hamming_top2", [])
+    if not win or win[0][1].shape[-2] < K7_WINDOW_MIN_COLUMNS:
+        raise AssertionError(f"K7's window got {[a[1].shape[-2] for a in win]} columns on the "
+                             f"KITTI initialization")
+    for cell, (cfg, calls) in d.items():
+        where = f"{cell} ({cfg.camera.width}x{cfg.camera.height}, {cfg.orb.n_features} features)"
+        for image, th_hi, th_lo in calls.get("level_preprocess", ()):
+            got = level.level_preprocess(image, th_hi, th_lo)
+            padded, hp, wp = level.pad_level(image)
+            want = level.level_preprocess_plain(padded, hp, wp, th_hi, th_lo)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"K1 differs on {where}, canvas {tuple(image.shape)}")
+            log(f"K1 level_preprocess, {where}, canvas {tuple(image.shape)} -> "
+                f"3x{tuple(got[0].shape)}: exact")
+        for hi, lo, bounds in calls.get("combine_nms", ()):
+            got = level.combine_nms(hi, lo, bounds)
+            want = level.combine_nms_plain(hi, lo, bounds)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"K2 differs on {where}: {max_abs(got, want)}")
+            log(f"K2 combine_nms, {where}, maps {tuple(hi.shape)}: exact "
+                f"({int((got > 0).sum())} maxima)")
+        for m, c, k in calls.get("cell_topk_map", ()):
+            gv, ga = select.cell_topk_map(m, c, k)
+            wv, wa = select.cell_topk_map_plain(m, c, k)
+            torch.cuda.synchronize()
+            if not (torch.equal(gv, wv) and torch.equal(ga, wa)):
+                raise AssertionError(f"K3 map form differs on {where}")
+            log(f"K3 cell_topk_map, {where}, score map {tuple(m.shape)}, cell {c}, k={k}: "
+                f"exact")
+        for c, b, yx, _ in calls.get("describe_patches", ()):
+            errs["describe_patches"] = max(errs["describe_patches"],
+                                           check_describe(where, c, b, yx))
+        for i, args in enumerate(calls.get("projection_hamming_top2", ())):
+            check_k6(f"{where} call {i}", args)
+        for i, args in enumerate(calls.get("stereo_band_top2", ())):
+            if args[0].shape[0] < cfg.orb.n_features - 50:
+                raise AssertionError(f"K7 band got {args[0].shape[0]} rows on {where}")
+            check_band(f"{where} pair {i}", args)
+        for form in ("valid_hamming_top2", "epipolar_hamming_top2", "window_hamming_top2"):
+            for i, args in enumerate(calls.get(form, ())):
+                check_form(f"{where} call {i}", form, args)
+        for i, args in enumerate(calls.get("pose_lm", ())):
+            errs["pose_lm"] = max(errs["pose_lm"], check_k8(f"{where} frame, call {i}", args))
+
+
+def check_dataset_run(name, cell, run, counts, power, what):
+    """One driver run held to its cell's gates: every frame OK after the
+    first OK, the ATE gate, >= 2 keyframes, every kernel of the path
+    launched and none off it (counts) -> (rmse, span)."""
+    sensor = run.system.config.sensor
+    states = [s.name for s in run.states]
+    first = states.index("OK") if "OK" in states else len(states)
+    if first == len(states) or any(s != "OK" for s in states[first:]):
+        raise AssertionError(f"{name} {what}: states {states}")
+    want = DATASET_LAUNCHED + (("stereo_band_top2",) if sensor == "stereo" else ()) + (
+        ("window_hamming_top2",) if sensor == "monocular" else ())
+    if [k for k in want if counts[k] < 1] or [k for k in SYSTEM_UNUSED if counts[k]]:
+        raise AssertionError(f"{name} {what}: a kernel of the path did not launch, or one "
+                             f"off the path did: {counts}")
+    m = run.system.map
+    if m.next_kf < 2:
+        raise AssertionError(f"{name} {what}: {m.next_kf} keyframes")
+    rmse, span = cell_ate(cell, run)
+    n = len(run.track_s)
+    seconds = sum(run.track_s) + run.shutdown_s
+    ordered = np.sort(run.track_s)
+    remap = (f", rectification {np.mean(run.remap_s) * 1e3:.3f} ms a pair"
+             if run.remap_s else "")
+    log(f"{name} {what}: {n} frames, OK from frame {first}, {m.next_kf} keyframes "
+        f"({m.n_keyframes()} kept), {m.n_points()} points; ATE {rmse:.6f} m over a "
+        f"{span:.3f} m span (gate {cell.gate} x span = {cell.gate * span:.6f}); tracking "
+        f"median {ordered[n // 2] * 1e3:.3f} ms, mean {np.mean(run.track_s) * 1e3:.3f} ms; "
+        f"{n / seconds:.2f} frames/s to the end of shutdown; PNG read "
+        f"{np.mean(run.read_s) * 1e3:.3f} ms a frame{remap}; on {power}")
+    if not rmse < cell.gate * span:
+        raise AssertionError(f"{name} {what}: ATE {rmse} over the gate {cell.gate * span}")
+    return rmse, span
+
+
+def dataset_vs_cpu(name, cell, root, power):
+    """A cell's first frames through the driver on the card and on the CPU
+    (the card's route, fused, forced there), every tracked Frame recorded:
+    the same frames tracked and the same keyframes, frame and keyframe
+    poses within ROT_DEG_TOL / T_TOL; over all frames, the valid features
+    held (valid flag and octave equal, raw keypoints within XY_TOL) all but
+    FEATURE_FLIP_TOL of them, and on those the undistorted keypoints
+    (Frame.xy: the staged extraction's and the fused stages'
+    undistortion) within UNDIST_XY_TOL."""
+    runs, frames, seconds = {}, {}, {}
+    for device in ("cuda", "cpu"):
+        calls = []
+        flags = ("--sync",) if device == "cuda" else ("--sync", "--device=cpu")
+        with recording(System, "_track_frame", calls), (
+                fused_route_forced() if device == "cpu" else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            runs[device] = run_cell(cell, os.path.join(root, f"out_{name}_first_{device}"),
+                                    *flags)
+            seconds[device] = time.perf_counter() - t0
+        frames[device] = [args[1] for args, _ in calls]
+    n = len(cell.poses)
+    card, cpu = runs["cuda"].system, runs["cpu"].system
+    a, b = card._resolve_trajectory(), cpu._resolve_trajectory()
+    if [e[0] for e in a] != [e[0] for e in b] or len(a) != n:
+        raise AssertionError(f"{name} first frames: card frames {[e[0] for e in a]}, "
+                             f"cpu {[e[0] for e in b]}")
+    worst = [max(rot_angle_deg(x[1], y[1]) for x, y in zip(a, b)),
+             max(float(np.linalg.norm(centres([x[1:]])[0] - centres([y[1:]])[0]))
+                 for x, y in zip(a, b))]
+    cm, pm = card.map, cpu.map
+    if cm.kf_frame_id[:cm.next_kf].tolist() != pm.kf_frame_id[:pm.next_kf].tolist():
+        raise AssertionError(f"{name} first frames: the card's and the CPU's keyframes differ")
+    for k in range(cm.next_kf):
+        worst[0] = max(worst[0], rot_angle_deg(cm.kf_pose_R[k], pm.kf_pose_R[k]))
+        worst[1] = max(worst[1], float(np.linalg.norm(cm.kf_pose_t[k] - pm.kf_pose_t[k])))
+    if len(frames["cuda"]) != n or len(frames["cpu"]) != n:
+        raise AssertionError(f"{name} first frames: {len(frames['cuda'])} frames tracked on "
+                             f"the card, {len(frames['cpu'])} on the CPU")
+    flips = same = far = 0
+    d_raw = d_xy = d_far = moved = 0.0
+    for f, g in zip(frames["cuda"], frames["cpu"]):
+        agree = (f.valid == g.valid) & (f.octave == g.octave)
+        both = agree & g.valid
+        flips += int((~agree & (f.valid | g.valid)).sum())
+        raw = np.abs(f.xy_raw[both] - g.xy_raw[both]).max(axis=1)
+        close = raw <= XY_TOL
+        far += int((~close).sum())
+        same += int(close.sum())
+        d_raw = max(d_raw, float(raw[close].max(initial=0.0)))
+        d_far = max(d_far, float(raw.max(initial=0.0)))
+        d_xy = max(d_xy, float(np.abs(f.xy[both][close] - g.xy[both][close]).max(initial=0.0)))
+        moved = max(moved, float(np.abs(g.xy[both] - g.xy_raw[both]).max(initial=0.0)))
+    log(f"{name}, first {n} frames card ({power}) vs cpu ({seconds['cpu']:.1f} s on the CPU, "
+        f"{seconds['cuda']:.1f} s on the card): keyframes {cm.kf_frame_id[:cm.next_kf].tolist()} "
+        f"equal, frame and keyframe poses within rot {worst[0]:.5f} deg, |dt| {worst[1]:.6f}; "
+        f"features: {flips} with a valid flag or octave that differs, {far} keypoints apart "
+        f"by more than {XY_TOL} px (up to {d_far:.3g} px), {same} held: raw keypoints max|d| "
+        f"{d_raw:.3g} px, "
+        f"undistorted (Frame.xy) max|d| {d_xy:.3g} px, the undistortion moving them by up to "
+        f"{moved:.3f} px")
+    if not (worst[0] < ROT_DEG_TOL and worst[1] < T_TOL):
+        raise AssertionError(f"{name}: the card's and the CPU's poses differ beyond the bounds")
+    if flips + far > FEATURE_FLIP_TOL * (same + far + flips) or not d_xy <= UNDIST_XY_TOL:
+        raise AssertionError(f"{name}: the card's and the CPU's keypoints differ")
+
+
+def phase_datasets(root, cells, firsts, power):
+    """Each cell through the port's driver on the card, twice with --sync,
+    the launch counts reset just before and read just after each run and
+    the kernels' inputs recorded in the first (DATASET_RECORDED): the
+    cell's gates (check_dataset_run) and the two runs' trajectory files
+    equal byte for byte; the KITTI cell once more the way a user runs it
+    (asynchronous, the bundled vocabulary), under the same ATE gate; the
+    DATASET_VS_CPU cells' first frames on the card and on the CPU
+    (dataset_vs_cpu); the KITTI cell's first frames through kitti-mono, its
+    launches counted and K7 under the initialization's window recorded.
+    -> (launch counts per cell (its first run), the kitti-mono run's,
+    {run: (config, its kept calls)} for phase_dataset_kernels)."""
+    counts, recorded = {}, {}
+    for name, cell in cells.items():
+        outs = []
+        for r in range(2):
+            out = os.path.join(root, f"out_{name}_{r}")
+            calls = {k: [] for k in DATASET_RECORDED}
+            with contextlib.ExitStack() as stack:
+                if r == 0:
+                    for k, (module, keep) in DATASET_RECORDED.items():
+                        stack.enter_context(recording(module, k, calls[k], keep))
+                _build.reset_launches()
+                run = run_cell(cell, out, "--sync")
+                c = dict(_build.launches)
+            if r == 0:
+                counts[name] = c
+                recorded[name] = (cell.config, kept_calls(calls))
+            log(f"{name} run {r} launches: {c}")
+            check_dataset_run(name, cell, run, c, power, f"run {r} (--sync)")
+            outs.append(out)
+        for suffix in DATASET_FILES:
+            a, b = (open(o + suffix, "rb").read() for o in outs)
+            if a != b:
+                raise AssertionError(f"{name}: the two --sync runs' {suffix} differ")
+        log(f"{name}: the two --sync runs' trajectory files are equal byte for byte")
+
+    name, cell = "kitti_00-02_stereo", cells["kitti_00-02_stereo"]
+    _build.reset_launches()
+    run = run_cell(cell, os.path.join(root, "out_kitti_async"))
+    c = dict(_build.launches)
+    if run.system.mapping_worker is None:
+        raise AssertionError("the driver's default System maps on the tracking thread")
+    background_threads_done(f"{name} asynchronous", run.system)
+    check_dataset_run(name, cell, run, c, power, "asynchronous (the driver's default)")
+    log(f"{name} asynchronous: the tracker's ms a frame, mean "
+        f"{np.mean(run.track_s) * 1e3:.3f}, max {max(run.track_s) * 1e3:.3f}; "
+        f"{run.system.mapping_worker.processed} keyframes mapped on the worker, on {power}; "
+        f"launches {c}")
+
+    for name, first in firsts.items():
+        dataset_vs_cpu(name, first, root, power)
+
+    first = firsts["kitti_00-02_stereo"]
+    mono = first._replace(mode="kitti-mono",
+                          config=dataclasses.replace(first.config, sensor="monocular"))
+    calls = {"window_hamming_top2": []}
+    with recording(kmatching, "window_hamming_top2", calls["window_hamming_top2"]):
+        _build.reset_launches()
+        run_cell(mono, os.path.join(root, "out_kitti_mono"), "--sync", "--no-vocab")
+        mono_counts = dict(_build.launches)
+    recorded["kitti-mono"] = (mono.config, kept_calls(calls))
+    log(f"kitti-mono, the KITTI cell's first {len(first.poses)} frames: launches {mono_counts}")
+    if not mono_counts["window_hamming_top2"]:
+        raise AssertionError("kitti-mono: K7 under the initialization's window never launched")
+    return counts, mono_counts, recorded
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: timing
 # ---------------------------------------------------------------------------
 
@@ -2859,7 +3342,7 @@ def k7_routes(caller, name, calls, power):
             f"on {power}")
 
 
-def phase_kernel_timing(x, errs, counts, batched, power):
+def phase_kernel_timing(x, dx, errs, counts, batched, power):
     th_hi, th_lo = x["ths"]
     canvas, blur = x["canvas"], x["blur"]
     padded, hp, wp = level.pad_level(canvas)
@@ -2891,7 +3374,8 @@ def phase_kernel_timing(x, errs, counts, batched, power):
                    if caller in ("monocular initialization",
                                  "relocalization, batch axis, shared columns")
                    else "the ring survey and the kidnap sequence with the vocabulary"
-                   if caller in LOOP_CALLERS else "the System's RGB-D run")
+                   if caller in LOOP_CALLERS else DATASET_TIMED[caller]
+                   if caller in DATASET_TIMED else "the System's RGB-D run")
             name = f"{name} ({caller}; {batched[caller]} launches in {run})"
         log(f"{name}: {ms:.4f} ms device busy, {events_ms:.4f} ms by events in a row "
             f"(plain {plain_ms:.4f} ms, library "
@@ -3151,13 +3635,66 @@ def phase_kernel_timing(x, errs, counts, batched, power):
              None, k8_bytes, k8_ops, iters=50)
     log(f"pose_lm: {ms / k8_evals * 1e3:.3f} us per evaluation ({k8_evals:.0f} "
         f"evaluations in the pair's two launches) on {power}")
+
+    # The dataset paths' new shapes, on the KITTI cell's recorded calls
+    # (logged only), by the rows' counts above: K1 on the 1241-wide canvas,
+    # K7's band at 2000 x 2000, K7 under the initialization's window at
+    # twice 2000 features, K8 at 2000 observations.
+    kitti = dx["kitti_00-02_stereo"][1]
+    image, k_hi, k_lo = kitti["level_preprocess"][0]
+    k_pad, k_hp, k_wp = level.pad_level(image)
+    row("level_preprocess", "orb_slam2_commit_tpu_torch/csrc/level.cu",
+        "orb_slam2_commit_tpu/ops/pallas_level.py:143",
+        lambda: level.level_preprocess(image, k_hi, k_lo),
+        lambda: level.level_preprocess_plain(k_pad, k_hp, k_wp, k_hi, k_lo), None,
+        image.numel() * 4 + (k_hp + k_wp + 12) * 4 + 3 * k_hp * k_wp * 4, 300 * k_hp * k_wp,
+        caller="KITTI canvas 1241x376")
+    band = kitti["stereo_band_top2"][0]
+    n_l, n_r = band[0].shape[0], band[5].shape[0]
+    n_pairs = int(kmatching.stereo_band_mask(*band[1:5], *band[6:10]).sum())
+    row("stereo_band_top2", "orb_slam2_commit_tpu_torch/csrc/matching.cu",
+        "orb_slam2_commit_tpu/ops/pallas_matching.py:113",
+        lambda: kmatching.stereo_band_top2(*band),
+        lambda: kmatching.stereo_band_top2_plain(*band), None,
+        nbytes(*band[:9]) + 4 * (n_l + n_r) * 4,
+        8 * (int(band[4].sum()) * n_r + int(band[8].sum()) * n_l) + 2 * 24 * n_pairs,
+        caller="KITTI pair, 2000 x 2000")
+    win = dx["kitti-mono"][1]["window_hamming_top2"][:1]
+    row("window_hamming_top2", "orb_slam2_commit_tpu_torch/csrc/matching.cu",
+        "orb_slam2_commit_tpu/ops/pallas_matching.py:113",
+        each(kmatching.window_hamming_top2, win),
+        each(kmatching.CANDIDATE_PLAINS["window_hamming_top2"], win), None,
+        *k7_work("window_hamming_top2", win), caller="KITTI monocular initialization")
+    k8 = kitti["pose_lm"][:1]
+    evals, obs_evals, rounds = pose_lm.work_done(*k8[0])
+    obs = k8[0][3]
+    ms = row("pose_lm", "orb_slam2_commit_tpu_torch/csrc/pose_lm.cu",
+             "orb_slam2_commit_tpu/optim/pallas_pose_opt.py:381",
+             each(pose_lm.pose_lm, k8), each(pose_opt.pose_optimization_plain, k8), None,
+             nbytes(*k8[0][:3], obs.uvr, obs.inv_sigma2, obs.is_stereo, obs.valid) + 56
+             + obs.valid.numel(),
+             pose_lm.OPS_PER_EVAL * obs_evals
+             + pose_lm.OPS_PER_CLASSIFY * rounds * int(obs.valid.sum()),
+             iters=50, caller="KITTI stereo frame, 2000 observations")
+    log(f"pose_lm at 2000 observations: {ms / evals * 1e3:.3f} us per evaluation "
+        f"({evals:.0f} evaluations) on {power}")
     return kernels
 
 
 def main() -> int:
     name, count, power = phase_device()
     phase_build()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_datasets_") as data_root:
+        run_phases(power, data_root)
+    log(power)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": count}}), flush=True)
+    return 0
 
+
+def run_phases(power, data_root):
+    """Phases 3-5 (the datasets' files under data_root), then the kernels'
+    JSON line."""
     t0 = time.perf_counter()
     config, args = interop.make_example(WIDTH, HEIGHT, N_FEATURES, N_POINTS, "cuda")
     pairs = {sensor: interop.make_fused_example(
@@ -3182,6 +3719,7 @@ def main() -> int:
     loop_seq = loop_sequence()
     loop_x, loop_profs, loop_sim3, loop_solves = loop_path_inputs(loop_seq, kidnap_seq)
     x.update(loop_x)
+    cells, firsts = write_datasets(data_root)
     errs = phase_kernels(x)
     phase_loop_kernels(x)
     phase_solves_twice(loop_solves)
@@ -3194,6 +3732,8 @@ def main() -> int:
                   "asynchronous RGB-D System": phase_async(seqs["rgbd"], SYSTEM_FPS["rgbd"],
                                                            power),
                   "global BA runner stress": phase_gba_stress(mono_seq, power)}
+    dataset_counts, kitti_mono, dataset_x = phase_datasets(data_root, cells, firsts, power)
+    phase_dataset_kernels(dataset_x, errs)
     phase_step_timing(config, args, power)
     phase_pair_timing(*pairs["monocular"], x, power)
     for sensor in ("stereo", "rgbd"):
@@ -3206,7 +3746,8 @@ def main() -> int:
     # lines of K6 and K7 with their launches (with a batch axis) in those
     # runs.
     rgbd = system_counts["rgbd"]
-    kernels = phase_kernel_timing(x, errs, dict(
+    kitti = dataset_counts["kitti_00-02_stereo"]
+    kernels = phase_kernel_timing(x, dataset_x, errs, dict(
         counts["monocular"],
         stereo_band_top2=counts["stereo"]["stereo_band_top2"],
         masked_hamming_top2=rgbd["masked_hamming_top2"],
@@ -3219,17 +3760,22 @@ def main() -> int:
         "fuse, batch axis": system_batched["rgbd"]["projection_hamming_top2"],
         "monocular initialization": mono_k7["initialization"],
         "relocalization, batch axis, shared columns": mono_k7["relocalization"],
-        **loop_counts}, power)
+        **loop_counts,
+        "KITTI canvas 1241x376": kitti["level_preprocess"],
+        "KITTI pair, 2000 x 2000": kitti["stereo_band_top2"],
+        "KITTI monocular initialization": kitti_mono["window_hamming_top2"],
+        "KITTI stereo frame, 2000 observations": kitti["pose_lm"]}, power)
     log(f"K7 under a candidate test over the monocular sweep and the kidnap sequence, by "
         f"caller: launches {mono_k7}, problems {mono_problems}")
     for path, c in new_counts.items():
         log(f"launches over the {path}: " + ", ".join(f"{k} {v}" for k, v in c.items() if v))
+    for cell, c in dataset_counts.items():
+        log(f"launches over the {cell} dataset's first --sync run: " + ", ".join(
+            f"{k} {v}" for k, v in c.items() if v))
+    log("launches over the four dataset cells' first --sync runs: " + ", ".join(
+        f"{k} {sum(c[k] for c in dataset_counts.values())}" for k in _build.launches))
 
     log(json.dumps({"kernels": kernels}))
-    log(power)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": count}}), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

@@ -81,6 +81,16 @@ def to_device(a, dev) -> torch.Tensor:
     return torch.from_numpy(np.array(a, order="C")).to(dev)
 
 
+def image_to_device(image, dev) -> torch.Tensor:
+    """A gray image (numpy) -> tensor on dev: 8-bit images stay uint8, so
+    the upload moves 1 byte a pixel (the extraction casts to float32 on
+    the device), any other dtype becomes float32."""
+    a = np.asarray(image)
+    if a.dtype != np.uint8:
+        a = a.astype(np.float32)
+    return torch.from_numpy(np.array(a, order="C")).to(dev)
+
+
 def to_host(t: torch.Tensor) -> np.ndarray:
     """A tensor on any device -> numpy (waits for the device)."""
     return t.detach().cpu().numpy()

@@ -13,7 +13,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from orb_slam2_commit_tpu_torch.interop import resolve_device, to_host
+from orb_slam2_commit_tpu_torch.interop import image_to_device, resolve_device, to_host
 from orb_slam2_commit_tpu_torch.ops import camera as cam_ops
 from orb_slam2_commit_tpu_torch.ops import extractor as ext
 from orb_slam2_commit_tpu_torch.utils.config import SLAMConfig
@@ -85,8 +85,8 @@ def make_frame(
     synthesized (Frame::ComputeStereoFromRGBD, src/Frame.cc:791-816)."""
     device = resolve_device(device)
     cam = config.camera
-    img = torch.as_tensor(np.asarray(image), device=device)
-    feats = ext.extract_features(img, config.orb, cam.height, cam.width)
+    feats = ext.extract_features(image_to_device(image, device), config.orb, cam.height,
+                                 cam.width)
     xy_raw = to_host(feats.xy).astype(np.float64)
     valid = to_host(feats.valid)
     # Undistorted in float32 on the device, as the JAX package does.
@@ -140,8 +140,8 @@ def make_stereo_frame(
     device = resolve_device(device)
     cam = config.camera
     feats_l, _, match = stereo_ops.stereo_frontend(
-        torch.as_tensor(np.asarray(image_left), device=device),
-        torch.as_tensor(np.asarray(image_right), device=device),
+        image_to_device(image_left, device),
+        image_to_device(image_right, device),
         config.orb, cam.height, cam.width, cam.bf, cam.baseline,
     )
     xy_raw = to_host(feats_l.xy).astype(np.float64)

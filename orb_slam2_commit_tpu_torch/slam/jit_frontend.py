@@ -301,7 +301,11 @@ def fused_rgbd_motion_track(
     v = torch.clamp(torch.round(feats.xy[:, 1]), 0, cam.height - 1).long()
     d = depth_image[v, u].to(xy_und.dtype)
     if cam.depth_map_factor not in (0.0, 1.0):
-        d = d / torch.full_like(d, cam.depth_map_factor)
+        # Raw units times the float32 reciprocal of the factor, as XLA
+        # compiles the JAX package's d / factor and as the reference scales
+        # the depth map (Tracking::GrabImageRGBD's convertTo by
+        # 1 / DepthMapFactor).
+        d = d * torch.full_like(d, float(np.float32(1.0 / cam.depth_map_factor)))
     has = d > 0
     depth = torch.where(has, d, -1.0)
     # bf / d rounded once, as in the JAX package (a Python number over a

@@ -39,7 +39,7 @@ import torch
 
 from orb_slam2_commit_tpu_torch.geometry import pnp, twoview
 from orb_slam2_commit_tpu_torch.geometry.ransac import RansacSampler
-from orb_slam2_commit_tpu_torch.interop import resolve_device, to_device, to_host
+from orb_slam2_commit_tpu_torch.interop import image_to_device, resolve_device, to_device, to_host
 from orb_slam2_commit_tpu_torch.models.map_state import INVALID, MapState
 from orb_slam2_commit_tpu_torch.optim import ba, pose_opt
 from orb_slam2_commit_tpu_torch.optim.residuals import BAObservations
@@ -352,15 +352,15 @@ class Tracker:
 
         args = (self._dev(pt_f32), self._dev(last.desc), self._dev(meta_in),
                 self.config)
+        img = image_to_device(image, self.device)
         if image_right is not None:
             meta, feat, desc = jit_frontend.fused_stereo_motion_track_packed(
-                self._dev(image), self._dev(image_right), *args)
+                img, image_to_device(image_right, self.device), *args)
         elif depth_image is not None:
             meta, feat, desc = jit_frontend.fused_rgbd_motion_track_packed(
-                self._dev(image), self._dev(np.asarray(depth_image, np.float32)), *args)
+                img, self._dev(np.asarray(depth_image, np.float32)), *args)
         else:
-            meta, feat, desc = jit_frontend.fused_motion_track_packed(
-                self._dev(image), *args)
+            meta, feat, desc = jit_frontend.fused_motion_track_packed(img, *args)
         dev_feat, dev_desc = feat, desc
         meta, feat, desc = to_host(meta), to_host(feat), to_host(desc).view(np.uint32)
         frame = Frame(

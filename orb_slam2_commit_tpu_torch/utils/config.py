@@ -266,6 +266,57 @@ class SLAMConfig:
             raise ValueError(f"unknown sensor type: {self.sensor}")
 
 
+def tum_fr1_config(sensor: str = "monocular", n_features: int = 1000) -> SLAMConfig:
+    """TUM freiburg1 intrinsics and distortion, the values of the
+    reference's Examples/*/TUM1.yaml (bf 40, ThDepth 40, DepthMapFactor
+    5000)."""
+    cam = CameraConfig(
+        fx=517.306408, fy=516.469215, cx=318.643040, cy=255.313989,
+        width=640, height=480, fps=30.0,
+        k1=0.262383, k2=-0.953104, p1=-0.005358, p2=0.002628, k3=1.163314,
+        bf=40.0, th_depth=40.0, depth_map_factor=5000.0,
+    )
+    return SLAMConfig(camera=cam, orb=ORBConfig(n_features=n_features), sensor=sensor)
+
+
+def kitti_00_02_config(sensor: str = "stereo") -> SLAMConfig:
+    """KITTI sequences 00-02, the values of the reference's
+    Examples/Stereo/KITTI00-02.yaml: rectified, no distortion, bf 386.1448,
+    ThDepth 35, 10 fps, 2000 features; the dataset's 1241x376 images."""
+    cam = CameraConfig(
+        fx=718.856, fy=718.856, cx=607.1928, cy=185.2157, width=1241, height=376,
+        fps=10.0, bf=386.1448, th_depth=35.0,
+    )
+    orb = ORBConfig(n_features=2000, scale_factor=1.2, n_levels=8, ini_th_fast=20,
+                    min_th_fast=7)
+    return SLAMConfig(camera=cam, orb=orb, sensor=sensor)
+
+
+# EuRoC's raw cameras, Examples/Stereo/EuRoC.yaml's LEFT.K / LEFT.D and
+# RIGHT.K / RIGHT.D: ((fx, fy, cx, cy), (k1, k2, p1, p2, k3)).
+EUROC_RAW_CAMERAS = {
+    "LEFT": ((458.654, 457.296, 367.215, 248.375),
+             (-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05, 0.0)),
+    "RIGHT": ((457.587, 456.134, 379.999, 255.238),
+              (-0.28368365, 0.07451284, -0.00010473, -3.555907e-05, 0.0)),
+}
+
+
+def euroc_stereo_config(sensor: str = "stereo") -> SLAMConfig:
+    """EuRoC MAV, the values of the reference's Examples/Stereo/EuRoC.yaml:
+    the rectified pinhole (its P matrices), bf 47.906, ThDepth 35, 20 fps,
+    1200 features; the dataset's 752x480 images. The raw cameras the pairs
+    are rectified from are EUROC_RAW_CAMERAS."""
+    cam = CameraConfig(
+        fx=435.2046959714599, fy=435.2046959714599, cx=367.4517211914062,
+        cy=252.2008514404297, width=752, height=480, fps=20.0, bf=47.90639384423901,
+        th_depth=35.0,
+    )
+    orb = ORBConfig(n_features=1200, scale_factor=1.2, n_levels=8, ini_th_fast=20,
+                    min_th_fast=7)
+    return SLAMConfig(camera=cam, orb=orb, sensor=sensor)
+
+
 def synthetic_config(
     width: int = 640,
     height: int = 480,

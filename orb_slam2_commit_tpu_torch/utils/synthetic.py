@@ -1,20 +1,25 @@
-"""Synthetic scene rendering (host-side numpy) for the port's examples.
+"""Synthetic scene rendering (host-side numpy) for the port's examples and
+its dataset writers.
 
-A copy of the parts of the JAX package's renderer that `render_sequence`
-(with or without depth maps; the forward march or the lateral sweep, any
-depth range, spread and planar fraction) and `render_stereo_sequence`
-need without photometric degradation: a cloud of 3D landmarks, each
+A copy of the JAX package's renderer: a cloud of 3D landmarks, each
 splatted as a small random-texture patch with bilinear subpixel accuracy
-along a known trajectory; and the loop-closure survey
+along a known trajectory (`render_sequence`, with or without depth maps;
+the forward march or the lateral sweep; `render_stereo_sequence`), through
+a distortion-free pinhole or a radial-tangential lens (landmarks drawn at
+their distorted pixel, as a real camera images them); the photometric
+degradation of a real camera (`Photometry`: read and shot noise, exposure
+gain and bias, motion blur); the loop-closure survey
 (`render_loop_sequence`: a landmark ring around a circular path that
-revisits its start). The same seed gives the same images, depth maps,
-poses and scene as the JAX package's renderer.
+revisits its start); and the KITTI-class drive (`drive_frames`: a street
+canyon along a closed city-block circuit, rendered lazily, left and right
+images). The same seed gives the same images, depth maps, poses and scene
+as the JAX package's renderer.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -74,6 +79,17 @@ def make_scene(
                  patch_half=half)
 
 
+def _distort_np(xn: float, yn: float, cam: CameraConfig):
+    """Radial-tangential distortion of one normalized coordinate (numpy
+    twin of ops/camera.distort_normalized; the OpenCV model the
+    reference's settings assume, src/Tracking.cc:53-117)."""
+    r2 = xn * xn + yn * yn
+    radial = 1.0 + r2 * (cam.k1 + r2 * (cam.k2 + r2 * cam.k3))
+    xd = xn * radial + 2.0 * cam.p1 * xn * yn + cam.p2 * (r2 + 2.0 * xn * xn)
+    yd = yn * radial + cam.p1 * (r2 + 2.0 * yn * yn) + 2.0 * cam.p2 * xn * yn
+    return xd, yd
+
+
 def _aa_blur(img: np.ndarray, sigma: float = 0.7) -> np.ndarray:
     """Separable 5-tap Gaussian anti-aliasing (camera optics stand-in)."""
     x = np.arange(-2, 3, dtype=np.float64)
@@ -87,6 +103,116 @@ def _aa_blur(img: np.ndarray, sigma: float = 0.7) -> np.ndarray:
     )
 
 
+@dataclasses.dataclass
+class Photometry:
+    """Per-frame photometric degradation of a real camera, whose noise and
+    exposure swings the reference's extractor is built to survive (the
+    two-threshold FAST fallback, src/ORBextractor.cc:892-915; the blur
+    before BRIEF, :1190):
+
+      * read noise: additive Gaussian, `noise_sigma` gray levels;
+      * shot noise: Gaussian with sigma = shot_noise * sqrt(I / 255);
+      * exposure: a per-frame gain in `gain_range` and bias in
+        `bias_range` (gray levels), drawn uniformly;
+      * motion blur: a directional blur along the inter-frame image flow,
+        motion_blur_frac * |flow| px long, at most motion_blur_max_px.
+
+    Every draw is seeded by the frame's index, so a resumed drive and a
+    repeated render see the same degradation."""
+
+    noise_sigma: float = 0.0
+    shot_noise: float = 0.0
+    gain_range: Tuple[float, float] = (1.0, 1.0)
+    bias_range: Tuple[float, float] = (0.0, 0.0)
+    motion_blur_frac: float = 0.0
+    motion_blur_max_px: float = 6.0
+
+
+# A moderate real-camera operating point: 3 gray levels of read noise,
+# sqrt-scaled shot noise, a +-20% exposure gain swing.
+CAMERA_PHOTO = Photometry(
+    noise_sigma=3.0, shot_noise=2.0, gain_range=(0.8, 1.2),
+    bias_range=(-6.0, 6.0),
+)
+
+
+def _shift_sample(img: np.ndarray, dx: float, dy: float) -> np.ndarray:
+    """Bilinear sample of img at (x + dx, y + dy), edge-clamped."""
+    h, w = img.shape
+    x0 = int(np.floor(dx))
+    y0 = int(np.floor(dy))
+    fx, fy = dx - x0, dy - y0
+
+    def sh(ix, iy):
+        xs = np.clip(np.arange(w) + ix, 0, w - 1)
+        ys = np.clip(np.arange(h) + iy, 0, h - 1)
+        return img[np.ix_(ys, xs)]
+
+    return ((1 - fx) * (1 - fy) * sh(x0, y0) + fx * (1 - fy) * sh(x0 + 1, y0)
+            + (1 - fx) * fy * sh(x0, y0 + 1) + fx * fy * sh(x0 + 1, y0 + 1))
+
+
+def _motion_blur(img: np.ndarray, flow: np.ndarray, length: float) -> np.ndarray:
+    """Directional blur: the mean of samples along the flow's direction
+    over `length` pixels (a shutter integrating a uniform flow)."""
+    if length < 0.5:
+        return img
+    n = max(int(np.ceil(length)) + 1, 2)
+    d = flow / max(np.linalg.norm(flow), 1e-9)
+    offs = np.linspace(-0.5 * length, 0.5 * length, n)
+    acc = np.zeros_like(img)
+    for o in offs:
+        acc += _shift_sample(img, d[0] * o, d[1] * o)
+    return (acc / n).astype(np.float32)
+
+
+def apply_photometry(
+    img: np.ndarray,
+    photo: Optional[Photometry],
+    seed: int,
+    frame_idx: int,
+    flow_px: Optional[np.ndarray] = None,
+    noise_stream: int = 0,
+) -> np.ndarray:
+    """Degrade one rendered frame. `noise_stream` decorrelates the noise of
+    a stereo pair's views while their gain and bias stay shared (a rig
+    slaves the right camera's exposure to the left's)."""
+    if photo is None:
+        return img
+    rng = np.random.default_rng([seed, 7919, frame_idx])
+    gain = rng.uniform(*photo.gain_range)
+    bias = rng.uniform(*photo.bias_range)
+    out = img.astype(np.float32)
+    if photo.motion_blur_frac > 0.0 and flow_px is not None:
+        length = min(photo.motion_blur_frac * float(np.linalg.norm(flow_px)),
+                     photo.motion_blur_max_px)
+        out = _motion_blur(out, np.asarray(flow_px, np.float64), length)
+    out = gain * out + bias
+    if photo.noise_sigma > 0.0 or photo.shot_noise > 0.0:
+        nrng = np.random.default_rng([seed, 104729, frame_idx, noise_stream])
+        sigma = np.sqrt(photo.noise_sigma ** 2
+                        + photo.shot_noise ** 2 * np.clip(out, 0.0, 255.0) / 255.0)
+        out = out + sigma * nrng.standard_normal(out.shape)
+    return np.clip(out, 0.0, 255.0).astype(np.float32)
+
+
+def _flow_px(
+    cam: CameraConfig,
+    R_prev: np.ndarray, t_prev: np.ndarray,
+    R_cur: np.ndarray, t_cur: np.ndarray,
+    depth: float = 9.0,
+) -> np.ndarray:
+    """Image displacement between the two frames of the point `depth` m
+    straight ahead of the previous camera: the blur's direction and length."""
+    p_world = R_prev.T @ (np.array([0.0, 0.0, depth]) - t_prev)
+    pc = R_cur @ p_world + t_cur
+    if pc[2] < 0.1:
+        return np.zeros(2)
+    u1 = np.array([cam.fx * pc[0] / pc[2] + cam.cx, cam.fy * pc[1] / pc[2] + cam.cy])
+    u0 = np.array([cam.fx * 0.0 + cam.cx, cam.fy * 0.0 + cam.cy])
+    return u1 - u0
+
+
 def render(
     scene: Scene,
     R_cw: np.ndarray,
@@ -96,13 +222,14 @@ def render(
     with_depth: bool = False,
     max_depth: float = np.inf,
 ):
-    """Render image [H, W] float32 from camera pose (world -> camera) of a
-    distortion-free pinhole camera. With with_depth=True also returns a
-    depth map [H, W] float32: the z of the landmark drawn at each pixel, 0
-    where none is (TUM RGB-D's invalid-depth convention). Landmarks beyond
-    max_depth are not drawn (an opaque wall for scenes around the camera)."""
-    if cam.has_distortion:
-        raise ValueError("the port's renderer draws undistorted images only")
+    """Render image [H, W] float32 from camera pose (world -> camera). A
+    camera with distortion coefficients images each landmark at its
+    distorted pixel (the raw image of a real lens, which the pipeline
+    undistorts keypoint by keypoint, src/Frame.cc:471-506; the warp within
+    a patch is left out). With with_depth=True also returns a depth map
+    [H, W] float32: the z of the landmark drawn at each pixel, 0 where none
+    is (TUM RGB-D's invalid-depth convention). Landmarks beyond max_depth
+    are not drawn (an opaque wall for scenes around the camera)."""
     h, w = cam.height, cam.width
     img = np.full((h, w), background, dtype=np.float32)
     depth = np.zeros((h, w), dtype=np.float32)
@@ -113,8 +240,11 @@ def render(
     half = scene.patch_half
     s = 2 * half + 1
     for i in order:
-        u = cam.fx * pc[i, 0] / z[i] + cam.cx
-        v = cam.fy * pc[i, 1] / z[i] + cam.cy
+        xn, yn = pc[i, 0] / z[i], pc[i, 1] / z[i]
+        if cam.has_distortion:
+            xn, yn = _distort_np(xn, yn, cam)
+        u = cam.fx * xn + cam.cx
+        v = cam.fy * yn + cam.cy
         if not (half + 2 <= u < w - half - 2 and half + 2 <= v < h - half - 2):
             continue
         u0, v0 = int(np.floor(u)), int(np.floor(v))
@@ -145,6 +275,19 @@ def render(
     if with_depth:
         return img, depth
     return img
+
+
+def mount_rotation(yaw: float = 0.0, pitch: float = 0.0, roll: float = 0.0) -> np.ndarray:
+    """Rz(roll) Rx(pitch) Ry(yaw), angles in radians: a raw camera's
+    mounting rotation off its rectified frame (x_raw = R @ x_rect), as a
+    stereo rig's cameras sit before rectification."""
+    cy, sy = np.cos(yaw), np.sin(yaw)
+    cp, sp = np.cos(pitch), np.sin(pitch)
+    cr, sr = np.cos(roll), np.sin(roll)
+    Ry = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+    Rx = np.array([[1, 0, 0], [0, cp, -sp], [0, sp, cp]])
+    Rz = np.array([[cr, -sr, 0], [sr, cr, 0], [0, 0, 1]])
+    return Rz @ Rx @ Ry
 
 
 def look_ahead_trajectory(
@@ -326,3 +469,106 @@ def render_loop_sequence(
     poses = loop_trajectory(n_frames, radius=radius, frac=frac)
     images = np.stack([render(scene, R, t, cam, max_depth=max_depth) for R, t in poses])
     return images, poses, scene
+
+
+def drive_path(theta: np.ndarray, r0: float = 40.0, lobe: float = 0.18):
+    """A closed city-block circuit, the ring r(th) = r0 (1 + lobe cos 4th):
+    four smooth corners of faster yaw (KITTI-00-class loop geometry).
+    -> centres [M, 3] in the y = 0 plane."""
+    r = r0 * (1.0 + lobe * np.cos(4.0 * theta))
+    return np.stack([r * np.sin(theta), np.zeros_like(theta), r * np.cos(theta)], -1)
+
+
+def drive_scene(
+    rng: np.random.Generator,
+    n_points: int = 40000,
+    r0: float = 40.0,
+    lobe: float = 0.18,
+    lateral_range: Tuple[float, float] = (4.0, 11.0),
+    height: float = 3.0,
+    patch_size: int = 11,
+) -> Scene:
+    """A street canyon along drive_path's circuit: landmarks in bands on
+    both sides of the street (the building walls), jittered near-even
+    along the arc so the sprites stay distinct; 10^4-10^5 landmarks, the
+    map sizes of KITTI-class drives (Examples/Stereo/stereo_kitti.cc)."""
+    n_side = n_points // 2
+    th = (np.arange(n_side) + rng.uniform(0.1, 0.9, n_side)) * (2.0 * np.pi / n_side)
+    centers = drive_path(th, r0, lobe)
+    # The radial direction stands in for the path's outward normal.
+    nrm = np.stack([np.sin(th), np.zeros_like(th), np.cos(th)], -1)
+    out_pts = centers + nrm * rng.uniform(*lateral_range, n_side)[:, None]
+    n_in = n_points - n_side
+    th2 = (np.arange(n_in) + rng.uniform(0.1, 0.9, n_in)) * (2.0 * np.pi / n_in)
+    centers2 = drive_path(th2, r0, lobe)
+    nrm2 = np.stack([np.sin(th2), np.zeros_like(th2), np.cos(th2)], -1)
+    in_pts = centers2 - nrm2 * rng.uniform(*lateral_range, n_in)[:, None]
+    points = np.concatenate([out_pts, in_pts])
+    points[:, 1] = rng.uniform(-height, height, n_points)
+    proto = make_scene(rng, n_points=n_points, patch_size=patch_size)
+    return Scene(points=points.astype(np.float64), patches=proto.patches,
+                 patch_half=proto.patch_half)
+
+
+def drive_trajectory(
+    n_frames: int,
+    r0: float = 40.0,
+    lobe: float = 0.18,
+    frac: float = 1.18,
+) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """A survey of drive_path heading along its tangent; frac > 1 drives
+    the opening sector again, closing the loop at the end of the drive
+    (KITTI 00's revisit). -> (R_cw, t_cw) per frame."""
+    poses = []
+    th = np.linspace(0.0, 2.0 * np.pi * frac, n_frames)
+    c = drive_path(th, r0, lobe)
+    fwd = np.gradient(c, axis=0)
+    for k in range(n_frames):
+        f = fwd[k] / max(np.linalg.norm(fwd[k]), 1e-9)
+        yaw = np.arctan2(f[0], f[2])
+        cy, sy = np.cos(yaw), np.sin(yaw)
+        R_cw = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]]).T
+        poses.append((R_cw, -R_cw @ c[k]))
+    return poses
+
+
+def drive_frames(
+    cam: CameraConfig,
+    n_frames: int = 1600,
+    n_points: int = 40000,
+    seed: int = 0,
+    r0: float = 40.0,
+    lobe: float = 0.18,
+    frac: float = 1.18,
+    max_depth: float = 16.0,
+    stereo: bool = False,
+    photo: Optional[Photometry] = None,
+):
+    """(frames, poses, scene) of the KITTI-class drive: frames(start=0) is
+    a generator of (index, image), or (index, left, right) with
+    stereo=True (the right camera cam.baseline to the left camera's
+    right), rendered on demand; poses are analytic and the photometric
+    draws seeded by frame, so a start past 0 gives the same frames."""
+    rng = np.random.default_rng(seed)
+    scene = drive_scene(rng, n_points=n_points, r0=r0, lobe=lobe)
+    poses = drive_trajectory(n_frames, r0=r0, lobe=lobe, frac=frac)
+    b = cam.baseline if stereo else 0.0
+
+    def frames(start=0):
+        for k in range(start, len(poses)):
+            R, t = poses[k]
+            flow = None
+            if photo is not None and photo.motion_blur_frac > 0.0 and k > 0:
+                flow = _flow_px(cam, *poses[k - 1], *poses[k])
+            left = render(scene, R, t, cam, max_depth=max_depth)
+            left = apply_photometry(left, photo, seed, k, flow_px=flow)
+            if stereo:
+                right = render(scene, R, t - np.array([b, 0.0, 0.0]), cam,
+                               max_depth=max_depth)
+                right = apply_photometry(right, photo, seed, k, flow_px=flow,
+                                         noise_stream=1)
+                yield k, left, right
+            else:
+                yield k, left
+
+    return frames, poses, scene

@@ -1,6 +1,8 @@
 """The port stands alone: importing every module of
 orb_slam2_commit_tpu_torch (and chip_smoke.py) loads neither JAX nor the
-JAX package, and no source of either names them in an import."""
+JAX package, nor PIL, imageio or OpenCV (the card's machine has none of
+them: the port reads and writes PNG itself, utils/png.py), and no source
+of either names them in an import."""
 
 import json
 import pathlib
@@ -11,7 +13,7 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "orb_slam2_commit_tpu_torch"
 
-FORBIDDEN = re.compile(r"^(jax|jaxlib|orb_slam2_commit_tpu)(\.|$)")
+FORBIDDEN = re.compile(r"^(jax|jaxlib|orb_slam2_commit_tpu|PIL|imageio|cv2)(\.|$)")
 IMPORT_LINE = re.compile(
     r"^\s*(?:from\s+(\S+)\s+import|import\s+([\w., ]+))", re.MULTILINE)
 
@@ -46,6 +48,7 @@ def test_importing_the_port_loads_no_jax():
         timeout=120, check=True)
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "orb_slam2_commit_tpu_torch.slam.jit_frontend" in loaded
+    assert "orb_slam2_commit_tpu_torch.examples.run_dataset" in loaded
     bad = [m for m in loaded if FORBIDDEN.match(m)]
     assert not bad, bad
 
