@@ -45,7 +45,20 @@ under CAMERA_PHOTO; TUM fr1 RGB-D, the RGB-D System's scene through
 TUM1's lens, 16-bit depth; EuRoC stereo, raw pairs through the published
 cameras and mounting rotations, rectified by the driver; TUM fr1
 monocular, the sweep through TUM1's lens), and the port's driver
-(examples/run_dataset.py) runs each from disk, as a user runs it.
+(examples/run_dataset.py) runs each from disk, as a user runs it. Then the
+online phase: the RGB-D and stereo sequences published over loopback TCP
+(examples/run_live.publish_frames) into the live driver
+(run_live.run_live over a SocketSource) with no drops; the RGB-D sequence
+published paced at 30 and 10 frames/s into run_live with its drop policy
+through the default asynchronous System, the viewer thread (slam/viewer.py,
+PNG streaming) off and on in turns, each run inside utils/profiling's
+device_trace; the AR demo (examples/run_ar.run: the monocular System at
+400x300 and 1000 features, plane anchoring by slam/ar.py); and the
+online entry points' command lines, each in a subprocess: `python -m
+orb_slam2_commit_tpu_torch.examples.run_live --sim --frames 30`, the live
+driver with `--listen` (this process publishes the RGB-D sequence to it)
+and with `--watch` (a directory of the sequence's PNGs), `run_ar` and
+`run_synthetic_mono`.
 
 Phases (any failure exits non-zero and prints no result line):
   1. the card: name, count, torch/CUDA versions, nvidia-smi name + power limit;
@@ -79,9 +92,10 @@ Phases (any failure exits non-zero and prints no result line):
      coordinates under clear flags); K6 with a batch axis on the System's
      fuse problems (also with an empty problem and with every row empty);
      at the dataset paths' shapes, on the calls recorded in each dataset
-     cell's first --sync run through the driver and in the KITTI cell's
-     first 5 frames through kitti-mono (held after phase 4's dataset
-     runs): K1-K5 on the 1241x376, 752x480 and 640x480 canvases, K6, K7's
+     cell's first --sync run through the driver, in the KITTI cell's
+     first 5 frames through kitti-mono and in the online phase's AR run
+     (held after phase 4's dataset and online runs): K1-K5 on the
+     1241x376, 752x480, 640x480 and 400x300 canvases, K6, K7's
      band at 2000 and 1200 features a side, K7 under the flags, under the
      epipolar band and under the window (four 1024-column passes at twice
      2000 features in kitti-mono), K8 at up to 2000 observations,
@@ -140,6 +154,22 @@ Phases (any failure exits non-zero and prints no result line):
      frames through kitti-mono (K7 under the initialization's window);
      each run's frames, keyframes, ATE, the driver's tracking times,
      frames/s, PNG read time and (EuRoC) the rectification's time a pair;
+     the online phase, each path with its launch counts reset just before
+     and read just after it: over the wire, every frame in and tracked,
+     the arrays the System's stages got equal bit for bit to the direct
+     feed's, and the run bit-identical to the direct runs; live, the
+     tracked timestamps increasing, no render error, every streamed PNG an
+     [H, W, 3] uint8 image, device_trace active with a non-empty trace,
+     the ATE of the returned poses under 0.015 x span, and printed: frames
+     in, tracked and dropped, the tracker's ms a tracked frame, the states,
+     the renders and the device's idle share from the trace; AR, the cube
+     anchored and overlaid on at least the CPU run's frames less 2, the
+     PNGs, fit_plane_ransac on the card against the CPU on the same sample
+     sets, the anchored normal's angle to the ground plane printed (the AR
+     run's kernel calls recorded and held in phase 3); each command line
+     (the live driver with --sim, --listen fed over TCP by this process and
+     --watch on a directory of PNGs; the AR demo; the synthetic monocular
+     demo), exit 0 and its result line;
   5. timing: throughput of each path by the bench recipe (the System's
      frames/s over a sequence, after a warm-up sequence, with its stage
      times, initialization's and relocalization's among them, and, under
@@ -168,6 +198,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -193,8 +224,11 @@ try:
     from orb_slam2_commit_tpu_torch.slam.local_mapping import LocalMapper
     from orb_slam2_commit_tpu_torch.slam.system import System
     from orb_slam2_commit_tpu_torch.slam.tracking import Tracker
-    from orb_slam2_commit_tpu_torch.examples import run_dataset
+    from orb_slam2_commit_tpu_torch.examples import run_ar, run_dataset, run_live
+    from orb_slam2_commit_tpu_torch.slam import ar
     from orb_slam2_commit_tpu_torch.utils import mini_dataset, synthetic, trajectory
+    from orb_slam2_commit_tpu_torch.utils.png import read_png, write_png
+    from orb_slam2_commit_tpu_torch.utils.profiling import device_trace
     from orb_slam2_commit_tpu_torch.utils.config import (
         EUROC_RAW_CAMERAS, euroc_stereo_config, kitti_00_02_config, synthetic_config,
         tum_fr1_config)
@@ -345,6 +379,36 @@ LOC_MIN_TRACKED, LOC_CPU_FRAMES = 8, 3
 GBA_EVERY, GBA_MIN_KFS, GBA_ATE_GATE = 5, 4, 0.10
 # Asynchronous against synchronous RGB-D System runs, in turns.
 ASYNC_TURNS = 2
+
+# The online phase (examples/run_live.py, slam/viewer.py, slam/ar.py,
+# examples/run_ar.py). (a) The RGB-D and stereo sequences published over
+# loopback TCP into run_live, no drops, synchronous: bit-identical to
+# phase 4's direct runs. (b) The RGB-D sequence published paced at each of
+# LIVE_RATES frames/s (ts = i / rate) into run_live with the drop policy,
+# through the default asynchronous System with the bundled vocabulary,
+# the viewer off and on in turns (LIVE_VIEWER), each run inside its own
+# device_trace: tracked timestamps increasing, no render error, every
+# streamed PNG an [H, W, 3] uint8 image, the ATE of the returned poses
+# under ATE_SPAN_GATE x span. (c) run_ar at its defaults: the cube
+# overlaid on at least AR_OVERLAID_CPU - 2 frames (AR_OVERLAID_CPU: the
+# frames a CPU run of run_ar on the card's route overlays, 3-23 of 24);
+# fit_plane_ransac on the run's final map on the card and the CPU on the
+# same AR_ITERS sample sets: the same best hypothesis, normals within
+# AR_FIT_RAD, inlier flags equal but for points within AR_FLAG_BAND x
+# scale of the threshold. The anchored normal's angle to the scene's
+# ground plane (AR_GROUND) after the trajectory's similarity alignment is
+# printed, not gated: the anchor (the JAX package's, kept) draws its
+# samples over the map's whole point table, where almost no sample is of
+# three valid points, so its plane is the least-variance direction of the
+# whole cloud, about 60 deg from the ground in both packages (run_ar on
+# the CPU: 63.8 deg in JAX, 60.0 deg in the port).
+# (d) The online entry points' command lines, each in a subprocess.
+LIVE_RATES = (30.0, 10.0)
+LIVE_VIEWER = (False, True, True, False)
+AR_OVERLAID_CPU = 21
+AR_GROUND = (0.1, 1.0, -0.15)      # utils/synthetic.make_scene's plane normal
+AR_FIT_RAD, AR_FLAG_BAND, AR_ITERS = 1e-4, 1e-5, 128
+CLI_FRAMES = 30
 
 # The datasets phase: four mini datasets written by the port's writers at
 # the published settings of the reference's Examples/*.yaml (absent from
@@ -2880,14 +2944,10 @@ def kept_calls(calls):
 
 def phase_dataset_kernels(d, errs):
     """Phase 3 at the dataset paths' shapes: each kernel against its plain
-    version on every call kept from each cell's first --sync run and from
-    the KITTI cell's kitti-mono run (phase_datasets; d: {run: (config,
-    calls)}), exact where phase_kernels is exact; errs (the kernels'
-    largest errors) updated."""
-    win = d["kitti-mono"][1].get("window_hamming_top2", [])
-    if not win or win[0][1].shape[-2] < K7_WINDOW_MIN_COLUMNS:
-        raise AssertionError(f"K7's window got {[a[1].shape[-2] for a in win]} columns on the "
-                             f"KITTI initialization")
+    version on every call kept from each cell's first --sync run, from
+    the KITTI cell's kitti-mono run (phase_datasets) and from the online
+    phase's AR run (d: {run: (config, calls)}), exact where phase_kernels
+    is exact; errs (the kernels' largest errors) updated."""
     for cell, (cfg, calls) in d.items():
         where = f"{cell} ({cfg.camera.width}x{cfg.camera.height}, {cfg.orb.n_features} features)"
         for image, th_hi, th_lo in calls.get("level_preprocess", ()):
@@ -3093,10 +3153,400 @@ def phase_datasets(root, cells, firsts, power):
         run_cell(mono, os.path.join(root, "out_kitti_mono"), "--sync", "--no-vocab")
         mono_counts = dict(_build.launches)
     recorded["kitti-mono"] = (mono.config, kept_calls(calls))
+    win = recorded["kitti-mono"][1].get("window_hamming_top2", [])
+    if not win or win[0][1].shape[-2] < K7_WINDOW_MIN_COLUMNS:
+        raise AssertionError(f"K7's window got {[a[1].shape[-2] for a in win]} columns on the "
+                             f"KITTI initialization")
     log(f"kitti-mono, the KITTI cell's first {len(first.poses)} frames: launches {mono_counts}")
     if not mono_counts["window_hamming_top2"]:
         raise AssertionError("kitti-mono: K7 under the initialization's window never launched")
     return counts, mono_counts, recorded
+
+
+# ---------------------------------------------------------------------------
+# The online phase: the System fed live (examples/run_live.py) over the
+# wire, with the drop policy and the viewer thread, and AR anchoring
+# (examples/run_ar.py), on the card
+# ---------------------------------------------------------------------------
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def publisher(items, port, rate=None):
+    """A thread that connects to the subscriber on the loopback port (as
+    soon as it listens) and publishes items with run_live.publish_frames,
+    item i at i / rate seconds after connecting when rate is given, then
+    closes the connection (the end of the stream)."""
+    errors = []
+
+    def serve():
+        try:
+            deadline = time.time() + 120.0
+            while True:
+                try:
+                    sock = socket.create_connection(("127.0.0.1", port), timeout=5.0)
+                    break
+                except ConnectionRefusedError:
+                    if time.time() > deadline:
+                        raise
+                    time.sleep(0.002)
+            with sock:
+                t0 = time.time()
+                for i, item in enumerate(items):
+                    if rate is not None:
+                        wait = t0 + i / rate - time.time()
+                        if wait > 0:
+                            time.sleep(wait)
+                    run_live.publish_frames(sock, [item])
+        except Exception as e:   # handed to the caller, which raises it
+            errors.append(e)
+
+    thread = threading.Thread(target=serve, name="publisher", daemon=True)
+    thread.start()
+    return thread, errors
+
+
+def live_over_wire(items, config, rate=None, device="cuda", **kw):
+    """items published over loopback TCP (paced at rate frames/s, or as
+    fast as they go) into a SocketSource that run_live consumes ->
+    its LiveRun."""
+    port = free_port()
+    thread, errors = publisher(items, port, rate)
+    run = run_live.run_live(run_live.SocketSource(port=port, listen=True), config,
+                            device=device, **kw)
+    thread.join(timeout=60.0)
+    if errors or thread.is_alive():
+        raise AssertionError(f"the publisher failed: {errors or 'still running'}")
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return run
+
+
+def phase_online_wire(seqs, power, device="cuda"):
+    """(a) Each of phase 4's synchronous System sequences (RGB-D, stereo)
+    published over loopback TCP and tracked by run_live with no drops, the
+    launch counts reset just before and read just after: all 30 frames in
+    and tracked; every image and depth map or right image the System's
+    stages got equal bit for bit to the sequence's (the arrays a direct
+    track_rgbd / track_stereo call gets); the run's trajectory, keyframes
+    and map bit-identical to phase 4's direct runs in this process; the
+    path's kernels launched. -> launch counts per sensor."""
+    counts = {}
+    for sensor in ("rgbd", "stereo"):
+        seq = seqs[sensor]
+        config, first, second, _ = seq
+        items = [(i / config.camera.fps, first[i], second[i]) for i in range(SYSTEM_FRAMES)]
+        entry = "_track" if sensor == "rgbd" else "_track_stereo"
+        seen = []
+        with recording(System, entry, seen):
+            _build.reset_launches()
+            run = live_over_wire(items, config, device=device, drop_when_behind=False)
+            c = counts[sensor] = dict(_build.launches)
+        what = system_name(sensor)
+        if (run.n_in, run.n_tracked, run.n_dropped) != (SYSTEM_FRAMES, SYSTEM_FRAMES, 0):
+            raise AssertionError(f"{what} over the wire: {run.n_in} in, {run.n_tracked} "
+                                 f"tracked, {run.n_dropped} dropped")
+        for i, (args, kwargs) in enumerate(seen):
+            if sensor == "rgbd":
+                image, ts, aux = args[1], args[2], kwargs["depth"]
+            else:
+                image, aux, ts = args[1:4]
+            if ts != items[i][0] or any(a.dtype != b.dtype or not np.array_equal(a, b)
+                                        for a, b in ((image, first[i]), (aux, second[i]))):
+                raise AssertionError(f"{what} over the wire: frame {i}'s arrays differ from "
+                                     f"the direct feed's")
+        if len(seen) != SYSTEM_FRAMES:
+            raise AssertionError(f"{what} over the wire: {len(seen)} frames reached the System")
+        remember(what, "over the wire", run.system)
+        check_same_bits(what)
+        want = SYSTEM_LAUNCHED + (("stereo_band_top2",) if sensor == "stereo" else ())
+        if [k for k in want if c[k] < 1] or [k for k in SYSTEM_UNUSED if c[k]]:
+            raise AssertionError(f"{what} over the wire: a kernel of the path did not "
+                                 f"launch, or one off the path did: {c}")
+        log(f"{what} over loopback TCP (run_live, no drops): {run.n_in} frames in, "
+            f"{run.n_tracked} tracked, every image and "
+            f"{'depth map' if sensor == 'rgbd' else 'right image'} equal bit for bit to the "
+            f"direct feed's ({first.dtype}, {second.dtype}); {run.n_in / run.seconds:.2f} "
+            f"frames/s to the end of shutdown, on {power}; launches {c}")
+    return counts
+
+
+def trace_busy_ms(log_dir):
+    """The one Chrome trace device_trace wrote into log_dir -> (its size in
+    bytes, the card's busy ms: the union of its kernels', copies' and
+    sets' intervals over every stream, device operations)."""
+    names = [f for f in os.listdir(log_dir) if f.startswith("trace_")]
+    if len(names) != 1:
+        raise AssertionError(f"device_trace wrote {names} into {log_dir}")
+    path = os.path.join(log_dir, names[0])
+    size = os.path.getsize(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0.0)) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, -np.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return size, busy / 1e3, len(spans)
+
+
+def check_live_run(what, run, gt, rate, stream_dir):
+    """One live run's gates -> (ATE, span, tracked ms mean, median)."""
+    if run.n_in != SYSTEM_FRAMES or run.n_in != len(run.fed_ts) + run.n_dropped:
+        raise AssertionError(f"{what}: {run.n_in} frames in, {len(run.fed_ts)} fed, "
+                             f"{run.n_dropped} dropped")
+    if any(b <= a for a, b in zip(run.fed_ts, run.fed_ts[1:])):
+        raise AssertionError(f"{what}: tracked timestamps not increasing: {run.fed_ts}")
+    background_threads_done(what, run.system)
+    tracked = [(ts, p) for ts, p in zip(run.fed_ts, run.poses) if p is not None]
+    if len(tracked) < 3:
+        raise AssertionError(f"{what}: {len(tracked)} frames tracked")
+    est = centres([p for _, p in tracked])
+    gt_c = centres(gt)[[int(round(ts * rate)) for ts, _ in tracked]]
+    rmse = trajectory.ate_rmse(est, gt_c, align_scale=False)
+    span = float(np.linalg.norm(gt_c[-1] - gt_c[0]))
+    if not rmse < ATE_SPAN_GATE * span:
+        raise AssertionError(f"{what}: ATE {rmse} over the gate {ATE_SPAN_GATE * span}")
+    v = run.viewer
+    if v is not None:
+        if v.n_errors:
+            raise AssertionError(f"{what}: {v.n_errors} render errors, the last "
+                                 f"{v.last_error!r}")
+        pngs = sorted(os.listdir(stream_dir))
+        if not pngs or v.n_rendered < 1:
+            raise AssertionError(f"{what}: {v.n_rendered} renders, {len(pngs)} PNG files")
+        cam = run.system.config.camera
+        for name in pngs:
+            image = read_png(os.path.join(stream_dir, name))
+            if image.shape != (cam.height, cam.width, 3) or image.dtype != np.uint8:
+                raise AssertionError(f"{what}: {name} reads back as {image.dtype} "
+                                     f"{image.shape}")
+    ms = 1e3 * np.asarray([s for s, p in zip(run.track_s, run.poses) if p is not None])
+    return rmse, span, float(ms.mean()), float(np.median(ms))
+
+
+def phase_online_live(seq, power, root, device="cuda"):
+    """(b) The RGB-D sequence published at each of LIVE_RATES frames/s,
+    paced, ts = i / rate, into run_live with the drop policy, through the
+    default asynchronous System (the bundled vocabulary), the viewer off
+    and on (LIVE_VIEWER, in turns: run_live's ViewerLoop, at the stream's
+    rate, streaming PNGs), each run inside its own device_trace with the
+    launch counts reset just before and read just after it: check_live_run's
+    gates, the trace active and not empty, every kernel of the path
+    launched. -> the launch counts summed over the runs."""
+    config, first, second, gt = seq
+    config = dataclasses.replace(config, system=dataclasses.replace(config.system,
+                                                                   async_mapping=True))
+    total = {k: 0 for k in _build.launches}
+    rows = {}
+    for rate in LIVE_RATES:
+        items = [(i / rate, first[i], second[i]) for i in range(SYSTEM_FRAMES)]
+        for turn, viewer_on in enumerate(LIVE_VIEWER):
+            what = f"live RGB-D at {rate:g} frames/s, viewer {'on' if viewer_on else 'off'}"
+            trace_dir = os.path.join(root, f"trace_{rate:g}_{turn}")
+            stream_dir = os.path.join(root, f"stream_{rate:g}_{turn}")
+            os.makedirs(stream_dir)
+            with device_trace(trace_dir) as active:
+                _build.reset_launches()
+                run = live_over_wire(items, config, rate, device, fps=rate,
+                                     viewer_dir=stream_dir if viewer_on else None)
+                c = dict(_build.launches)
+            if not active:
+                raise AssertionError(f"{what}: device_trace was not active")
+            size, busy, n_ops = trace_busy_ms(trace_dir)
+            if not size or not n_ops:
+                raise AssertionError(f"{what}: the trace holds {n_ops} device operations "
+                                     f"({size} bytes)")
+            want = [k for k in SYSTEM_LAUNCHED if k != "valid_hamming_top2"]
+            if [k for k in want if c[k] < 1] or [k for k in SYSTEM_UNUSED if c[k]]:
+                raise AssertionError(f"{what}: a kernel of the path did not launch, or one "
+                                     f"off the path did: {c}")
+            rmse, span, mean_ms, median_ms = check_live_run(what, run, gt, rate, stream_dir)
+            for k, v in c.items():
+                total[k] += v
+            idle = 1.0 - busy / (run.seconds * 1e3)
+            w = run.system.mapping_worker
+            rows.setdefault((rate, viewer_on), []).append(
+                (run.n_dropped, mean_ms, median_ms, idle))
+            renders = ""
+            if run.viewer is not None:
+                vt = run.viewer.timings.summary()
+                renders = (f", {run.viewer.n_rendered} renders ({run.viewer.n_errors} "
+                           f"errors, {len(os.listdir(stream_dir))} PNGs read back as [H, W, 3] "
+                           f"uint8), a render's ms (mean, max): " + ", ".join(
+                               f"{k} {vt[k]['mean_ms']:.2f} {vt[k]['max_ms']:.2f}"
+                               for k in ("lock_wait", "draw", "png") if k in vt))
+            log(f"{what} (turn {turn}): {run.n_in} frames in, {run.n_tracked} tracked, "
+                f"{run.n_dropped} dropped ({run.n_dropped / run.n_in:.3f}); the tracker's "
+                f"ms a tracked frame mean {mean_ms:.3f}, median {median_ms:.3f}; states "
+                f"{sorted(set(run.states))}; {run.system.map.next_kf} keyframes, "
+                f"{w.processed} mapped on the worker, {w.dropped} dropped{renders}; ATE "
+                f"{rmse:.6f} m over a {span:.3f} m span (gate {ATE_SPAN_GATE} x span); "
+                f"{run.seconds:.3f} s to the end of shutdown; device_trace {size} bytes, "
+                f"{n_ops} device operations, {busy:.1f} ms busy, idle share {idle:.4f}; "
+                f"on {power}; launches {c}")
+    for (rate, viewer_on), r in rows.items():
+        log(f"live RGB-D at {rate:g} frames/s, viewer {'on' if viewer_on else 'off'}, "
+            f"in turns: dropped {[x[0] for x in r]} of {SYSTEM_FRAMES}, tracker ms a tracked "
+            f"frame mean {[round(x[1], 3) for x in r]} median {[round(x[2], 3) for x in r]}, "
+            f"idle share {[round(x[3], 4) for x in r]}, on {power}")
+    return total
+
+
+def angle_deg(a, b):
+    """The angle between two directions, up to sign, in degrees (atan2 of
+    the cross and dot products: exact near 0, where arccos is not)."""
+    a, b = (np.asarray(v, np.float64) / np.linalg.norm(v) for v in (a, b))
+    return float(np.degrees(np.arctan2(np.linalg.norm(np.cross(a, b)), abs(a @ b))))
+
+
+def ar_normal_error_deg(run):
+    """The anchored plane's normal against the scene's ground plane, in
+    degrees, up to sign, after the similarity alignment (Umeyama) of the
+    run's trajectory to the ground truth."""
+    est = run.system.trajectory_positions()
+    lost = np.asarray([e.lost for e in run.system.tracker.trajectory], bool)
+    gt_c = centres(run.poses_gt)[len(run.poses_gt) - len(est):]
+    _, R, _ = trajectory.umeyama_alignment(est[~lost], gt_c[~lost])
+    return angle_deg(R @ run.anchor.Twp[:3, 2], AR_GROUND)
+
+
+def fit_card_vs_cpu(what, pts, valid, device="cuda"):
+    """fit_plane_ransac on the points on the card and on the CPU, on the
+    same AR_ITERS sample sets: the same best hypothesis, normals within
+    AR_FIT_RAD (up to sign), inlier flags equal but for points within
+    AR_FLAG_BAND x scale of the threshold -> a line to log."""
+    pts = torch.from_numpy(np.ascontiguousarray(pts, np.float32))
+    valid = torch.from_numpy(np.array(valid, bool))
+    idx = ar.sample_indices(len(pts), AR_ITERS, torch.Generator().manual_seed(7))
+    card = ar.fit_plane_ransac(pts.to(device), valid.to(device), idx=idx)
+    cpu = ar.fit_plane_ransac(pts, valid, idx=idx)
+    n_card, n_cpu = card.normal.cpu().double().numpy(), cpu.normal.double().numpy()
+    rad = np.radians(angle_deg(n_card, n_cpu))
+    th = float(cpu.threshold)
+    dist = np.abs(pts.double().numpy() @ n_cpu + float(cpu.offset))
+    differ = card.inliers.cpu().numpy() != cpu.inliers.numpy()
+    near = np.abs(dist - th) <= AR_FLAG_BAND * th / 0.02
+    line = (f"fit_plane_ransac card vs CPU on {what} ({int(valid.sum())} valid of "
+            f"{len(pts)} points, {AR_ITERS} sample sets): best hypothesis {int(card.best)} / "
+            f"{int(cpu.best)}, normals {rad:.3g} rad apart, threshold "
+            f"{float(card.threshold):.6g} / {th:.6g}, inliers {int(card.n_inliers)} / "
+            f"{int(cpu.n_inliers)}, {int(differ.sum())} flags differ "
+            f"({int((differ & near).sum())} within {AR_FLAG_BAND} x scale of the threshold)")
+    if int(card.best) != int(cpu.best) or not rad < AR_FIT_RAD or (differ & ~near).any():
+        raise AssertionError(line)
+    return line
+
+
+def phase_online_ar(power, root, device="cuda"):
+    """(c) run_ar's path (examples/run_ar.run at its defaults) with the
+    launch counts reset just before and read just after it and the
+    kernels' calls recorded (DATASET_RECORDED; held to their plain versions
+    by phase_dataset_kernels): the cube anchored and overlaid on at least
+    AR_OVERLAID_CPU - 2 frames, every PNG an [H, W, 3] uint8 image,
+    fit_card_vs_cpu on the final map's point table (as ARAnchor takes it)
+    and on its valid points alone; the monocular path's kernels launched;
+    the anchored normal's angle to the ground plane printed.
+    -> (launch counts, (config, kept calls))."""
+    calls = {k: [] for k in DATASET_RECORDED}
+    with contextlib.ExitStack() as stack:
+        for k, (module, keep) in DATASET_RECORDED.items():
+            stack.enter_context(recording(module, k, calls[k], keep))
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        run = run_ar.run(out_dir=os.path.join(root, "ar"), device=device)
+        seconds = time.perf_counter() - t0
+        c = dict(_build.launches)
+    n = len(run.overlaid)
+    overlaid = [i for i, o in enumerate(run.overlaid) if o]
+    if run.anchor.Twp is None or len(overlaid) < AR_OVERLAID_CPU - 2:
+        raise AssertionError(f"AR: the cube overlaid on frames {overlaid}")
+    for path in run.pngs:
+        image = read_png(path)
+        if image.shape != (300, 400, 3) or image.dtype != np.uint8:
+            raise AssertionError(f"AR: {path} reads back as {image.dtype} {image.shape}")
+    err = ar_normal_error_deg(run)
+    if [k for k in MONO_LAUNCHED if c[k] < 1] or [k for k in SYSTEM_UNUSED if c[k]]:
+        raise AssertionError(f"AR: a kernel of the path did not launch, or one off the path "
+                             f"did: {c}")
+    log(f"AR (run_ar, {n} frames at 400x300, 1000 features): the cube overlaid on "
+        f"{len(overlaid)} frames ({overlaid[0]}-{overlaid[-1]}; the CPU run: "
+        f"{AR_OVERLAID_CPU}), size {run.anchor.size:.4f}; the anchored normal "
+        f"{err:.4f} deg from the ground plane after the similarity alignment; "
+        f"{run.system.map.n_keyframes()} keyframes, {run.system.map.n_points()} points; "
+        f"{n / seconds:.2f} frames/s with the overlay and the PNGs, on {power}; launches {c}")
+    m = run.system.map
+    log(fit_card_vs_cpu("the final map's point table, as ARAnchor takes it", m.pt_pos,
+                        m.pt_valid, device))
+    log(fit_card_vs_cpu("the final map's valid points", m.pt_pos[m.pt_valid],
+                        np.ones(int(m.pt_valid.sum()), bool), device))
+    return c, (run.system.config, kept_calls(calls))
+
+
+def phase_online_cli(seqs, power, root, flags=()):
+    """(d) The port's online entry points by their command lines, each in
+    a subprocess on the card (TMPDIR under root), with `flags` appended:
+    the live driver on the synthetic stream (--sim), listening for the
+    RGB-D sequence that this process publishes over loopback TCP (--listen,
+    the settings YAML written by utils/mini_dataset), and watching a
+    directory of the sequence's frames as 8-bit PNGs (--watch, monocular);
+    the AR demo; the synthetic monocular demo. Each must exit 0 and print
+    its result line."""
+    config, first, second, _ = seqs["rgbd"]
+    yaml = mini_dataset.write_settings_yaml(os.path.join(root, "live.yaml"), config)
+    watch = os.path.join(root, "watch")
+    os.makedirs(watch)
+    for i in range(SYSTEM_FRAMES):
+        write_png(os.path.join(watch, f"{i:06d}.png"),
+                  np.clip(np.round(first[i]), 0, 255).astype(np.uint8))
+    port = free_port()
+    live = "orb_slam2_commit_tpu_torch.examples.run_live"
+    runs = [
+        ([live, "--sim", "--frames", str(CLI_FRAMES)], f"stream done: {CLI_FRAMES} frames in",
+         None),
+        ([live, "--listen", str(port), "--settings", yaml, "--sensor", "rgbd"],
+         f"stream done: {SYSTEM_FRAMES} frames in",
+         [(i / config.camera.fps, first[i], second[i]) for i in range(SYSTEM_FRAMES)]),
+        ([live, "--watch", watch, "--settings", yaml], f"stream done: {SYSTEM_FRAMES} frames in",
+         None),
+        (["orb_slam2_commit_tpu_torch.examples.run_ar", "24", "--out",
+          os.path.join(root, "ar_cli")], "total", None),
+        (["orb_slam2_commit_tpu_torch.examples.run_synthetic_mono", "40"], "ATE RMSE", None),
+    ]
+    env = dict(os.environ, TMPDIR=root)
+    for args, want, items in runs:
+        cmd = [sys.executable, "-m", *args, *flags]
+        thread, errors = publisher(items, port) if items else (None, [])
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env,
+                             cwd=os.path.dirname(os.path.abspath(__file__)))
+        if thread is not None:
+            thread.join(timeout=60.0)
+        done = [line for line in out.stdout.splitlines() if line.startswith(want)]
+        log(f"python -m {' '.join(args)}: exit {out.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s, on {power}: {done}")
+        if out.returncode != 0 or not done or errors:
+            raise AssertionError(f"{args[0]} failed ({errors}): {out.stderr[-2000:]}")
+
+
+def phase_online(seqs, power, device="cuda"):
+    """The online phase, (a)-(d) -> ({path: launch counts}, the AR run's
+    (config, kept calls))."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_online_") as root:
+        wire = phase_online_wire(seqs, power, device)
+        live = phase_online_live(seqs["rgbd"], power, root, device)
+        ar_counts, ar_calls = phase_online_ar(power, root, device)
+        phase_online_cli(seqs, power, root,
+                         () if torch.device(device).type == "cuda" else ("--device=cpu",))
+    log(f"online phase: {time.perf_counter() - t0:.1f} s")
+    return {"RGB-D over the wire": wire["rgbd"], "stereo over the wire": wire["stereo"],
+            "live RGB-D runs": live, "AR": ar_counts}, ar_calls
 
 
 # ---------------------------------------------------------------------------
@@ -3733,6 +4183,7 @@ def run_phases(power, data_root):
                                                            power),
                   "global BA runner stress": phase_gba_stress(mono_seq, power)}
     dataset_counts, kitti_mono, dataset_x = phase_datasets(data_root, cells, firsts, power)
+    online_counts, dataset_x["AR run"] = phase_online(seqs, power)
     phase_dataset_kernels(dataset_x, errs)
     phase_step_timing(config, args, power)
     phase_pair_timing(*pairs["monocular"], x, power)
@@ -3774,6 +4225,9 @@ def run_phases(power, data_root):
             f"{k} {v}" for k, v in c.items() if v))
     log("launches over the four dataset cells' first --sync runs: " + ", ".join(
         f"{k} {sum(c[k] for c in dataset_counts.values())}" for k in _build.launches))
+    for path, c in online_counts.items():
+        log(f"launches over the online phase's {path}: " + ", ".join(
+            f"{k} {v}" for k, v in c.items() if v))
 
     log(json.dumps({"kernels": kernels}))
 

@@ -31,6 +31,12 @@ and the tracker. `shutdown` drains the queue and joins both threads, and
 raises what either of them raised. Synchronous mapping runs both stages on
 the caller's thread after each new keyframe, global BA inline.
 
+Each frame holds the frame lock from its entry call to its return, and
+`reset` and `load_map` take it too, so a reset requested from another
+thread (the viewer's menu) waits for the frame in flight instead of
+rebuilding the map under it. A reader on another thread takes
+`reader_lock`.
+
 `activate_localization_mode` stops keyframe insertion and map changes;
 `load_map` then `activate_localization_mode` is a localization session
 against a saved map (the tracker's visual-odometry points ride the gaps).
@@ -95,12 +101,22 @@ class System:
             self.kf_database = KeyFrameDatabase(self.vocabulary, config.map.max_keyframes,
                                                 self.device)
         self.map_lock = threading.RLock() if async_mapping else None
+        self._frame_lock = threading.RLock()
         self.mapping_worker: Optional[MappingWorker] = None
         self._gba: Optional[GlobalBARunner] = None
         self._build()
 
     def _locked(self):
         return self.map_lock if self.map_lock is not None else contextlib.nullcontext()
+
+    @property
+    def reader_lock(self):
+        """The lock a reader of the map and the tracker on another thread
+        (the viewer) holds while it reads: the map lock with asynchronous
+        mapping (the tracker and the mapping worker write under it), else
+        the frame lock (every write happens inside a track_* call, reset or
+        load_map)."""
+        return self.map_lock if self.map_lock is not None else self._frame_lock
 
     def _build(self) -> None:
         """A fresh map with its tracker, mapper and, with a vocabulary, the
@@ -158,14 +174,16 @@ class System:
     ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
         if self.config.sensor != "monocular":
             raise ValueError(f"track_monocular on a {self.config.sensor} System")
-        return self._track(image, timestamp, depth=None)
+        with self._frame_lock:
+            return self._track(image, timestamp, depth=None)
 
     def track_rgbd(
         self, image: np.ndarray, depth: np.ndarray, timestamp: float
     ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
         if self.config.sensor != "rgbd":
             raise ValueError(f"track_rgbd on a {self.config.sensor} System")
-        return self._track(image, timestamp, depth=depth)
+        with self._frame_lock:
+            return self._track(image, timestamp, depth=depth)
 
     def _track(self, image, timestamp, depth):
         """A monocular or RGB-D frame: the fused motion stage when the
@@ -194,6 +212,10 @@ class System:
     ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
         if self.config.sensor != "stereo":
             raise ValueError(f"track_stereo on a {self.config.sensor} System")
+        with self._frame_lock:
+            return self._track_stereo(image_left, image_right, timestamp)
+
+    def _track_stereo(self, image_left, image_right, timestamp):
         if self._use_fused_track() and self.tracker.can_fuse_motion():
             with self.profiler.timed("fused_frontend"):
                 frame, motion_ok = self.tracker.fused_motion_frame(
@@ -306,10 +328,12 @@ class System:
     def reset(self) -> None:
         """Tracking::Reset (src/Tracking.cc:1886-1932): clear the map, the
         keyframe database and the loop closer's state, and restart tracking
-        from scratch; the localization-only flag stays as it was."""
-        self._drain()
-        with self._locked():
-            self._build()
+        from scratch; the localization-only flag stays as it was. Called
+        from another thread, it waits for the frame in flight."""
+        with self._frame_lock:
+            self._drain()
+            with self._locked():
+                self._build()
 
     def save_map(self, path: str) -> None:
         """Write the whole map to an .npz (models/serialization.py), in the
@@ -320,9 +344,10 @@ class System:
         """Load a map and rewire every stage to it: tracking starts LOST
         against its newest keyframe (relocalization takes over), and the
         database is rebuilt from its keyframes' descriptors."""
-        self._drain()
-        with self._locked():
-            self._load_map(path)
+        with self._frame_lock:
+            self._drain()
+            with self._locked():
+                self._load_map(path)
 
     def _load_map(self, path: str) -> None:
         self.map = serialization.load_map(path)

@@ -7,7 +7,8 @@ store their images as PNG files: 8-bit gray (KITTI, EuRoC), 8-bit RGB
 hold, non-interlaced files of colour type 0 (gray), 2 (RGB) or 6 (RGBA)
 at bit depth 8, or gray at bit depth 16 (stored big-endian), under any of
 the five row filters; any other file raises with its name. It writes 8-bit
-and 16-bit gray files, every row under the Up filter.
+and 16-bit gray files and 8-bit RGB files (the viewer's and the AR demo's
+images), every row under the Up filter.
 
 Decoding speed: the None, Sub and Up filters are whole-row numpy
 operations; Average and Paeth depend on the reconstructed byte to their
@@ -132,20 +133,25 @@ def _chunk(ctype: bytes, body: bytes) -> bytes:
 
 
 def write_png(path: str, image: np.ndarray) -> None:
-    """Write a [H, W] uint8 (8-bit gray) or uint16 (16-bit gray) array."""
+    """Write a [H, W] uint8 (8-bit gray) or uint16 (16-bit gray) array, or
+    an [H, W, 3] uint8 array (8-bit RGB)."""
     image = np.asarray(image)
-    if image.ndim != 2 or image.dtype not in (np.uint8, np.uint16):
-        raise ValueError(f"{path}: write_png takes a [H, W] uint8 or uint16 array, "
-                         f"got {image.dtype} {image.shape}")
-    h, w = image.shape
+    gray = image.ndim == 2 and image.dtype in (np.uint8, np.uint16)
+    rgb = image.ndim == 3 and image.shape[2] == 3 and image.dtype == np.uint8
+    if not (gray or rgb):
+        raise ValueError(f"{path}: write_png takes a [H, W] uint8 or uint16 array or an "
+                         f"[H, W, 3] uint8 array, got {image.dtype} {image.shape}")
+    h, w = image.shape[:2]
     depth = 8 * image.dtype.itemsize
+    stride = image[0].size * image.dtype.itemsize
     rows = np.frombuffer(image.astype(image.dtype.newbyteorder(">")).tobytes(),
-                         np.uint8).reshape(h, w * image.dtype.itemsize)
+                         np.uint8).reshape(h, stride)
     filtered = rows.copy()
     filtered[1:] -= rows[:-1]
     raw = np.concatenate([np.full((h, 1), FILTER_UP, np.uint8), filtered], axis=1)
+    colour = 0 if gray else 2
     with open(path, "wb") as f:
         f.write(SIGNATURE
-                + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, 0, 0, 0, 0))
+                + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour, 0, 0, 0))
                 + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
                 + _chunk(b"IEND", b""))

@@ -7,15 +7,22 @@ wall-clock prints in its example programs (mono_tum.cc:83-101,119-127).
 A stage's time is host wall time: on the card a stage that does not wait
 for the device ends before its kernels do, and the next stage that waits
 (a copy to the host) takes their time.
+
+`device_trace` (utils/profiling.py:97-121's twin) records the device's
+operations inside a block with torch.profiler and writes them as a Chrome
+trace.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
 from dataclasses import dataclass
 from typing import Dict, Iterator
+
+import torch
 
 
 @dataclass
@@ -88,3 +95,48 @@ class Profiler:
     def reset(self) -> None:
         with self._lock:
             self._stats.clear()
+
+
+# One trace at a time in a process: torch.profiler does not refuse a
+# second session, and stopping either ends both.
+_TRACE_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str, enabled: bool = True) -> Iterator[bool]:
+    """torch.profiler trace of the block, written into log_dir as
+    trace_<pid>_<n>.json (a Chrome trace). On a machine with a card it
+    records the card's operations (kernels, copies) and the runtime calls
+    that launched them, from every thread; on one without, the host's
+    operators. Yields whether tracing is active: False when disabled, when
+    the profiler cannot start, or while another torch.profiler session runs
+    in the process (a second concurrent trace degrades to a no-op instead
+    of raising)."""
+    if not enabled or not _TRACE_LOCK.acquire(blocking=False):
+        yield False
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        prof = None
+        if not torch._C._autograd._profiler_enabled():
+            cuda = torch.cuda.is_available()
+            prof = profile(activities=[ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU])
+            try:
+                prof.start()
+            except RuntimeError:
+                prof = None
+        if prof is None:
+            yield False
+            return
+        try:
+            yield True
+        finally:
+            if cuda:
+                torch.cuda.synchronize()
+            prof.stop()
+            os.makedirs(log_dir, exist_ok=True)
+            n = len([f for f in os.listdir(log_dir) if f.startswith(f"trace_{os.getpid()}_")])
+            prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{n}.json"))
+    finally:
+        _TRACE_LOCK.release()

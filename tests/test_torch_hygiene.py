@@ -49,6 +49,9 @@ def test_importing_the_port_loads_no_jax():
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "orb_slam2_commit_tpu_torch.slam.jit_frontend" in loaded
     assert "orb_slam2_commit_tpu_torch.examples.run_dataset" in loaded
+    for m in ("slam.viewer", "slam.ar", "examples.run_live", "examples.run_ar",
+              "examples.run_synthetic_mono", "utils.profiling"):
+        assert f"orb_slam2_commit_tpu_torch.{m}" in loaded
     bad = [m for m in loaded if FORBIDDEN.match(m)]
     assert not bad, bad
 

@@ -121,6 +121,21 @@ def test_pil_reads_written_files(tmp_path, dtype):
     np.testing.assert_array_equal(png.read_png(path), a)
 
 
+@pytest.mark.parametrize("shape", [(41, 29), (1, 1), (7, 300)])
+def test_rgb_written_files(tmp_path, shape):
+    """8-bit RGB (colour type 2), the viewer's and the AR demo's images:
+    the port's reader and PIL read the written file back exactly."""
+    a = _image(np.random.default_rng(shape[1]), "RGB", *shape)
+    path = str(tmp_path / "rgb.png")
+    png.write_png(path, a)
+    got = png.read_png(path)
+    assert got.dtype == np.uint8 and got.shape == (*shape, 3)
+    np.testing.assert_array_equal(got, a)
+    with Image.open(path) as im:
+        assert im.mode == "RGB"
+        np.testing.assert_array_equal(np.asarray(im), a)
+
+
 @settings(max_examples=25, deadline=None)
 @given(h=st.integers(1, 40), w=st.integers(1, 40), wide=st.booleans(),
        seed=st.integers(0, 2 ** 16))
@@ -157,3 +172,5 @@ def test_unsupported_files_raise(tmp_path):
         png.read_png(bad)
     with pytest.raises(ValueError, match="uint8 or uint16"):
         png.write_png(str(tmp_path / "f.png"), np.zeros((4, 4), np.float32))
+    with pytest.raises(ValueError, match=r"\[H, W, 3\] uint8"):
+        png.write_png(str(tmp_path / "f.png"), np.zeros((4, 4, 4), np.uint8))
