@@ -54,11 +54,32 @@ through the default asynchronous System, the viewer thread (slam/viewer.py,
 PNG streaming) off and on in turns, each run inside utils/profiling's
 device_trace; the AR demo (examples/run_ar.run: the monocular System at
 400x300 and 1000 features, plane anchoring by slam/ar.py); and the
-online entry points' command lines, each in a subprocess: `python -m
-orb_slam2_commit_tpu_torch.examples.run_live --sim --frames 30`, the live
-driver with `--listen` (this process publishes the RGB-D sequence to it)
-and with `--watch` (a directory of the sequence's PNGs), `run_ar` and
-`run_synthetic_mono`.
+online entry points' command lines, each in a subprocess, the five at
+once: `python -m orb_slam2_commit_tpu_torch.examples.run_live --sim
+--frames 30`, the live driver with `--listen` (this process publishes the
+RGB-D sequence to it) and with `--watch` (a directory of the sequence's
+PNGs), `run_ar` and `run_synthetic_mono`. Last, the map-scale phase: (a)
+global BA as the loop closer runs it (`LoopCloser.run_global_ba`, 5
+iterations, PCG) on the real map snapshot
+`orb_slam2_commit_tpu/data/real_map_850m.npz` (156 keyframes, 7,781
+points of the JAX package's 850 m stereo drive, loaded by the port's
+`load_map`), plain (ORB_DISTRIBUTED_GBA=0) and sharded over a process
+group of one rank (ORB_DISTRIBUTED_GBA=1: parallel/multihost.py's NCCL
+world of one, parallel/distributed_ba.py), each twice, and once on the
+CPU: each route's runs bit-identical, the sharded route bit-identical to
+the plain one, the card within T_TOL x the keyframes' extent and
+ROT_DEG_TOL of the CPU (the CPU's float32-vs-float64 spread printed
+beside it), each route's wall time, ms an LM iteration and device idle
+share printed; (b) tests/test_sim3.py's 300-vertex drifted loop through
+`optimize_sim3_graph(solver="auto")` (block-Jacobi PCG above 256
+vertices) in float64, that test's precision, twice on the card and once
+on the CPU: the largest centre error under its 0.10 m gate, the runs
+bit-identical, card vs CPU within tests/test_torch_sim3.py's 2e-3; (c)
+meanwhile, both drives' command lines (`python -m
+orb_slam2_commit_tpu_torch.examples.scale_drive --stereo --frames=40 ...`
+and `...multiloop_drive`, at the full drives' settings over their first
+40 frames' arc): exit 0, a summary with every key of the JAX drivers',
+every kernel of the stereo per-frame path launched (the drive's counts).
 
 Phases (any failure exits non-zero and prints no result line):
   1. the card: name, count, torch/CUDA versions, nvidia-smi name + power limit;
@@ -215,12 +236,14 @@ try:
     from orb_slam2_commit_tpu_torch.kernels import (
         _build, level, matching as kmatching, patches, pose_lm, select, subpix)
     from orb_slam2_commit_tpu_torch.geometry import sim3_solver
+    from orb_slam2_commit_tpu_torch.models import serialization
     from orb_slam2_commit_tpu_torch.models.kf_database import KeyFrameDatabase
-    from orb_slam2_commit_tpu_torch.ops import extractor, pyramid, stereo
+    from orb_slam2_commit_tpu_torch.ops import extractor, lie, pyramid, stereo
     from orb_slam2_commit_tpu_torch.ops import subpix as ops_subpix
     from orb_slam2_commit_tpu_torch.ops import packed_extractor as pe
     from orb_slam2_commit_tpu_torch.optim import ba, pose_graph, pose_opt, sim3_opt
-    from orb_slam2_commit_tpu_torch.slam import jit_frontend, loop_closing, matchers
+    from orb_slam2_commit_tpu_torch.slam import (
+        jit_frontend, jit_mapper, loop_closing, matchers, tracking)
     from orb_slam2_commit_tpu_torch.slam.local_mapping import LocalMapper
     from orb_slam2_commit_tpu_torch.slam.system import System
     from orb_slam2_commit_tpu_torch.slam.tracking import Tracker
@@ -340,9 +363,10 @@ LOOP_CALLERS = ("match_by_sim3", "loop match_fuse", "compute_sim3", "BoW relocal
 LOOP_RECORDED = 4
 # compute_sim3's K7 also over this many candidates against one keyframe.
 LOOP_STACKED = 5
-# The loop closer's stages timed under torch.profiler in the warm-up run.
+# The loop closer's stages timed under torch.profiler in the warm-up run
+# (the first calls of each; the survey closes one loop).
 LOOP_PROFILED = ("detect_loop", "compute_sim3", "_optimize_essential_graph", "run_global_ba")
-LOOP_PROFILE_CALLS = 4
+LOOP_PROFILE_CALLS = 2
 # sim3_ransac and optimize_sim3 card vs CPU on the same inputs and sample
 # sets: s and R within the tolerance, t within it times its largest
 # component (or 1 where that is smaller); 1e-4 for the closed-form RANSAC
@@ -466,6 +490,36 @@ DATASET_RECORDED = {
 # columns than any earlier phase gives it (the monocular sweep's 2000),
 # four of the kernel's 1024-column passes (MT_CHUNK, csrc/matching.cu).
 K7_WINDOW_MIN_COLUMNS = 2049
+
+# The map-scale phase. (a) The real map snapshot (156 keyframes, 7,781
+# points, a mid-drive checkpoint of the JAX package's 850 m stereo city
+# drive; its `_meta` holds those capacities) under the drive's
+# configuration, global BA as run_global_ba runs it (keyframe 0 fixed, 5
+# LM iterations: PCG from 64 cameras on). (b) tests/test_sim3.py's
+# 300-vertex drifted loop (PCG above 256 vertices): its gate on the
+# largest centre error, and tests/test_torch_sim3.py's card-vs-CPU bound.
+# (c) The drives' command lines at 640x480, stereo.
+REPO = os.path.dirname(os.path.abspath(__file__))
+REAL_MAP = os.path.join(REPO, "orb_slam2_commit_tpu", "data", "real_map_850m.npz")
+REAL_MAP_SIZE = (156, 7781)
+REAL_MAP_CONFIG = dict(width=640, height=480, n_features=1500, sensor="stereo")
+REAL_MAP_GBA_ITERS = 5
+GRAPH_K = 300
+GRAPH_PCG_GATE = 0.10
+GRAPH_CENTRE_TOL = 2e-3
+DRIVE_FRAMES = 40
+# The full drives' settings (tests/test_scale.py::TestFullDrive: 1600
+# frames over 1.18 laps; tests/test_multiloop.py::TestFullFigure8: 1400
+# frames over 2.15 lobes), cut to their first 40 frames' arc: the same
+# speed a frame (over the whole circuit, 40 frames would move ~9 m a frame,
+# and the tracker loses every one).
+DRIVES = {"scale_drive": ("--points=120000", "--features=1500", "--r0=40", "--max-depth=12",
+                          f"--frac={1.18 * DRIVE_FRAMES / 1600:.6f}"),
+          "multiloop_drive": ("--points=120000", "--features=1500",
+                              f"--laps={2.15 * DRIVE_FRAMES / 1400:.6f}")}
+# Every kernel of the stereo System's per-frame path launches in a drive.
+DRIVE_LAUNCHED = ("level_preprocess", "combine_nms", "cell_topk_map", "describe_patches",
+                  "stereo_band_top2", "projection_hamming_top2", "pose_lm")
 
 # K3 runs in its map form; K4 and K5 in one fused launch (describe_patches)
 # per extraction. K3's row form and the standalone K4 and K5 have no caller
@@ -2390,7 +2444,7 @@ def loop_vs_cpu(sys_, sim3_runs):
                    max_abs(got[2].cpu(), want[2]) / t_scale)
 
     gaps = {"sim3_ransac": [], "optimize_sim3": []}
-    spreads, controls, bad = [], [], []
+    spreads, controls, bad, lm_calls = [], [], [], []
     for run, (ransac_calls, opt_calls) in sim3_runs.items():
         calls = [("sim3_ransac", c) for c in ransac_calls] + \
             [("optimize_sim3", c) for c in opt_calls]
@@ -2408,6 +2462,7 @@ def loop_vs_cpu(sys_, sim3_runs):
                 got64 = fn(*cpu(args, torch.float64), **kwargs)
                 spreads.append(gap(want, (got64.s12, got64.R12, got64.t12)))
                 controls.append(gap(args[:3], want))
+                lm_calls.append((gaps[what][-1], run, args, kwargs, card, got64))
         log(f"{run} survey's Sim3 calls card vs CPU: {len(ransac_calls)} sim3_ransac, "
             f"{len(opt_calls)} optimize_sim3")
     log(f"Sim3 card vs CPU (max |d| of s, R and t/max(1, |t|)): sim3_ransac "
@@ -2416,6 +2471,7 @@ def loop_vs_cpu(sys_, sim3_runs):
         f"LM in float32 vs float64: {[float(f'{g:.3g}') for g in spreads]}; the control, "
         f"each LM's initial transform vs the CPU's LM: {[float(f'{g:.3g}') for g in controls]}"
         f" (tolerances {SIM3_TOL})")
+    sim3_float32_envelope(max(lm_calls, key=lambda c: c[0]), gap, cpu)
     for what, g in gaps.items():
         if not g or not max(g) < SIM3_TOL[what]:
             bad.append(f"{what}: card vs CPU {g} not under {SIM3_TOL[what]}")
@@ -2424,6 +2480,45 @@ def loop_vs_cpu(sys_, sim3_runs):
                    f"{controls}")
     if bad:
         raise AssertionError("; ".join(bad))
+
+
+SIM3_JITTERS = 16
+
+
+def sim3_float32_envelope(call, gap, cpu):
+    """The optimize_sim3 call that reads largest card vs CPU, against
+    float32's own spread on it: the CPU's LM in float64 is the reference;
+    the CPU's LM in float32 on the inputs as they are and on SIM3_JITTERS
+    copies with every float input moved by up to one float32 ulp
+    (relative 2^-23, seeded) gives the envelope of float32 solutions; the
+    card's solution is printed against it. With CHIP_SMOKE_RECORD_DIR set,
+    the call's inputs and both results are saved there (sim3_call.pt)."""
+    reading, run, args, kwargs, card, got64 = call
+    ref = (got64.s12, got64.R12, got64.t12)
+    fn = sim3_opt.optimize_sim3
+    base = cpu(args)
+    envelope = []
+    for seed in range(SIM3_JITTERS + 1):
+        gen = torch.Generator().manual_seed(seed)
+        moved = tuple(a * (1 + (torch.rand(a.shape, generator=gen, dtype=torch.float64)
+                                * 2 - 1).to(a.dtype) * 2.0 ** -23)
+                      if seed and isinstance(a, torch.Tensor) and a.is_floating_point() else a
+                      for a in base)
+        got = fn(*moved, **kwargs)
+        envelope.append(gap((got.s12, got.R12, got.t12), ref))
+    card_gap = gap((card.s12, card.R12, card.t12), ref)
+    log(f"optimize_sim3 reading largest card vs CPU ({run} survey, {reading:.3g}): the card "
+        f"vs the CPU's float64 LM {card_gap:.3g}; the CPU's float32 LM vs float64 "
+        f"{envelope[0]:.3g}, over {SIM3_JITTERS} one-ulp jitters of its inputs "
+        f"{min(envelope):.3g}-{max(envelope):.3g}: the card lies "
+        f"{'inside' if card_gap <= max(envelope) else 'OUTSIDE'} float32's spread")
+    record = os.environ.get("CHIP_SMOKE_RECORD_DIR")
+    if record:
+        os.makedirs(record, exist_ok=True)
+        torch.save({"args": base, "kwargs": kwargs, "run": run,
+                    "card": tuple(t.cpu() for t in (card.s12, card.R12, card.t12)),
+                    "cpu64": tuple(t.cpu() for t in ref)},
+                   os.path.join(record, "sim3_call.pt"))
 
 
 @contextlib.contextmanager
@@ -3330,6 +3425,27 @@ def check_live_run(what, run, gt, rate, stream_dir):
     return rmse, span, float(ms.mean()), float(np.median(ms))
 
 
+@contextlib.contextmanager
+def triangulating(count):
+    """count[0] += 1 for each keyframe the mapper triangulates from
+    (jit_mapper.fused_triangulation_jit, which runs the matcher that K7
+    under the epipolar band serves): a keyframe with no neighbour past the
+    baseline, or with every feature already bound to a point (an RGB-D
+    keyframe's depth makes points of them), triangulates nothing. The
+    worker thread's calls are counted too."""
+    fn = jit_mapper.fused_triangulation_jit
+
+    def spy(*args, **kwargs):
+        count[0] += 1
+        return fn(*args, **kwargs)
+
+    jit_mapper.fused_triangulation_jit = spy
+    try:
+        yield
+    finally:
+        jit_mapper.fused_triangulation_jit = fn
+
+
 def phase_online_live(seq, power, root, device="cuda"):
     """(b) The RGB-D sequence published at each of LIVE_RATES frames/s,
     paced, ts = i / rate, into run_live with the drop policy, through the
@@ -3338,7 +3454,8 @@ def phase_online_live(seq, power, root, device="cuda"):
     rate, streaming PNGs), each run inside its own device_trace with the
     launch counts reset just before and read just after it: check_live_run's
     gates, the trace active and not empty, every kernel of the path
-    launched. -> the launch counts summed over the runs."""
+    launched (K7 under the epipolar band where the mapper triangulated).
+    -> the launch counts summed over the runs."""
     config, first, second, gt = seq
     config = dataclasses.replace(config, system=dataclasses.replace(config.system,
                                                                    async_mapping=True))
@@ -3351,7 +3468,8 @@ def phase_online_live(seq, power, root, device="cuda"):
             trace_dir = os.path.join(root, f"trace_{rate:g}_{turn}")
             stream_dir = os.path.join(root, f"stream_{rate:g}_{turn}")
             os.makedirs(stream_dir)
-            with device_trace(trace_dir) as active:
+            tri = [0]
+            with device_trace(trace_dir) as active, triangulating(tri):
                 _build.reset_launches()
                 run = live_over_wire(items, config, rate, device, fps=rate,
                                      viewer_dir=stream_dir if viewer_on else None)
@@ -3362,10 +3480,13 @@ def phase_online_live(seq, power, root, device="cuda"):
             if not size or not n_ops:
                 raise AssertionError(f"{what}: the trace holds {n_ops} device operations "
                                      f"({size} bytes)")
-            want = [k for k in SYSTEM_LAUNCHED if k != "valid_hamming_top2"]
+            # Which frames the drop policy lets through decides whether a
+            # mapped keyframe has anything to triangulate.
+            want = [k for k in SYSTEM_LAUNCHED if k != "valid_hamming_top2"
+                    and (k != "epipolar_hamming_top2" or tri[0])]
             if [k for k in want if c[k] < 1] or [k for k in SYSTEM_UNUSED if c[k]]:
                 raise AssertionError(f"{what}: a kernel of the path did not launch, or one "
-                                     f"off the path did: {c}")
+                                     f"off the path did: {c} ({tri[0]} triangulations)")
             rmse, span, mean_ms, median_ms = check_live_run(what, run, gt, rate, stream_dir)
             for k, v in c.items():
                 total[k] += v
@@ -3387,7 +3508,8 @@ def phase_online_live(seq, power, root, device="cuda"):
                 f"{sorted(set(run.states))}; {run.system.map.next_kf} keyframes, "
                 f"{w.processed} mapped on the worker, {w.dropped} dropped{renders}; ATE "
                 f"{rmse:.6f} m over a {span:.3f} m span (gate {ATE_SPAN_GATE} x span); "
-                f"{run.seconds:.3f} s to the end of shutdown; device_trace {size} bytes, "
+                f"{run.seconds:.3f} s to the end of shutdown; {tri[0]} triangulations; "
+                f"device_trace {size} bytes, "
                 f"{n_ops} device operations, {busy:.1f} ms busy, idle share {idle:.4f}; "
                 f"on {power}; launches {c}")
     for (rate, viewer_on), r in rows.items():
@@ -3490,7 +3612,8 @@ def phase_online_ar(power, root, device="cuda"):
 
 def phase_online_cli(seqs, power, root, flags=()):
     """(d) The port's online entry points by their command lines, each in
-    a subprocess on the card (TMPDIR under root), with `flags` appended:
+    a subprocess on the card, the five at once (TMPDIR under root), with
+    `flags` appended:
     the live driver on the synthetic stream (--sim), listening for the
     RGB-D sequence that this process publishes over loopback TCP (--listen,
     the settings YAML written by utils/mini_dataset), and watching a
@@ -3519,19 +3642,24 @@ def phase_online_cli(seqs, power, root, flags=()):
         (["orb_slam2_commit_tpu_torch.examples.run_synthetic_mono", "40"], "ATE RMSE", None),
     ]
     env = dict(os.environ, TMPDIR=root)
-    for args, want, items in runs:
-        cmd = [sys.executable, "-m", *args, *flags]
+    started = []
+    for i, (args, want, items) in enumerate(runs):
         thread, errors = publisher(items, port) if items else (None, [])
-        t0 = time.perf_counter()
-        out = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env,
-                             cwd=os.path.dirname(os.path.abspath(__file__)))
+        started.append((args, want, thread, errors, time.perf_counter(),
+                        started_process([sys.executable, "-m", *args, *flags], env,
+                                        os.path.join(root, f"cli{i}"))))
+    bad = []
+    for args, want, thread, errors, t0, proc in started:
+        stdout, stderr = finished(proc)
         if thread is not None:
             thread.join(timeout=60.0)
-        done = [line for line in out.stdout.splitlines() if line.startswith(want)]
-        log(f"python -m {' '.join(args)}: exit {out.returncode} in "
-            f"{time.perf_counter() - t0:.1f} s, on {power}: {done}")
-        if out.returncode != 0 or not done or errors:
-            raise AssertionError(f"{args[0]} failed ({errors}): {out.stderr[-2000:]}")
+        done = [line for line in stdout.splitlines() if line.startswith(want)]
+        log(f"python -m {' '.join(args)}: exit {proc.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s (the five at once), on {power}: {done}")
+        if proc.returncode != 0 or not done or errors:
+            bad.append(f"{args[0]} failed ({errors}): {stderr[-2000:]}")
+    if bad:
+        raise AssertionError("; ".join(bad))
 
 
 def phase_online(seqs, power, device="cuda"):
@@ -3547,6 +3675,351 @@ def phase_online(seqs, power, device="cuda"):
     log(f"online phase: {time.perf_counter() - t0:.1f} s")
     return {"RGB-D over the wire": wire["rgbd"], "stereo over the wire": wire["stereo"],
             "live RGB-D runs": live, "AR": ar_counts}, ar_calls
+
+
+# ---------------------------------------------------------------------------
+# The map-scale phase
+# ---------------------------------------------------------------------------
+
+def real_map():
+    """The real map snapshot, loaded by the port's models/serialization,
+    its capacities and contents checked."""
+    m = serialization.load_map(REAL_MAP)
+    sizes = ((m.cfg.max_keyframes, m.cfg.max_points), (m.n_keyframes(), int(m.pt_valid.sum())))
+    if any(got != REAL_MAP_SIZE for got in sizes):
+        raise AssertionError(f"{REAL_MAP}: capacities and contents {sizes}, "
+                             f"not {REAL_MAP_SIZE}")
+    return m
+
+
+def map_poses(m):
+    """(keyframe ids, centres [K, 3], rotations, points) of a map."""
+    kfs = np.where(m.kf_valid)[0]
+    R, t = m.kf_pose_R[kfs], m.kf_pose_t[kfs]
+    return kfs, -np.einsum("kba,kb->ka", R, t), R, m.pt_pos[m.pt_valid]
+
+
+def real_map_gba(route, device, profile=None):
+    """run_global_ba(anchor_kf=0, n_iters=5) on a fresh copy of the real
+    map with ORB_DISTRIBUTED_GBA=route on `device` -> (the map, wall s, LM
+    iterations); under torch.profiler into profile["gba"] when given."""
+    m = real_map()
+    closer = loop_closing.LoopCloser(synthetic_config(**REAL_MAP_CONFIG), m, None,
+                                     device=device)
+    solve, iters = ba._solve_step, [0]
+
+    def counted(*args, **kwargs):
+        iters[0] += 1
+        return solve(*args, **kwargs)
+
+    before = os.environ.get("ORB_DISTRIBUTED_GBA")
+    os.environ["ORB_DISTRIBUTED_GBA"] = route
+    ba._solve_step = counted
+    try:
+        with (profiled(profile, "gba") if profile is not None else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            closer.run_global_ba(anchor_kf=0, n_iters=REAL_MAP_GBA_ITERS)
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        ba._solve_step = solve
+        if before is None:
+            os.environ.pop("ORB_DISTRIBUTED_GBA", None)
+        else:
+            os.environ["ORB_DISTRIBUTED_GBA"] = before
+    return m, wall, iters[0]
+
+
+def real_map_float64():
+    """The same global BA on the CPU in float64 (the problem run_global_ba
+    builds, its floats widened) -> the map written back."""
+    m = real_map()
+    kfs = np.where(m.kf_valid)[0]
+    cfg = synthetic_config(**REAL_MAP_CONFIG)
+    assembled = tracking.build_ba_problem(
+        m, free_kfs=kfs[kfs != 0], fixed_kfs=np.asarray([0]),
+        point_ids=np.where(m.pt_valid)[0], orb_cfg=cfg.orb, device="cpu")
+    wide = ba.BAProblem(*(a.double() if a.is_floating_point() else a
+                          for a in assembled.problem[:5]),
+                        obs=type(assembled.problem.obs)(*(
+                            a.double() if a.is_floating_point() else a
+                            for a in assembled.problem.obs)))
+    out, res = ba.bundle_adjust(wide, *interop.camera_params(cfg),
+                                n_iters=REAL_MAP_GBA_ITERS, point_chunk=1024)
+    tracking.write_back_ba(m, assembled, out, res, erase_outliers=False)
+    return m
+
+
+def pose_gap(a, b):
+    """(largest keyframe centre distance, largest rotation angle in deg,
+    largest point distance) between two maps."""
+    _, ca, Ra, pa = map_poses(a)
+    _, cb, Rb, pb = map_poses(b)
+    return (float(np.linalg.norm(ca - cb, axis=1).max()),
+            max(rot_angle_deg(x, y) for x, y in zip(Ra, Rb)),
+            float(np.linalg.norm(pa - pb, axis=1).max()))
+
+
+def same_map(a, b):
+    return all(np.array_equal(getattr(a, k), getattr(b, k))
+               for k in ("kf_pose_R", "kf_pose_t", "pt_pos"))
+
+
+def phase_real_map_gba(power, device="cuda"):
+    """(a) Global BA on the real map on the card, plain
+    (ORB_DISTRIBUTED_GBA=0) and sharded over a world of one
+    (ORB_DISTRIBUTED_GBA=1, NCCL), each twice in turns (the second run of
+    each under torch.profiler), and once plain on the CPU (and in float64
+    there): each route's runs bit-identical, the sharded route bit-identical
+    to the plain one, the card against the CPU within T_TOL x the
+    keyframes' extent and ROT_DEG_TOL."""
+    runs = {"0": [], "1": []}
+    profs = {"0": {}, "1": {}}
+    traced = torch.device(device).type == "cuda"
+    for turn in range(2):
+        for route in ("0", "1"):
+            runs[route].append(real_map_gba(route, device,
+                                            profs[route] if turn and traced else None))
+    cpu, cpu_wall, cpu_iters = real_map_gba("0", "cpu")
+    wide = real_map_float64()
+    names = {"0": "plain", "1": "sharded, world 1 over NCCL"}
+    for route, (first, second) in runs.items():
+        if not same_map(first[0], second[0]):
+            raise AssertionError(f"real-map global BA, {names[route]}: two runs differ")
+        wall_ms, busy_ms, n_ops = profs[route].get("gba", (second[1] * 1e3, 0.0, 0))
+        log(f"real-map global BA ({REAL_MAP_SIZE[0]} keyframes, {REAL_MAP_SIZE[1]} points), "
+            f"{names[route]}, on {power}: {first[1]:.3f} / {second[1]:.3f} s (first / second "
+            f"run), {second[2]} LM iterations, {second[1] * 1e3 / max(second[2], 1):.1f} ms "
+            f"an iteration; device busy {busy_ms:.1f} of {wall_ms:.1f} ms, idle share "
+            f"{1.0 - busy_ms / wall_ms:.4f}, {n_ops} device operations")
+    if not same_map(runs["0"][0][0], runs["1"][0][0]):
+        raise AssertionError("real-map global BA: the sharded route differs from the plain one")
+    _, c_cpu, _, _ = map_poses(cpu)
+    extent = float(np.linalg.norm(c_cpu.max(axis=0) - c_cpu.min(axis=0)))
+    card = pose_gap(runs["0"][0][0], cpu)
+    spread = pose_gap(cpu, wide)
+    moved = pose_gap(cpu, real_map())
+    log(f"real-map global BA card vs CPU (centre m, rotation deg, point m): "
+        f"{tuple(float(f'{v:.4g}') for v in card)}; the CPU's float32 vs float64: "
+        f"{tuple(float(f'{v:.4g}') for v in spread)}; the solve moved the map by "
+        f"{tuple(float(f'{v:.4g}') for v in moved)}; extent {extent:.1f} m; "
+        f"the CPU's run {cpu_wall:.3f} s, {cpu_iters} LM iterations; bits equal run to run "
+        f"on each route and across routes")
+    if not (card[0] < T_TOL * extent and card[1] < ROT_DEG_TOL):
+        raise AssertionError(f"real-map global BA card vs CPU {card} not within "
+                             f"{T_TOL} x {extent:.1f} m / {ROT_DEG_TOL} deg")
+
+
+def drifted_loop_graph(K, seed=5, skip_every=7):
+    """tests/test_sim3.py's _drifted_loop_graph (a chain with a loop,
+    drifted estimates, true measurements), its rotations by the port's
+    so3_exp in float64 -> (numpy leaves of a Sim3Graph, R_true, t_true)."""
+    def so3(w):
+        return lie.so3_exp(torch.as_tensor(w, dtype=torch.float64)).numpy()
+
+    rng = np.random.default_rng(seed)
+    R_true, t_true = [], []
+    for k in range(K):
+        ang = 2 * np.pi * k / K
+        R = so3([0.0, ang, 0.0])
+        c = np.array([np.sin(ang) * 10, 0.0, 10 - np.cos(ang) * 10])
+        R_true.append(R)
+        t_true.append(-R @ c)
+    R_true, t_true = np.stack(R_true), np.stack(t_true)
+    R_est, t_est = R_true.copy(), t_true.copy()
+    drift_R = so3(rng.normal(0, 0.002, 3))
+    acc = np.eye(3)
+    for k in range(1, K):
+        acc = acc @ drift_R
+        R_est[k] = R_true[k] @ acc
+        t_est[k] = t_true[k] + rng.normal(0, 0.01 * k, 3)
+
+    def rel(i, j):
+        Rij = R_true[i] @ R_true[j].T
+        return Rij, t_true[i] - Rij @ t_true[j]
+
+    ei, ej, mR, mt = [], [], [], []
+    for k in range(K - 1):
+        Rm, tm = rel(k + 1, k)
+        ei.append(k + 1), ej.append(k), mR.append(Rm), mt.append(tm)
+        if k % skip_every == 0:
+            j2 = (k + 4) % K
+            Rm, tm = rel(k, j2)
+            ei.append(k), ej.append(j2), mR.append(Rm), mt.append(tm)
+    Rm, tm = rel(0, K - 1)
+    ei.append(0), ej.append(K - 1), mR.append(Rm), mt.append(tm)
+    fixed = np.zeros(K, bool)
+    fixed[0] = True
+    leaves = dict(s=np.ones(K), R=R_est, t=t_est, fixed=fixed, edge_i=np.asarray(ei),
+                  edge_j=np.asarray(ej), meas_s=np.ones(len(ei)), meas_R=np.stack(mR),
+                  meas_t=np.stack(mt), edge_valid=np.ones(len(ei), bool))
+    return leaves, R_true, t_true
+
+
+def phase_large_pose_graph(power, device="cuda"):
+    """(b) The 300-vertex drifted loop's essential graph (fix_scale, 20
+    iterations, solver "auto": block-Jacobi PCG above 256 vertices) on the
+    card twice and on the CPU, in float64 as tests/test_sim3.py runs it (x64
+    is on in the suite): the largest centre error under the JAX test's
+    0.10 m, the two card runs bit-identical, card vs CPU centres within
+    GRAPH_CENTRE_TOL. (In float32, the System's precision, the LM stalls
+    on this graph in both packages, 10.86 m from the truth on the card and
+    on the CPU: edges whose rotation residual falls below ~5e-4 rad get a
+    non-finite Jacobian through so3_log's arccos, and every step after is
+    rejected; ROADMAP queue 3.)"""
+    leaves, R_true, t_true = drifted_loop_graph(GRAPH_K)
+    c_true = -np.einsum("kba,kb->ka", R_true, t_true)
+    pcg = pose_graph._pcg_solve
+    calls = [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return pcg(*args, **kwargs)
+
+    def solve(device, dtype):
+        g = pose_graph.Sim3Graph(**{k: torch.from_numpy(
+            v.astype(np.int64) if k.startswith("edge_") and v.dtype != bool else
+            v.astype(dtype) if v.dtype.kind == "f" else v).to(device)
+            for k, v in leaves.items()})
+        pose_graph._pcg_solve = counted
+        try:
+            t0 = time.perf_counter()
+            out = pose_graph.optimize_sim3_graph(g, n_iters=20, fix_scale=True, solver="auto")
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+        finally:
+            pose_graph._pcg_solve = pcg
+
+    def centres(g):
+        R, t = g.R.double().cpu().numpy(), g.t.double().cpu().numpy()
+        return -np.einsum("kba,kb->ka", R, t)
+
+    pre = float(np.linalg.norm(-np.einsum("kba,kb->ka", leaves["R"], leaves["t"]) - c_true,
+                               axis=1).max())
+    bad = []
+    for dtype, runs in ((np.float64, 2),):
+        calls[0] = 0
+        card = [solve(device, dtype) for _ in range(runs)]
+        a = card[0][0]
+        card_pcg = calls[0]
+        cpu, wall_cpu = solve("cpu", dtype)
+        same = all(torch.equal(x, y) for x, y in zip(a, card[-1][0]))
+        err = float(np.linalg.norm(centres(a) - c_true, axis=1).max())
+        gap = float(np.linalg.norm(centres(a) - centres(cpu), axis=1).max())
+        log(f"pose graph of {GRAPH_K} vertices ({leaves['edge_i'].size} edges) in "
+            f"{np.dtype(dtype).name}, PCG ({card_pcg} PCG solves on the card), on {power}: "
+            f"{' / '.join(f'{w:.3f}' for _, w in card)} s on the card, {wall_cpu:.3f} s on "
+            f"the CPU; largest centre error {pre:.4f} m before, {err:.6g} m after"
+            f"{f' (gate {GRAPH_PCG_GATE})' if dtype == np.float64 else ''}; card vs CPU "
+            f"{gap:.3g} m (bound {GRAPH_CENTRE_TOL})"
+            f"{'; two card runs bit-identical' if runs > 1 and same else ''}")
+        if not card_pcg or not same or gap >= GRAPH_CENTRE_TOL or (
+                dtype == np.float64 and err >= GRAPH_PCG_GATE):
+            bad.append(f"{np.dtype(dtype).name}: PCG solves {card_pcg}, bits equal {same}, "
+                       f"error {err}, card vs CPU {gap}")
+    if bad:
+        raise AssertionError(f"the {GRAPH_K}-vertex pose graph: " + "; ".join(bad))
+
+
+def reference_summary_keys(script):
+    """The keys of the summary dict a JAX driver script writes (read from
+    its source under scripts/, not imported)."""
+    import ast
+
+    tree = ast.parse(open(os.path.join(REPO, "scripts", script)).read())
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
+                and any(getattr(t, "id", None) == "summary" for t in node.targets)):
+            return {k.value for k in node.value.keys}
+    raise AssertionError(f"no summary dict in scripts/{script}")
+
+
+def started_process(cmd, env, prefix):
+    """cmd started from the repository root, its output into prefix.out
+    and prefix.err."""
+    with open(prefix + ".out", "w") as out, open(prefix + ".err", "w") as err:
+        proc = subprocess.Popen(cmd, stdout=out, stderr=err, text=True, env=env, cwd=REPO)
+    proc.prefix = prefix
+    return proc
+
+
+def finished(proc, timeout=600):
+    """Wait for a started_process (killed past timeout) -> (stdout, stderr)."""
+    try:
+        proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(proc.prefix + ".out") as out, open(proc.prefix + ".err") as err:
+        return out.read(), err.read()
+
+
+def start_drive_cli(root, flags=()):
+    """Start both drives' command lines (phase_drive_cli) -> their
+    (summary path, start time, process) by name."""
+    env = dict(os.environ, TMPDIR=root)
+    procs = {}
+    for name, scene in DRIVES.items():
+        out = os.path.join(root, f"{name}.json")
+        procs[name] = (out, time.perf_counter(), started_process(
+            [sys.executable, "-m", f"orb_slam2_commit_tpu_torch.examples.{name}", "--stereo",
+             f"--frames={DRIVE_FRAMES}", *scene, f"--out={out}", *flags], env,
+            os.path.join(root, name)))
+    return procs
+
+
+def phase_drive_cli(power, procs):
+    """(c) The drives' command lines, both at once, each in a subprocess
+    on the card: --stereo --frames=40 at 640x480 with the full drives'
+    scene settings (DRIVES). Each must exit 0 and write a summary with
+    every key of the JAX driver's, and launch every kernel of the stereo
+    per-frame path and none of those off it (the counts in the summary,
+    reset as the drive starts). procs: start_drive_cli's."""
+    bad = []
+    for name, (out, t0, proc) in procs.items():
+        _, stderr = finished(proc)
+        if proc.returncode != 0:
+            bad.append(f"{name} exited {proc.returncode}: {stderr[-2000:]}")
+            continue
+        with open(out) as f:
+            d = json.load(f)
+        missing = reference_summary_keys(f"{name}.py") - set(d)
+        c = d["launches"]
+        log(f"python -m orb_slam2_commit_tpu_torch.examples.{name} --stereo "
+            f"--frames={DRIVE_FRAMES} {' '.join(DRIVES[name])}: exit 0 in "
+            f"{time.perf_counter() - t0:.1f} s (both drives at once, beside the pose graph), "
+            f"on {power}: {d['final_state']}, {d['n_keyframes']} keyframes, "
+            f"{d['n_points']} points, ATE {d['ate_pct_of_path']:.4f}% of the path, median "
+            f"frame {d['frame_dt_med_ms']:.1f} ms; launches " + ", ".join(
+                f"{k} {v}" for k, v in c.items() if v))
+        if missing:
+            bad.append(f"{name}: the summary lacks {sorted(missing)}")
+        if [k for k in DRIVE_LAUNCHED if c[k] < 1] or [k for k in SYSTEM_UNUSED if c[k]]:
+            bad.append(f"{name}: launches {c}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+
+
+def phase_map_scale(power, device="cuda"):
+    """The map-scale phase, (a)-(c); (c)'s drives run in their processes
+    while (b) runs here (its solve times then share the host)."""
+    t0 = time.perf_counter()
+    phase_real_map_gba(power, device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_drives_") as root:
+        procs = start_drive_cli(
+            root, () if torch.device(device).type == "cuda" else ("--device=cpu",))
+        try:
+            phase_large_pose_graph(power, device)
+        except BaseException:
+            for _, _, proc in procs.values():
+                proc.kill()
+                proc.wait()
+            raise
+        phase_drive_cli(power, procs)
+    log(f"map-scale phase: {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -3799,7 +4272,7 @@ def phase_kernel_timing(x, dx, errs, counts, batched, power):
     yx = x["yx"]
     kernels = []
 
-    def row(name, src, replaces, fn, plain, library, n_bytes, n_ops, iters=100,
+    def row(name, src, replaces, fn, plain, library, n_bytes, n_ops, iters=50,
             caller=None):
         """One kernel's line: ms, plain_ms and library_ms are device busy
         times per call; the CUDA-event time of the same calls in a row, and
@@ -4144,8 +4617,14 @@ def main() -> int:
 
 def run_phases(power, data_root):
     """Phases 3-5 (the datasets' files under data_root), then the kernels'
-    JSON line."""
+    JSON line. Each step's seconds are logged as it ends."""
     t0 = time.perf_counter()
+    last = [t0]
+
+    def done(step):
+        now = time.perf_counter()
+        log(f"step {step}: {now - last[0]:.1f} s ({now - t0:.1f} s in all)")
+        last[0] = now
     config, args = interop.make_example(WIDTH, HEIGHT, N_FEATURES, N_POINTS, "cuda")
     pairs = {sensor: interop.make_fused_example(
         WIDTH, HEIGHT, N_FEATURES, N_POINTS, N_CANDIDATES, "cuda", sensor=sensor)
@@ -4161,35 +4640,50 @@ def run_phases(power, data_root):
 
     x = main_path_inputs(args[0], *pairs["monocular"])
     x.update(stereo_path_inputs(*pairs["stereo"]))
+    done("main and stereo path inputs")
     seqs = {sensor: system_sequence(sensor) for sensor in ("rgbd", "stereo")}
     x.update(system_path_inputs(seqs))
+    done("System path inputs")
     mono_seq = system_sequence("monocular")
     kidnap_seq = system_sequence("monocular", kidnap=True)
     x.update(mono_path_inputs(kidnap_seq))
+    done("monocular path inputs")
     loop_seq = loop_sequence()
     loop_x, loop_profs, loop_sim3, loop_solves = loop_path_inputs(loop_seq, kidnap_seq)
     x.update(loop_x)
+    done("loop path inputs")
     cells, firsts = write_datasets(data_root)
+    done("datasets written")
     errs = phase_kernels(x)
     phase_loop_kernels(x)
     phase_solves_twice(loop_solves)
+    done("phase 3")
     counts = {sensor: phase_pair(*pair) for sensor, pair in pairs.items()}
     phase_step(config, args)
+    done("pairs and step")
     system_counts, system_batched = phase_system(seqs, power)
+    done("Systems")
     mono_counts, mono_k7, mono_problems = phase_mono(mono_seq, kidnap_seq, power)
+    done("monocular")
     loop_counts = phase_loop(loop_seq, kidnap_seq, loop_profs, loop_sim3, power)
+    done("loop")
     new_counts = {"localization session": phase_localization(localization_sequence(), power),
                   "asynchronous RGB-D System": phase_async(seqs["rgbd"], SYSTEM_FPS["rgbd"],
                                                            power),
                   "global BA runner stress": phase_gba_stress(mono_seq, power)}
+    done("localization and asynchronous")
     dataset_counts, kitti_mono, dataset_x = phase_datasets(data_root, cells, firsts, power)
+    done("datasets")
     online_counts, dataset_x["AR run"] = phase_online(seqs, power)
+    done("online")
     phase_dataset_kernels(dataset_x, errs)
+    done("dataset kernels")
     phase_step_timing(config, args, power)
     phase_pair_timing(*pairs["monocular"], x, power)
     for sensor in ("stereo", "rgbd"):
         phase_sensor_timing(*pairs[sensor], x, power)
     phase_async_timing(seqs["rgbd"], power)
+    done("timing")
     # Launches per call: K1-K6 and K8 on the monocular pair (their timed
     # inputs), K7's band form on the stereo pair, K7 under a caller's mask,
     # under the flags and under the epipolar band over the System's RGB-D
@@ -4216,6 +4710,8 @@ def run_phases(power, data_root):
         "KITTI pair, 2000 x 2000": kitti["stereo_band_top2"],
         "KITTI monocular initialization": kitti_mono["window_hamming_top2"],
         "KITTI stereo frame, 2000 observations": kitti["pose_lm"]}, power)
+    done("kernel timing")
+    phase_map_scale(power)
     log(f"K7 under a candidate test over the monocular sweep and the kidnap sequence, by "
         f"caller: launches {mono_k7}, problems {mono_problems}")
     for path, c in new_counts.items():

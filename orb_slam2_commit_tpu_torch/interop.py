@@ -763,3 +763,42 @@ def loop_closer_state_into(closer, d: Dict[str, object]) -> None:
     for k in LOOP_CLOSER_SCALARS:
         setattr(closer, k, d[k])
     closer.consistent_groups = [ConsistentGroup(set(ks), c) for ks, c in d["groups"]]
+
+
+# ----------------------------------------------------------------------
+# Bundle adjustment problems and partition plans across packages
+# ----------------------------------------------------------------------
+
+
+def camera_params(config) -> Tuple[float, float, float, float, float]:
+    """(fx, fy, cx, cy, bf) of a SLAMConfig (or its camera), the
+    arguments every BA entry point takes."""
+    cam = getattr(config, "camera", config)
+    return float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy), float(cam.bf)
+
+
+def ba_problem_from_numpy(p, device="cuda"):
+    """A BA problem whose leaves are numpy arrays or anything np.asarray
+    reads (the JAX package's BAProblem and BAObservations, by field name)
+    -> the port's BAProblem on `device`, each leaf's dtype kept."""
+    from orb_slam2_commit_tpu_torch.optim.ba import BAProblem
+    from orb_slam2_commit_tpu_torch.optim.residuals import BAObservations
+
+    dev = resolve_device(device)
+
+    def leaf(a):
+        return torch.from_numpy(np.array(a, order="C")).to(dev)
+
+    obs = BAObservations(*(leaf(getattr(p.obs, f)) for f in BAObservations._fields))
+    return BAProblem(R=leaf(p.R), t=leaf(p.t), fixed=leaf(p.fixed), points=leaf(p.points),
+                     point_valid=leaf(p.point_valid), obs=obs)
+
+
+def partition_plan_from_numpy(plan):
+    """The JAX package's PartitionPlan (or any object with its fields) ->
+    the port's parallel.distributed_ba.PartitionPlan."""
+    from orb_slam2_commit_tpu_torch.parallel.distributed_ba import PartitionPlan
+
+    return PartitionPlan(perm=np.asarray(plan.perm, np.int64), p_blk=int(plan.p_blk),
+                         o_blk=int(plan.o_blk), n_points=int(plan.n_points),
+                         n_obs=int(plan.n_obs), n_devices=int(plan.n_devices))

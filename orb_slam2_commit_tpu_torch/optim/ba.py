@@ -16,8 +16,18 @@ or, from 64 cameras on ("auto"), the implicit-Schur preconditioned CG
 (`_schur_pcg`) that never forms S. Levenberg-Marquardt accept/reject as in
 the JAX package, and a non-finite step rejected; its early exit reads the
 convergence flag on the host once per iteration. Fixed poses get zeroed
-Jacobians. This slice runs on one device: the JAX package's `axis_name`
-all-reduce over an observation mesh comes with parallel/distributed_ba.py.
+Jacobians.
+
+With a `group` (a torch.distributed process group; the JAX package's
+`axis_name`), each rank holds a block of the observations
+(parallel/distributed_ba.py) and its partial sums are all-reduced over the
+group wherever the JAX package calls `psum`, so every rank takes the same
+step. With `point_sharded=True` each rank also owns a block of the points
+and every observation of them: the point-side sums stay local and only
+camera-shaped sums cross ranks. Every flag the host reads (the LM's accept
+and exit tests, the CG's residual test) comes from reduced or replicated
+values, so all ranks take the same branch. With no group nothing is
+reduced.
 
 The segment sums over observations (per camera, per point, and per
 (camera, point) slot of the Schur chunks' W, where a keyframe that binds
@@ -29,9 +39,10 @@ solve gives the same bits on every run on the card.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from orb_slam2_commit_tpu_torch.ops import lie
 from orb_slam2_commit_tpu_torch.optim import residuals as res
@@ -87,6 +98,15 @@ def _robust_total_cost(chi2, delta2, active, use_robust: bool):
     return torch.sum(torch.where(active, rho, torch.zeros_like(rho)))
 
 
+def _psum(x: torch.Tensor, group) -> torch.Tensor:
+    """x summed over the group's ranks (JAX's psum); x itself with no group."""
+    if group is None:
+        return x
+    x = x.contiguous()
+    dist.all_reduce(x, group=group)
+    return x
+
+
 def _inv3x3(M: torch.Tensor) -> torch.Tensor:
     """Batched closed-form 3x3 inverse (adjugate / det)."""
     a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
@@ -135,16 +155,21 @@ def obs_segments(problem: BAProblem, point_chunk: int, solver: str) -> ObsSegmen
 
 
 def _schur_pcg(Hcc_d, Hpp_inv, Hcp_o, cam, pt, segs: ObsSegments, b, fixed,
-               n_iters: int = 64, tol: float = 1e-8):
+               n_iters: int = 64, tol: float = 1e-8, group=None,
+               point_sharded: bool = False):
     """Solve S dc = b with S = Hcc_d - W Hpp^-1 W^T without forming S or W:
     the matvec streams over observations (two segment sums, two batched
     small products), block-Jacobi preconditioned by Hcc_d^-1 ("Bundle
-    Adjustment in the Large", implicit Schur)."""
+    Adjustment in the Large", implicit Schur). In a group the matvec's
+    camera-side sum y2 is reduced, and its point-side sum u too unless the
+    points are sharded (then every observation of a point is local)."""
     def S_mv(x):                      # x [K, 6]
         y = torch.einsum("kab,kb->ka", Hcc_d, x)
         u = segment_sum(torch.einsum("oab,oa->ob", Hcp_o, x[cam]), segs.pt)
+        if not point_sharded:
+            u = _psum(u, group)
         v = torch.einsum("pab,pb->pa", Hpp_inv, u)
-        y2 = segment_sum(torch.einsum("oab,ob->oa", Hcp_o, v[pt]), segs.cam)
+        y2 = _psum(segment_sum(torch.einsum("oab,ob->oa", Hcp_o, v[pt]), segs.cam), group)
         return y - y2
 
     M_inv = torch.linalg.inv(Hcc_d)
@@ -176,8 +201,11 @@ def _schur_pcg(Hcc_d, Hpp_inv, Hcp_o, cam, pt, segs: ObsSegments, b, fixed,
 
 
 def _solve_step(problem: BAProblem, segs: ObsSegments, cam_params, use_robust, active, lam,
-                point_chunk: int, solver: str = "dense"):
-    """One damped Gauss-Newton step -> (delta_c [K, 6], delta_p [P, 3])."""
+                point_chunk: int, solver: str = "dense", group=None,
+                point_sharded: bool = False):
+    """One damped Gauss-Newton step -> (delta_c [K, 6], delta_p [P, 3]).
+    In a group: the camera blocks and gradient reduced, and the point ones
+    too unless the points are sharded."""
     K = problem.R.shape[0]
     P = problem.points.shape[0]
     cam = problem.obs.cam_idx.long()
@@ -191,6 +219,9 @@ def _solve_step(problem: BAProblem, segs: ObsSegments, cam_params, use_robust, a
     Hpp = segment_sum(torch.einsum("ora,orb->oab", Jp_w, Jp), segs.pt)
     g_c = segment_sum(torch.einsum("ora,or->oa", Jc_w, e), segs.cam)
     g_p = segment_sum(torch.einsum("ora,or->oa", Jp_w, e), segs.pt)
+    Hcc, g_c = _psum(Hcc, group), _psum(g_c, group)
+    if not point_sharded:
+        Hpp, g_p = _psum(Hpp, group), _psum(g_p, group)
 
     # LM damping (diagonal scaling) + tiny Tikhonov for rank safety.
     eye6 = torch.eye(6, dtype=dtype, device=dev)
@@ -207,16 +238,17 @@ def _solve_step(problem: BAProblem, segs: ObsSegments, cam_params, use_robust, a
 
     if solver == "pcg":
         v = torch.einsum("pab,pb->pa", Hpp_inv, g_p)
-        b_corr = segment_sum(torch.einsum("oab,ob->oa", Hcp_o, v[pt]), segs.cam)
+        b_corr = _psum(segment_sum(torch.einsum("oab,ob->oa", Hcp_o, v[pt]), segs.cam),
+                       group)
         delta_c = _schur_pcg(Hcc_d, Hpp_inv, Hcp_o, cam, pt, segs, -(g_c - b_corr),
-                             problem.fixed)
+                             problem.fixed, group=group, point_sharded=point_sharded)
     else:
         # Schur reduction over point chunks: W [K, chunk, 6, 3] per chunk.
         S_corr = torch.zeros((K, 6, K, 6), dtype=dtype, device=dev)
         b_corr = torch.zeros((K, 6), dtype=dtype, device=dev)
         for lo, chunk in zip(range(0, P, point_chunk), segs.chunks):
             hi = min(lo + point_chunk, P)
-            W = segment_sum(Hcp_o, chunk).reshape(K, hi - lo, 6, 3)
+            W = _psum(segment_sum(Hcp_o, chunk), group).reshape(K, hi - lo, 6, 3)
             Y = torch.einsum("kpab,pbc->kpac", W, Hpp_inv[lo:hi])
             S_corr = S_corr + torch.einsum("kpac,lpdc->kald", Y, W)
             b_corr = b_corr + torch.einsum("kpac,pc->ka", Y, g_p[lo:hi])
@@ -232,6 +264,8 @@ def _solve_step(problem: BAProblem, segs: ObsSegments, cam_params, use_robust, a
         delta_c = torch.where(problem.fixed[:, None], zero, delta_c)
 
     Hpc_dc = segment_sum(torch.einsum("oab,oa->ob", Hcp_o, delta_c[cam]), segs.pt)
+    if not point_sharded:
+        Hpc_dc = _psum(Hpc_dc, group)
     delta_p = -torch.einsum("pab,pb->pa", Hpp_inv, g_p + Hpc_dc)
     delta_p = torch.where(problem.point_valid[:, None], delta_p, zero)
     return delta_c, delta_p
@@ -255,6 +289,8 @@ def bundle_adjust(
     point_chunk: int = 1024,
     lam0: float = 1e-4,
     solver: str = "auto",
+    group: Optional[dist.ProcessGroup] = None,
+    point_sharded: bool = False,
 ) -> Tuple[BAProblem, BAResult]:
     """Run up to n_iters of LM -> (updated problem, diagnostics).
 
@@ -262,8 +298,15 @@ def bundle_adjust(
     local-BA-sized problems), "pcg" runs implicit Schur + preconditioned
     CG, "auto" takes pcg from 64 cameras on. The loop stops early on a
     converged step (|delta|^2 under 1e-10 in float32, 1e-16 in float64)
-    or when the damping passes 1e8, as g2o does."""
-    if solver == "auto":
+    or when the damping passes 1e8, as g2o does.
+
+    group: this rank's block of a problem sharded over a process group
+    (see the module docstring); point_sharded=True (the points' block too)
+    takes pcg, since the dense route would build a replicated [6K, 6K].
+    chi2 and inlier are this rank's observations'."""
+    if point_sharded:
+        solver = "pcg"
+    elif solver == "auto":
         solver = "pcg" if problem.R.shape[0] >= 64 else "dense"
     cam_params = (fx, fy, cx, cy, bf)
     obs = problem.obs
@@ -275,7 +318,7 @@ def bundle_adjust(
 
     def cost_of(p: BAProblem):
         _, _, chi2, _, _, z = _evaluate(p, cam_params, use_robust, active)
-        return _robust_total_cost(chi2, delta2, active & (z > 0), use_robust)
+        return _psum(_robust_total_cost(chi2, delta2, active & (z > 0), use_robust), group)
 
     segs = obs_segments(problem, point_chunk, solver)
     lam = 1.0 * lam0
@@ -286,10 +329,14 @@ def bundle_adjust(
         delta_c, delta_p = _solve_step(
             problem, segs, cam_params, use_robust, active,
             torch.tensor(lam, dtype=dtype, device=problem.points.device),
-            point_chunk, solver)
+            point_chunk, solver, group, point_sharded)
         p_new = _apply_step(problem, delta_c, delta_p)
         new_cost = cost_of(p_new)
-        step_sq = torch.sum(delta_c * delta_c) + torch.sum(delta_p * delta_p)
+        # delta_c is replicated; a sharded delta_p's norm is reduced.
+        dp_sq = torch.sum(delta_p * delta_p)
+        if point_sharded:
+            dp_sq = _psum(dp_sq, group)
+        step_sq = torch.sum(delta_c * delta_c) + dp_sq
         # A failed solve (a singular Schur system in float32) gives a
         # non-finite step; its projections then fail every depth gate, so
         # its cost reads 0. Such a step is rejected, never accepted.

@@ -12,7 +12,8 @@ gain and bias, motion blur); the loop-closure survey
 (`render_loop_sequence`: a landmark ring around a circular path that
 revisits its start); and the KITTI-class drive (`drive_frames`: a street
 canyon along a closed city-block circuit, rendered lazily, left and right
-images). The same seed gives the same images, depth maps, poses and scene
+images), and the figure-eight drive (`figure8_frames`: two lobes through
+one crossing, a loop to close after each). The same seed gives the same images, depth maps, poses and scene
 as the JAX package's renderer.
 """
 
@@ -552,6 +553,115 @@ def drive_frames(
     rng = np.random.default_rng(seed)
     scene = drive_scene(rng, n_points=n_points, r0=r0, lobe=lobe)
     poses = drive_trajectory(n_frames, r0=r0, lobe=lobe, frac=frac)
+    b = cam.baseline if stereo else 0.0
+
+    def frames(start=0):
+        for k in range(start, len(poses)):
+            R, t = poses[k]
+            flow = None
+            if photo is not None and photo.motion_blur_frac > 0.0 and k > 0:
+                flow = _flow_px(cam, *poses[k - 1], *poses[k])
+            left = render(scene, R, t, cam, max_depth=max_depth)
+            left = apply_photometry(left, photo, seed, k, flow_px=flow)
+            if stereo:
+                right = render(scene, R, t - np.array([b, 0.0, 0.0]), cam,
+                               max_depth=max_depth)
+                right = apply_photometry(right, photo, seed, k, flow_px=flow,
+                                         noise_stream=1)
+                yield k, left, right
+            else:
+                yield k, left
+
+    return frames, poses, scene
+
+
+def figure8_path(s: np.ndarray, r: float = 25.0):
+    """A figure-eight street circuit in the x-z plane: lobe A the circle of
+    radius r centred at (r, 0, 0), lobe B the one centred at (-r, 0, 0);
+    both pass through the origin heading +z, so the path crosses itself
+    there smoothly. s in [0, 2 pi) runs lobe A, [2 pi, 4 pi) lobe B, and
+    past 4 pi lobe A again: each lobe brings the camera back to the
+    crossing after a lap of drift (KITTI 00 closes several loops,
+    src/KeyFrame.cc:532-543). -> centres [M, 3]."""
+    s = np.asarray(s, np.float64) % (4.0 * np.pi)
+    on_a = s < 2.0 * np.pi
+    u = np.where(on_a, s, s - 2.0 * np.pi)
+    x = np.where(on_a, r - r * np.cos(u), -r + r * np.cos(u))
+    z = r * np.sin(u)
+    return np.stack([x, np.zeros_like(x), z], -1)
+
+
+def figure8_trajectory(
+    n_frames: int,
+    r: float = 25.0,
+    laps: float = 2.15,
+) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """A survey of figure8_path heading along its tangent, `laps` in lobes
+    (2.15: lobe A, lobe B and 15% of lobe A again: two returns to the
+    crossing, then a revisit to track on after the second closure).
+    -> (R_cw, t_cw) per frame."""
+    svals = np.linspace(0.0, 2.0 * np.pi * laps, n_frames)
+    c = figure8_path(svals, r)
+    fwd = np.gradient(c, axis=0)
+    poses = []
+    for k in range(n_frames):
+        f = fwd[k] / max(np.linalg.norm(fwd[k]), 1e-9)
+        yaw = np.arctan2(f[0], f[2])
+        cy, sy = np.cos(yaw), np.sin(yaw)
+        R_cw = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]]).T
+        poses.append((R_cw, -R_cw @ c[k]))
+    return poses
+
+
+def figure8_scene(
+    rng: np.random.Generator,
+    n_points: int = 60000,
+    r: float = 25.0,
+    lateral_range: Tuple[float, float] = (4.0, 11.0),
+    height: float = 3.0,
+    patch_size: int = 11,
+) -> Scene:
+    """A street canyon along both lobes of the figure-eight: bands on each
+    side of the path, jittered near-even along the arc (drive_scene's
+    design)."""
+    n_lobe = n_points // 2
+    pts = []
+    for sign, n_l in ((1.0, n_lobe), (-1.0, n_points - n_lobe)):
+        n_side = n_l // 2
+        for side, n_s in ((1.0, n_side), (-1.0, n_l - n_side)):
+            u = (np.arange(n_s) + rng.uniform(0.1, 0.9, n_s)) * (2.0 * np.pi / n_s)
+            cx = sign * (r - r * np.cos(u))
+            cz = sign * r * np.sin(u)
+            # The outward radial normal from the lobe's centre (sign r, 0).
+            nx = cx - sign * r
+            nz = cz
+            nn = np.sqrt(nx * nx + nz * nz) + 1e-9
+            off = side * rng.uniform(*lateral_range, n_s)
+            pts.append(np.stack([cx + off * nx / nn, rng.uniform(-height, height, n_s),
+                                 cz + off * nz / nn], -1))
+    points = np.concatenate(pts)
+    proto = make_scene(rng, n_points=n_points, patch_size=patch_size)
+    return Scene(points=points.astype(np.float64), patches=proto.patches,
+                 patch_half=proto.patch_half)
+
+
+def figure8_frames(
+    cam: CameraConfig,
+    n_frames: int = 1400,
+    n_points: int = 60000,
+    seed: int = 0,
+    r: float = 25.0,
+    laps: float = 2.15,
+    max_depth: float = 12.0,
+    stereo: bool = False,
+    photo: Optional[Photometry] = None,
+):
+    """(frames, poses, scene) of the figure-eight drive, drive_frames'
+    contract: frames(start=0) renders on demand, the same frames from any
+    start."""
+    rng = np.random.default_rng(seed)
+    scene = figure8_scene(rng, n_points=n_points, r=r)
+    poses = figure8_trajectory(n_frames, r=r, laps=laps)
     b = cam.baseline if stereo else 0.0
 
     def frames(start=0):

@@ -22,9 +22,9 @@ converters), on the same inputs: integer tables equal, poses within
 different orders); with the mapper's abort flag set, both skip local BA
 and the new points, raw DLT triangulations, agree to 5e-4 relative. The
 trajectory exports hold the trajectory's positions. A short stereo run
-of the port is held by outcome, and the features still to come (global BA
-sharded over several cards, the staged mapper route) raise
-NotImplementedError.
+of the port is held by outcome, and the feature still to come (the
+staged mapper route) raises NotImplementedError, while global BA sharded
+over the process group (ORB_DISTRIBUTED_GBA=1) no longer does.
 """
 
 import jax
@@ -37,6 +37,7 @@ from orb_slam2_commit_tpu.utils import synthetic as jsynthetic
 from orb_slam2_commit_tpu.utils.config import synthetic_config as j_synthetic_config
 from orb_slam2_commit_tpu_torch import interop
 from orb_slam2_commit_tpu_torch.kernels import _build
+from orb_slam2_commit_tpu_torch.slam import loop_closing
 from orb_slam2_commit_tpu_torch.slam.system import System
 from orb_slam2_commit_tpu_torch.slam.tracking import Tracker, TrackingState
 from orb_slam2_commit_tpu_torch.slam.local_mapping import LocalMapper
@@ -343,15 +344,16 @@ def test_mapper_abort_skips_local_ba_as_jax(jax_run):
 
 @pytest.mark.parametrize("switch", ["ORB_DISTRIBUTED_GBA", "ORB_TPU_STAGED_MAPPER"])
 def test_features_still_to_come_raise(switch, monkeypatch):
-    """Global BA sharded over several cards (ORB_DISTRIBUTED_GBA=1, with a
-    vocabulary's loop closer) raises at construction; the staged mapper
-    route (ORB_TPU_STAGED_MAPPER=1) raises at the first keyframe the
-    mapper takes."""
+    """Global BA sharded over the process group (ORB_DISTRIBUTED_GBA=1,
+    with a vocabulary's loop closer) no longer raises: the System builds
+    and its closer takes the sharded route (tests/test_torch_multihost.py
+    runs it); the staged mapper route (ORB_TPU_STAGED_MAPPER=1) raises at
+    the first keyframe the mapper takes."""
     monkeypatch.setenv(switch, "1")
     cfg = synthetic_config(width=W, height=H, n_features=N_FEAT, sensor="rgbd")
     if switch == "ORB_DISTRIBUTED_GBA":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            System(cfg, vocabulary="default", async_mapping=False, device="cpu")
+        sys_ = System(cfg, vocabulary="default", async_mapping=False, device="cpu")
+        assert sys_.loop_closer is not None and loop_closing.use_distributed_gba()
         return
     sys_ = System(cfg, vocabulary=None, async_mapping=False, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -12,7 +12,8 @@
   and tracks with the vocabulary; the monocular map's initial keyframes
   go into the database when the map is created.
 - Reset clears the database and the loop closer's state.
-- ORB_DISTRIBUTED_GBA=1 and ORB_TPU_STAGED_MAPPER=1 still raise.
+- ORB_TPU_STAGED_MAPPER=1 still raises; ORB_DISTRIBUTED_GBA=1 no longer
+  does (the loop closer shards its global BA).
 - A map saved by the port loads in the JAX package and the other way
   round (models/serialization.py), and System.load_map rebuilds the
   database from the loaded keyframes.
@@ -28,6 +29,7 @@ from orb_slam2_commit_tpu_torch import interop
 from orb_slam2_commit_tpu_torch.kernels import _build
 from orb_slam2_commit_tpu_torch.models import serialization
 from orb_slam2_commit_tpu_torch.models.vocabulary import default_vocabulary
+from orb_slam2_commit_tpu_torch.slam.loop_closing import use_distributed_gba
 from orb_slam2_commit_tpu_torch.slam.system import System
 from orb_slam2_commit_tpu_torch.slam.tracking import TrackingState
 from orb_slam2_commit_tpu_torch.utils import synthetic
@@ -137,13 +139,19 @@ def test_monocular_registers_initial_keyframes():
 
 @pytest.mark.parametrize("switch", ["ORB_TPU_STAGED_MAPPER", "ORB_DISTRIBUTED_GBA"])
 def test_routes_still_to_come_raise(switch, monkeypatch):
-    """With the vocabulary: global BA over several cards raises as the
-    loop closer is built, the staged mapper route at the first keyframe
-    the mapper takes. (Asynchronous mapping no longer raises:
-    tests/test_torch_async_pipeline.py.)"""
+    """With the vocabulary: the staged mapper route raises at the first
+    keyframe the mapper takes. Global BA sharded over the process group
+    (ORB_DISTRIBUTED_GBA=1) no longer raises: the System and its loop
+    closer build, and the closer takes the sharded route
+    (tests/test_torch_multihost.py runs it). (Asynchronous mapping no
+    longer raises: tests/test_torch_async_pipeline.py.)"""
     monkeypatch.setenv(switch, "1")
     cfg = synthetic_config(width=W, height=H, n_features=N_FEAT, sensor="rgbd")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, slice [25]"):
+    if switch == "ORB_DISTRIBUTED_GBA":
+        sys_ = System(cfg, async_mapping=False, device="cpu")
+        assert sys_.loop_closer is not None and use_distributed_gba()
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, slice 2"):
         System(cfg, async_mapping=False, device="cpu").mapper.process_keyframe(0)
 
 
