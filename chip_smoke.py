@@ -66,20 +66,27 @@ points of the JAX package's 850 m stereo drive, loaded by the port's
 `load_map`), plain (ORB_DISTRIBUTED_GBA=0) and sharded over a process
 group of one rank (ORB_DISTRIBUTED_GBA=1: parallel/multihost.py's NCCL
 world of one, parallel/distributed_ba.py), each twice, and once on the
-CPU: each route's runs bit-identical, the sharded route bit-identical to
-the plain one, the card within T_TOL x the keyframes' extent and
-ROT_DEG_TOL of the CPU (the CPU's float32-vs-float64 spread printed
-beside it), each route's wall time, ms an LM iteration and device idle
-share printed; (b) tests/test_sim3.py's 300-vertex drifted loop through
-`optimize_sim3_graph(solver="auto")` (block-Jacobi PCG above 256
-vertices) in float64, that test's precision, twice on the card and once
-on the CPU: the largest centre error under its 0.10 m gate, the runs
-bit-identical, card vs CPU within tests/test_torch_sim3.py's 2e-3; (c)
-meanwhile, both drives' command lines (`python -m
+CPU (in float32 and in float64): each route's runs bit-identical, the
+sharded route bit-identical to the plain one, and so the point-sharded
+solve (distributed_bundle_adjust_points, which the loop closer does not
+take) on the same problem, twice; the card's keyframe
+centres, rotations and points each within real_map_bound of the CPU's
+(between the CPU's float32-vs-float64 spread and how far the solve moved
+the map, so a solve that did nothing fails), each route's wall time, ms an
+LM iteration and device idle share printed; (b) tests/test_sim3.py's
+300-vertex drifted loop through `optimize_sim3_graph(solver="auto")`
+(block-Jacobi PCG above 256 vertices) in float64, that test's precision,
+twice on the card and once on the CPU: the largest centre error under
+its 0.10 m gate, the runs bit-identical, card vs CPU within
+tests/test_torch_sim3.py's 2e-3; and in float32, the System's precision,
+over the two steps its LM accepts there, card vs CPU within the same
+2e-3; (c) meanwhile, both drives' command lines (`python -m
 orb_slam2_commit_tpu_torch.examples.scale_drive --stereo --frames=40 ...`
 and `...multiloop_drive`, at the full drives' settings over their first
 40 frames' arc): exit 0, a summary with every key of the JAX drivers',
-every kernel of the stereo per-frame path launched (the drive's counts).
+both global BA routes timed (neither raised), the kidnap probe
+relocalized without an error, every kernel of the stereo per-frame path launched (the
+drive's counts).
 
 Phases (any failure exits non-zero and prints no result line):
   1. the card: name, count, torch/CUDA versions, nvidia-smi name + power limit;
@@ -242,6 +249,7 @@ try:
     from orb_slam2_commit_tpu_torch.ops import subpix as ops_subpix
     from orb_slam2_commit_tpu_torch.ops import packed_extractor as pe
     from orb_slam2_commit_tpu_torch.optim import ba, pose_graph, pose_opt, sim3_opt
+    from orb_slam2_commit_tpu_torch.parallel import distributed_ba as dba, multihost
     from orb_slam2_commit_tpu_torch.slam import (
         jit_frontend, jit_mapper, loop_closing, matchers, tracking)
     from orb_slam2_commit_tpu_torch.slam.local_mapping import LocalMapper
@@ -507,6 +515,10 @@ REAL_MAP_GBA_ITERS = 5
 GRAPH_K = 300
 GRAPH_PCG_GATE = 0.10
 GRAPH_CENTRE_TOL = 2e-3
+# In float32 the graph's LM accepts two steps (17.5 m -> 10.86 m from the
+# truth) and rejects every later one (ROADMAP queue 3); the card is held to
+# the CPU over those two.
+GRAPH_F32_ITERS = 2
 DRIVE_FRAMES = 40
 # The full drives' settings (tests/test_scale.py::TestFullDrive: 1600
 # frames over 1.18 laps; tests/test_multiloop.py::TestFullFigure8: 1400
@@ -3731,6 +3743,40 @@ def real_map_gba(route, device, profile=None):
     return m, wall, iters[0]
 
 
+def real_map_point_sharded(device):
+    """The point-sharded solve (distributed_bundle_adjust_points, which the
+    loop closer does not take) on the problem run_global_ba builds from the
+    real map, over the world of one route "1" joined, and the plain
+    bundle_adjust on the same problem, each twice in turns -> (bits equal,
+    plain s, point-sharded s, each of its second run)."""
+    m, cfg = real_map(), synthetic_config(**REAL_MAP_CONFIG)
+    kfs = np.where(m.kf_valid)[0]
+    problem = tracking.build_ba_problem(
+        m, free_kfs=kfs[kfs != 0], fixed_kfs=np.asarray([0]),
+        point_ids=np.where(m.pt_valid)[0], orb_cfg=cfg.orb, device=device).problem
+    cam = interop.camera_params(cfg)
+
+    def timed(solve, *args, **kwargs):
+        t0 = time.perf_counter()
+        out, _ = solve(*args, **kwargs)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    part, _ = dba.partition_problem(problem, 1)
+    plain, runs = [], []
+    for _ in range(2):
+        plain.append(timed(ba.bundle_adjust, problem, *cam, n_iters=REAL_MAP_GBA_ITERS,
+                           point_chunk=1024))
+        runs.append(timed(dba.distributed_bundle_adjust_points, part,
+                          multihost.global_group(), *cam, n_iters=REAL_MAP_GBA_ITERS))
+    P = problem.points.shape[0]
+    same = all(torch.equal(a.R, out.R) and torch.equal(a.t, out.t)
+               and torch.equal(a.points, out.points[:P])
+               for a, _ in plain for out, _ in runs)
+    return same, plain[1][1], runs[1][1]
+
+
 def real_map_float64():
     """The same global BA on the CPU in float64 (the problem run_global_ba
     builds, its floats widened) -> the map written back."""
@@ -3772,8 +3818,9 @@ def phase_real_map_gba(power, device="cuda"):
     (ORB_DISTRIBUTED_GBA=1, NCCL), each twice in turns (the second run of
     each under torch.profiler), and once plain on the CPU (and in float64
     there): each route's runs bit-identical, the sharded route bit-identical
-    to the plain one, the card against the CPU within T_TOL x the
-    keyframes' extent and ROT_DEG_TOL."""
+    to the plain one, the card against the CPU within real_map_bound. Then
+    the point-sharded solve on the same problem, twice, bit-identical to
+    the plain one, in turns with it (real_map_point_sharded)."""
     runs = {"0": [], "1": []}
     profs = {"0": {}, "1": {}}
     traced = torch.device(device).type == "cuda"
@@ -3795,6 +3842,15 @@ def phase_real_map_gba(power, device="cuda"):
             f"{1.0 - busy_ms / wall_ms:.4f}, {n_ops} device operations")
     if not same_map(runs["0"][0][0], runs["1"][0][0]):
         raise AssertionError("real-map global BA: the sharded route differs from the plain one")
+    same, plain_s, points_s = real_map_point_sharded(device)
+    iters = runs["0"][1][2]
+    log(f"real-map global BA problem, point-sharded (distributed_bundle_adjust_points, "
+        f"world 1 over {dba.backend_for(device).upper()}) against plain bundle_adjust, on "
+        f"{power}: {points_s * 1e3 / max(iters, 1):.1f} vs {plain_s * 1e3 / max(iters, 1):.1f} "
+        f"ms an iteration ({iters} LM iterations); bits equal {same}")
+    if not same:
+        raise AssertionError("real-map global BA: the point-sharded solve differs from "
+                             "the plain one")
     _, c_cpu, _, _ = map_poses(cpu)
     extent = float(np.linalg.norm(c_cpu.max(axis=0) - c_cpu.min(axis=0)))
     card = pose_gap(runs["0"][0][0], cpu)
@@ -3806,9 +3862,24 @@ def phase_real_map_gba(power, device="cuda"):
         f"{tuple(float(f'{v:.4g}') for v in moved)}; extent {extent:.1f} m; "
         f"the CPU's run {cpu_wall:.3f} s, {cpu_iters} LM iterations; bits equal run to run "
         f"on each route and across routes")
-    if not (card[0] < T_TOL * extent and card[1] < ROT_DEG_TOL):
-        raise AssertionError(f"real-map global BA card vs CPU {card} not within "
-                             f"{T_TOL} x {extent:.1f} m / {ROT_DEG_TOL} deg")
+    bound = real_map_bound(spread, moved)
+    log(f"real-map global BA bound (centre m, rotation deg, point m): "
+        f"{tuple(float(f'{v:.4g}') for v in bound)}")
+    if not all(c < b for c, b in zip(card, bound)):
+        raise AssertionError(f"real-map global BA card vs CPU {card} not within {bound}")
+
+
+def real_map_bound(spread, moved):
+    """The card-vs-CPU bound of the real-map global BA, for each of centre,
+    rotation and point: the geometric mean of the CPU's float32-vs-float64
+    spread and how far the CPU's solve moved the map, so above float32's own
+    spread and below the movement by the same factor (a card solve that did
+    nothing lies `moved` from the CPU's). Raises if the spread is not under
+    the movement: the bound could not then tell a solve from none."""
+    if not all(s < m for s, m in zip(spread, moved)):
+        raise AssertionError(f"real-map global BA: float32's spread {spread} is not under "
+                             f"the solve's movement {moved}")
+    return tuple(float(np.sqrt(s * m)) for s, m in zip(spread, moved))
 
 
 def drifted_loop_graph(K, seed=5, skip_every=7):
@@ -3863,10 +3934,12 @@ def phase_large_pose_graph(power, device="cuda"):
     card twice and on the CPU, in float64 as tests/test_sim3.py runs it (x64
     is on in the suite): the largest centre error under the JAX test's
     0.10 m, the two card runs bit-identical, card vs CPU centres within
-    GRAPH_CENTRE_TOL. (In float32, the System's precision, the LM stalls
-    on this graph in both packages, 10.86 m from the truth on the card and
-    on the CPU: edges whose rotation residual falls below ~5e-4 rad get a
-    non-finite Jacobian through so3_log's arccos, and every step after is
+    GRAPH_CENTRE_TOL. Then in float32, the System's precision, once on the
+    card and once on the CPU over GRAPH_F32_ITERS iterations: card vs CPU
+    within GRAPH_CENTRE_TOL, the error below where it started. (In float32
+    the LM stalls on this graph in both packages after two steps, 10.86 m
+    from the truth: edges whose rotation residual falls below ~5e-4 rad get
+    a non-finite Jacobian through so3_log's arccos, and every step after is
     rejected; ROADMAP queue 3.)"""
     leaves, R_true, t_true = drifted_loop_graph(GRAPH_K)
     c_true = -np.einsum("kba,kb->ka", R_true, t_true)
@@ -3877,7 +3950,7 @@ def phase_large_pose_graph(power, device="cuda"):
         calls[0] += 1
         return pcg(*args, **kwargs)
 
-    def solve(device, dtype):
+    def solve(device, dtype, n_iters):
         g = pose_graph.Sim3Graph(**{k: torch.from_numpy(
             v.astype(np.int64) if k.startswith("edge_") and v.dtype != bool else
             v.astype(dtype) if v.dtype.kind == "f" else v).to(device)
@@ -3885,7 +3958,8 @@ def phase_large_pose_graph(power, device="cuda"):
         pose_graph._pcg_solve = counted
         try:
             t0 = time.perf_counter()
-            out = pose_graph.optimize_sim3_graph(g, n_iters=20, fix_scale=True, solver="auto")
+            out = pose_graph.optimize_sim3_graph(g, n_iters=n_iters, fix_scale=True,
+                                                 solver="auto")
             if torch.device(device).type == "cuda":
                 torch.cuda.synchronize()
             return out, time.perf_counter() - t0
@@ -3899,23 +3973,24 @@ def phase_large_pose_graph(power, device="cuda"):
     pre = float(np.linalg.norm(-np.einsum("kba,kb->ka", leaves["R"], leaves["t"]) - c_true,
                                axis=1).max())
     bad = []
-    for dtype, runs in ((np.float64, 2),):
+    for dtype, runs, n_iters in ((np.float64, 2, 20), (np.float32, 1, GRAPH_F32_ITERS)):
         calls[0] = 0
-        card = [solve(device, dtype) for _ in range(runs)]
+        card = [solve(device, dtype, n_iters) for _ in range(runs)]
         a = card[0][0]
         card_pcg = calls[0]
-        cpu, wall_cpu = solve("cpu", dtype)
+        cpu, wall_cpu = solve("cpu", dtype, n_iters)
         same = all(torch.equal(x, y) for x, y in zip(a, card[-1][0]))
         err = float(np.linalg.norm(centres(a) - c_true, axis=1).max())
         gap = float(np.linalg.norm(centres(a) - centres(cpu), axis=1).max())
         log(f"pose graph of {GRAPH_K} vertices ({leaves['edge_i'].size} edges) in "
-            f"{np.dtype(dtype).name}, PCG ({card_pcg} PCG solves on the card), on {power}: "
+            f"{np.dtype(dtype).name}, {n_iters} iterations, PCG ({card_pcg} PCG solves on the "
+            f"card), on {power}: "
             f"{' / '.join(f'{w:.3f}' for _, w in card)} s on the card, {wall_cpu:.3f} s on "
             f"the CPU; largest centre error {pre:.4f} m before, {err:.6g} m after"
             f"{f' (gate {GRAPH_PCG_GATE})' if dtype == np.float64 else ''}; card vs CPU "
             f"{gap:.3g} m (bound {GRAPH_CENTRE_TOL})"
             f"{'; two card runs bit-identical' if runs > 1 and same else ''}")
-        if not card_pcg or not same or gap >= GRAPH_CENTRE_TOL or (
+        if not card_pcg or not same or gap >= GRAPH_CENTRE_TOL or err >= pre or (
                 dtype == np.float64 and err >= GRAPH_PCG_GATE):
             bad.append(f"{np.dtype(dtype).name}: PCG solves {card_pcg}, bits equal {same}, "
                        f"error {err}, card vs CPU {gap}")
@@ -3977,7 +4052,11 @@ def phase_drive_cli(power, procs):
     scene settings (DRIVES). Each must exit 0 and write a summary with
     every key of the JAX driver's, and launch every kernel of the stereo
     per-frame path and none of those off it (the counts in the summary,
-    reset as the drive starts). procs: start_drive_cli's."""
+    reset as the drive starts). The drives record an error and go on where
+    the JAX drivers do, so each such record fails here: the scale drive's
+    global BA routes must both be timed (a route that raised reads -1.0 and
+    writes a gba_error line to OUT.log), and the multi-loop drive's kidnap
+    probe must relocalize, with no error. procs: start_drive_cli's."""
     bad = []
     for name, (out, t0, proc) in procs.items():
         _, stderr = finished(proc)
@@ -3988,12 +4067,25 @@ def phase_drive_cli(power, procs):
             d = json.load(f)
         missing = reference_summary_keys(f"{name}.py") - set(d)
         c = d["launches"]
+        if name == "scale_drive":
+            with open(out + ".log") as f:
+                errors = [line for line in f if "gba_error" in line]
+            walls = (d["gba_wall_s"], d["dist_gba_wall_s"])
+            checked = (f"; global BA on the final map {walls[0]:.3f} s plain, {walls[1]:.3f} s "
+                       f"sharded")
+            if not (walls[0] > 0 and walls[1] > 0) or errors:
+                bad.append(f"{name}: global BA walls {walls}, {errors}")
+        else:
+            kidnap = d["kidnap_reloc"]
+            checked = f"; kidnap probe {kidnap}"
+            if "error" in kidnap or not kidnap["relocalized"]:
+                bad.append(f"{name}: kidnap probe {kidnap}")
         log(f"python -m orb_slam2_commit_tpu_torch.examples.{name} --stereo "
             f"--frames={DRIVE_FRAMES} {' '.join(DRIVES[name])}: exit 0 in "
             f"{time.perf_counter() - t0:.1f} s (both drives at once, beside the pose graph), "
             f"on {power}: {d['final_state']}, {d['n_keyframes']} keyframes, "
             f"{d['n_points']} points, ATE {d['ate_pct_of_path']:.4f}% of the path, median "
-            f"frame {d['frame_dt_med_ms']:.1f} ms; launches " + ", ".join(
+            f"frame {d['frame_dt_med_ms']:.1f} ms{checked}; launches " + ", ".join(
                 f"{k} {v}" for k, v in c.items() if v))
         if missing:
             bad.append(f"{name}: the summary lacks {sorted(missing)}")

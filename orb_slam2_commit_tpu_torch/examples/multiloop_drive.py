@@ -66,7 +66,10 @@ def kidnap_probe(sys_, scene, cfg, n_frames, r, laps, max_depth, stereo, photo):
         sys_.tracker.last_frame = None
         sys_.tracker.velocity = None
         poses = synthetic.figure8_trajectory(n_frames, r=r, laps=laps)
-        Rp, tp = poses[int(0.55 / laps * (n_frames - 1))]   # 55% around lobe A
+        # 55% around lobe A; a run shorter than that probes the view of its
+        # middle frame (mapped early, far from the end) instead of indexing
+        # past its poses.
+        Rp, tp = poses[int(min(0.55 / laps, 0.5) * (n_frames - 1))]
         img = synthetic.render(scene, Rp, tp, cfg.camera, max_depth=max_depth)
         if photo is not None:
             img = synthetic.apply_photometry(img, photo, 13, 0)

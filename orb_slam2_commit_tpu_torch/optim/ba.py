@@ -24,10 +24,10 @@ With a `group` (a torch.distributed process group; the JAX package's
 group wherever the JAX package calls `psum`, so every rank takes the same
 step. With `point_sharded=True` each rank also owns a block of the points
 and every observation of them: the point-side sums stay local and only
-camera-shaped sums cross ranks. Every flag the host reads (the LM's accept
-and exit tests, the CG's residual test) comes from reduced or replicated
-values, so all ranks take the same branch. With no group nothing is
-reduced.
+camera-shaped sums cross ranks. `_Sums` names, once per solve, which sums
+cross ranks. Every flag the host reads (the LM's accept and exit tests,
+the CG's residual test) comes from reduced or replicated values, so all
+ranks take the same branch. With no group nothing is reduced.
 
 The segment sums over observations (per camera, per point, and per
 (camera, point) slot of the Schur chunks' W, where a keyframe that binds
@@ -39,7 +39,8 @@ solve gives the same bits on every run on the card.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from functools import partial
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -107,6 +108,30 @@ def _psum(x: torch.Tensor, group) -> torch.Tensor:
     return x
 
 
+class _Sums(NamedTuple):
+    """Where a sharded solve's partial sums meet (the JAX package's psum
+    sites), each the identity with no group:
+    cam: camera-shaped sums and the cost, over the group;
+    pt: point-shaped sums, over the group unless each rank owns its points
+        (then every observation of a point is on its rank);
+    own: a sum over the points each rank owns (the point step's norm), over
+        the group only then (replicated points would count n times)."""
+
+    cam: Callable[[torch.Tensor], torch.Tensor]
+    pt: Callable[[torch.Tensor], torch.Tensor]
+    own: Callable[[torch.Tensor], torch.Tensor]
+
+
+def _sums(group, point_sharded: bool) -> _Sums:
+    pts = None if point_sharded else group
+    own = group if point_sharded else None
+    return _Sums(partial(_psum, group=group), partial(_psum, group=pts),
+                 partial(_psum, group=own))
+
+
+_LOCAL = _sums(None, False)
+
+
 def _inv3x3(M: torch.Tensor) -> torch.Tensor:
     """Batched closed-form 3x3 inverse (adjugate / det)."""
     a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
@@ -155,21 +180,16 @@ def obs_segments(problem: BAProblem, point_chunk: int, solver: str) -> ObsSegmen
 
 
 def _schur_pcg(Hcc_d, Hpp_inv, Hcp_o, cam, pt, segs: ObsSegments, b, fixed,
-               n_iters: int = 64, tol: float = 1e-8, group=None,
-               point_sharded: bool = False):
+               n_iters: int = 64, tol: float = 1e-8, sums: _Sums = _LOCAL):
     """Solve S dc = b with S = Hcc_d - W Hpp^-1 W^T without forming S or W:
     the matvec streams over observations (two segment sums, two batched
     small products), block-Jacobi preconditioned by Hcc_d^-1 ("Bundle
-    Adjustment in the Large", implicit Schur). In a group the matvec's
-    camera-side sum y2 is reduced, and its point-side sum u too unless the
-    points are sharded (then every observation of a point is local)."""
+    Adjustment in the Large", implicit Schur)."""
     def S_mv(x):                      # x [K, 6]
         y = torch.einsum("kab,kb->ka", Hcc_d, x)
-        u = segment_sum(torch.einsum("oab,oa->ob", Hcp_o, x[cam]), segs.pt)
-        if not point_sharded:
-            u = _psum(u, group)
+        u = sums.pt(segment_sum(torch.einsum("oab,oa->ob", Hcp_o, x[cam]), segs.pt))
         v = torch.einsum("pab,pb->pa", Hpp_inv, u)
-        y2 = _psum(segment_sum(torch.einsum("oab,ob->oa", Hcp_o, v[pt]), segs.cam), group)
+        y2 = sums.cam(segment_sum(torch.einsum("oab,ob->oa", Hcp_o, v[pt]), segs.cam))
         return y - y2
 
     M_inv = torch.linalg.inv(Hcc_d)
@@ -201,11 +221,8 @@ def _schur_pcg(Hcc_d, Hpp_inv, Hcp_o, cam, pt, segs: ObsSegments, b, fixed,
 
 
 def _solve_step(problem: BAProblem, segs: ObsSegments, cam_params, use_robust, active, lam,
-                point_chunk: int, solver: str = "dense", group=None,
-                point_sharded: bool = False):
-    """One damped Gauss-Newton step -> (delta_c [K, 6], delta_p [P, 3]).
-    In a group: the camera blocks and gradient reduced, and the point ones
-    too unless the points are sharded."""
+                point_chunk: int, solver: str = "dense", sums: _Sums = _LOCAL):
+    """One damped Gauss-Newton step -> (delta_c [K, 6], delta_p [P, 3])."""
     K = problem.R.shape[0]
     P = problem.points.shape[0]
     cam = problem.obs.cam_idx.long()
@@ -219,9 +236,7 @@ def _solve_step(problem: BAProblem, segs: ObsSegments, cam_params, use_robust, a
     Hpp = segment_sum(torch.einsum("ora,orb->oab", Jp_w, Jp), segs.pt)
     g_c = segment_sum(torch.einsum("ora,or->oa", Jc_w, e), segs.cam)
     g_p = segment_sum(torch.einsum("ora,or->oa", Jp_w, e), segs.pt)
-    Hcc, g_c = _psum(Hcc, group), _psum(g_c, group)
-    if not point_sharded:
-        Hpp, g_p = _psum(Hpp, group), _psum(g_p, group)
+    Hcc, g_c, Hpp, g_p = sums.cam(Hcc), sums.cam(g_c), sums.pt(Hpp), sums.pt(g_p)
 
     # LM damping (diagonal scaling) + tiny Tikhonov for rank safety.
     eye6 = torch.eye(6, dtype=dtype, device=dev)
@@ -238,17 +253,16 @@ def _solve_step(problem: BAProblem, segs: ObsSegments, cam_params, use_robust, a
 
     if solver == "pcg":
         v = torch.einsum("pab,pb->pa", Hpp_inv, g_p)
-        b_corr = _psum(segment_sum(torch.einsum("oab,ob->oa", Hcp_o, v[pt]), segs.cam),
-                       group)
+        b_corr = sums.cam(segment_sum(torch.einsum("oab,ob->oa", Hcp_o, v[pt]), segs.cam))
         delta_c = _schur_pcg(Hcc_d, Hpp_inv, Hcp_o, cam, pt, segs, -(g_c - b_corr),
-                             problem.fixed, group=group, point_sharded=point_sharded)
+                             problem.fixed, sums=sums)
     else:
         # Schur reduction over point chunks: W [K, chunk, 6, 3] per chunk.
         S_corr = torch.zeros((K, 6, K, 6), dtype=dtype, device=dev)
         b_corr = torch.zeros((K, 6), dtype=dtype, device=dev)
         for lo, chunk in zip(range(0, P, point_chunk), segs.chunks):
             hi = min(lo + point_chunk, P)
-            W = _psum(segment_sum(Hcp_o, chunk), group).reshape(K, hi - lo, 6, 3)
+            W = sums.pt(segment_sum(Hcp_o, chunk)).reshape(K, hi - lo, 6, 3)
             Y = torch.einsum("kpab,pbc->kpac", W, Hpp_inv[lo:hi])
             S_corr = S_corr + torch.einsum("kpac,lpdc->kald", Y, W)
             b_corr = b_corr + torch.einsum("kpac,pc->ka", Y, g_p[lo:hi])
@@ -263,9 +277,7 @@ def _solve_step(problem: BAProblem, segs: ObsSegments, cam_params, use_robust, a
         delta_c = -torch.where(info == 0, sol, torch.nan).reshape(K, 6)
         delta_c = torch.where(problem.fixed[:, None], zero, delta_c)
 
-    Hpc_dc = segment_sum(torch.einsum("oab,oa->ob", Hcp_o, delta_c[cam]), segs.pt)
-    if not point_sharded:
-        Hpc_dc = _psum(Hpc_dc, group)
+    Hpc_dc = sums.pt(segment_sum(torch.einsum("oab,oa->ob", Hcp_o, delta_c[cam]), segs.pt))
     delta_p = -torch.einsum("pab,pb->pa", Hpp_inv, g_p + Hpc_dc)
     delta_p = torch.where(problem.point_valid[:, None], delta_p, zero)
     return delta_c, delta_p
@@ -309,6 +321,7 @@ def bundle_adjust(
     elif solver == "auto":
         solver = "pcg" if problem.R.shape[0] >= 64 else "dense"
     cam_params = (fx, fy, cx, cy, bf)
+    sums = _sums(group, point_sharded)
     obs = problem.obs
     dtype = problem.points.dtype
     delta2 = torch.where(obs.is_stereo, CHI2_STEREO, CHI2_MONO).to(dtype)
@@ -318,7 +331,7 @@ def bundle_adjust(
 
     def cost_of(p: BAProblem):
         _, _, chi2, _, _, z = _evaluate(p, cam_params, use_robust, active)
-        return _psum(_robust_total_cost(chi2, delta2, active & (z > 0), use_robust), group)
+        return sums.cam(_robust_total_cost(chi2, delta2, active & (z > 0), use_robust))
 
     segs = obs_segments(problem, point_chunk, solver)
     lam = 1.0 * lam0
@@ -329,14 +342,10 @@ def bundle_adjust(
         delta_c, delta_p = _solve_step(
             problem, segs, cam_params, use_robust, active,
             torch.tensor(lam, dtype=dtype, device=problem.points.device),
-            point_chunk, solver, group, point_sharded)
+            point_chunk, solver, sums)
         p_new = _apply_step(problem, delta_c, delta_p)
         new_cost = cost_of(p_new)
-        # delta_c is replicated; a sharded delta_p's norm is reduced.
-        dp_sq = torch.sum(delta_p * delta_p)
-        if point_sharded:
-            dp_sq = _psum(dp_sq, group)
-        step_sq = torch.sum(delta_c * delta_c) + dp_sq
+        step_sq = torch.sum(delta_c * delta_c) + sums.own(torch.sum(delta_p * delta_p))
         # A failed solve (a singular Schur system in float32) gives a
         # non-finite step; its projections then fail every depth gate, so
         # its cost reads 0. Such a step is rejected, never accepted.

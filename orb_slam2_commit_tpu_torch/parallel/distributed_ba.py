@@ -22,7 +22,7 @@ A group of one rank runs the same code; each all-reduce is then a copy.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -31,28 +31,10 @@ import torch.distributed as dist
 from orb_slam2_commit_tpu_torch.optim import ba
 from orb_slam2_commit_tpu_torch.optim.residuals import BAObservations
 
-_GROUPS: Dict[int, dist.ProcessGroup] = {}
-
-
 def backend_for(device) -> str:
     """The collective backend for tensors on `device`: NCCL on the card,
     gloo on the CPU."""
     return "nccl" if torch.device(device).type == "cuda" else "gloo"
-
-
-def make_group(n_devices: Optional[int] = None) -> dist.ProcessGroup:
-    """The default process group (multihost.initialize joins it), or a
-    group over its first n_devices ranks. Every rank must call it, in the
-    same order (a new group is collective); each group is made once."""
-    world = dist.get_world_size()
-    n = world if n_devices is None else int(n_devices)
-    if not 0 < n <= world:
-        raise ValueError(f"{n} ranks asked of a world of {world}")
-    if n == world:
-        return dist.group.WORLD
-    if n not in _GROUPS:
-        _GROUPS[n] = dist.new_group(list(range(n)))
-    return _GROUPS[n]
 
 
 def _rank_and_size(group) -> Tuple[int, int]:
@@ -207,20 +189,6 @@ def point_block(part: ba.BAProblem, rank: int, p_blk: int, o_blk: int,
         obs=BAObservations(*(leaf[o0:o0 + o_blk].to(dev) for leaf in part.obs)))
 
 
-def solve_point_block(
-    local: ba.BAProblem,
-    group,
-    fx: float, fy: float, cx: float, cy: float, bf: float,
-    n_iters: int = 10,
-    use_robust: bool = True,
-) -> Tuple[ba.BAProblem, ba.BAResult]:
-    """The point-sharded LM on this rank's block (point_block): the
-    result's points, chi2 and inlier are this rank's, R and t the same on
-    every rank."""
-    return ba.bundle_adjust(local, fx, fy, cx, cy, bf, n_iters=n_iters,
-                            use_robust=use_robust, group=group, point_sharded=True)
-
-
 def distributed_bundle_adjust_points(
     problem: ba.BAProblem,
     group,
@@ -237,8 +205,8 @@ def distributed_bundle_adjust_points(
     P, O = problem.points.shape[0], problem.obs.valid.shape[0]
     assert P % n == 0 and O % n == 0, "partition_problem first"
     local = point_block(problem, rank, P // n, O // n, problem.points.device)
-    out, res = solve_point_block(local, group, fx, fy, cx, cy, bf,
-                                 n_iters=n_iters, use_robust=use_robust)
+    out, res = ba.bundle_adjust(local, fx, fy, cx, cy, bf, n_iters=n_iters,
+                                use_robust=use_robust, group=group, point_sharded=True)
     points = _all_gather_rows(out.points, group)
     res = res._replace(points=points, chi2=_all_gather_rows(res.chi2, group),
                        inlier=_all_gather_rows(res.inlier, group))

@@ -44,7 +44,6 @@ def initialize(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
     device="cuda",
-    timeout_s: float = DEFAULT_TIMEOUT_S,
 ) -> None:
     """Join the torch.distributed process group (idempotent).
 
@@ -57,7 +56,7 @@ def initialize(
     if dist.is_initialized():
         return
     backend = dba.backend_for(device)
-    timeout = datetime.timedelta(seconds=timeout_s)
+    timeout = datetime.timedelta(seconds=DEFAULT_TIMEOUT_S)
     asked = coordinator_address is not None or num_processes is not None
     if asked or all(k in os.environ for k in _CLUSTER_ENV):
         world = num_processes if num_processes is not None else os.environ.get("WORLD_SIZE")
@@ -90,10 +89,12 @@ def _leave() -> None:
         dist.destroy_process_group()
 
 
-def global_group(n_devices: Optional[int] = None) -> dist.ProcessGroup:
+def global_group() -> dist.ProcessGroup:
     """The group over every rank of every process (the single scaling
-    axis: cameras are replicated, so one dimension is the topology)."""
-    return dba.make_group(n_devices)
+    axis: cameras are replicated, so one dimension is the topology). Ranks
+    are processes started at the size the run needs, so the sharded
+    solves always span the whole world."""
+    return dist.group.WORLD
 
 
 def rank_device(group) -> torch.device:
@@ -129,8 +130,8 @@ def bundle_adjust_multihost(
     without its final gather. R and t come back the same on every rank;
     points, chi2 and inlier are this rank's block and slots."""
     assert problem.points.shape[0] == plan.p_blk
-    return dba.solve_point_block(problem, group, fx, fy, cx, cy, bf,
-                                 n_iters=n_iters, use_robust=use_robust)
+    return ba.bundle_adjust(problem, fx, fy, cx, cy, bf, n_iters=n_iters,
+                            use_robust=use_robust, group=group, point_sharded=True)
 
 
 def local_point_shards(out: ba.BAProblem) -> np.ndarray:

@@ -98,7 +98,7 @@ def test_command_line_on_the_cpu(tmp_path, capsys):
     d = json.loads(out.read_text())
     assert reference_summary_keys("multiloop_drive.py") <= set(d)
     assert d["n_frames"] == 10 and d["device"] == "cpu"
-    assert d["kidnap_reloc"]["attempted"]
+    assert d["kidnap_reloc"]["attempted"] and "error" not in d["kidnap_reloc"]
     assert not any(d["launches"].values())
     assert '"kidnap_reloc"' in capsys.readouterr().out
 

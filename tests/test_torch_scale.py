@@ -94,7 +94,9 @@ def test_command_line_on_the_cpu(tmp_path, capsys):
     assert reference_summary_keys("scale_drive.py") <= set(d)
     assert d["n_frames"] == 10 and d["device"] == "cpu" and len(d["dt_med_by_quarter_ms"]) == 4
     assert not any(d["launches"].values())
-    assert os.path.exists(str(out) + ".log")
+    assert d["gba_wall_s"] > 0 and d["dist_gba_wall_s"] > 0
+    with open(str(out) + ".log") as f:
+        assert "gba_error" not in f.read()
     assert '"final_state"' in capsys.readouterr().out
 
 
