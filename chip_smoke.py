@@ -22,7 +22,13 @@ seed 5, 0.05 m a frame); and the monocular System (`System.track_monocular`,
 two-view initialization at 2000 features, its global BA) over a 40-frame
 lateral sweep (500 landmarks, seed 3) and over the same sweep with a
 kidnap (frames 22-26 a flat grey image; relocalization without a
-vocabulary). The loop phase runs the monocular System with the bundled
+vocabulary). The JAX package's other three routes follow the Systems: the
+main-path image through `extract_features` on the per-level route
+(ORB_TPU_FORCE_PACKED=0, patch form: K1 once a level, the standalone K4
+twice a level), the RGB-D sequence through a System with the staged
+mapper (ORB_TPU_STAGED_MAPPER=1: K7 under the epipolar band once per
+neighbour pair, K6 once per fuse target), and the native C++ map core
+(models/native_core.py, built with g++) on that System's map. The loop phase runs the monocular System with the bundled
 vocabulary (the keyframe database, loop closing after local mapping) over
 tests/test_loop_pipeline.py's 132-frame ring survey at that test's 400x300
 and 500 features (at 640x480 and 1000 features the JAX System never
@@ -155,7 +161,18 @@ Phases (any failure exits non-zero and prints no result line):
      and the database's candidate lists against the CPU, and the accepted
      candidate's sim3_ransac and optimize_sim3 against the CPU on the same
      sample sets; the kidnap sequence with the vocabulary relocalized
-     through the database. Every synchronous System sequence's runs in the
+     through the database. The per-level extraction: K1 launched once a
+     level, the standalone K4 twice a level and no other kernel, its
+     features against the packed route on the card (valid, octave,
+     response and descriptors equal, keypoints within ROUTES_XY_TOL,
+     angles within ROUTES_ANGLE_TOL) and against the same route on the CPU
+     (the rules of the packed route's comparison), each of its K1 and K4
+     calls against the plain version; the staged mapper: every frame OK,
+     the ATE gate, no launch with a batch axis, per mapped keyframe K7
+     under the epipolar band once per neighbour pair and K6 once per fuse
+     target plus the reverse pass, its map against the batched route's
+     (equal or the first difference, logged); the native map core loaded,
+     its three counts equal numpy's on that map. Every synchronous System sequence's runs in the
      process (a warm-up, the counted run, a profiled run) are held to each
      other bit for bit: trajectory entries, keyframes, keyframe poses,
      point positions. The localization session held to
@@ -207,7 +224,8 @@ Phases (any failure exits non-zero and prints no result line):
      closer's stages (detect_loop, compute_sim3, the essential graph,
      global BA) each under torch.profiler, and one keyframe's vocabulary
      descent; per kernel its
-     device-busy time (and its CUDA-event time in a row), its plain
+     device-busy time (and its CUDA-event time in a row; the standalone K4
+     on the per-level route's 16 calls of one image), its plain
      version's and one library call's where one exists, and the least time
      the card could take (its bound); per caller of K7 under a candidate
      test, in turns, the test in the kernel against the caller's mask built
@@ -215,7 +233,10 @@ Phases (any failure exits non-zero and prints no result line):
      idle share); the RGB-D System asynchronous and synchronous in turns
      (frames/s, the tracker thread's ms per frame, device idle share under
      torch.profiler); K1, K7's band, K7 under the window and K8 also at the
-     dataset paths' shapes (logged only).
+     dataset paths' shapes (logged only); one image's extraction on the
+     per-level and the packed route in turns (device busy); map_tri and
+     map_fuse per keyframe, staged against batched; one
+     update_covisibility through the native core and through numpy.
 Then a `kernels` JSON line, the nvidia-smi line, and last the result line
 {"ok": true, "device": {...}}.
 """
@@ -243,7 +264,7 @@ try:
     from orb_slam2_commit_tpu_torch.kernels import (
         _build, level, matching as kmatching, patches, pose_lm, select, subpix)
     from orb_slam2_commit_tpu_torch.geometry import sim3_solver
-    from orb_slam2_commit_tpu_torch.models import serialization
+    from orb_slam2_commit_tpu_torch.models import native_core, serialization
     from orb_slam2_commit_tpu_torch.models.kf_database import KeyFrameDatabase
     from orb_slam2_commit_tpu_torch.ops import extractor, lie, pyramid, stereo
     from orb_slam2_commit_tpu_torch.ops import subpix as ops_subpix
@@ -686,17 +707,19 @@ def recording(module, name, calls, keep=None):
 
 
 @contextlib.contextmanager
-def fused_route_forced():
-    """ORB_TPU_FUSED_TRACK=1 inside the block: the CPU on the card's route."""
-    prev = os.environ.get("ORB_TPU_FUSED_TRACK")
-    os.environ["ORB_TPU_FUSED_TRACK"] = "1"
+def env_set(**values):
+    """The environment variables set inside the block, restored after it
+    (the routes are read at each call)."""
+    prev = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
     try:
         yield
     finally:
-        if prev is None:
-            del os.environ["ORB_TPU_FUSED_TRACK"]
-        else:
-            os.environ["ORB_TPU_FUSED_TRACK"] = prev
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def phase_device():
@@ -1726,7 +1749,7 @@ def system_vs_cpu(seq):
     keyframe poses the BAs left within ROT_DEG_TOL / T_TOL of each other.
     The card's and the CPU's pyramids differ above level 0 (ROADMAP queue
     3), so this holds the outcome, not the bits."""
-    with fused_route_forced():
+    with env_set(ORB_TPU_FUSED_TRACK="1"):
         cpu_sys, states, poses, seconds = run_system(seq, "cpu", SYSTEM_CPU_FRAMES,
                                                      vocabulary="default")
     card_sys, card_states, card_poses, _ = run_system(seq, "cuda", SYSTEM_CPU_FRAMES,
@@ -1850,6 +1873,317 @@ def phase_system(seqs, power):
 
 
 # ---------------------------------------------------------------------------
+# The JAX package's other routes: per-level extraction, the staged mapper and
+# the native map core
+# ---------------------------------------------------------------------------
+
+# JAX tests/test_packed_extractor.py's tolerances between its two routes.
+ROUTES_XY_TOL = 2e-3
+ROUTES_ANGLE_TOL = 1e-6
+# Device-busy timing of one image's extraction: calls a session, turns.
+ROUTE_CALLS, ROUTE_TURNS = 5, 2
+# Calls of one covisibility update timed each way (median taken).
+COVIS_REPS = 20
+# The staged mapper: triangulated positions, card against CPU (float32 DLT
+# eigensolves; per point, |d| / |p|), and its System's points made against
+# the batched route's (tests/test_torch_staged_mapper.py's POINTS_RTOL).
+STAGED_TRI_RTOL = 5e-4
+POINTS_RTOL = 0.02
+
+
+def per_level_features(image, orb):
+    """extract_features on the per-level route, patch form (K1 once a
+    level, the standalone K4 twice a level)."""
+    with env_set(ORB_TPU_FORCE_PACKED="0", ORB_TPU_FORCE_PATCHES="1"):
+        return extractor.extract_features(image, orb, HEIGHT, WIDTH)
+
+
+def packed_features(image, orb):
+    with env_set(ORB_TPU_FORCE_PACKED="1"):
+        return extractor.extract_features(image, orb, HEIGHT, WIDTH)
+
+
+def phase_per_level(image, config, power):
+    """The per-level extraction route on the main path's 640x480 image
+    through extract_features, its launch counts reset just before and read
+    just after: K1 once a level, the standalone K4 twice a level, nothing
+    else. Held to the packed route on the card (JAX
+    tests/test_packed_extractor.py's tolerances) and to the same route on
+    the CPU (phase 4's rules); each of its K1 and K4 calls against the
+    plain version; both routes' device-busy time per image, in turns. ->
+    (launch counts, the recorded K1 calls, the recorded K4 calls)."""
+    orb = config.orb
+    want = dict.fromkeys(_build.launches, 0)
+    want.update(level_preprocess=orb.n_levels, extract_patches=2 * orb.n_levels)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    feats = per_level_features(image, orb)
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    check_counts("per-level extraction (ORB_TPU_FORCE_PACKED=0, patch route)", counts, want)
+
+    got = interop.features_to_numpy(feats)
+    ref = interop.features_to_numpy(packed_features(image, orb))
+    v = ref["valid"]
+    for key in ("valid", "octave", "response"):
+        if not np.array_equal(got[key], ref[key]):
+            raise AssertionError(f"per-level extraction: {key} differs from the packed route")
+    if not np.array_equal(got["desc"][v], ref["desc"][v]):
+        raise AssertionError("per-level extraction: descriptors differ from the packed route")
+    d_xy = float(np.abs(got["xy"] - ref["xy"])[v].max())
+    d_ang = float(np.abs(np.angle(np.exp(1j * (got["angle"].astype(np.float64)
+                                                - ref["angle"]))))[v].max())
+    log(f"per-level extraction vs the packed route on the card: valid, octave, response "
+        f"and {int(v.sum())} descriptors equal; keypoints max|d| {d_xy:.3g} px (tolerance "
+        f"{ROUTES_XY_TOL}), angles max|d| {d_ang:.3g} rad (tolerance {ROUTES_ANGLE_TOL})")
+    if not (d_xy <= ROUTES_XY_TOL and d_ang <= ROUTES_ANGLE_TOL):
+        raise AssertionError("per-level extraction: keypoints or angles off the packed route")
+    check_features("per-level extraction", got,
+                   interop.features_to_numpy(per_level_features(image.cpu(), orb)))
+
+    k1, k4 = [], []
+    with recording(level, "level_preprocess", k1), recording(patches, "extract_patches", k4):
+        per_level_features(image, orb)
+    k1, k4 = [c[0] for c in k1], [c[0] for c in k4]
+    for img, th_hi, th_lo in k1:
+        padded, hp, wp = level.pad_level(img)
+        for name, g, w in zip(("blur", "score_hi", "score_lo"),
+                              level.level_preprocess(img, th_hi, th_lo),
+                              level.level_preprocess_plain(padded, hp, wp, th_hi, th_lo)):
+            if not torch.equal(g, w):
+                raise AssertionError(f"K1 {name} differs on the per-level {tuple(img.shape)} "
+                                     f"level: {max_abs(g, w)}")
+    log(f"K1 level_preprocess on the per-level route's {len(k1)} levels "
+        f"{[tuple(a[0].shape) for a in k1]}: exact")
+    for i, (img, yx, p) in enumerate(k4):
+        check_extract(f"per-level route, level {i // 2}", img, yx, p)
+
+    for turn in range(ROUTE_TURNS):
+        ms = {name: device_busy_ms(lambda: fn(image, orb), ROUTE_CALLS)[0]
+              for name, fn in (("per-level", per_level_features), ("packed", packed_features))}
+        log(f"extraction of one {WIDTH}x{HEIGHT} image, turn {turn}: per-level route "
+            f"{ms['per-level']:.4f} ms device busy, packed route {ms['packed']:.4f} ms, "
+            f"on {power}")
+    return counts, k1, k4
+
+
+def map_stage_ms(timings, n_mapped):
+    return ", ".join(f"{k} {timings[k]['total_s'] * 1e3 / max(n_mapped, 1):.3f}"
+                     for k in ("map_tri", "map_fuse") if k in timings)
+
+
+def _flat(outputs):
+    """A top-2 kernel's outputs (K7's four tensors, or K6's four per
+    window) as one flat list."""
+    if isinstance(outputs, torch.Tensor):
+        return [outputs]
+    return [t for o in outputs for t in _flat(o)]
+
+
+def check_recorded(name, calls, kernel, plain):
+    """Each recorded call of a top-2 kernel, launched again on its
+    arguments, against its plain version on the same inputs: every output
+    exact -> (calls, rows with a candidate, rows)."""
+    hit = rows = 0
+    for i, (args, kwargs) in enumerate(calls):
+        got, want = _flat(kernel(*args, **kwargs)), _flat(plain(*args, **kwargs))
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{name} differs from its plain version on recorded call "
+                                 f"{i}: " + ", ".join(f"{int((g != w).sum())} rows"
+                                                      for g, w in zip(got, want)))
+        hit += int((got[0] <= 256).sum())
+        rows += got[0].numel()
+    return len(calls), hit, rows
+
+
+def map_after(m):
+    """The tables a mapping step may change, copied."""
+    return dict(next_pt=int(m.next_pt), kf_point_idx=m.kf_point_idx.copy(),
+                pt_valid=m.pt_valid[:m.next_pt].copy(), pt_pos=m.pt_pos[:m.next_pt].copy())
+
+
+def replay_on_cpu(what, config, kf, before, card):
+    """The staged triangulation of keyframe kf on the CPU (K7's plain
+    version, the DLT in float32 on the CPU), from the card's map just
+    before it: next_pt, every binding and every point's validity equal to
+    what the card left -> the largest |d| / |p| over the points' positions.
+    (The fuse is not replayed so: its projections into each target, in
+    float32 on either device, put a few points on either side of a
+    window's edge.)"""
+    ms = interop.map_state_from_numpy(before)
+    with env_set(ORB_TPU_STAGED_MAPPER="1"):
+        LocalMapper(config, ms, device="cpu")._create_new_points_staged(kf)
+    cpu = map_after(ms)
+    for key in ("next_pt", "kf_point_idx", "pt_valid"):
+        if not np.array_equal(card[key], cpu[key]):
+            raise AssertionError(
+                f"{what}: the triangulation of keyframe {kf} on the card and on the CPU "
+                f"differ in {key} ({card['next_pt']} and {cpu['next_pt']} points, "
+                f"{int((card['kf_point_idx'] != cpu['kf_point_idx']).sum())} bindings differ)")
+    if not card["next_pt"]:
+        return 0.0
+    return float((np.linalg.norm(card["pt_pos"] - cpu["pt_pos"], axis=1)
+                  / np.maximum(np.linalg.norm(cpu["pt_pos"], axis=1), 1e-12)).max())
+
+
+def phase_staged_mapper(seq, power):
+    """The RGB-D sequence through a synchronous System with the staged
+    mapper (ORB_TPU_STAGED_MAPPER=1), the launch counts reset just before
+    and read just after: every frame OK, the ATE gate, the System's kernels
+    launched, nothing with a batch axis, and per mapped keyframe K7 under
+    the epipolar band once per neighbour pair and K6 once per fuse target
+    (plus the reverse pass). Each recorded call of K7 and K6 in that run
+    against its plain version; each keyframe's staged triangulation
+    replayed on the CPU from the card's map just before it (bindings
+    equal, positions to STAGED_TRI_RTOL); the same
+    keyframes as a batched run of the sequence and a point count within
+    POINTS_RTOL of its. Its map against the batched route's first run
+    (equal, or the first difference); map_tri and map_fuse per keyframe in
+    a staged run with no spies against the batched run. -> (launch
+    counts, the System)."""
+    what = "System RGB-D, staged mapper"
+    batched_sys, _, _, _ = run_system(seq, vocabulary="default")
+    mapped = []
+    tri, fuse = LocalMapper._create_new_points_staged, LocalMapper._fuse_neighbors
+
+    def tri_spy(self, kf):
+        pairs = len(self._neighbor_pairs(kf)[1])
+        before, k7 = interop.map_state_to_numpy(self.map), _build.launches[
+            "epipolar_hamming_top2"]
+        tri(self, kf)
+        mapped.append(dict(kf=kf, pairs=pairs, k7=_build.launches["epipolar_hamming_top2"] - k7,
+                           made=self.map.next_pt - before["next_pt"],
+                           tri=(before, map_after(self.map))))
+
+    def fuse_spy(self, kf):
+        targets = self._fuse_targets(kf)
+        pts = self.map.kf_point_idx[kf]
+        has_pts = bool(self.map.pt_valid[pts[pts >= 0]].any())
+        k6 = _build.launches["projection_hamming_top2"]
+        fuse(self, kf)
+        mapped[-1].update(targets=len(targets),
+                          want_k6=(len(targets) if has_pts else 0) + (1 if targets else 0),
+                          k6=_build.launches["projection_hamming_top2"] - k6)
+
+    batched, k7_calls, k6_calls = {}, [], []
+    LocalMapper._create_new_points_staged, LocalMapper._fuse_neighbors = tri_spy, fuse_spy
+    try:
+        with env_set(ORB_TPU_STAGED_MAPPER="1"), batched_launches(batched), \
+                recording(kmatching, "epipolar_hamming_top2", k7_calls), \
+                recording(kmatching, "projection_hamming_top2", k6_calls):
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            sys_, states, poses, seconds = run_system(seq, vocabulary="default")
+            counts = dict(_build.launches)
+    finally:
+        LocalMapper._create_new_points_staged, LocalMapper._fuse_neighbors = tri, fuse
+    log(f"{what} launches: {counts}; of them with a batch axis: {batched}")
+    if [k for k in SYSTEM_LAUNCHED if counts[k] < 1] or [k for k in SYSTEM_UNUSED if counts[k]] \
+            or any(batched.values()):
+        raise AssertionError(f"{what}: a kernel of the path did not launch, or one off it did")
+    if any(st != "OK" for st in states) or any(p is None for p in poses):
+        raise AssertionError(f"{what}: states {states}")
+    bad = [m for m in mapped if m["k7"] != m["pairs"] or m["k6"] != m["want_k6"]]
+    log(f"{what}: per mapped keyframe (kf, neighbour pairs, K7 epipolar launches, points "
+        f"triangulated, fuse targets, K6 launches in the fuse): "
+        f"{[(m['kf'], m['pairs'], m['k7'], m['made'], m['targets'], m['k6']) for m in mapped]}")
+    if not mapped or bad or sum(m["pairs"] for m in mapped) < 1:
+        raise AssertionError(f"{what}: launches off one per pair and one per target: {bad}")
+
+    # (name, calls, wrapper, plain version, the arguments' row and column tables)
+    for name, calls, kernel, plain, cols in (
+            ("K7 epipolar_hamming_top2", k7_calls, kmatching.epipolar_hamming_top2,
+             kmatching.epipolar_hamming_top2_plain, (0, 1)),
+            ("K6 projection_hamming_top2", k6_calls, kmatching.projection_hamming_top2,
+             kmatching.projection_hamming_top2_plain, (1, 6))):
+        if len(calls) < counts[kernel.__name__]:
+            raise AssertionError(f"{what}: {len(calls)} calls of {name} recorded for "
+                                 f"{counts[kernel.__name__]} launches")
+        n, hit, rows = check_recorded(name, calls, kernel, plain)
+        shapes = sorted({tuple(a[i].shape[-2] for i in cols) for a, _ in calls})
+        log(f"{name} on the staged run's {n} calls (rows x columns {shapes}): exact against "
+            f"its plain version in every output ({hit} of {rows} rows with a candidate)")
+
+    config = sys_.mapper.config
+    d_tri = max(replay_on_cpu(what, config, m["kf"], *m["tri"]) for m in mapped)
+    made = sum(m["made"] for m in mapped)
+    log(f"{what}: each of {len(mapped)} keyframes' staged triangulation replayed on the CPU "
+        f"from the card's map: bindings and validity equal; {made} points triangulated, "
+        f"positions max |d| / |p| {d_tri:.3g} (tolerance {STAGED_TRI_RTOL})")
+    if not (made >= 1 and d_tri <= STAGED_TRI_RTOL):
+        raise AssertionError(f"{what}: {made} points triangulated, or positions off the CPU's")
+
+    gt_c = np.asarray([-R.T @ t for R, t in seq[3]])
+    rmse = trajectory.ate_rmse(sys_.trajectory_positions(), gt_c, align_scale=False)
+    span = float(np.linalg.norm(gt_c[-1] - gt_c[0]))
+    a, b = sys_.map, batched_sys.map
+    log(f"{what}: {SYSTEM_FRAMES} frames all OK in {seconds:.2f} s, {a.next_kf} "
+        f"keyframes, {a.next_pt} points made ({a.n_points()} kept; the batched route "
+        f"{b.next_pt} made, {b.n_points()} kept, tolerance {POINTS_RTOL}); ATE {rmse:.6f} m "
+        f"over a {span:.3f} m span (gate {ATE_SPAN_GATE} x span)")
+    if not rmse < ATE_SPAN_GATE * span:
+        raise AssertionError(f"{what}: ATE {rmse} over the gate")
+    if not np.array_equal(a.kf_frame_id[:a.next_kf], b.kf_frame_id[:b.next_kf]) \
+            or abs(a.next_pt - b.next_pt) > POINTS_RTOL * b.next_pt:
+        raise AssertionError(f"{what}: keyframes {a.kf_frame_id[:a.next_kf].tolist()} and "
+                             f"{a.next_pt} points against the batched route's "
+                             f"{b.kf_frame_id[:b.next_kf].tolist()} and {b.next_pt}")
+    first_run, first = RUNS[system_name("rgbd")][0]
+    fp = fingerprint(sys_)
+    diffs = [f"{key}: {first_difference(fp[key], want)}" for key, want in first.items()
+             if fp[key].shape != want.shape or not np.array_equal(fp[key], want)]
+    log(f"{what} against the batched route's {first_run} run: "
+        + ("equal, bit for bit" if not diffs else "differs; first difference in " + diffs[0]))
+    with env_set(ORB_TPU_STAGED_MAPPER="1"):
+        timed_sys, _, _, _ = run_system(seq, vocabulary="default")
+    for name, s_ in (("staged", timed_sys), ("batched", batched_sys)):
+        t = s_.timings()
+        n = int(t.get("local_mapping", {}).get("count", 0))
+        log(f"{what}: {name} route ms per mapped keyframe ({n} mapped; host clock): "
+            f"{map_stage_ms(t, n)} on {power}")
+    return counts, sys_
+
+
+def phase_native_core(sys_, power):
+    """The native map core loads on the card's host, and its three counts
+    equal the plain numpy versions on the System's final map; one
+    update_covisibility timed through each."""
+    if native_core.get_lib() is None:
+        raise AssertionError("the native map core did not build or load (g++ missing?)")
+    m = sys_.map
+    kpi, kv, n_pts = m.kf_point_idx, m.kf_valid, m.cfg.max_points
+    kfs = np.nonzero(kv)[0]
+    for k in kfs:
+        if not np.array_equal(native_core.covis_row(kpi, kv, n_pts, int(k)),
+                              native_core.covis_row_plain(kpi, kv, n_pts, int(k))):
+            raise AssertionError(f"native covis_row differs from numpy at keyframe {k}")
+    for name in ("obs_counts", "covis_matrix"):
+        if not np.array_equal(getattr(native_core, name)(kpi, kv, n_pts),
+                              getattr(native_core, f"{name}_plain")(kpi, kv, n_pts)):
+            raise AssertionError(f"native {name} differs from numpy")
+    k = int(kfs[-1])
+    ms = {}
+    fn = native_core.covis_row
+    for name, row in (("native", fn), ("numpy", native_core.covis_row_plain)):
+        native_core.covis_row = row
+        try:
+            times = []
+            for _ in range(COVIS_REPS):
+                t0 = time.perf_counter()
+                m.update_covisibility(k)
+                times.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            native_core.covis_row = fn
+        ms[name] = float(np.median(times))
+    log(f"native map core ({native_core.library_path().name}): covis_row on {kfs.size} "
+        f"keyframes, obs_counts and covis_matrix equal numpy on the final map "
+        f"({kpi.shape[0]} x {kpi.shape[1]} table, {n_pts} points); one update_covisibility "
+        f"median of {COVIS_REPS}: native {ms['native']:.4f} ms, numpy {ms['numpy']:.4f} ms "
+        f"(host clock, on the card's host; {power})")
+
+
+# ---------------------------------------------------------------------------
 # The monocular System: two-view initialization, the lateral sweep, and
 # relocalization after a kidnap
 # ---------------------------------------------------------------------------
@@ -1936,7 +2270,7 @@ def mono_vs_cpu(seq, init_frame):
     frame and keyframes, frame and keyframe poses within ROT_DEG_TOL /
     T_TOL (in the map's units, the median depth at initialization)."""
     n = init_frame + 1 + MONO_CPU_FRAMES
-    with fused_route_forced():
+    with env_set(ORB_TPU_FUSED_TRACK="1"):
         cpu_sys, states, poses, seconds = run_system(seq, "cpu", n)
     card_sys, card_states, card_poses, _ = run_system(seq, "cuda", n)
     if states != card_states:
@@ -3146,7 +3480,7 @@ def dataset_vs_cpu(name, cell, root, power):
         calls = []
         flags = ("--sync",) if device == "cuda" else ("--sync", "--device=cpu")
         with recording(System, "_track_frame", calls), (
-                fused_route_forced() if device == "cpu" else contextlib.nullcontext()):
+                env_set(ORB_TPU_FUSED_TRACK="1") if device == "cpu" else contextlib.nullcontext()):
             t0 = time.perf_counter()
             runs[device] = run_cell(cell, os.path.join(root, f"out_{name}_first_{device}"),
                                     *flags)
@@ -3418,7 +3752,12 @@ def check_live_run(what, run, gt, rate, stream_dir):
     rmse = trajectory.ate_rmse(est, gt_c, align_scale=False)
     span = float(np.linalg.norm(gt_c[-1] - gt_c[0]))
     if not rmse < ATE_SPAN_GATE * span:
-        raise AssertionError(f"{what}: ATE {rmse} over the gate {ATE_SPAN_GATE * span}")
+        m = run.system.map
+        raise AssertionError(
+            f"{what}: ATE {rmse} over the gate {ATE_SPAN_GATE * span}; frames fed "
+            f"{[int(round(ts * rate)) for ts in run.fed_ts]}, states {run.states}, keyframes' "
+            f"frames {m.kf_frame_id[:m.next_kf].tolist()}, tracked centres' errors "
+            f"{np.round(np.linalg.norm(est - gt_c, axis=1), 4).tolist()}")
     v = run.viewer
     if v is not None:
         if v.n_errors:
@@ -4364,6 +4703,9 @@ def phase_kernel_timing(x, dx, errs, counts, batched, power):
     yx = x["yx"]
     kernels = []
 
+    def each(fn, calls):
+        return lambda: [fn(*args) for args in calls]
+
     def row(name, src, replaces, fn, plain, library, n_bytes, n_ops, iters=50,
             caller=None):
         """One kernel's line: ms, plain_ms and library_ms are device busy
@@ -4451,19 +4793,19 @@ def phase_kernel_timing(x, dx, errs, counts, batched, power):
         cells.numel() * 4 + 2 * cells.shape[0] * k * 4, k * cells.numel())
 
     # K4 (both windows of a frame): the distinct image pixels the windows
-    # cover, the centres, and the windows written.
-    def covered(img, p):
+    # cover, the centres, and the windows written. covered() -> (that pixel
+    # count, the call's index grids: the library call of the standalone K4).
+    def covered(img, c_yx, p):
         h, w = img.shape
-        half = p // 2
-        d = torch.arange(-half, half + 1, device=img.device)
-        ys = (yx[:, 0:1].long() + d).clamp(0, h - 1)
-        xs = (yx[:, 1:2].long() + d).clamp(0, w - 1)
+        d = torch.arange(-(p // 2), p // 2 + 1, device=img.device)
+        ys = (c_yx[:, 0:1].long().clamp(0, h - 1) + d).clamp(0, h - 1)
+        xs = (c_yx[:, 1:2].long().clamp(0, w - 1) + d).clamp(0, w - 1)
         mask = torch.zeros(h * w, dtype=torch.bool, device=img.device)
         mask[(ys[:, :, None] * w + xs[:, None, :]).reshape(-1)] = True
-        return int(mask.sum())
+        return int(mask.sum()), (img, ys[:, :, None], xs[:, None, :])
 
     n_k = yx.shape[0]
-    k4_bytes = sum(covered(img, p) * 4 + n_k * 8 + n_k * p * p * 4
+    k4_bytes = sum(covered(img, yx, p)[0] * 4 + n_k * 8 + n_k * p * p * 4
                    for img, p in ((canvas, 31), (blur, 39)))
 
     # The fused K4 + K5 launch (the main paths' one per extraction): K4's
@@ -4477,24 +4819,20 @@ def phase_kernel_timing(x, dx, errs, counts, batched, power):
         lambda: patches.describe_patches_plain(canvas, blur, yx, True),
         None, k4_bytes + 8 * n_k, 2700 * n_k)
 
-    # The standalone K4, both windows (no caller on the main paths). The
-    # library call is the plain version's last line, one aten::index per
-    # window on index grids built beforehand.
-    def both(fn):
-        return lambda: (fn(canvas, yx, 31), fn(blur, yx, 39))
-
-    def grids(img, p):
-        h, w = img.shape
-        d = torch.arange(-(p // 2), p // 2 + 1, device=img.device)
-        ys = (yx[:, 0:1].long().clamp(0, h - 1) + d).clamp(0, h - 1)
-        xs = (yx[:, 1:2].long().clamp(0, w - 1) + d).clamp(0, w - 1)
-        return img, ys[:, :, None], xs[:, None, :]
-
-    index_args = (grids(canvas, 31), grids(blur, 39))
+    # The standalone K4 on its main-path calls: the per-level route's two
+    # windows a level (31x31 of the level, 39x39 of its blur) over the 8
+    # levels of one image; per call the distinct pixels its windows cover,
+    # the centres and the windows written. The library call is the plain
+    # version's last line, one aten::index per call on index grids built
+    # beforehand.
+    k4_calls = x["level_k4"]
+    k4_cover = [covered(*args) for args in k4_calls]
+    level_k4_bytes = sum(n * 4 + a[1].shape[0] * (8 + a[2] * a[2] * 4)
+                         for (n, _), a in zip(k4_cover, k4_calls))
     row("extract_patches", "orb_slam2_commit_tpu_torch/csrc/patches.cu",
         "orb_slam2_commit_tpu/ops/pallas_patches.py:81",
-        both(patches.extract_patches), both(patches.extract_patches_plain),
-        lambda: [img[ys, xs] for img, ys, xs in index_args], k4_bytes, 0)
+        each(patches.extract_patches, k4_calls), each(patches.extract_patches_plain, k4_calls),
+        lambda: [img[ys, xs] for _, (img, ys, xs) in k4_cover], level_k4_bytes, 0, iters=20)
 
     # The standalone K5 (no caller on the main paths) needs the 81 window
     # pixels of each patch and writes two offsets.
@@ -4562,9 +4900,6 @@ def phase_kernel_timing(x, dx, errs, counts, batched, power):
                       for args in calls)
         n_ops = sum(args[2].numel() + 24 * int(args[2].sum()) for args in calls)
         return n_bytes, n_ops
-
-    def each(fn, calls):
-        return lambda: [fn(*args) for args in calls]
 
     k7_src = ("orb_slam2_commit_tpu_torch/csrc/matching.cu",
               "orb_slam2_commit_tpu/ops/pallas_matching.py:113")
@@ -4755,11 +5090,17 @@ def run_phases(power, data_root):
     done("pairs and step")
     system_counts, system_batched = phase_system(seqs, power)
     done("Systems")
+    level_counts, x["level_k1"], x["level_k4"] = phase_per_level(args[0], config, power)
+    staged_counts, staged_sys = phase_staged_mapper(seqs["rgbd"], power)
+    phase_native_core(staged_sys, power)
+    done("per-level extraction, staged mapper and native core")
     mono_counts, mono_k7, mono_problems = phase_mono(mono_seq, kidnap_seq, power)
     done("monocular")
     loop_counts = phase_loop(loop_seq, kidnap_seq, loop_profs, loop_sim3, power)
     done("loop")
-    new_counts = {"localization session": phase_localization(localization_sequence(), power),
+    new_counts = {"per-level extraction of one image": level_counts,
+                  "RGB-D System with the staged mapper": staged_counts,
+                  "localization session": phase_localization(localization_sequence(), power),
                   "asynchronous RGB-D System": phase_async(seqs["rgbd"], SYSTEM_FPS["rgbd"],
                                                            power),
                   "global BA runner stress": phase_gba_stress(mono_seq, power)}
@@ -4786,6 +5127,7 @@ def run_phases(power, data_root):
     kitti = dataset_counts["kitti_00-02_stereo"]
     kernels = phase_kernel_timing(x, dataset_x, errs, dict(
         counts["monocular"],
+        extract_patches=level_counts["extract_patches"],
         stereo_band_top2=counts["stereo"]["stereo_band_top2"],
         masked_hamming_top2=rgbd["masked_hamming_top2"],
         valid_hamming_top2=rgbd["valid_hamming_top2"],

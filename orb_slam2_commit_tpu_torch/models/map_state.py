@@ -376,7 +376,9 @@ class MapState:
         #shared map points (reference: KeyFrame::UpdateConnections,
         src/KeyFrame.cc:367-493; edge threshold applied by consumers).
 
-        One pass with a point-mark table (models/native_core.py)."""
+        The native C++ map core's covis_row (models/native_core.py: one
+        pass with a point-mark table), or its plain numpy version where no
+        compiler exists."""
         row = native_core.covis_row(
             self.kf_point_idx, self.kf_valid, self.cfg.max_points, int(k)
         )
@@ -393,7 +395,8 @@ class MapState:
         return out[:n] if n is not None else out
 
     def observation_count(self) -> np.ndarray:
-        """[P] number of keyframes observing each point."""
+        """[P] number of keyframes observing each point (the native C++
+        map core's obs_counts, or its plain numpy version)."""
         return native_core.obs_counts(
             self.kf_point_idx, self.kf_valid, self.cfg.max_points
         ).astype(np.int64)

@@ -1,10 +1,12 @@
-"""FAST-9/16 corner scores, cell fallback, NMS and per-row top-k
-(PyTorch port of ops/fast.py).
+"""FAST-9/16 corner scores, cell fallback, NMS, per-row top-k and the
+per-level keypoint selection (PyTorch port of ops/fast.py).
 
 These are the plain versions of the extraction kernels: the level kernel
 (blur + FAST) and the combine+NMS kernel in kernels/level.py, and the
 per-cell top-k kernel in kernels/select.py, hold their results against
-the functions here.
+the functions here. The per-level extraction route (ops/extractor.py)
+takes `two_threshold_score_maps` on the gather route and
+`select_keypoints` on both of its routes.
 """
 
 from __future__ import annotations
@@ -44,31 +46,49 @@ def _has_arc(mask16: torch.Tensor) -> torch.Tensor:
     return (r & 0xFFFF) != 0
 
 
+def _circle_stack(image: torch.Tensor) -> torch.Tensor:
+    """[16, H, W] shifted copies, stack[i, y, x] = image[y + dy_i, x + dx_i],
+    with BORDER_REFLECT_101 neighbourhoods at the image border (the level
+    kernel's borders, so the dense score maps equal its maps bit for
+    bit)."""
+    h, w = image.shape
+    padded = F.pad(image[None, None], (3, 3, 3, 3), mode="reflect")[0, 0]
+    return torch.stack([padded[3 + int(dy) : 3 + int(dy) + h, 3 + int(dx) : 3 + int(dx) + w]
+                        for dy, dx in CIRCLE_OFFSETS])
+
+
+def _score_from_diffs(d, threshold: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Segment test + V-score from the 16 circle differences d[i] = ring_i -
+    centre, taken in CIRCLE_OFFSETS order (a [16, H, W] tensor or any
+    iterable of [H, W] maps): (corner_mask, score). The bright and dark
+    V-scores are summed left to right in that order (the level kernel's
+    order)."""
+    bright_bits = dark_bits = bright_score = dark_score = None
+    for bit, di in enumerate(d):
+        b = (di > threshold).to(torch.int32) << bit
+        k = (di < -threshold).to(torch.int32) << bit
+        sb = torch.clamp_min(di - threshold, 0.0)
+        sd = torch.clamp_min(-di - threshold, 0.0)
+        if bit == 0:
+            bright_bits, dark_bits, bright_score, dark_score = b, k, sb, sd
+        else:
+            bright_bits, dark_bits = bright_bits | b, dark_bits | k
+            bright_score, dark_score = bright_score + sb, dark_score + sd
+    is_corner = _has_arc(bright_bits) | _has_arc(dark_bits)
+    score = torch.maximum(bright_score, dark_score)
+    return is_corner, torch.where(is_corner, score, torch.zeros_like(score))
+
+
 def fast_scores_padded(
     padded: torch.Tensor, out_h: int, out_w: int, threshold: float
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Segment test + V-score at every output pixel of an image padded by 3
-    on the top and left: pixel (y, x) is padded[y+3, x+3]. The 16 circle
-    differences are taken in CIRCLE_OFFSETS order and the bright/dark
-    V-scores summed in that order (the level kernel's order)."""
+    on the top and left: pixel (y, x) is padded[y+3, x+3]. One circle
+    difference map at a time, in CIRCLE_OFFSETS order."""
     center = padded[3 : 3 + out_h, 3 : 3 + out_w]
-    bright_bits = torch.zeros_like(center, dtype=torch.int32)
-    dark_bits = torch.zeros_like(center, dtype=torch.int32)
-    bright_score = None
-    dark_score = None
-    for bit, (dy, dx) in enumerate(CIRCLE_OFFSETS):
-        ring = padded[3 + int(dy) : 3 + int(dy) + out_h,
-                      3 + int(dx) : 3 + int(dx) + out_w]
-        d = ring - center
-        bright_bits |= (d > threshold).to(torch.int32) << bit
-        dark_bits |= (d < -threshold).to(torch.int32) << bit
-        sb = torch.clamp_min(d - threshold, 0.0)
-        sd = torch.clamp_min(-d - threshold, 0.0)
-        bright_score = sb if bright_score is None else bright_score + sb
-        dark_score = sd if dark_score is None else dark_score + sd
-    is_corner = _has_arc(bright_bits) | _has_arc(dark_bits)
-    score = torch.maximum(bright_score, dark_score)
-    return is_corner, torch.where(is_corner, score, torch.zeros_like(score))
+    return _score_from_diffs(
+        (padded[3 + int(dy) : 3 + int(dy) + out_h, 3 + int(dx) : 3 + int(dx) + out_w]
+         - center for dy, dx in CIRCLE_OFFSETS), threshold)
 
 
 def fast_score_map(
@@ -103,6 +123,29 @@ def nms_3x3(score: torch.Tensor) -> torch.Tensor:
             nb_min = torch.minimum(nb_min, pad_idx[dy : dy + h, dx : dx + w])
     keep = is_max & (flat_idx == nb_min)
     return torch.where(keep, score, torch.zeros_like(score))
+
+
+def two_threshold_scores(
+    image: torch.Tensor, ini_threshold: float, min_threshold: float, cell_size: int
+) -> torch.Tensor:
+    """Two-threshold FAST with the per-cell fallback, after 3x3 NMS
+    (src/ORBextractor.cc:892-915): a cell takes its iniThFAST corners, and
+    only a cell with none takes its minThFAST corners. No path of the port
+    calls it (the per-level route combines the maps in _extract_level, as
+    JAX's does): it keeps the JAX module's name, and the tests hold it to
+    JAX's."""
+    score_hi, score_lo = two_threshold_score_maps(image, ini_threshold, min_threshold)
+    return combine_two_threshold(score_hi, score_lo, cell_size)
+
+
+def two_threshold_score_maps(
+    image: torch.Tensor, ini_threshold: float, min_threshold: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense FAST score maps of image[H, W] at both thresholds (no fallback
+    or NMS yet), sharing one 16-map circle stack: the gather route's
+    counterpart of the level kernel's (score_hi, score_lo)."""
+    d = _circle_stack(image) - image[None]
+    return _score_from_diffs(d, ini_threshold)[1], _score_from_diffs(d, min_threshold)[1]
 
 
 def combine_two_threshold(
@@ -141,3 +184,47 @@ def topk_iterative(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]
         x = torch.where(idx == a, float("-inf"), x)
     return (torch.cat(vals, dim=-1),
             torch.cat(args, dim=-1).to(torch.int32))
+
+
+def select_keypoints(
+    score: torch.Tensor, n_keypoints: int, cell_size: int, cell_top_k: int, border: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Spatially balanced top-n selection with fixed output shapes, the
+    stand-in for the reference's DistributeOctTree
+    (src/ORBextractor.cc:562-815): zero the scores within `border` of the
+    edge, keep each cell's cell_top_k best, then the n_keypoints best of
+    those. Ties go to the lowest index at both steps, as lax.top_k breaks
+    them (topk_iterative in the cells, a stable descending sort over the
+    survivors). -> (yx [n, 2] int32, response [n] float32, valid [n]
+    bool); an invalid slot is parked at (border, border)."""
+    h, w = score.shape
+    dev = score.device
+    ys = torch.arange(h, device=dev)[:, None]
+    xs = torch.arange(w, device=dev)[None, :]
+    inside = (ys >= border) & (ys < h - border) & (xs >= border) & (xs < w - border)
+    score = torch.where(inside, score, torch.zeros_like(score))
+
+    pad_h, pad_w = (-h) % cell_size, (-w) % cell_size
+    wp = w + pad_w
+    n_cy, n_cx = (h + pad_h) // cell_size, wp // cell_size
+    cells = F.pad(score, (0, pad_w, 0, pad_h)).reshape(n_cy, cell_size, n_cx, cell_size)
+    cells = cells.permute(0, 2, 1, 3).reshape(n_cy * n_cx, cell_size * cell_size)
+    cell_vals, cell_arg = topk_iterative(cells, cell_top_k)
+
+    cell_ids = torch.arange(n_cy * n_cx, device=dev)[:, None]
+    iy = (cell_ids // n_cx) * cell_size + cell_arg // cell_size
+    ix = (cell_ids % n_cx) * cell_size + cell_arg % cell_size
+    flat_idx = (iy * wp + ix).reshape(-1)
+    flat_vals = cell_vals.reshape(-1)
+
+    k = min(n_keypoints, flat_vals.shape[0])
+    top_vals, top_pos = torch.sort(flat_vals, descending=True, stable=True)
+    top_vals, top_pos = top_vals[:k], top_pos[:k]
+    if k < n_keypoints:
+        top_vals = F.pad(top_vals, (0, n_keypoints - k))
+        top_pos = F.pad(top_pos, (0, n_keypoints - k))
+    top_idx = flat_idx[top_pos]
+    yx = torch.stack([top_idx // wp, top_idx % wp], dim=-1).to(torch.int32)
+    valid = top_vals > 0
+    yx = torch.where(valid[:, None], yx, torch.full_like(yx, border))
+    return yx, torch.where(valid, top_vals, torch.zeros_like(top_vals)), valid

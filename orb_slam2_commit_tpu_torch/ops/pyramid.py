@@ -91,6 +91,22 @@ def _direct_resize_mats(
     return A, B
 
 
+_resize_table = device_table(_resize_matrix)
+
+
+@full_float32
+def resize_bilinear(image: torch.Tensor, out_shape: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of image[H, W] float32 to out_shape (cv::resize
+    INTER_LINEAR equivalent): rows, then columns, each one product with
+    `_resize_matrix`'s dense operator. No path of the port calls it (nor
+    does one of the JAX package call its copy): it keeps the JAX module's
+    name, and the tests hold it to JAX's."""
+    h_in, w_in = image.shape
+    h_out, w_out = out_shape
+    out = torch.matmul(_resize_table(image.device, h_in, h_out), image.to(torch.float32))
+    return torch.matmul(out, _resize_table(image.device, w_in, w_out).T)
+
+
 _row_ops = device_table(lambda shapes: _direct_resize_mats(shapes)[0])
 _col_ops = device_table(lambda shapes: _direct_resize_mats(shapes)[1])
 

@@ -18,19 +18,11 @@ from __future__ import annotations
 
 import torch
 
+from orb_slam2_commit_tpu_torch.ops import descriptors
+
 HALF = 3          # window radius (7x7)
 ITERS = 2
 MAX_OFFSET = 1.0  # trust region, px
-
-
-def _gather_window(image: torch.Tensor, yc, xc, half: int) -> torch.Tensor:
-    """[N, 2*half+1, 2*half+1] windows of image around (yc, xc), edge
-    pixels repeated."""
-    h, w = image.shape
-    d = torch.arange(-half, half + 1, device=image.device)
-    ys = (yc.long()[:, None] + d[None, :]).clamp(0, h - 1)
-    xs = (xc.long()[:, None] + d[None, :]).clamp(0, w - 1)
-    return image[ys[:, :, None], xs[:, None, :]]
 
 
 def corner_subpix_offsets(image: torch.Tensor, yx: torch.Tensor) -> torch.Tensor:
@@ -39,7 +31,7 @@ def corner_subpix_offsets(image: torch.Tensor, yx: torch.Tensor) -> torch.Tensor
     coordinates; orientation and descriptor sampling stay at the integer
     location."""
     # Window + 1 px halo so central differences cover the full window.
-    win = _gather_window(image.to(torch.float32), yx[:, 0], yx[:, 1], HALF + 1)
+    win = descriptors.gather_patches(image.to(torch.float32), yx, HALF + 1)
     return offsets_from_windows(win)
 
 

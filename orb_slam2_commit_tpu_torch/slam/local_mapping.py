@@ -9,11 +9,12 @@ asynchronous mapping, on the mapping worker's (slam/async_pipeline.py):
   4. local bundle adjustment            (Optimizer::LocalBundleAdjustment)
   5. redundant-keyframe culling         (KeyFrameCulling, :784-871)
 
-Triangulation and the forward fuse pass take the batched route
+Triangulation and the forward fuse pass take the batched route by default
 (slam/jit_mapper.py: one batched K7 and one batched K6 launch per
-keyframe); the JAX package's per-neighbour staged route
-(ORB_TPU_STAGED_MAPPER=1) is still to be ported and raises
-NotImplementedError. Map tables stay numpy on the host; what a kernel or
+keyframe). ORB_TPU_STAGED_MAPPER=1, read at each keyframe, takes the JAX
+package's per-neighbour staged route, its oracle: K7 under the epipolar
+band once per neighbour pair, with no batch axis, and K6 once per fuse
+target. Map tables stay numpy on the host; what a kernel or
 the BA reads goes to the mapper's device at its call. `map_lock` (the
 asynchronous System's RLock) guards the host map mutations, as in the JAX
 package. The mapping worker holds the same lock across the whole call, so
@@ -33,6 +34,7 @@ from typing import List
 import numpy as np
 import torch
 
+from orb_slam2_commit_tpu_torch.geometry import triangulation as tri
 from orb_slam2_commit_tpu_torch.interop import resolve_device, to_device, to_host
 from orb_slam2_commit_tpu_torch.models.map_state import INVALID, MapState
 from orb_slam2_commit_tpu_torch.optim import ba
@@ -41,9 +43,7 @@ from orb_slam2_commit_tpu_torch.slam.tracking import (
     _round_up_pow2, build_ba_problem, write_back_ba,
 )
 from orb_slam2_commit_tpu_torch.utils.config import SLAMConfig
-
-SLICE_2_STAGED = ("the staged mapper route (ORB_TPU_STAGED_MAPPER=1, "
-                  "_create_new_points_staged): ROADMAP queue 1, slice 2")
+from orb_slam2_commit_tpu_torch.utils.precision import full_float32
 
 _LOG = logging.getLogger(__name__)
 
@@ -84,8 +84,6 @@ class LocalMapper:
     # ------------------------------------------------------------------
 
     def process_keyframe(self, kf: int) -> None:
-        if os.environ.get("ORB_TPU_STAGED_MAPPER") == "1":
-            raise NotImplementedError(SLICE_2_STAGED)
         with self.map_lock:
             # Stats refresh restricted to the points this keyframe touches.
             with self._timed("map_refresh"):
@@ -93,7 +91,7 @@ class LocalMapper:
             with self._timed("map_cullpts"):
                 self._cull_recent_points(kf)
             with self._timed("map_tri"):
-                self._create_new_points_batched(kf)
+                self._create_new_points(kf)
             with self._timed("map_fuse"):
                 self._fuse_neighbors(kf)
             with self._timed("map_refresh"):
@@ -107,22 +105,27 @@ class LocalMapper:
 
     # ------------------------------------------------------------------
 
-    def _window_points(self, kf: int) -> np.ndarray:
-        """Points whose stats this keyframe's mapping round can change:
-        everything bound in the fuse window (kf + first/second covisible
-        ring) — the same neighborhood _fuse_neighbors touches — plus the
-        recent-point watchlist."""
+    def _fuse_targets(self, kf: int) -> List[int]:
+        """The keyframes SearchInNeighbors fuses into (src/LocalMapping.cc:
+        560-664): the first covisible ring (10 keyframes for monocular, 20
+        otherwise, weight >= 15) and each one's best 5 (weight >= 15), in
+        that order, without repeats or kf itself."""
         n_first = 10 if self.config.sensor == "monocular" else 20
-        kfs = [int(kf)]
+        targets: List[int] = []
         seen = {int(kf)}
         for k in self.map.covisible_keyframes(kf, n_first, min_weight=15):
-            if int(k) not in seen:
-                kfs.append(int(k))
-                seen.add(int(k))
-            for k2 in self.map.covisible_keyframes(int(k), 5, min_weight=15):
+            for k2 in (k, *self.map.covisible_keyframes(int(k), 5, min_weight=15)):
                 if int(k2) not in seen:
-                    kfs.append(int(k2))
+                    targets.append(int(k2))
                     seen.add(int(k2))
+        return targets
+
+    def _window_points(self, kf: int) -> np.ndarray:
+        """Points whose stats this keyframe's mapping round can change:
+        everything bound in the fuse window (kf and its fuse targets, the
+        neighbourhood _fuse_neighbors touches) plus the recent-point
+        watchlist."""
+        kfs = [int(kf)] + self._fuse_targets(kf)
         pids = self.map.kf_point_idx[np.asarray(kfs)].reshape(-1)
         pids = np.unique(pids[pids >= 0])
         recent = np.asarray(
@@ -188,6 +191,14 @@ class LocalMapper:
         )
         Kinv = np.linalg.inv(K)
         return Kinv.T @ tx @ R21 @ Kinv
+
+    def _create_new_points(self, kf: int) -> None:
+        """CreateNewMapPoints (src/LocalMapping.cc:281-558): the batched
+        route, or the per-neighbour staged one with
+        ORB_TPU_STAGED_MAPPER=1."""
+        if os.environ.get("ORB_TPU_STAGED_MAPPER") == "1":
+            return self._create_new_points_staged(kf)
+        return self._create_new_points_batched(kf)
 
     def _neighbor_pairs(self, kf: int):
         """Shared neighbor selection + host-side pair gates (baseline vs
@@ -306,6 +317,96 @@ class LocalMapper:
         for k2 in neighbors:
             self.map.update_covisibility(int(k2))
 
+    def _create_new_points_staged(self, kf: int) -> None:
+        """The per-neighbour staged route of _create_new_points: for each
+        neighbour past the pair gates, the fundamental matrix and epipole,
+        the triangulation matcher with no batch axis (one K7 launch under
+        the epipolar band), DLT triangulation on the device, then the
+        gates (parallax, cheirality, reprojection, scale consistency) on
+        the host and the claims of this keyframe's free features, in
+        neighbour order; one covisibility refresh at the end."""
+        cfg = self.config
+        cam = cfg.camera
+        K = np.asarray(cam.k_matrix)
+        neighbors, pairs = self._neighbor_pairs(kf)
+        R1, t1 = self.map.kf_pose_R[kf], self.map.kf_pose_t[kf]
+        c1 = -R1.T @ t1
+        free1 = (self.map.kf_point_idx[kf] == INVALID) & self.map.kf_feat_valid[kf]
+        sigma2 = np.asarray(cfg.orb.level_sigma2())
+        scale_factors = np.asarray(cfg.orb.scale_factors())
+        ratio_factor = 1.5 * cfg.orb.scale_factor
+        cos_gate = np.cos(np.radians(cfg.tracker.tri_min_parallax_deg))
+        n_lv = cfg.orb.n_levels
+        kf_side = [self._dev(a) for a in (
+            self.map.kf_xy[kf], self.map.kf_desc[kf], self.map.kf_angle[kf])]
+        K_R1_t1 = [self._dev(a) for a in (K, R1, t1)]
+        for k2 in pairs:
+            R2, t2 = self.map.kf_pose_R[k2], self.map.kf_pose_t[k2]
+            c2 = -R2.T @ t2
+            F12 = self._fundamental_from_poses(kf, k2)
+            free2 = (self.map.kf_point_idx[k2] == INVALID) & self.map.kf_feat_valid[k2]
+            # Epipole of camera 1 in image 2 (reference :826-838).
+            c1_in_2 = R2 @ c1 + t2
+            if abs(c1_in_2[2]) > 1e-6:
+                ep = np.array([cam.fx * c1_in_2[0] / c1_in_2[2] + cam.cx,
+                               cam.fy * c1_in_2[1] / c1_in_2[2] + cam.cy])
+            else:
+                ep = np.array([1e9, 1e9])
+            m = matchers.match_for_triangulation(
+                *kf_side[:3], self._dev(free1),
+                self._dev(self.map.kf_xy[k2]), self._dev(self.map.kf_desc[k2]),
+                self._dev(self.map.kf_angle[k2]), self._dev(free2),
+                self._dev(F12), self._dev(self.map.kf_octave[k2]), self._dev(ep),
+                self._dev(np.float32(100.0)),
+                n_levels=n_lv, scale=cfg.orb.scale_factor,
+            )
+            idx = to_host(m.idx)
+            rows = np.where(idx >= 0)[0]
+            if rows.size == 0:
+                continue
+            uv1 = self.map.kf_xy[kf][rows]
+            uv2 = self.map.kf_xy[k2][idx[rows]]
+            pts, e1, e2 = _triangulate_pair(self._dev(uv1), self._dev(uv2), *K_R1_t1,
+                                            self._dev(R2), self._dev(t2))
+
+            # Gates (reference :388-535) in float64 on the host.
+            rays1 = pts - c1
+            rays2 = pts - c2
+            d1 = np.linalg.norm(rays1, axis=1)
+            d2 = np.linalg.norm(rays2, axis=1)
+            cos_par = np.sum(rays1 * rays2, axis=1) / np.maximum(d1 * d2, 1e-12)
+            z1 = pts @ R1[2] + t1[2]
+            z2 = pts @ R2[2] + t2[2]
+            o1 = np.clip(self.map.kf_octave[kf][rows], 0, n_lv - 1)
+            o2 = np.clip(self.map.kf_octave[k2][idx[rows]], 0, n_lv - 1)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                ratio_dist = d2 / np.maximum(d1, 1e-12)
+            ratio_octave = scale_factors[o1] / scale_factors[o2]
+            good = (
+                (cos_par > 0)
+                & (cos_par < cos_gate)
+                & (z1 > 0)
+                & (z2 > 0)
+                & (e1 < 5.991 * sigma2[o1])
+                & (e2 < 5.991 * sigma2[o2])
+                & (ratio_dist * ratio_factor >= ratio_octave)
+                & (ratio_dist <= ratio_octave * ratio_factor)
+                & np.isfinite(pts).all(axis=1)
+            )
+            g_rows = rows[good]
+            if g_rows.size == 0:
+                continue
+            new_ids = self.map.add_points(pts[good], first_kf=kf)
+            self.map.kf_point_idx[kf, g_rows] = new_ids
+            self.map.kf_point_idx[k2, idx[g_rows]] = new_ids
+            free1[g_rows] = False
+            for nid in new_ids:
+                self.recent_points.append(RecentPoint(int(nid), kf))
+        # One covisibility refresh for all bindings added above.
+        self.map.update_covisibility(kf)
+        for k2 in neighbors:
+            self.map.update_covisibility(int(k2))
+
     # ------------------------------------------------------------------
 
     def _fuse_neighbors(self, kf: int) -> None:
@@ -313,18 +414,7 @@ class LocalMapper:
         this KF's points into first/second-ring neighbors and fuse, then the
         reverse direction."""
         cam = self.config.camera
-        n_first = 10 if self.config.sensor == "monocular" else 20
-        first_ring = self.map.covisible_keyframes(kf, n_first, min_weight=15)
-        targets: List[int] = []
-        seen = {int(kf)}
-        for k in first_ring:
-            if int(k) not in seen:
-                targets.append(int(k))
-                seen.add(int(k))
-            for k2 in self.map.covisible_keyframes(int(k), 5, min_weight=15):
-                if int(k2) not in seen:
-                    targets.append(int(k2))
-                    seen.add(int(k2))
+        targets = self._fuse_targets(kf)
 
         # Observation counts are O(K x N) to build; per-target recompute
         # dominated map_fuse at 300+ keyframes. Cache across targets and
@@ -408,7 +498,14 @@ class LocalMapper:
         kf_pts = self.map.kf_point_idx[kf]
         kf_pts = np.unique(kf_pts[kf_pts >= 0])
         kf_pts = kf_pts[self.map.pt_valid[kf_pts]]
-        if targets and kf_pts.size:
+        staged = os.environ.get("ORB_TPU_STAGED_MAPPER") == "1"
+        if staged:
+            # The staged forward pass: one K6 launch per target, each on the
+            # map as the targets before it left it.
+            with self._timed("map_fuse_fwd"):
+                for tk in targets:
+                    fuse_into(tk, kf_pts)
+        elif targets and kf_pts.size:
             # Forward direction batched: one call projects this KF's points
             # into every target (jit_mapper.fused_fuse_forward_jit); merges
             # replay on the host in target order, as the staged loop
@@ -648,3 +745,14 @@ class LocalMapper:
                 obs_oct = self.map.kf_octave[valid_kfs].reshape(-1)
                 sel = obs_pid >= 0
                 obs_kf, obs_pid, obs_oct = obs_kf[sel], obs_pid[sel], obs_oct[sel]
+
+
+@full_float32
+def _triangulate_pair(uv1, uv2, K, R1, t1, R2, t2):
+    """One neighbour pair's DLT triangulation and reprojection errors on the
+    device, in float32 -> (points [n, 3], e1 [n], e2 [n]) as numpy."""
+    P1 = tri.projection_matrix(K, R1, t1)
+    P2 = tri.projection_matrix(K, R2, t2)
+    pts = tri.triangulate_dlt(uv1, uv2, P1, P2)
+    return (to_host(pts), to_host(tri.reprojection_error_sq(pts, uv1, P1)),
+            to_host(tri.reprojection_error_sq(pts, uv2, P2)))

@@ -7,7 +7,10 @@ magic raises; each package's publisher writes the same bytes for the same
 frames, and each package's subscriber reads the other's stream to the
 same arrays. The directory watch reads PNG files written by the port's
 own writer (no OpenCV needed). The capture source raises an error naming
-cv2 when OpenCV is missing. The drop policy against a fake System: a slow
+cv2 when OpenCV is missing; with OpenCV, on tests/test_live_sources.py's
+TestOpenCVCaptureSource clip (MJPG, cut to 5 frames), it reads the same
+frames and timestamps as the JAX package's source, and a capture that
+does not open raises RuntimeError. The drop policy against a fake System: a slow
 tracker drops stale frames and never reorders, a fast one drops nothing,
 two-plane frames go to track_stereo / track_rgbd by sensor, and under one
 simulated clock both packages drop exactly the same frames. A real
@@ -175,6 +178,41 @@ def test_directory_watch_reads_written_pngs(tmp_path):
         np.testing.assert_array_equal(im, ref)
     gray = 0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]
     np.testing.assert_array_equal(got[3][1], np.clip(np.round(gray), 0, 255).astype(np.uint8))
+
+
+class TestOpenCVCaptureSource:
+    def test_video_file_equals_jax(self, jrl, tmp_path):
+        cv2 = pytest.importorskip("cv2")
+        path = str(tmp_path / "clip.avi")
+        h, w, n = 64, 80, 5
+        writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 20.0, (w, h))
+        assert writer.isOpened()
+        rng = np.random.default_rng(11)
+        # Smooth gradient frames: MJPG is lossy, so the written frames are
+        # held by their means.
+        frames = []
+        for i in range(n):
+            gray = np.clip(np.linspace(0, 200, w)[None, :] + 5 * i + rng.normal(0, 2, (h, w)),
+                           0, 255).astype(np.uint8)
+            frames.append(gray)
+            writer.write(cv2.cvtColor(gray, cv2.COLOR_GRAY2BGR))
+        writer.release()
+
+        got = list(prl.OpenCVCaptureSource(path, realtime=False).frames())
+        want = list(jrl.OpenCVCaptureSource(path, realtime=False).frames())
+        assert len(got) == len(want) == n
+        for (ts, im), (jts, jim), ref in zip(got, want, frames):
+            assert im.shape == (h, w) and im.dtype == np.uint8
+            assert ts == jts
+            np.testing.assert_array_equal(im, jim)
+            assert abs(float(im.mean()) - float(ref.mean())) < 3.0
+        assert got[1][0] == pytest.approx(1 / 20.0, abs=1e-6)
+
+    def test_missing_capture_raises(self, jrl, tmp_path):
+        pytest.importorskip("cv2")
+        for source in (prl, jrl):
+            with pytest.raises(RuntimeError):
+                list(source.OpenCVCaptureSource(str(tmp_path / "none.avi")).frames())
 
 
 def test_capture_without_opencv_names_cv2(monkeypatch):

@@ -22,9 +22,10 @@ converters), on the same inputs: integer tables equal, poses within
 different orders); with the mapper's abort flag set, both skip local BA
 and the new points, raw DLT triangulations, agree to 5e-4 relative. The
 trajectory exports hold the trajectory's positions. A short stereo run
-of the port is held by outcome, and the feature still to come (the
-staged mapper route) raises NotImplementedError, while global BA sharded
-over the process group (ORB_DISTRIBUTED_GBA=1) no longer does.
+of the port is held by outcome, and the two switches once refused run:
+the staged mapper route (ORB_TPU_STAGED_MAPPER=1) maps a keyframe of the
+carried state, and global BA sharded over the process group
+(ORB_DISTRIBUTED_GBA=1) builds.
 """
 
 import jax
@@ -343,21 +344,44 @@ def test_mapper_abort_skips_local_ba_as_jax(jax_run):
 
 
 @pytest.mark.parametrize("switch", ["ORB_DISTRIBUTED_GBA", "ORB_TPU_STAGED_MAPPER"])
-def test_features_still_to_come_raise(switch, monkeypatch):
-    """Global BA sharded over the process group (ORB_DISTRIBUTED_GBA=1,
-    with a vocabulary's loop closer) no longer raises: the System builds
-    and its closer takes the sharded route (tests/test_torch_multihost.py
-    runs it); the staged mapper route (ORB_TPU_STAGED_MAPPER=1) raises at
-    the first keyframe the mapper takes."""
+def test_features_still_to_come_raise(switch, monkeypatch, jax_run):
+    """Neither switch raises any more. Global BA sharded over the process
+    group (ORB_DISTRIBUTED_GBA=1, with a vocabulary's loop closer): the
+    System builds and its closer takes the sharded route
+    (tests/test_torch_multihost.py runs it). The staged mapper route
+    (ORB_TPU_STAGED_MAPPER=1): one process_keyframe on the state carried
+    across from the JAX run at MAPPED_KF triangulates through
+    _create_new_points_staged, one triangulation match with no batch axis
+    per neighbour pair, and fuses; it leaves as many keyframes as the JAX
+    System's batched mapper and its point count within POINTS_RTOL
+    (tests/test_torch_staged_mapper.py holds it to the JAX staged route)."""
     monkeypatch.setenv(switch, "1")
     cfg = synthetic_config(width=W, height=H, n_features=N_FEAT, sensor="rgbd")
     if switch == "ORB_DISTRIBUTED_GBA":
         sys_ = System(cfg, vocabulary="default", async_mapping=False, device="cpu")
         assert sys_.loop_closer is not None and loop_closing.use_distributed_gba()
         return
-    sys_ = System(cfg, vocabulary=None, async_mapping=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sys_.mapper.process_keyframe(0)
+    from orb_slam2_commit_tpu_torch.slam import local_mapping
+
+    _, _, rec, _ = jax_run
+    ms = interop.map_state_from_numpy(rec["map_in"]["map"])
+    mapper = LocalMapper(cfg, ms, device="cpu")
+    mapper.recent_points = interop.recent_points_from_numpy(rec["map_in"]["recent"])
+    calls = []
+    match = local_mapping.matchers.match_for_triangulation
+
+    def spy(*args, **kwargs):
+        calls.append(args[4].dim())       # the neighbour's xy: [N, 2] with no batch axis
+        return match(*args, **kwargs)
+
+    monkeypatch.setattr(local_mapping.matchers, "match_for_triangulation", spy)
+    n_pairs = len(mapper._neighbor_pairs(MAPPED_KF)[1])
+    before = ms.next_pt
+    mapper.process_keyframe(MAPPED_KF)
+    want = rec["map_out"]["map"]
+    assert n_pairs >= 1 and calls == [2] * n_pairs
+    assert ms.next_pt > before and ms.next_kf == want["next_kf"]
+    assert abs(ms.n_points() - int(want["pt_valid"].sum())) <= POINTS_RTOL * want["pt_valid"].sum()
 
 
 def test_trajectory_exports(port_run, tmp_path):

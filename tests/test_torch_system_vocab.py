@@ -12,8 +12,10 @@
   and tracks with the vocabulary; the monocular map's initial keyframes
   go into the database when the map is created.
 - Reset clears the database and the loop closer's state.
-- ORB_TPU_STAGED_MAPPER=1 still raises; ORB_DISTRIBUTED_GBA=1 no longer
-  does (the loop closer shards its global BA).
+- ORB_TPU_STAGED_MAPPER=1 no longer raises (the staged mapper maps the
+  RGB-D sequence's first keyframes, each into the database and through
+  the loop closer), nor does ORB_DISTRIBUTED_GBA=1 (the loop closer
+  shards its global BA).
 - A map saved by the port loads in the JAX package and the other way
   round (models/serialization.py), and System.load_map rebuilds the
   database from the loaded keyframes.
@@ -40,6 +42,7 @@ torch.set_num_threads(1)
 W, H, N_FEAT, N_FRAMES = 400, 300, 1000, 20
 SEQ = dict(n_frames=N_FRAMES, n_points=400, seed=5, step=0.05, with_depth=True)
 STEREO_FRAMES = 6
+STAGED_FRAMES = 8
 MONO_FRAMES = 14
 MONO_SEQ = dict(n_frames=MONO_FRAMES, n_points=500, seed=3, step=0.025, motion="sweep",
                 depth_range=(1.5, 4.0), spread=2.0)
@@ -139,20 +142,39 @@ def test_monocular_registers_initial_keyframes():
 
 @pytest.mark.parametrize("switch", ["ORB_TPU_STAGED_MAPPER", "ORB_DISTRIBUTED_GBA"])
 def test_routes_still_to_come_raise(switch, monkeypatch):
-    """With the vocabulary: the staged mapper route raises at the first
-    keyframe the mapper takes. Global BA sharded over the process group
-    (ORB_DISTRIBUTED_GBA=1) no longer raises: the System and its loop
-    closer build, and the closer takes the sharded route
-    (tests/test_torch_multihost.py runs it). (Asynchronous mapping no
-    longer raises: tests/test_torch_async_pipeline.py.)"""
+    """With the vocabulary, neither switch raises any more. The staged
+    mapper route (ORB_TPU_STAGED_MAPPER=1): the RGB-D sequence's first
+    STAGED_FRAMES frames track OK, their keyframes are mapped through
+    _create_new_points_staged (with at least one neighbour pair and new
+    points), and each goes into the database and through the loop closer.
+    Global BA sharded over the process group (ORB_DISTRIBUTED_GBA=1): the
+    System and its loop closer build, and the closer takes the sharded
+    route (tests/test_torch_multihost.py runs it). (Asynchronous mapping
+    no longer raises: tests/test_torch_async_pipeline.py.)"""
     monkeypatch.setenv(switch, "1")
     cfg = synthetic_config(width=W, height=H, n_features=N_FEAT, sensor="rgbd")
     if switch == "ORB_DISTRIBUTED_GBA":
         sys_ = System(cfg, async_mapping=False, device="cpu")
         assert sys_.loop_closer is not None and use_distributed_gba()
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, slice 2"):
-        System(cfg, async_mapping=False, device="cpu").mapper.process_keyframe(0)
+    images, _, _, depths = synthetic.render_sequence(cfg.camera, **SEQ)
+    sys_ = System(cfg, async_mapping=False, device="cpu")
+    staged, made = sys_.mapper._create_new_points_staged, []
+
+    def spy(kf):
+        before, pairs = sys_.map.next_pt, sys_.mapper._neighbor_pairs(kf)[1]
+        staged(kf)
+        made.append((len(pairs), sys_.map.next_pt - before))
+
+    monkeypatch.setattr(sys_.mapper, "_create_new_points_staged", spy)
+    for i in range(STAGED_FRAMES):
+        sys_.track_rgbd(images[i], depths[i], i / 30.0)
+        assert sys_.tracking_state() == TrackingState.OK, i
+    m, timings = sys_.map, sys_.timings()
+    assert len(made) == timings["local_mapping"]["count"] >= 2
+    assert any(pairs and n > 0 for pairs, n in made), made
+    np.testing.assert_array_equal(sys_.kf_database.present[:m.next_kf], m.kf_valid[:m.next_kf])
+    assert timings["loop_closing"]["count"] == len(made)
 
 
 def test_serialization_across_packages(rgbd_runs, tmp_path):
