@@ -145,6 +145,12 @@ Phases (any failure exits non-zero and prints no result line):
      launch counts reset just before and read just after it, and its
      result held against the same call on the CPU; the stereo matcher
      also on the card's own features and pyramids, on the card and the CPU;
+     the eight single-dispatch forms (slam/jit_frontend.py's `*_jit`, CUDA
+     graphs: phase_graphs), each captured once and replayed, every replay
+     bit for bit its eager call on the same inputs (the main ones and two
+     noisy frames), a held result unchanged by the next replay, launches
+     per replay equal to the eager call's; every System run logs its graph
+     captures, and no form has more than 2 graphs under one configuration;
      the System's sequences held to every frame OK, the ATE gate, at
      least 2 keyframes, points made by triangulation and a fuse pass, and
      the RGB-D sequence's first frames against the CPU's; the monocular
@@ -173,9 +179,9 @@ Phases (any failure exits non-zero and prints no result line):
      target plus the reverse pass, its map against the batched route's
      (equal or the first difference, logged); the native map core loaded,
      its three counts equal numpy's on that map. Every synchronous System sequence's runs in the
-     process (a warm-up, the counted run, a profiled run) are held to each
-     other bit for bit: trajectory entries, keyframes, keyframe poses,
-     point positions. The localization session held to
+     process (a warm-up, the counted run, a profiled run, and eager runs
+     and runs through the graphs in turns) are held to each other bit for
+     bit: trajectory entries, keyframes, keyframe poses, point positions. The localization session held to
      tests/test_localization_vo.py's gates (the map unchanged after every
      frame, no temporal point left, >= 8 frames tracked), a frame in VO,
      the ATE gate, K6 and K8 launched, its first 3 frames against the same
@@ -215,7 +221,10 @@ Phases (any failure exits non-zero and prints no result line):
      (the live driver with --sim, --listen fed over TCP by this process and
      --watch on a directory of PNGs; the AR demo; the synthetic monocular
      demo), exit 0 and its result line;
-  5. timing: throughput of each path by the bench recipe (the System's
+  5. timing: the step's and each pair's frames/s eager and replayed in
+     turns, with device busy time and idle share (and the Systems' frames/s
+     and the asynchronous tracker's ms a frame, eager and replayed, after
+     the Systems in phase 4); throughput of each path by the bench recipe (the System's
      frames/s over a sequence, after a warm-up sequence, with its stage
      times, initialization's and relocalization's among them, and, under
      torch.profiler, its keyframe frames and plain frames); per stage its
@@ -246,7 +255,9 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import logging
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -258,6 +269,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_leaves, tree_map
 
 try:
     from orb_slam2_commit_tpu_torch import interop
@@ -278,7 +290,7 @@ try:
     from orb_slam2_commit_tpu_torch.slam.tracking import Tracker
     from orb_slam2_commit_tpu_torch.examples import run_ar, run_dataset, run_live
     from orb_slam2_commit_tpu_torch.slam import ar
-    from orb_slam2_commit_tpu_torch.utils import mini_dataset, synthetic, trajectory
+    from orb_slam2_commit_tpu_torch.utils import cuda_graph, mini_dataset, synthetic, trajectory
     from orb_slam2_commit_tpu_torch.utils.png import read_png, write_png
     from orb_slam2_commit_tpu_torch.utils.profiling import device_trace
     from orb_slam2_commit_tpu_torch.utils.config import (
@@ -1322,14 +1334,15 @@ def check_same_canvas(what, image, config):
         raise AssertionError(f"{what}: keypoints differ by {d_xy} px")
 
 
-def check_features(what, card, cpu):
+def check_features(what, card, cpu, scale=1.2):
     """End to end, each device from the image: octaves and valid flags bit
     for bit, refined keypoints within XY_TOL, and at level 0 (the image
     itself) descriptors and responses bit for bit. Above level 0 the
     canvas comes from the pyramid's resize products, which the card's and
     the CPU's BLAS sum in different orders, so blurred values, responses
     and angles differ in the last bits and descriptor bits flip where two
-    samples tie (ROADMAP.md section 3); those differences are printed."""
+    samples tie (ROADMAP.md section 3); those differences are printed.
+    scale: the pyramid's scale factor."""
     for key in ("octave", "valid"):
         if not np.array_equal(card[key], cpu[key]):
             raise AssertionError(f"{what}: {key} differs between card and CPU")
@@ -1341,6 +1354,15 @@ def check_features(what, card, cpu):
         f"differ {int(desc.sum())} of {int(cpu['valid'].sum())} valid "
         f"(by level {by_level}); responses max|d| {d_resp:g}")
     if not d_xy <= XY_TOL:
+        # ROADMAP queue 3: once 7.32e-4 px in one process of many. The
+        # keypoint's level, and its subpixel offset on each device (its
+        # level coordinates less the nearest integer).
+        i = int(np.abs(card["xy"] - cpu["xy"]).max(axis=1).argmax())
+        lv = int(cpu["octave"][i])
+        offs = [(d["xy"][i] / scale ** lv - np.round(d["xy"][i] / scale ** lv)).tolist()
+                for d in (card, cpu)]
+        log(f"{what}: keypoint {i} at level {lv}: card xy {card['xy'][i].tolist()} offset "
+            f"{offs[0]}, cpu xy {cpu['xy'][i].tolist()} offset {offs[1]}")
         raise AssertionError(f"{what}: keypoints differ by {d_xy} px")
     if desc[lvl0].any() or not np.array_equal(card["response"][lvl0], cpu["response"][lvl0]):
         raise AssertionError(f"{what}: level-0 descriptors or responses differ")
@@ -1517,6 +1539,242 @@ def phase_pair(config, motion, cands):
 
 
 # ---------------------------------------------------------------------------
+# The single-dispatch forms (slam/jit_frontend.py's *_jit): CUDA graphs
+# ---------------------------------------------------------------------------
+
+# Each form -> its eager function, by name in jit_frontend.
+GRAPH_FORMS = ("tracking_forward_step", "fused_motion_track", "fused_stereo_motion_track",
+               "fused_rgbd_motion_track", "fused_motion_track_packed",
+               "fused_stereo_motion_track_packed", "fused_rgbd_motion_track_packed",
+               "fused_local_map_track")
+PACKED_FORM = {"monocular": "fused_motion_track_packed",
+               "stereo": "fused_stereo_motion_track_packed",
+               "rgbd": "fused_rgbd_motion_track_packed"}
+GRAPH_FPS_BLOCKS = 3
+# Graph captures of one form under one configuration in one System run: the
+# monocular motion stage sees twice the features after initialization.
+GRAPHS_PER_FORM = 2
+# The bytes the live graphs' pools held at the end of each System run
+# (run_system), before the System released its own.
+GRAPH_POOL_BYTES = []
+# Each kernel of the tracker's forms -> the CUDA function its launch runs
+# (csrc/), as torch.profiler names it. K2's launch also runs
+# cell_flag_kernel, which is not counted.
+KERNEL_SYMBOLS = {"level_preprocess": "level_kernel", "combine_nms": "combine_nms_kernel",
+                  "cell_topk_map": "cell_topk_kernel", "describe_patches": "describe_kernel",
+                  "projection_hamming_top2": "projection_top2_kernel",
+                  "stereo_band_top2": "stereo_band_top2_kernel", "pose_lm": "pose_lm_kernel"}
+
+
+@contextlib.contextmanager
+def eager_forms():
+    """The tracker's module references to the single-dispatch forms
+    pointed at their eager functions inside the block (an eager run to
+    compare with)."""
+    saved = {f"{n}_jit": getattr(jit_frontend, f"{n}_jit") for n in GRAPH_FORMS}
+    for n in GRAPH_FORMS:
+        setattr(jit_frontend, f"{n}_jit", getattr(jit_frontend, n))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(jit_frontend, n, fn)
+
+
+def run_pair_graphed(config, motion, cands):
+    """run_pair through the single-dispatch forms."""
+    out = getattr(jit_frontend, PACKED_FORM[config.sensor] + "_jit")(*motion, config)
+    feat_state, lm_meta = interop.local_map_args(out, motion[-3], LM_TH)
+    lm = jit_frontend.fused_local_map_track_jit(out[1], out[2], feat_state, *cands, lm_meta,
+                                                config)
+    return out, lm
+
+
+def same_bits(a, b):
+    """Two results (tensors or tuples of them) equal bit for bit, floats
+    included (compared as integers of their width, so NaNs compare too)."""
+    xs, ys = tree_leaves(a), tree_leaves(b)
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+    return len(xs) == len(ys) and all(
+        x.shape == y.shape and x.dtype == y.dtype
+        and torch.equal(x.view(ints.get(x.dtype, x.dtype)), y.view(ints.get(y.dtype, y.dtype)))
+        for x, y in zip(xs, ys))
+
+
+def graph_form_inputs(config, args, pairs):
+    """form name -> (config, [its arguments on the main path's inputs, then
+    on two noisy frames of phase_fps]); the local-map form on each
+    monocular motion result's features."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def noisy(image):
+        return [image] + [image + 0.5 * torch.randn(image.shape, generator=gen, device="cuda")
+                          for _ in range(2)]
+
+    forms = {"tracking_forward_step": (config, [(im,) + tuple(args[1:])
+                                                for im in noisy(args[0])])}
+    for sensor, (cfg, motion, cands) in pairs.items():
+        n_img = 1 if sensor == "monocular" else 2
+        pt_f32, pt_desc, meta = motion[n_img:]
+        pt_pos, pt_oct, pt_ang, pt_val, R, t, tz = jit_frontend._unpack_inputs(pt_f32, meta)
+        tail = (pt_pos, pt_desc, pt_oct, pt_ang, pt_val, R, t) + (
+            (tz,) if sensor != "monocular" else ())
+        packed = [(im,) + motion[1:] for im in noisy(motion[0])]
+        forms[PACKED_FORM[sensor]] = (cfg, packed)
+        forms[PACKED_FORM[sensor].replace("_packed", "")] = (
+            cfg, [p[:n_img] + tail for p in packed])
+        if sensor == "monocular":
+            lm = []
+            for p in packed:
+                out = jit_frontend.fused_motion_track_packed(*p, cfg)
+                feat_state, lm_meta = interop.local_map_args(out, pt_f32, LM_TH)
+                lm.append((out[1], out[2], feat_state) + tuple(cands) + (lm_meta,))
+            forms["fused_local_map_track"] = (cfg, lm)
+    return forms
+
+
+def phase_graphs(config, args, pairs):
+    """Each single-dispatch form at full width: the first call captures its
+    graph and later calls only replay it; a replay's every output equal bit
+    for bit to the eager call's on the same inputs, and its launches per
+    kernel the eager call's; two replays on two noisy frames each equal to
+    its own eager call, the first one's result unchanged after the second;
+    a call given the graph's own input buffers equal too. It starts and
+    ends with no graph held, so each form's first call captures."""
+    cuda_graph.release()
+    for name, (cfg, calls) in graph_form_inputs(config, args, pairs).items():
+        jit, eager = getattr(jit_frontend, f"{name}_jit"), getattr(jit_frontend, name)
+        keys, caps = set(cuda_graph.graphs), cuda_graph.n_captures()
+        jit(*calls[0], cfg)
+        new = [g for k, g in cuda_graph.graphs.items() if k not in keys]
+        if len(new) != 1 or new[0].replays != 1:
+            raise AssertionError(f"{name}_jit: the first call made {len(new)} captures")
+        g = new[0]
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        want = eager(*calls[0], cfg)
+        torch.cuda.synchronize()
+        eager_counts = {k: v for k, v in _build.launches.items() if v}
+        _build.reset_launches()
+        got = jit(*calls[0], cfg)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in _build.launches.items() if v}
+        if counts != eager_counts:
+            raise AssertionError(f"{name}_jit: a replay launched {counts}, the eager call "
+                                 f"{eager_counts}")
+        if not same_bits(got, want):
+            raise AssertionError(f"{name}_jit: the replay differs from the eager call")
+        first = jit(*calls[1], cfg)
+        held = tree_map(torch.clone, first)
+        second = jit(*calls[2], cfg)
+        wants = [eager(*c, cfg) for c in calls[1:]]
+        torch.cuda.synchronize()
+        if not (same_bits(first, wants[0]) and same_bits(second, wants[1])):
+            raise AssertionError(f"{name}_jit: a replay on a noisy frame differs from its "
+                                 f"eager call")
+        if not same_bits(first, held):
+            raise AssertionError(f"{name}_jit: a held result changed at the next replay")
+        for buf, a in zip(g.inputs, calls[1]):
+            buf.copy_(a)
+        own = jit(*g.inputs, cfg)
+        torch.cuda.synchronize()
+        if not same_bits(own, wants[0]):
+            raise AssertionError(f"{name}_jit: a call on the graph's own inputs differs")
+        if cuda_graph.n_captures() - caps != 1 or g.replays != 5:
+            raise AssertionError(f"{name}_jit: {cuda_graph.n_captures() - caps} captures, "
+                                 f"{g.replays} replays of 5 calls")
+        log(f"{name}_jit: captured once, 5 replays, each bit for bit its eager call's "
+            f"(a held result unchanged); launches per replay {counts}; graph pool "
+            f"{g.pool_bytes} bytes")
+    cuda_graph.release()
+
+
+def phase_graph_timing(config, args, pairs, power):
+    """Eager against replayed, in turns (eager, graphs, graphs, eager) in
+    this process: the step's and each pair's frames/s by phase_fps's
+    recipe (GRAPH_FPS_BLOCKS blocks), and each one's device busy time and
+    idle share under torch.profiler (profiled_calls: it sees the kernels
+    of a replayed graph). The profiled calls' kernels, counted by name,
+    equal the launches the calls added (for the graphs: what their replays
+    added, the tallies recorded at capture; counted_profile)."""
+    image, pt_pos, pt_desc, pt_octave, pt_angle, pt_valid, R, t = args
+    paths = {"tracking step": (lambda step: lambda im, fb: step(
+        im, pt_pos, pt_desc, pt_octave, pt_angle, pt_valid, R, t + 0.0 * fb,
+        config).n_inliers, (tracking_forward_step, jit_frontend.tracking_forward_step_jit),
+        image, lambda step: lambda: step(*args, config))}
+    for sensor, (cfg, motion, cands) in pairs.items():
+        def make(pair, cfg=cfg, motion=motion, cands=cands):
+            return lambda im, fb: pair(cfg, (im,) + motion[1:-1] + (motion[-1] + 0.0 * fb,),
+                                       cands)[1][0][12]
+
+        def once(pair, cfg=cfg, motion=motion, cands=cands):
+            return lambda: pair(cfg, motion, cands)
+        paths[PATH[sensor]] = (make, (run_pair, run_pair_graphed), motion[0], once)
+    for what, (make, (eager, graphed), image, once) in paths.items():
+        rows = {"eager": [], "graphs": []}
+        for kind in ("eager", "graphs", "graphs", "eager"):
+            fn = eager if kind == "eager" else graphed
+            fps = phase_fps(f"{what} ({kind})", make(fn), image, power, GRAPH_FPS_BLOCKS)
+            once(fn)()
+            rows[kind].append((fps,) + counted_profile(f"{what} ({kind})", once(fn)))
+        log(f"{what}, eager against graphs in turns: " + "; ".join(
+            f"{kind} frames/s {[round(r[0], 2) for r in rs]}, wall ms "
+            f"{[round(r[1], 3) for r in rs]}, device busy ms {[round(r[2], 3) for r in rs]}, "
+            f"idle share {[round(1.0 - r[2] / r[1], 4) for r in rs]}, device operations "
+            f"{[round(r[3]) for r in rs]}" for kind, rs in rows.items())
+            + f", on {power}")
+    cuda_graph.release()
+
+
+def counted_profile(what, fn, sessions=5):
+    """PROFILE_CALLS calls of fn under torch.profiler -> (wall ms, device
+    busy ms, device operations), each per call, from the device records
+    inside the calls' window (a record_function range), after one call in
+    the session outside it (late in a long process the profiler can drop
+    a session's first device records: traced_calls). The window's kernels
+    of the tracker's forms, counted by their CUDA function's name
+    (KERNEL_SYMBOLS), equal the launches its calls added. More kernels
+    than launches, or a launch of another kernel, fails at once; fewer is
+    taken again, up to `sessions` sessions, and fails after the last."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for i in range(sessions):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+            before = dict(_build.launches)
+            with record_function("counted calls"):
+                t0 = time.perf_counter()
+                for _ in range(PROFILE_CALLS):
+                    fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) / PROFILE_CALLS * 1e3
+        launches = {k: v - before[k] for k, v in _build.launches.items() if v > before[k]}
+        events = prof.events()
+        (window,) = [e.time_range for e in events
+                     if e.name == "counted calls" and e.device_type == DeviceType.CPU]
+        ops = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.name != "counted calls"
+               and window.start <= e.time_range.start <= window.end]
+        seen = {k: sum(1 for e in ops if re.search(rf"\b{sym}\b", e.name))
+                for k, sym in KERNEL_SYMBOLS.items()}
+        counted = {k: launches.get(k, 0) for k in KERNEL_SYMBOLS}
+        if set(launches) - set(KERNEL_SYMBOLS) or any(seen[k] > counted[k] for k in seen):
+            raise AssertionError(f"{what}: the profiler saw kernels {seen}, the launch counts "
+                                 f"say {launches}")
+        if seen == counted and any(seen.values()):
+            log(f"{what}: the profiled kernels by name equal the launches counted, "
+                f"{ {k: v for k, v in seen.items() if v} } (session {i + 1})")
+            busy = sum(e.time_range.elapsed_us() for e in ops) / 1e3
+            return wall, busy / PROFILE_CALLS, len(ops) / PROFILE_CALLS
+        log(f"{what}: session {i + 1} of the profiler saw kernels {seen} of {counted}")
+    raise AssertionError(f"{what}: in {sessions} profiler sessions the kernels seen never "
+                         f"equalled the launches counted")
+
+
+# ---------------------------------------------------------------------------
 # The System: RGB-D and stereo sequences with synchronous local mapping
 # ---------------------------------------------------------------------------
 
@@ -1600,6 +1858,7 @@ def run_system(seq, device="cuda", n_frames=SYSTEM_FRAMES, around=None, vocabula
         def track(i):
             return entry(first[i], second[i], i / config.camera.fps)
     states, poses = [], []
+    keys, caps = set(cuda_graph.graphs), cuda_graph.n_captures()
     t0 = time.perf_counter()
     for i in range(first_frame, first_frame + n_frames):
         t1 = time.perf_counter()
@@ -1608,6 +1867,7 @@ def run_system(seq, device="cuda", n_frames=SYSTEM_FRAMES, around=None, vocabula
         if track_s is not None:
             track_s.append(time.perf_counter() - t1)
         states.append(sys_.tracking_state().name)
+    check_system_graphs(sys_, keys, caps)
     sys_.shutdown()
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
@@ -1872,6 +2132,71 @@ def phase_system(seqs, power):
     return counts, batched_counts
 
 
+def phase_graph_systems(seqs, power, errs):
+    """The synchronous RGB-D and stereo Systems and the asynchronous RGB-D
+    System, eager (the tracker's forms pointed at the eager functions)
+    and through the graphs, in turns (eager, graphs, graphs, eager): each
+    synchronous eager run bit-identical to the graph runs of its
+    sequence (check_same_bits); frames/s, and the asynchronous tracker
+    thread's ms a frame. The first eager runs of the synchronous Systems
+    record the kernels' calls (DATASET_RECORDED: the tracker's calls are
+    wrapper calls there, not replays), each held against its plain
+    version (phase_dataset_kernels; errs updated)."""
+    rows, recorded = {}, {}
+    for turn, kind in enumerate(("eager", "graphs", "graphs", "eager")):
+        with eager_forms() if kind == "eager" else contextlib.nullcontext():
+            for sensor, seq in seqs.items():
+                calls = {k: [] for k in DATASET_RECORDED}
+                with contextlib.ExitStack() as stack:
+                    if turn == 0:
+                        for k, (module, _) in DATASET_RECORDED.items():
+                            stack.enter_context(recording(module, k, calls[k]))
+                    sys_, _, _, seconds = run_system(seq, vocabulary="default")
+                if turn == 0:
+                    # The first two calls of each kernel and the last two
+                    # (the tracker's forms on OK frames); K8's as kept_calls
+                    # keeps them.
+                    recorded[f"eager {system_name(sensor)}"] = (seq[0], kept_calls({
+                        k: c if k == "pose_lm" or len(c) <= 4 else c[:2] + c[-2:]
+                        for k, c in calls.items()}))
+                remember(system_name(sensor), kind, sys_)
+                rows.setdefault((system_name(sensor), kind), []).append(
+                    round(SYSTEM_FRAMES / seconds, 2))
+            track_s = []
+            _, _, _, seconds = run_system(seqs["rgbd"], vocabulary="default",
+                                          async_mapping=True, track_s=track_s)
+            rows.setdefault(("asynchronous System RGB-D", kind), []).append(
+                (round(SYSTEM_FRAMES / seconds, 2), round(1e3 * float(np.mean(track_s)), 3)))
+    for sensor in seqs:
+        check_same_bits(system_name(sensor))
+    phase_dataset_kernels(recorded, errs)
+    log("Systems, eager against graphs in turns (frames/s; asynchronous: (frames/s, the "
+        "tracker thread's mean ms a frame)): " + "; ".join(
+            f"{what} {kind} {v}" for (what, kind), v in rows.items()) + f", on {power}")
+
+
+def check_system_graphs(sys_, keys, caps):
+    """A System run's CUDA graphs, before its shutdown releases them: the
+    captures since `caps` logged, and the graphs not among `keys` held to
+    GRAPHS_PER_FORM a form and configuration; the bytes every live graph's
+    pool holds are logged and kept (GRAPH_POOL_BYTES)."""
+    by = {}
+    for k, g in cuda_graph.graphs.items():
+        if k not in keys:
+            by.setdefault((k[0].__name__, k[1]), []).append(g)
+    held = sum(g.pool_bytes for g in cuda_graph.graphs.values())
+    GRAPH_POOL_BYTES.append(held)
+    cam = sys_.config.camera
+    log(f"System {sys_.config.sensor} {cam.width}x{cam.height}, "
+        f"{sys_.config.orb.n_features} features: {cuda_graph.n_captures() - caps} CUDA graph "
+        f"captures; graphs by form {[(n, len(gs)) for (n, _), gs in by.items()]}; "
+        f"{len(cuda_graph.graphs)} graphs' pools hold {held} bytes")
+    over = [n for (n, _), gs in by.items() if len(gs) > GRAPHS_PER_FORM]
+    if over:
+        raise AssertionError(f"more than {GRAPHS_PER_FORM} graphs of {over} under one "
+                             f"configuration in one System run")
+
+
 # ---------------------------------------------------------------------------
 # The JAX package's other routes: per-level extraction, the staged mapper and
 # the native map core
@@ -2074,8 +2399,11 @@ def phase_staged_mapper(seq, power):
                 recording(kmatching, "projection_hamming_top2", k6_calls):
             torch.cuda.synchronize()
             _build.reset_launches()
+            replayed = dict(cuda_graph.replayed_launches)
             sys_, states, poses, seconds = run_system(seq, vocabulary="default")
             counts = dict(_build.launches)
+            in_graphs = {k: v - replayed.get(k, 0)
+                         for k, v in cuda_graph.replayed_launches.items()}
     finally:
         LocalMapper._create_new_points_staged, LocalMapper._fuse_neighbors = tri, fuse
     log(f"{what} launches: {counts}; of them with a batch axis: {batched}")
@@ -2097,9 +2425,12 @@ def phase_staged_mapper(seq, power):
              kmatching.epipolar_hamming_top2_plain, (0, 1)),
             ("K6 projection_hamming_top2", k6_calls, kmatching.projection_hamming_top2,
              kmatching.projection_hamming_top2_plain, (1, 6))):
-        if len(calls) < counts[kernel.__name__]:
+        # The tracker's launches of K6 come from its graphs' replays, not
+        # from calls of the wrapper.
+        called = counts[kernel.__name__] - in_graphs.get(kernel.__name__, 0)
+        if len(calls) < called:
             raise AssertionError(f"{what}: {len(calls)} calls of {name} recorded for "
-                                 f"{counts[kernel.__name__]} launches")
+                                 f"{called} launches outside the tracker's graphs")
         n, hit, rows = check_recorded(name, calls, kernel, plain)
         shapes = sorted({tuple(a[i].shape[-2] for i in cols) for a, _ in calls})
         log(f"{name} on the staged run's {n} calls (rows x columns {shapes}): exact against "
@@ -4457,10 +4788,11 @@ def phase_map_scale(power, device="cuda"):
 # Phase 5: timing
 # ---------------------------------------------------------------------------
 
-def phase_fps(name, step, image, power):
+def phase_fps(name, step, image, power, blocks=5):
     """Frames/s by bench.py's recipe: 8 distinct noisy frames, frame i fed
     frame i-2's inlier count, a value fetch ending each block of 64, best
-    of 5 blocks. step(image, fb) -> the call's inlier count (a tensor)."""
+    of `blocks` blocks. step(image, fb) -> the call's inlier count (a
+    tensor). -> the best block's frames/s."""
     gen = torch.Generator(device=image.device).manual_seed(0)
     images = [image + 0.5 * torch.randn(image.shape, generator=gen,
                                         device=image.device)
@@ -4470,7 +4802,7 @@ def phase_fps(name, step, image, power):
         fb2, fb1 = fb1, step(images[i % 8], fb2).to(torch.float32)
     _ = float(fb1) + float(fb2)
     fps_blocks = []
-    for _ in range(5):
+    for _ in range(blocks):
         t0 = time.perf_counter()
         for i in range(64):
             fb2, fb1 = fb1, step(images[i % 8], fb2).to(torch.float32)
@@ -4479,7 +4811,8 @@ def phase_fps(name, step, image, power):
         if not final >= 0:
             raise AssertionError("bad inlier chain")
     log(f"{name} {WIDTH}x{HEIGHT}/{N_FEATURES} feat: {max(fps_blocks):.2f} frames/s "
-        f"best of 5x64 (blocks {[round(f, 2) for f in fps_blocks]}) on {power}")
+        f"best of {blocks}x64 (blocks {[round(f, 2) for f in fps_blocks]}) on {power}")
+    return max(fps_blocks)
 
 
 def time_stages(name, stages, power, reps=10):
@@ -5032,6 +5365,14 @@ def phase_kernel_timing(x, dx, errs, counts, batched, power):
 
 
 def main() -> int:
+    # Each capture of a CUDA graph, and each System's captures and released
+    # graphs at its shutdown, logged by the package.
+    handler = logging.StreamHandler(sys.stdout)
+    handler.setFormatter(logging.Formatter("%(name)s: %(message)s"))
+    for logger in ("orb_slam2_commit_tpu_torch.utils.cuda_graph",
+                   "orb_slam2_commit_tpu_torch.slam.system"):
+        logging.getLogger(logger).addHandler(handler)
+        logging.getLogger(logger).setLevel(logging.INFO)
     name, count, power = phase_device()
     phase_build()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_datasets_") as data_root:
@@ -5088,8 +5429,12 @@ def run_phases(power, data_root):
     counts = {sensor: phase_pair(*pair) for sensor, pair in pairs.items()}
     phase_step(config, args)
     done("pairs and step")
+    phase_graphs(config, args, pairs)
+    done("graphs")
     system_counts, system_batched = phase_system(seqs, power)
     done("Systems")
+    phase_graph_systems(seqs, power, errs)
+    done("Systems, eager against graphs")
     level_counts, x["level_k1"], x["level_k4"] = phase_per_level(args[0], config, power)
     staged_counts, staged_sys = phase_staged_mapper(seqs["rgbd"], power)
     phase_native_core(staged_sys, power)
@@ -5116,6 +5461,7 @@ def run_phases(power, data_root):
     for sensor in ("stereo", "rgbd"):
         phase_sensor_timing(*pairs[sensor], x, power)
     phase_async_timing(seqs["rgbd"], power)
+    phase_graph_timing(config, args, pairs, power)
     done("timing")
     # Launches per call: K1-K6 and K8 on the monocular pair (their timed
     # inputs), K7's band form on the stereo pair, K7 under a caller's mask,
@@ -5159,6 +5505,10 @@ def run_phases(power, data_root):
         log(f"launches over the online phase's {path}: " + ", ".join(
             f"{k} {v}" for k, v in c.items() if v))
 
+    log(f"CUDA graphs: {cuda_graph.n_captures()} captured, {cuda_graph.n_replays()} replays in "
+        f"the whole run; the live graphs' pools held at most {max(GRAPH_POOL_BYTES)} bytes at "
+        f"a System run's end; {len(cuda_graph.graphs)} graphs left, holding "
+        f"{sum(g.pool_bytes for g in cuda_graph.graphs.values())} bytes")
     log(json.dumps({"kernels": kernels}))
 
 

@@ -14,13 +14,18 @@ are loaded with ctypes: pointers and the CUDA stream travel as
 `launches` counts, per kernel wrapper, the calls that launched the
 kernel on the card (plain-version calls on CPU tensors are not counted);
 a wrapper counts through `count_launch`, under a lock, since an
-asynchronous System launches from several threads. Building and loading a
-library take a lock too: two threads that first need one library would
-otherwise both run nvcc into the same temporary file.
+asynchronous System launches from several threads. While a thread
+captures a CUDA graph (utils/cuda_graph.py), its wrappers enqueue nothing
+to run: `recorded_launches` sends that thread's counts to the capture's
+own tally, and each replay of the graph adds the tally (`add_launches`).
+Building and loading a library take a lock too: two threads that first
+need one library would otherwise both run nvcc into the same temporary
+file.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -124,12 +129,38 @@ launches: Dict[str, int] = {
 _libraries: Dict[str, ctypes.CDLL] = {}
 _launch_lock = threading.Lock()
 _build_lock = threading.RLock()
+_recording = threading.local()
 
 
 def count_launch(name: str) -> None:
-    """launches[name] += 1, for a launch of the kernel on the card."""
+    """launches[name] += 1, for a launch of the kernel on the card (or
+    into this thread's tally, inside `recorded_launches`)."""
+    tally = getattr(_recording, "tally", None)
+    if tally is not None:
+        tally[name] = tally.get(name, 0) + 1
+        return
     with _launch_lock:
         launches[name] += 1
+
+
+def add_launches(tally: Dict[str, int]) -> None:
+    """launches[name] += tally[name] for each name, under the lock."""
+    with _launch_lock:
+        for name, n in tally.items():
+            launches[name] += n
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """Inside the block, this thread's launches are counted into the
+    yielded dict {kernel: launches} and not into `launches`; other
+    threads count as before."""
+    prev = getattr(_recording, "tally", None)
+    _recording.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _recording.tally = prev
 
 
 def reset_launches() -> None:

@@ -64,8 +64,7 @@ def level_preprocess_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of K1 on the padded image."""
     blur = pyramid.separable_blur(padded, hp, wp)
-    _, hi = fast.fast_scores_padded(padded, hp, wp, th_hi)
-    _, lo = fast.fast_scores_padded(padded, hp, wp, th_lo)
+    (_, hi), (_, lo) = fast.fast_scores_multi(padded, hp, wp, (th_hi, th_lo))
     return blur, hi, lo
 
 

@@ -473,27 +473,32 @@ class MapState:
         # Representative descriptor: min median Hamming distance to the
         # other observations (oracle: MapPoint::ComputeDistinctiveDescriptors,
         # src/MapPoint.cc:249-320). Observations are sorted by point once
-        # and processed as contiguous group slices — a per-point `pt == pid`
-        # scan is O(points x observations) and was the dominant mapper
-        # cost past ~150 keyframes.
+        # into contiguous groups, and the groups of one size are processed
+        # together (a [G, n, n] distance block a chunk) — a per-point
+        # `pt == pid` scan is O(points x observations) and was the dominant
+        # mapper cost past ~150 keyframes. Each row's median and the first
+        # argmin are numpy's, as for one group at a time.
         desc_obs = self.kf_desc[kf_of_obs, feat_of_obs]  # [M, 8] uint32
         grp_order = np.argsort(pt, kind="stable")
         pt_sorted = pt[grp_order]
         desc_sorted = desc_obs[grp_order]
         starts = np.r_[0, np.where(np.diff(pt_sorted) != 0)[0] + 1,
                        pt_sorted.size]
-        for gi in range(starts.size - 1):
-            a, b = starts[gi], starts[gi + 1]
-            pid = pt_sorted[a]
-            grp = desc_sorted[a:b]
-            if grp.shape[0] == 1:
-                self.pt_desc[pid] = grp[0]
-                continue
-            x = grp[:, None, :] ^ grp[None, :, :]
-            d = np.unpackbits(
-                x.view(np.uint8).reshape(grp.shape[0], grp.shape[0], 32), axis=-1
-            ).sum(-1)
-            self.pt_desc[pid] = grp[int(np.argmin(np.median(d, axis=1)))]
+        sizes, heads = np.diff(starts), starts[:-1]
+        for n in np.unique(sizes):
+            groups = heads[sizes == n]
+            step = max(1, (1 << 16) // (n * n))
+            for c in range(0, groups.size, step):
+                first = groups[c:c + step]
+                grp = desc_sorted[first[:, None] + np.arange(n)]   # [G, n, 8]
+                best = np.zeros(first.size, np.int64)
+                if n > 1:
+                    x = grp[:, :, None, :] ^ grp[:, None, :, :]
+                    d = np.unpackbits(
+                        x.view(np.uint8).reshape(first.size, n, n, 32), axis=-1
+                    ).sum(-1)
+                    best = np.argmin(np.median(d, axis=2), axis=1)
+                self.pt_desc[pt_sorted[first]] = grp[np.arange(first.size), best]
 
     def n_keyframes(self) -> int:
         return int(self.kf_valid.sum())

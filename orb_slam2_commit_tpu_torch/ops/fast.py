@@ -91,6 +91,67 @@ def fast_scores_padded(
          - center for dy, dx in CIRCLE_OFFSETS), threshold)
 
 
+# The compass points of the circle (CIRCLE_OFFSETS indices): any run of
+# ARC_LENGTH >= 9 consecutive circle pixels holds at least two of them.
+COMPASS = (0, 4, 8, 12)
+
+
+def _has_arc_stack(mask: torch.Tensor) -> torch.Tensor:
+    """_has_arc on a [16, N] bool stack in CIRCLE_OFFSETS order -> [N]."""
+    m = torch.cat([mask, mask[:ARC_LENGTH - 1]])
+    r = m[:-1] & m[1:]        # run >= 2
+    r = r[:-2] & r[2:]        # run >= 4
+    r = r[:-4] & r[4:]        # run >= 8
+    r = r[:16] & m[8:24]      # run >= 9, from each start
+    for half in (8, 4, 2, 1):
+        r = r[:half] | r[half:]
+    return r[0]
+
+
+def fast_scores_multi(
+    padded: torch.Tensor, out_h: int, out_w: int, thresholds: Tuple[float, ...]
+) -> Tuple[Tuple[torch.Tensor, torch.Tensor], ...]:
+    """fast_scores_padded at each threshold, bit for bit. On a CUDA tensor
+    it is that function (no host sync, so it can be captured in a CUDA
+    graph); on the CPU the segment test and the V-score run only at the
+    candidate pixels: those where at least two compass points pass the
+    lowest threshold in one direction (a corner at any of the thresholds
+    is one), each score summed in the same order from the same
+    differences."""
+    if padded.device.type != "cpu":
+        return tuple(fast_scores_padded(padded, out_h, out_w, t) for t in thresholds)
+    padded = padded.contiguous()
+    pw = padded.shape[1]
+    t0 = min(thresholds)
+    center = padded[3 : 3 + out_h, 3 : 3 + out_w]
+    n_bright = n_dark = 0
+    for i in COMPASS:
+        dy, dx = (int(v) for v in CIRCLE_OFFSETS[i])
+        di = padded[3 + dy : 3 + dy + out_h, 3 + dx : 3 + dx + out_w] - center
+        n_bright = n_bright + (di > t0).to(torch.uint8)
+        n_dark = n_dark + (di < -t0).to(torch.uint8)
+    idx = ((n_bright >= 2) | (n_dark >= 2)).reshape(-1).nonzero().squeeze(1)
+    at = (idx // out_w + 3) * pw + idx % out_w + 3
+    flat = padded.reshape(-1)
+    offsets = torch.as_tensor(CIRCLE_OFFSETS[:, 0] * pw + CIRCLE_OFFSETS[:, 1],
+                              dtype=torch.int64)
+    d = flat[at[None] + offsets[:, None]] - flat[at][None]
+    out = []
+    for t in thresholds:
+        is_corner = _has_arc_stack(d > t) | _has_arc_stack(d < -t)
+        sb, sd = torch.clamp_min(d - t, 0.0), torch.clamp_min(-d - t, 0.0)
+        bright, dark = sb[0].clone(), sd[0].clone()
+        for i in range(1, 16):
+            bright += sb[i]
+            dark += sd[i]
+        corner = torch.zeros(out_h * out_w, dtype=torch.bool)
+        score = torch.zeros(out_h * out_w, dtype=padded.dtype)
+        corner[idx] = is_corner
+        score[idx] = torch.where(is_corner, torch.maximum(bright, dark), 0.0)
+        out.append((corner.reshape(out_h, out_w), score.reshape(out_h, out_w)))
+    return tuple(out)
+
+
 def fast_score_map(
     image: torch.Tensor, threshold: float
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -144,6 +205,11 @@ def two_threshold_score_maps(
     """Dense FAST score maps of image[H, W] at both thresholds (no fallback
     or NMS yet), sharing one 16-map circle stack: the gather route's
     counterpart of the level kernel's (score_hi, score_lo)."""
+    if image.device.type == "cpu":
+        h, w = image.shape
+        padded = F.pad(image[None, None], (3, 3, 3, 3), mode="reflect")[0, 0]
+        (_, hi), (_, lo) = fast_scores_multi(padded, h, w, (ini_threshold, min_threshold))
+        return hi, lo
     d = _circle_stack(image) - image[None]
     return _score_from_diffs(d, ini_threshold)[1], _score_from_diffs(d, min_threshold)[1]
 
@@ -168,11 +234,30 @@ def combine_two_threshold(
 
 
 def topk_iterative(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k along the last axis by k rounds of (max, lowest index
-    attaining it, mask to -inf): values descending, ties to the lowest
-    index, as lax.top_k. The index is taken explicitly as a minimum, since
-    neither torch.topk nor torch.argmax promises lowest-index ties on
-    every device."""
+    """Exact top-k along the last axis, as k rounds of (max, lowest index
+    attaining it, mask to -inf) give it (topk_rounds): values descending,
+    ties to the lowest index, as lax.top_k. The index is taken explicitly
+    as a minimum, since neither torch.topk nor torch.argmax promises
+    lowest-index ties on every device. On the CPU with every entry finite
+    and no -0.0 the same result comes from torch.topk's values: every
+    entry above the k-th value, then the lowest-index entries equal to it,
+    ordered by value (stable, so ties stay in index order)."""
+    n = x.shape[-1]
+    if x.device.type == "cpu" and 1 <= k <= n and x.numel() and bool(
+            (torch.isfinite(x) & ~((x == 0) & torch.signbit(x))).all()):
+        rows = x.reshape(-1, n)
+        kth = torch.topk(rows, k, dim=-1).values[:, -1:]
+        above, tied = rows > kth, rows == kth
+        keep = above | (tied & (torch.cumsum(tied, dim=-1) <= k - above.sum(-1, keepdim=True)))
+        picked = keep.nonzero()[:, 1].reshape(-1, k)
+        vals, order = torch.sort(rows.gather(1, picked), dim=-1, descending=True, stable=True)
+        return (vals.reshape(x.shape[:-1] + (k,)),
+                picked.gather(1, order).to(torch.int32).reshape(x.shape[:-1] + (k,)))
+    return topk_rounds(x, k)
+
+
+def topk_rounds(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """topk_iterative by its k rounds, on any device and any entries."""
     n = x.shape[-1]
     idx = torch.arange(n, dtype=torch.int64, device=x.device)
     vals, args = [], []

@@ -15,6 +15,9 @@ update is masked. An iteration runs its arithmetic always and keeps the
 result only while the loop would still be running
 (`~converged & lam < 1e8`), so a state that has stopped stays exactly as
 the early-exit loop leaves it; a skipped round keeps its input state.
+On CPU tensors, where a host read costs nothing, the loop stops and the
+round is skipped as soon as every later update would be masked out: the
+same results, without the work.
 """
 
 from __future__ import annotations
@@ -61,6 +64,12 @@ def _eval(R, t, points, obs, cam_params, use_robust, active):
     return e, w, chi2, J_pose, z
 
 
+def stops_early(t: torch.Tensor) -> bool:
+    """Whether the loops read their stop conditions on the host: on CPU
+    tensors (no device to wait for)."""
+    return t.device.type == "cpu"
+
+
 def _lm_rounds(R0, t0, points, obs, cam_params, active, use_robust, n_iters):
     """n_iters of Levenberg-Marquardt on the 6-dof pose -> (R, t, settled)."""
     delta2 = torch.where(obs.is_stereo, CHI2_STEREO, CHI2_MONO).to(points.dtype)
@@ -78,8 +87,11 @@ def _lm_rounds(R0, t0, points, obs, cam_params, active, use_robust, n_iters):
     lam = torch.full((), 1e-3, dtype=R0.dtype, device=R0.device)
     e, w, J, cost = full_eval(R, t)
     converged = torch.zeros((), dtype=torch.bool, device=R0.device)
+    early = stops_early(R0)
     for _ in range(n_iters):
         running = ~converged & (lam < 1e8)
+        if early and not bool(running):
+            break
         # H = sum J^T diag(w) J; b = sum J^T diag(w) e.
         Jw = J * w[..., None]                        # [O, 3, 6]
         H = torch.einsum("ora,orb->ab", Jw, J)
@@ -170,6 +182,8 @@ def pose_optimization_plain(
         # starting pose already settled changes nothing: keep its input.
         active = inliers
         skip = settled & torch.all(active == prev_active)
+        if stops_early(R0) and bool(skip):
+            continue
         R_n, t_n, inl_n, settled_n = run_round(rnd, R, t, active)
         R = torch.where(skip, R, R_n)
         t = torch.where(skip, t, t_n)

@@ -17,10 +17,17 @@ src/Tracking.cc:275-587):
 
 Every function runs on the device of its inputs and never waits for the
 device inside: every count it returns is a tensor.
+
+Each of the eight has a single-dispatch form, named as the JAX package's
+jitted one (`*_jit`, the same arguments in the same order): on the card
+one replay of a CUDA graph captured at the first call for its key
+(utils/cuda_graph.py), on CPU tensors the eager function. The System's
+tracker calls the packed forms and `fused_local_map_track_jit`.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -32,6 +39,7 @@ from orb_slam2_commit_tpu_torch.ops import stereo as stereo_ops
 from orb_slam2_commit_tpu_torch.optim import pose_opt
 from orb_slam2_commit_tpu_torch.optim.residuals import BAObservations
 from orb_slam2_commit_tpu_torch.slam import matchers
+from orb_slam2_commit_tpu_torch.utils import cuda_graph
 from orb_slam2_commit_tpu_torch.utils.config import SLAMConfig
 from orb_slam2_commit_tpu_torch.utils.device_cache import device_table
 
@@ -468,3 +476,70 @@ def fused_local_map_track(
     ])
     perfeat = torch.stack([binding.to(f32), res.inliers.to(f32)], dim=1)
     return meta_out, perfeat, info.visible.to(f32)
+
+
+# ---------------------------------------------------------------------------
+# The single-dispatch forms (the JAX package's *_jit): one CUDA graph replay
+# a call on the card, the eager function on the CPU.
+# ---------------------------------------------------------------------------
+
+def routes() -> tuple:
+    """The extraction routes, read at call time (ops/extractor.py,
+    ops/descriptors.py) and so fixed in a graph at its capture: part of
+    each form's key."""
+    return ext.use_packed_route(), os.environ.get("ORB_TPU_FORCE_PATCHES")
+
+
+def _graphed(fn, args, config: SLAMConfig):
+    """fn(*args, config) through utils/cuda_graph.call."""
+    return cuda_graph.call(fn, args, config, static=routes())
+
+
+def tracking_forward_step_jit(image, pt_pos, pt_desc, pt_octave, pt_angle, pt_valid,
+                              R_pred, t_pred, config: SLAMConfig) -> TrackStepResult:
+    return _graphed(tracking_forward_step, (
+        image, pt_pos, pt_desc, pt_octave, pt_angle, pt_valid, R_pred, t_pred), config)
+
+
+def fused_motion_track_jit(image, pt_pos, pt_desc, pt_octave, pt_angle, pt_valid,
+                           R_pred, t_pred, config: SLAMConfig) -> FusedMotionResult:
+    return _graphed(fused_motion_track, (
+        image, pt_pos, pt_desc, pt_octave, pt_angle, pt_valid, R_pred, t_pred), config)
+
+
+def fused_stereo_motion_track_jit(image_l, image_r, pt_pos, pt_desc, pt_octave, pt_angle,
+                                  pt_valid, R_pred, t_pred, tz_rel,
+                                  config: SLAMConfig) -> FusedMotionResult:
+    return _graphed(fused_stereo_motion_track, (
+        image_l, image_r, pt_pos, pt_desc, pt_octave, pt_angle, pt_valid, R_pred, t_pred,
+        tz_rel), config)
+
+
+def fused_rgbd_motion_track_jit(image, depth_image, pt_pos, pt_desc, pt_octave, pt_angle,
+                                pt_valid, R_pred, t_pred, tz_rel,
+                                config: SLAMConfig) -> FusedMotionResult:
+    return _graphed(fused_rgbd_motion_track, (
+        image, depth_image, pt_pos, pt_desc, pt_octave, pt_angle, pt_valid, R_pred, t_pred,
+        tz_rel), config)
+
+
+def fused_motion_track_packed_jit(image, pt_f32, pt_desc, meta_f32, config: SLAMConfig):
+    return _graphed(fused_motion_track_packed, (image, pt_f32, pt_desc, meta_f32), config)
+
+
+def fused_stereo_motion_track_packed_jit(image_l, image_r, pt_f32, pt_desc, meta_f32,
+                                         config: SLAMConfig):
+    return _graphed(fused_stereo_motion_track_packed,
+                    (image_l, image_r, pt_f32, pt_desc, meta_f32), config)
+
+
+def fused_rgbd_motion_track_packed_jit(image, depth_image, pt_f32, pt_desc, meta_f32,
+                                       config: SLAMConfig):
+    return _graphed(fused_rgbd_motion_track_packed,
+                    (image, depth_image, pt_f32, pt_desc, meta_f32), config)
+
+
+def fused_local_map_track_jit(feat_dev, desc_dev, feat_state, cand_f32, cand_desc, meta_f32,
+                              config: SLAMConfig):
+    return _graphed(fused_local_map_track,
+                    (feat_dev, desc_dev, feat_state, cand_f32, cand_desc, meta_f32), config)

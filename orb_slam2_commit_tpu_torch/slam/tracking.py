@@ -327,9 +327,11 @@ class Tracker:
         image_right=None, depth_image=None,
     ) -> Tuple[Frame, bool]:
         """Extraction + motion-model matching + pose BA as one device call
-        (jit_frontend.fused_motion_track_packed, or its stereo or RGB-D
-        twin) and the host Frame built from its outputs. Returns (frame, motion_ok); pass motion_ok to track() so
-        the staged motion stage is skipped. Only when can_fuse_motion()."""
+        (jit_frontend.fused_motion_track_packed_jit, or its stereo or RGB-D
+        twin: one CUDA graph replay on the card) and the host Frame built
+        from its outputs. Returns (frame, motion_ok); pass motion_ok to
+        track() so the staged motion stage is skipped. Only when
+        can_fuse_motion()."""
         self._update_last_frame_pose()
         last = self.last_frame
         Rv, tv = self.velocity
@@ -354,13 +356,13 @@ class Tracker:
                 self.config)
         img = image_to_device(image, self.device)
         if image_right is not None:
-            meta, feat, desc = jit_frontend.fused_stereo_motion_track_packed(
+            meta, feat, desc = jit_frontend.fused_stereo_motion_track_packed_jit(
                 img, image_to_device(image_right, self.device), *args)
         elif depth_image is not None:
-            meta, feat, desc = jit_frontend.fused_rgbd_motion_track_packed(
+            meta, feat, desc = jit_frontend.fused_rgbd_motion_track_packed_jit(
                 img, self._dev(np.asarray(depth_image, np.float32)), *args)
         else:
-            meta, feat, desc = jit_frontend.fused_motion_track_packed(img, *args)
+            meta, feat, desc = jit_frontend.fused_motion_track_packed_jit(img, *args)
         dev_feat, dev_desc = feat, desc
         meta, feat, desc = to_host(meta), to_host(feat), to_host(desc).view(np.uint32)
         frame = Frame(
@@ -759,7 +761,7 @@ class Tracker:
 
     def _fused_local_map_core(self, frame: Frame, cand: np.ndarray, th: float) -> int:
         """TrackLocalMap's device part as one call
-        (jit_frontend.fused_local_map_track) on the motion stage's features
+        (jit_frontend.fused_local_map_track_jit) on the motion stage's features
         left on the device; the host bookkeeping (bind matches, unbind
         outliers, counters) mirrors _project_and_bind + _optimize_pose."""
         M = self.config.tracker.max_local_points
@@ -785,7 +787,7 @@ class Tracker:
         meta_in[9:12] = frame.t
         meta_in[12] = th
 
-        meta, perfeat, visible = jit_frontend.fused_local_map_track(
+        meta, perfeat, visible = jit_frontend.fused_local_map_track_jit(
             frame.dev_feat, frame.dev_desc, self._dev(feat_state),
             self._dev(cand_f32), self._dev(cand_desc), self._dev(meta_in),
             self.config,

@@ -22,6 +22,7 @@ JAX test's gates, not to JAX's bits:
   after that BA's write-back, so the merged poses and points stand.
 """
 
+import functools
 import sys
 import threading
 import time
@@ -61,7 +62,10 @@ def _no_kernel_launches():
     assert _build.launches == before, "a kernel launched on the CPU"
 
 
+@functools.lru_cache(maxsize=None)
 def _mono():
+    """The monocular sequence, rendered once for the module's three runs
+    (which do not write to it)."""
     cfg = synthetic_config(width=W, height=H, n_features=N_FEAT)
     images, poses_gt, _ = synthetic.render_sequence(cfg.camera, **MONO)
     return cfg, images, poses_gt

@@ -102,7 +102,7 @@ def test_extract_features_matches_jax_packed(monkeypatch, make_image):
     img = make_image()
     jc, tc = _configs()
     ref = {k: np.asarray(v) for k, v in
-           jext.extract_features(jnp.asarray(img), jc, H, W)._asdict().items()}
+           jext.extract_features_jit(jnp.asarray(img), jc, H, W)._asdict().items()}
     got = interop.features_to_numpy(
         extractor.extract_features(torch.from_numpy(img), tc, H, W))
 
@@ -172,7 +172,7 @@ def test_other_combine_routes_match_jax_packed(monkeypatch, size, changes, min_v
     tc = dataclasses.replace(synthetic_config(width=w, height=h).orb,
                              subpixel_refine=False, **changes)
     ref = {k: np.asarray(v) for k, v in
-           jext.extract_features(jnp.asarray(img), jc, h, w)._asdict().items()}
+           jext.extract_features_jit(jnp.asarray(img), jc, h, w)._asdict().items()}
     got = interop.features_to_numpy(
         extractor.extract_features(torch.from_numpy(img), tc, h, w))
     assert ref["valid"].sum() >= min_valid

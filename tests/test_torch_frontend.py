@@ -20,7 +20,7 @@ import pytest
 import torch
 
 import __graft_entry__ as graft
-from orb_slam2_commit_tpu.slam.jit_frontend import tracking_forward_step as jax_step
+from orb_slam2_commit_tpu.slam.jit_frontend import tracking_forward_step_jit as jax_step
 from orb_slam2_commit_tpu_torch import interop
 from orb_slam2_commit_tpu_torch.kernels import _build
 from orb_slam2_commit_tpu_torch.slam.jit_frontend import tracking_forward_step

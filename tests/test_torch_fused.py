@@ -1,11 +1,12 @@
 """The port's fused tracker pair on the CPU against the JAX package's
 jitted twins, on the same numpy inputs (interop.fused_example_arrays at
 320x240 / 400 features / 256 last-frame points / 512 candidates):
-fused_motion_track_packed against fused_motion_track_packed_jit, with the
+fused_motion_track_packed_jit against its JAX namesake, with the
 prediction at frame 1's ground truth and with one that forces the
 widen-on-failure retry (both searches from one K6 call with two
-windows), and fused_local_map_track against
-fused_local_map_track_jit. Bindings, inlier flags and counts equal;
+windows), and fused_local_map_track_jit against its JAX namesake (on
+the CPU each single-dispatch form is its eager function). Each JAX
+motion result is computed once for the module. Bindings, inlier flags and counts equal;
 keypoints within 1e-4 px; pose within 0.05 deg / 2e-3.
 
 The JAX twins run on their packed extraction route (the port's route) in
@@ -68,10 +69,23 @@ def _motion_inputs(a, case):
     return a["image"], pt_f32, a["pt_desc"], meta
 
 
-def _jax_motion(args, jconfig):
-    with jax.enable_x64(False):
-        out = jjf.fused_motion_track_packed_jit(*(jnp.asarray(x) for x in args), jconfig)
-        return [np.asarray(x) for x in out]
+@pytest.fixture(scope="module")
+def jax_motion(example):
+    """case -> the JAX motion stage's output on its inputs, each run once
+    (the local-map test reuses the "predicted" case's)."""
+    cache = {}
+
+    def run(case):
+        if case not in cache:
+            _, a, jconfig = example
+            with pytest.MonkeyPatch.context() as mp, jax.enable_x64(False):
+                mp.setenv("ORB_TPU_FORCE_PACKED", "1")
+                out = jjf.fused_motion_track_packed_jit(
+                    *(jnp.asarray(x) for x in _motion_inputs(a, case)), jconfig)
+                cache[case] = [np.asarray(x) for x in out]
+        return cache[case]
+
+    return run
 
 
 def _check_motion(got, ref):
@@ -87,18 +101,18 @@ def _check_motion(got, ref):
 
 
 @pytest.mark.parametrize("case", ["predicted", "widen_retry"])
-def test_fused_motion_track_matches_jax(monkeypatch, example, case):
+def test_fused_motion_track_matches_jax(monkeypatch, example, jax_motion, case):
     config, a, jconfig = example
     monkeypatch.setenv("ORB_TPU_FORCE_PACKED", "1")
     args = _motion_inputs(a, case)
-    ref = _jax_motion(args, jconfig)
+    ref = jax_motion(case)
     targs = interop.packed_from_numpy(*args, device="cpu")
     # Both searches (th and 2 th) come from one K6 call with two windows.
     calls = []
     top2 = kmatching.projection_hamming_top2
     monkeypatch.setattr(kmatching, "projection_hamming_top2",
                         lambda *a, **k: calls.append(a) or top2(*a, **k))
-    got = interop.packed_to_numpy(*jit_frontend.fused_motion_track_packed(*targs, config))
+    got = interop.packed_to_numpy(*jit_frontend.fused_motion_track_packed_jit(*targs, config))
     assert len(calls) == 1 and len(calls[0][2]) == 2
     assert got[2].dtype == np.uint32 and got[1].shape == (N_FEAT, jit_frontend.OUT_FEAT_COLS)
     _check_motion(got, ref)
@@ -134,15 +148,15 @@ def _local_map_inputs(motion, a, th):
     return feat, desc, feat_state, a["cand_f32"], a["cand_desc"], lm_meta
 
 
-def test_fused_local_map_track_matches_jax(monkeypatch, example):
+def test_fused_local_map_track_matches_jax(monkeypatch, example, jax_motion):
     config, a, jconfig = example
     monkeypatch.setenv("ORB_TPU_FORCE_PACKED", "1")
-    motion = _jax_motion(_motion_inputs(a, "predicted"), jconfig)
+    motion = jax_motion("predicted")
     inputs = _local_map_inputs(motion, a, LM_TH)
     with jax.enable_x64(False):
         ref = [np.asarray(x) for x in jjf.fused_local_map_track_jit(
             *(jnp.asarray(x) for x in inputs), jconfig)]
-    got = interop.packed_to_numpy(*jit_frontend.fused_local_map_track(
+    got = interop.packed_to_numpy(*jit_frontend.fused_local_map_track_jit(
         *interop.packed_from_numpy(*inputs, device="cpu"), config))
 
     (gm, gp, gv), (rm, rp, rv) = got, ref

@@ -1,12 +1,13 @@
 """The port's stereo and RGB-D motion stages on the CPU against the JAX
 package's jitted twins, on the same numpy inputs
 (interop.fused_example_arrays at 320x240 / 400 features / 256 last-frame
-points / 512 candidates): fused_stereo_motion_track_packed against
-fused_stereo_motion_track_packed_jit (the example's tz_rel, and one beyond
+points / 512 candidates): the port's fused_stereo_motion_track_packed_jit
+against its JAX namesake (the example's tz_rel, and one beyond
 +-baseline each way, which switches the stereo octave rule), and
-fused_rgbd_motion_track_packed against fused_rgbd_motion_track_packed_jit;
-then fused_local_map_track on each stage's result against
-fused_local_map_track_jit, with the stereo rows in its pose BA.
+fused_rgbd_motion_track_packed_jit against its JAX namesake; then
+fused_local_map_track_jit on each stage's result against its JAX
+namesake, with the stereo rows in its pose BA. On the CPU each of the
+port's single-dispatch forms is its eager function.
 
 Held equal: octaves, valid flags, bindings and match counts; keypoints
 within 1e-4 px; poses within 0.05 deg / 2e-3; inlier counts within 1%;
@@ -42,8 +43,8 @@ CASES = {
     "stereo_backward": ("stereo", -0.5),
     "rgbd": ("rgbd", None),
 }
-PORT = {"stereo": jit_frontend.fused_stereo_motion_track_packed,
-        "rgbd": jit_frontend.fused_rgbd_motion_track_packed}
+PORT = {"stereo": jit_frontend.fused_stereo_motion_track_packed_jit,
+        "rgbd": jit_frontend.fused_rgbd_motion_track_packed_jit}
 JAX = {"stereo": jjf.fused_stereo_motion_track_packed_jit,
        "rgbd": jjf.fused_rgbd_motion_track_packed_jit}
 SECOND = {"stereo": "image_r", "rgbd": "depth"}
@@ -163,7 +164,7 @@ def test_fused_local_map_track_after_sensor_matches_jax(reference, sensor):
     examples, motion, local = reference
     config = examples[sensor][0]
     inputs, ref = local[sensor]
-    got = interop.packed_to_numpy(*jit_frontend.fused_local_map_track(
+    got = interop.packed_to_numpy(*jit_frontend.fused_local_map_track_jit(
         *interop.packed_from_numpy(*inputs, device="cpu"), config))
     (gm, gp, gv), (rm, rp, rv) = got, ref
     np.testing.assert_array_equal(gv, rv)                        # visible

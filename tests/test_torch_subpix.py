@@ -131,7 +131,7 @@ def test_extraction_with_refinement_matches_jax_packed(monkeypatch, source):
     assert jc.subpixel_refine and tc.subpixel_refine
     with jax.enable_x64(False):
         ref = {k: np.asarray(v) for k, v in
-               jext.extract_features(jnp.asarray(img), jc, h, w)._asdict().items()}
+               jext.extract_features_jit(jnp.asarray(img), jc, h, w)._asdict().items()}
     got = interop.features_to_numpy(
         extractor.extract_features(torch.from_numpy(img), tc, h, w))
     plain = interop.features_to_numpy(extractor.extract_features(
