@@ -82,8 +82,9 @@ the map, so a solve that did nothing fails), each route's wall time, ms an
 LM iteration and device idle share printed; (b) tests/test_sim3.py's
 300-vertex drifted loop through `optimize_sim3_graph(solver="auto")`
 (block-Jacobi PCG above 256 vertices) in float64, that test's precision,
-twice on the card and once on the CPU: the largest centre error under
-its 0.10 m gate, the runs bit-identical, card vs CPU within
+twice on the card (eager, then replayed: `optimize_sim3_graph_jit`) and
+once on the CPU: the largest centre error under its 0.10 m gate, the
+runs bit-identical, card vs CPU within
 tests/test_torch_sim3.py's 2e-3; and in float32, the System's precision,
 over the two steps its LM accepts there, card vs CPU within the same
 2e-3; (c) meanwhile, both drives' command lines (`python -m
@@ -150,7 +151,16 @@ Phases (any failure exits non-zero and prints no result line):
      bit for bit its eager call on the same inputs (the main ones and two
      noisy frames), a held result unchanged by the next replay, launches
      per replay equal to the eager call's; every System run logs its graph
-     captures, and no form has more than 2 graphs under one configuration;
+     captures and replays, and no form of the tracker's has more than 2
+     graphs under one configuration; the mapper's and the loop closer's
+     single-dispatch forms (phase_mapper_graphs: local BA, a triangulation
+     and a fuse pass recorded from the RGB-D System's eager warm-up, the
+     ring survey's essential graph and global BA), every replay bit for bit
+     its eager call and BA's and the pose graph's device-loop forms run
+     eagerly too, launches per replay the eager call's, and no
+     device-to-host copy or synchronization from a replayed local BA's
+     first replay to the read of its result or in a replayed global BA
+     segment (torch.profiler);
      the System's sequences held to every frame OK, the ATE gate, at
      least 2 keyframes, points made by triangulation and a fuse pass, and
      the RGB-D sequence's first frames against the CPU's; the monocular
@@ -281,7 +291,7 @@ try:
     from orb_slam2_commit_tpu_torch.ops import extractor, lie, pyramid, stereo
     from orb_slam2_commit_tpu_torch.ops import subpix as ops_subpix
     from orb_slam2_commit_tpu_torch.ops import packed_extractor as pe
-    from orb_slam2_commit_tpu_torch.optim import ba, pose_graph, pose_opt, sim3_opt
+    from orb_slam2_commit_tpu_torch.optim import ba, pose_graph, pose_opt, segment, sim3_opt
     from orb_slam2_commit_tpu_torch.parallel import distributed_ba as dba, multihost
     from orb_slam2_commit_tpu_torch.slam import (
         jit_frontend, jit_mapper, loop_closing, matchers, tracking)
@@ -329,6 +339,10 @@ K8_INLIER_TOL = 0.005   # share of observations whose inlier flag may differ
 K8_TILED_ROWS = (2048, 8192)
 # Calls traced by torch.profiler for the device's busy time and idle share.
 PROFILE_CALLS = 5
+# Timed calls of each kernel row (phase 5), and blocks of 64 frames of each
+# frames/s reading (bench.py's recipe), cut from 50 and 5 as the script grew.
+KERNEL_ROW_CALLS = 25
+FPS_BLOCKS = 3
 
 # A K6 problem past one shared-memory chunk of the kernel (2048 columns).
 K6_CHUNKED = dict(seed=8, m=256, n=20000)
@@ -546,6 +560,9 @@ REAL_MAP_SIZE = (156, 7781)
 REAL_MAP_CONFIG = dict(width=640, height=480, n_features=1500, sensor="stereo")
 REAL_MAP_GBA_ITERS = 5
 GRAPH_K = 300
+# LM iterations of the 300-vertex graph's eager-against-replayed solves
+# (the gate's solve runs all 20, replayed): eager, each takes ~1.2-1.7 s.
+GRAPH_COMPARED_ITERS = 5
 GRAPH_PCG_GATE = 0.10
 GRAPH_CENTRE_TOL = 2e-3
 # In float32 the graph's LM accepts two steps (17.5 m -> 10.86 m from the
@@ -1550,13 +1567,17 @@ GRAPH_FORMS = ("tracking_forward_step", "fused_motion_track", "fused_stereo_moti
 PACKED_FORM = {"monocular": "fused_motion_track_packed",
                "stereo": "fused_stereo_motion_track_packed",
                "rgbd": "fused_rgbd_motion_track_packed"}
-GRAPH_FPS_BLOCKS = 3
+GRAPH_FPS_BLOCKS = 2
 # Graph captures of one form under one configuration in one System run: the
 # monocular motion stage sees twice the features after initialization.
 GRAPHS_PER_FORM = 2
 # The bytes the live graphs' pools held at the end of each System run
-# (run_system), before the System released its own.
+# (run_system), before the System released its own, and what the graphs
+# it captured still held after its shutdown.
 GRAPH_POOL_BYTES = []
+GRAPH_POOL_AFTER = []
+# (captures, replays, pool bytes at the run's end) of each System run.
+RUN_GRAPHS = []
 # Each kernel of the tracker's forms -> the CUDA function its launch runs
 # (csrc/), as torch.profiler names it. K2's launch also runs
 # cell_flag_kernel, which is not counted.
@@ -1566,19 +1587,29 @@ KERNEL_SYMBOLS = {"level_preprocess": "level_kernel", "combine_nms": "combine_nm
                   "stereo_band_top2": "stereo_band_top2_kernel", "pose_lm": "pose_lm_kernel"}
 
 
+# The mapper's and the loop closer's single-dispatch forms -> their eager
+# functions (module, form, eager function's name): BA's early-exit form,
+# the pose graph's eager loop, the mapper's two batched functions.
+MAPPER_FORMS = ((ba, "bundle_adjust_jit", "bundle_adjust"),
+                (pose_graph, "optimize_sim3_graph_jit", "optimize_sim3_graph"),
+                (jit_mapper, "fused_triangulation_jit", "fused_triangulation"),
+                (jit_mapper, "fused_fuse_forward_jit", "fused_fuse_forward"))
+
+
 @contextlib.contextmanager
 def eager_forms():
-    """The tracker's module references to the single-dispatch forms
-    pointed at their eager functions inside the block (an eager run to
-    compare with)."""
-    saved = {f"{n}_jit": getattr(jit_frontend, f"{n}_jit") for n in GRAPH_FORMS}
-    for n in GRAPH_FORMS:
-        setattr(jit_frontend, f"{n}_jit", getattr(jit_frontend, n))
+    """The module references to every single-dispatch form (the
+    tracker's, the mapper's and the loop closer's) pointed at their eager
+    functions inside the block (an eager run to compare with)."""
+    forms = [(jit_frontend, f"{n}_jit", n) for n in GRAPH_FORMS] + list(MAPPER_FORMS)
+    saved = [(module, form, getattr(module, form)) for module, form, _ in forms]
+    for module, form, eager in forms:
+        setattr(module, form, getattr(module, eager))
     try:
         yield
     finally:
-        for n, fn in saved.items():
-            setattr(jit_frontend, n, fn)
+        for module, form, fn in saved:
+            setattr(module, form, fn)
 
 
 def run_pair_graphed(config, motion, cands):
@@ -1789,12 +1820,30 @@ def has_batch_axis(name, args):
     return bool(k7_batch(name, args)) if name in K7_FORMS else args[1].dim() == 3
 
 
+# The mapper's batched functions' graphs (the triangulation's matcher,
+# the forward fuse): every K7 and K6 launch of their replays has a batch
+# axis.
+BATCHED_GRAPHS = ("triangulation_match", "fused_fuse_forward")
+
+
+def batched_replays():
+    """{kernel: launches} that replays of the mapper's batched graphs added
+    since the process started."""
+    out = {}
+    for fn in BATCHED_GRAPHS:
+        for k, n in cuda_graph.replayed_by.get(fn, {}).items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
 @contextlib.contextmanager
 def batched_launches(counts):
     """counts[name] += 1 for each launch of K7 under a candidate test or
-    of K6 with a batch axis (read off the kernel's launch counter around
-    the call)."""
+    of K6 with a batch axis: read off the kernel's launch counter around
+    each call of its wrapper, and added by the replays of the mapper's
+    batched graphs inside the block."""
     fns = {name: getattr(kmatching, name) for name in SYSTEM_KERNELS}
+    replayed = batched_replays()
 
     def spy(name):
         def call(*args):
@@ -1813,6 +1862,8 @@ def batched_launches(counts):
     finally:
         for name, fn in fns.items():
             setattr(kmatching, name, fn)
+        for name, n in batched_replays().items():
+            counts[name] += n - replayed.get(name, 0)
 
 
 def system_sequence(sensor, kidnap=False):
@@ -1858,7 +1909,7 @@ def run_system(seq, device="cuda", n_frames=SYSTEM_FRAMES, around=None, vocabula
         def track(i):
             return entry(first[i], second[i], i / config.camera.fps)
     states, poses = [], []
-    keys, caps = set(cuda_graph.graphs), cuda_graph.n_captures()
+    keys, caps, reps = set(cuda_graph.graphs), cuda_graph.n_captures(), cuda_graph.n_replays()
     t0 = time.perf_counter()
     for i in range(first_frame, first_frame + n_frames):
         t1 = time.perf_counter()
@@ -1867,11 +1918,17 @@ def run_system(seq, device="cuda", n_frames=SYSTEM_FRAMES, around=None, vocabula
         if track_s is not None:
             track_s.append(time.perf_counter() - t1)
         states.append(sys_.tracking_state().name)
-    check_system_graphs(sys_, keys, caps)
+    check_system_graphs(sys_, keys, caps, reps)
     sys_.shutdown()
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
-    return sys_, states, poses, time.perf_counter() - t0
+    seconds = time.perf_counter() - t0
+    left = [g for k, g in cuda_graph.graphs.items() if k not in keys]
+    GRAPH_POOL_AFTER.append(sum(g.pool_bytes for g in left))
+    if left:
+        log(f"System {config.sensor}: {len(left)} of its graphs left after shutdown, "
+            f"holding {GRAPH_POOL_AFTER[-1]} bytes")
+    return sys_, states, poses, seconds
 
 
 def system_name(sensor):
@@ -1956,34 +2013,52 @@ def triangulation_counted(made):
 
 
 @contextlib.contextmanager
-def profiled(out, key):
+def profiled(out, key, device_only=False):
     """torch.profiler around the block -> out[key] = (wall ms, device busy
-    ms, device operations)."""
+    ms, device operations); device_only: the device's activity alone (a
+    lighter trace, for whole System runs). A session whose device records
+    the profiler dropped (it has, late in a long process: PRs 11, 17 and
+    18) leaves out[key] unset and is logged; each caller requires the
+    sessions it reports."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([] if device_only else [ProfilerActivity.CPU])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         yield
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    if not any(e.device_type == DeviceType.CUDA for e in prof.events()):
+        log(f"profiled {key}: the profiler recorded no device operation in this session "
+            f"(its records dropped); left out")
+        return
     n_ops, busy = device_ops(prof)
     out[key] = (wall, busy, n_ops)
 
 
 def system_path_inputs(seqs):
-    """One warm-up run of each sequence on the card (every kernel built and
-    every table made before the timed runs), recording the System's calls
-    of K7 under the validity flags (reference-keyframe tracking) and under
-    the epipolar band (triangulation, with a batch axis) and of K6 with a
-    batch axis (the forward fuse pass) on the RGB-D sequence: the first
-    SYSTEM_RECORDED calls of each."""
+    """One warm-up run of each sequence on the card, eager (eager_forms:
+    the recorded arguments are the wrappers' own, not a graph's buffers;
+    every kernel built and every table made before the timed runs),
+    recording the System's calls of K7 under the validity flags
+    (reference-keyframe tracking) and under the epipolar band
+    (triangulation, with a batch axis) and of K6 with a batch axis (the
+    forward fuse pass) on the RGB-D sequence: the first SYSTEM_RECORDED
+    calls of each; and its first local BA, triangulation and fuse pass
+    (MAPPER_UNITS, for phase_mapper_graphs)."""
     out = {}
     for sensor, seq in seqs.items():
         calls = {name: [] for name in SYSTEM_KERNELS}
+        units = {name: [] for name in MAPPER_UNITS}
         with contextlib.ExitStack() as stack:
+            stack.enter_context(eager_forms())
             for name in SYSTEM_KERNELS:
                 stack.enter_context(recording(kmatching, name, calls[name]))
+            if sensor == "rgbd":
+                for name, (module, attr) in MAPPER_UNITS.items():
+                    stack.enter_context(recording(module, attr, units[name], keep=1))
             sys_, states, _, seconds = run_system(seq, vocabulary="default")
         remember(system_name(sensor), "warm-up", sys_)
         split = {(name, batched): [c[0] for c in calls[name]
@@ -1996,9 +2071,10 @@ def system_path_inputs(seqs):
             out = dict(sys_k7=split["valid_hamming_top2", False],
                        sys_k7b=split["epipolar_hamming_top2", True],
                        sys_k6b=split["projection_hamming_top2", True])
-            for key, c in out.items():
+            for key, c in list(out.items()) + list(units.items()):
                 if not c:
                     raise AssertionError(f"the System's RGB-D run made no {key} call")
+            MAPPER_RECORDED.update({name: c[0] for name, c in units.items()})
     return {key: c[:SYSTEM_RECORDED] for key, c in out.items()}
 
 
@@ -2142,16 +2218,31 @@ def phase_graph_systems(seqs, power, errs):
     record the kernels' calls (DATASET_RECORDED: the tracker's calls are
     wrapper calls there, not replays), each held against its plain
     version (phase_dataset_kernels; errs updated)."""
-    rows, recorded = {}, {}
+    rows, recorded, mapping, idle = {}, {}, {}, {}
     for turn, kind in enumerate(("eager", "graphs", "graphs", "eager")):
         with eager_forms() if kind == "eager" else contextlib.nullcontext():
             for sensor, seq in seqs.items():
                 calls = {k: [] for k in DATASET_RECORDED}
+                prof = {}
                 with contextlib.ExitStack() as stack:
                     if turn == 0:
                         for k, (module, _) in DATASET_RECORDED.items():
                             stack.enter_context(recording(module, k, calls[k]))
+                    if turn >= 2:
+                        stack.enter_context(profiled(prof, "run", device_only=True))
                     sys_, _, _, seconds = run_system(seq, vocabulary="default")
+                if GRAPH_POOL_AFTER[-1]:
+                    raise AssertionError(f"{system_name(sensor)} ({kind}): its graphs hold "
+                                         f"{GRAPH_POOL_AFTER[-1]} bytes after shutdown")
+                t = sys_.timings()
+                n_kf = max(int(t.get("local_mapping", {}).get("count", 0)), 1)
+                mapping.setdefault((system_name(sensor), kind), []).append(
+                    tuple(round(t[s]["total_s"] * 1e3 / n_kf, 1) if s in t else None
+                          for s in ("local_mapping", "map_tri", "map_fuse", "map_lba"))
+                    + RUN_GRAPHS[-1])
+                if prof:
+                    wall, busy, _ = prof["run"]
+                    idle[(system_name(sensor), kind)] = round(1.0 - busy / wall, 4)
                 if turn == 0:
                     # The first two calls of each kernel and the last two
                     # (the tracker's forms on OK frames); K8's as kept_calls
@@ -2173,28 +2264,261 @@ def phase_graph_systems(seqs, power, errs):
     log("Systems, eager against graphs in turns (frames/s; asynchronous: (frames/s, the "
         "tracker thread's mean ms a frame)): " + "; ".join(
             f"{what} {kind} {v}" for (what, kind), v in rows.items()) + f", on {power}")
+    log("Systems, eager against graphs in turns, per run (ms a mapped keyframe of "
+        "local_mapping, map_tri, map_fuse, map_lba; CUDA graph captures, replays, the live "
+        "pools' bytes at the run's end; 0 bytes after its shutdown): " + "; ".join(
+            f"{what} {kind} {v}" for (what, kind), v in mapping.items())
+        + "; idle share over a whole run (the last two turns, under torch.profiler): "
+        + ", ".join(f"{what} {kind} {v}" for (what, kind), v in idle.items())
+        + f", on {power}")
 
 
-def check_system_graphs(sys_, keys, caps):
+def check_system_graphs(sys_, keys, caps, reps):
     """A System run's CUDA graphs, before its shutdown releases them: the
-    captures since `caps` logged, and the graphs not among `keys` held to
-    GRAPHS_PER_FORM a form and configuration; the bytes every live graph's
-    pool holds are logged and kept (GRAPH_POOL_BYTES)."""
+    captures since `caps` and replays since `reps` logged, and the
+    graphs not among `keys` counted by function, the tracker's forms held
+    to GRAPHS_PER_FORM a form and configuration; the bytes every live
+    graph's pool holds are logged and kept (GRAPH_POOL_BYTES)."""
     by = {}
     for k, g in cuda_graph.graphs.items():
         if k not in keys:
             by.setdefault((k[0].__name__, k[1]), []).append(g)
     held = sum(g.pool_bytes for g in cuda_graph.graphs.values())
     GRAPH_POOL_BYTES.append(held)
+    RUN_GRAPHS.append((cuda_graph.n_captures() - caps, cuda_graph.n_replays() - reps, held))
+    by_fn = {}
+    for (n, _), gs in by.items():
+        by_fn[n] = by_fn.get(n, 0) + len(gs)
     cam = sys_.config.camera
     log(f"System {sys_.config.sensor} {cam.width}x{cam.height}, "
-        f"{sys_.config.orb.n_features} features: {cuda_graph.n_captures() - caps} CUDA graph "
-        f"captures; graphs by form {[(n, len(gs)) for (n, _), gs in by.items()]}; "
+        f"{sys_.config.orb.n_features} features: {RUN_GRAPHS[-1][0]} CUDA graph captures, "
+        f"{RUN_GRAPHS[-1][1]} replays; graphs by function {by_fn}; "
         f"{len(cuda_graph.graphs)} graphs' pools hold {held} bytes")
-    over = [n for (n, _), gs in by.items() if len(gs) > GRAPHS_PER_FORM]
+    over = [n for (n, _), gs in by.items() if n in GRAPH_FORMS and len(gs) > GRAPHS_PER_FORM]
     if over:
         raise AssertionError(f"more than {GRAPHS_PER_FORM} graphs of {over} under one "
                              f"configuration in one System run")
+
+
+# ---------------------------------------------------------------------------
+# The mapper's and the loop closer's single-dispatch forms: CUDA graphs
+# ---------------------------------------------------------------------------
+
+# The mapper's units recorded from the RGB-D System's eager warm-up run
+# (system_path_inputs): name -> (module, the attribute its caller calls).
+MAPPER_UNITS = {"local BA": (ba, "local_bundle_adjust"),
+                "triangulation": (jit_mapper, "fused_triangulation_jit"),
+                "fuse": (jit_mapper, "fused_fuse_forward_jit")}
+# name -> (args, kwargs) of the first call of each unit.
+MAPPER_RECORDED = {}
+# CUDA runtime calls that make the host wait for the device.
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+              "cudaMemcpy")
+# Calls of each unit timed each way, in turns (eager, replayed, replayed,
+# eager) of this many calls.
+UNIT_CALLS = 1
+# LM iterations of a global BA segment (GlobalBARunner's default).
+GBA_SEGMENT_ITERS = 5
+
+
+def host_waits(fn):
+    """fn() under torch.profiler, inside a record_function window -> (its
+    result, the device-to-host copies and the synchronizing CUDA runtime
+    calls (SYNC_CALLS) in the window)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("host_waits window"):
+            out = fn()
+    events = prof.events()
+    w = [e for e in events if e.name == "host_waits window" and e.device_type == DeviceType.CPU]
+    if len(w) != 1:
+        raise AssertionError(f"the profiler recorded {len(w)} host_waits windows")
+    lo, hi = w[0].time_range.start, w[0].time_range.end
+    d2h = sum(1 for e in events if e.device_type == DeviceType.CUDA and "DtoH" in e.name
+              and lo <= e.time_range.start <= hi)
+    syncs = sum(1 for e in events if e.device_type == DeviceType.CPU and e.name in SYNC_CALLS
+                and lo <= e.time_range.start and e.time_range.end <= hi)
+    return out, d2h, syncs
+
+
+def synced_ms(fn, calls=UNIT_CALLS):
+    """Mean wall ms of fn() over `calls` calls, each ended by a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e3
+
+
+def mapper_units(solves):
+    """name -> (the functions of its graphs (cuda_graph.release's owners),
+    eager call, device-loop call run eagerly or None, single-dispatch
+    call): the RGB-D System's first local BA (both stages), triangulation
+    and fuse pass, and the ring survey's essential graph and global BA."""
+    def call(fn, args, kwargs):
+        return lambda: fn(*args, **kwargs)
+
+    def in_context(ctx, fn, args, kwargs):
+        def run():
+            with ctx():
+                return fn(*args, **kwargs)
+        return run
+
+    (lba_a, lba_k), (tri_a, _), (fuse_a, _) = (MAPPER_RECORDED[n] for n in MAPPER_UNITS)
+    (gba_a, gba_k), (eg_a, eg_k) = solves["global BA"], solves["essential graph"]
+    return {
+        "local BA": (ba.GRAPHED, in_context(eager_forms, ba.local_bundle_adjust, lba_a, lba_k),
+                     in_context(cuda_graph.eager, ba.local_bundle_adjust, lba_a, lba_k),
+                     call(ba.local_bundle_adjust, lba_a, lba_k)),
+        "triangulation": ((jit_mapper.triangulation_match, jit_mapper.triangulation_gates),
+                          call(jit_mapper.fused_triangulation, tri_a, {}), None,
+                          call(jit_mapper.fused_triangulation_jit, tri_a, {})),
+        "fuse": ((jit_mapper.fused_fuse_forward,), call(jit_mapper.fused_fuse_forward, fuse_a, {}),
+                 None, call(jit_mapper.fused_fuse_forward_jit, fuse_a, {})),
+        "essential graph": (pose_graph.GRAPHED, call(pose_graph.optimize_sim3_graph, eg_a, eg_k),
+                            in_context(cuda_graph.eager, pose_graph.optimize_sim3_graph_blocks,
+                                       eg_a, eg_k),
+                            call(pose_graph.optimize_sim3_graph_jit, eg_a, eg_k)),
+        "global BA": (ba.GRAPHED, call(ba.bundle_adjust, gba_a, gba_k),
+                      in_context(cuda_graph.eager, ba.bundle_adjust_loop, gba_a, gba_k),
+                      call(ba.bundle_adjust_jit, gba_a, gba_k)),
+    }
+
+
+def check_ordered_sums():
+    """The card's segment sums (optim/segment.py) over the recorded local
+    BA's observation -> camera table, of seeded [O, 6, 6] float32 values:
+    the same bits with the table padded to twice its width, and whether
+    they equal the CPU's index_add_ (float32 additions in row order)."""
+    problem = MAPPER_RECORDED["local BA"][0][0]
+    obs = problem.obs
+    seg = segment.segments(obs.cam_idx, problem.R.shape[0], obs.valid)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    vals = torch.randn((obs.cam_idx.shape[0], 6, 6), generator=gen, device="cuda")
+    got = segment.segment_sum(vals, seg)
+    wide = seg._replace(gather=torch.cat([seg.gather, torch.full_like(seg.gather, vals.shape[0])],
+                                         1))
+    same = same_bits(segment.segment_sum(vals, wide), got)
+    cpu = segment.segment_sum(vals.cpu(), segment.segments(obs.cam_idx.cpu(), seg.n,
+                                                           obs.valid.cpu()))
+    log(f"segment sums on the card ({seg.n} segments of up to {seg.gather.shape[1]} rows): "
+        f"bit-identical with the table twice as wide {same}; equal to the CPU's index_add_ "
+        f"bit for bit {same_bits(got.cpu(), cpu)} (largest difference "
+        f"{max_abs(got.cpu(), cpu):.3g})")
+    if not same:
+        raise AssertionError("the card's segment sums depend on the table's width")
+
+
+def unit_moved(name, solves, out):
+    """How far a solve moved its problem (', largest |d t| ..., |d point|
+    ...'), '' for the mapper's matchers."""
+    if name in ("triangulation", "fuse"):
+        return ""
+    args = (MAPPER_RECORDED["local BA"] if name == "local BA" else
+            solves["global BA" if name == "global BA" else "essential graph"])[0]
+    before = args[0]
+    after = out[0] if name != "essential graph" else out
+    parts = [f"|d t| {max_abs(after.t, before.t):.4g}"]
+    if name != "essential graph":
+        valid = before.point_valid
+        parts.append(f"|d point| {max_abs(after.points[valid], before.points[valid]):.4g}")
+    return "; the solve moved its problem by largest " + ", ".join(parts)
+
+
+def phase_mapper_graphs(solves, power):
+    """The mapper's and the loop closer's single-dispatch forms on their
+    recorded inputs (MAPPER_UNITS from the RGB-D System's eager warm-up;
+    the ring survey's global BA and essential graph): each unit's graphs
+    released first, so the first single-dispatch call captures and the
+    second only replays; both replays bit for bit the eager call (BA's
+    early-exit form, the pose graph's eager loop, the mapper's eager
+    functions), and so is the device-loop form run eagerly
+    (cuda_graph.eager); a replay's launches per kernel equal the eager
+    call's (K7 under the epipolar band in the triangulation, K6 batched in
+    the fuse); synced ms eager and replayed in turns. Then under
+    torch.profiler the device-to-host copies and synchronizations from a
+    local BA's first replay to the read of its result, and in one global
+    BA segment (GBA_SEGMENT_ITERS iterations, its tables made before),
+    eager and replayed: none replayed."""
+    check_ordered_sums()
+    units = mapper_units(solves)
+    for name, (owners, eager, device_loop, single) in units.items():
+        cuda_graph.release(*owners)
+        caps, reps = cuda_graph.n_captures(), cuda_graph.n_replays()
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        want = eager()
+        torch.cuda.synchronize()
+        eager_counts = {k: v for k, v in _build.launches.items() if v}
+        looped = device_loop() if device_loop is not None else want
+        first = single()
+        torch.cuda.synchronize()
+        captured = cuda_graph.n_captures() - caps
+        _build.reset_launches()
+        reps = cuda_graph.n_replays()
+        got = single()
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in _build.launches.items() if v}
+        replays = cuda_graph.n_replays() - reps
+        if not same_bits(looped, want):
+            raise AssertionError(f"{name}: the device-loop form run eagerly differs from the "
+                                 f"eager form")
+        if not (same_bits(first, want) and same_bits(got, want)):
+            raise AssertionError(f"{name}: a replay differs from the eager call")
+        if counts != eager_counts:
+            raise AssertionError(f"{name}: a replay launched {counts}, the eager call "
+                                 f"{eager_counts}")
+        if not captured or cuda_graph.n_captures() - caps != captured:
+            raise AssertionError(f"{name}: {captured} captures at the first call, "
+                                 f"{cuda_graph.n_captures() - caps} in all")
+        ms = {"eager": [], "replayed": []}
+        for kind in ("eager", "replayed", "replayed", "eager"):
+            ms[kind].append(round(synced_ms(eager if kind == "eager" else single), 3))
+        live = [g for k, g in cuda_graph.graphs.items() if k[0] in owners]
+        moved = unit_moved(name, solves, got)
+        log(f"{name}: replayed bit for bit the eager call"
+            f"{' and the device-loop form run eagerly' if device_loop else ''}; "
+            f"{captured} graphs captured ({sum(g.pool_bytes for g in live)} pool bytes), "
+            f"{replays} replays a call, launches a call {counts or 'none'} (eager "
+            f"{eager_counts or 'none'}); synced ms eager {ms['eager']}, replayed "
+            f"{ms['replayed']}, on {power}{moved}")
+
+    lba_a, lba_k = MAPPER_RECORDED["local BA"]
+    gba_a, gba_k = solves["global BA"]
+
+    def local_ba(segs):
+        """ba.local_bundle_adjust's two stages on tables made before."""
+        problem, r1 = ba.bundle_adjust_jit(*lba_a, n_iters=5, use_robust=True, segs=segs,
+                                           **lba_k)
+        problem = problem._replace(obs=problem.obs._replace(valid=r1.inlier))
+        return ba.bundle_adjust_jit(problem, *lba_a[1:], n_iters=10, use_robust=False,
+                                    segs=segs, **lba_k)
+
+    windows = {
+        "local BA": (ba.obs_segments(lba_a[0], lba_k.get("point_chunk", 1024)), local_ba),
+        "global BA segment": (ba.obs_segments(gba_a[0], gba_k.get("point_chunk", 1024)),
+                              lambda segs: ba.bundle_adjust_jit(
+                                  *gba_a, **dict(gba_k, n_iters=GBA_SEGMENT_ITERS), segs=segs)),
+    }
+    for name, (segs, solve) in windows.items():
+        row = {}
+        for kind in ("eager", "replayed"):
+            with eager_forms() if kind == "eager" else contextlib.nullcontext():
+                solve(segs)
+                (_, res), d2h, syncs = host_waits(lambda: solve(segs))
+            interop.to_host(res.inlier)
+            row[kind] = (d2h, syncs)
+        log(f"{name}, from its first replay to the read of its result (the tables made "
+            f"before): device-to-host copies and synchronizations eager {row['eager']}, "
+            f"replayed {row['replayed']}")
+        if row["replayed"] != (0, 0) or row["eager"][1] < 1:
+            raise AssertionError(f"{name}: the replayed window read the device "
+                                 f"{row['replayed']}, or the eager one was not seen "
+                                 f"waiting {row['eager']}")
 
 
 # ---------------------------------------------------------------------------
@@ -2903,7 +3227,8 @@ def loop_stages_profiled(profs):
             out = {}
             with profiled(out, name):
                 result = fn(self, *args, **kwargs)
-            profs[name].append(out[name])
+            if name in out:
+                profs[name].append(out[name])
             return result
         return call
 
@@ -2954,10 +3279,10 @@ def loop_path_inputs(seq, kidnap_seq):
 @contextlib.contextmanager
 def loop_solves_recorded(store):
     """store["global BA"] and store["essential graph"]: the arguments of
-    the first bundle_adjust call inside LoopCloser.run_global_ba and of the
-    first optimize_sim3_graph call (the essential graph)."""
+    the first bundle_adjust_jit call inside LoopCloser.run_global_ba and of
+    the first optimize_sim3_graph_jit call (the essential graph)."""
     gba = loop_closing.LoopCloser.run_global_ba
-    bundle, graph = ba.bundle_adjust, pose_graph.optimize_sim3_graph
+    bundle, graph = ba.bundle_adjust_jit, pose_graph.optimize_sim3_graph_jit
     inside = []
 
     def run_global_ba(self, *args, **kwargs):
@@ -2977,14 +3302,14 @@ def loop_solves_recorded(store):
         return graph(*args, **kwargs)
 
     loop_closing.LoopCloser.run_global_ba = run_global_ba
-    ba.bundle_adjust = bundle_adjust
-    pose_graph.optimize_sim3_graph = optimize_sim3_graph
+    ba.bundle_adjust_jit = bundle_adjust
+    pose_graph.optimize_sim3_graph_jit = optimize_sim3_graph
     try:
         yield store
     finally:
         loop_closing.LoopCloser.run_global_ba = gba
-        ba.bundle_adjust = bundle
-        pose_graph.optimize_sim3_graph = graph
+        ba.bundle_adjust_jit = bundle
+        pose_graph.optimize_sim3_graph_jit = graph
 
 
 def solve_tensors(out):
@@ -2998,10 +3323,11 @@ def solve_tensors(out):
 
 def phase_solves_twice(solves):
     """Global BA and the essential graph of the ring survey's first loop
-    closure, each solved twice on the card from its recorded problem: the
-    same bits (their sums over observations and edges add in a fixed
-    order, optim/segment.py)."""
-    fns = {"global BA": ba.bundle_adjust, "essential graph": pose_graph.optimize_sim3_graph}
+    closure, each solved twice on the card from its recorded problem
+    through its single-dispatch form: the same bits (their sums over
+    observations and edges add in a fixed order, optim/segment.py)."""
+    fns = {"global BA": ba.bundle_adjust_jit,
+           "essential graph": pose_graph.optimize_sim3_graph_jit}
     for name, fn in fns.items():
         args, kwargs = solves[name]
         outs = [solve_tensors(fn(*args, **kwargs)) for _ in range(2)]
@@ -3233,12 +3559,26 @@ def phase_loop(seq, kidnap_seq, profs, warm_sim3, power):
     gt_c = centres(poses)
     by_caller, ransac_calls, opt_calls, at_close = {}, [], [], []
     _build.reset_launches()
+    caps = cuda_graph.n_captures()
     with loop_kernel_calls(by_caller), sim3_recorded(ransac_calls, opt_calls):
         sys_, states, seconds, pre = run_loop(
             seq, on_close=lambda: at_close.append(len(opt_calls)))
-    remember(what, "counted", sys_)
-    check_same_bits(what)
     c = dict(_build.launches)
+    remember(what, "counted", sys_)
+    with eager_forms():
+        eager_sys, _, eager_seconds, _ = run_loop(seq)
+    remember(what, "eager", eager_sys)
+    check_same_bits(what)
+    stages = {}
+    for kind, s_, secs in (("replayed", sys_, seconds), ("eager", eager_sys, eager_seconds)):
+        t = s_.timings()
+        stages[kind] = (round(len(states) / secs, 2),
+                        [round(s["correct_s"], 4) for s in s_.loop_closer.correction_stats],
+                        *(round(t[k]["total_s"] * 1e3, 1) if k in t else None
+                          for k in ("loop_essential_graph", "loop_gba")))
+    log(f"{what}, replayed against eager (frames/s, correct_loop s, essential graph ms, "
+        f"global BA ms): {stages}, on {power}; the replayed run captured "
+        f"{cuda_graph.n_captures() - caps} graphs (its loop closure's among them)")
     log(f"{what} launches: {c}; K6/K7 by loop caller: {by_caller}")
     if [k for k in SYSTEM_LAUNCHED if c[k] < 1] or [k for k in SYSTEM_UNUSED if c[k]] \
             or c["stereo_band_top2"] or min(by_caller[k] for k in LOOP_CALLERS[:3]) < 1:
@@ -3543,6 +3883,9 @@ def phase_async_timing(seq, power):
             run_system(seq, vocabulary="default", async_mapping=async_mapping)
     for async_mapping in (True, False):
         name = "asynchronous" if async_mapping else "synchronous"
+        if async_mapping not in profs:
+            raise AssertionError(f"System RGB-D {name}: the profiler recorded no device "
+                                 f"operation over a whole run")
         wall, busy, n_ops = profs[async_mapping]
         log(f"System RGB-D {name}, in turns: frames/s "
             f"{[round(r[0], 2) for r in rows[async_mapping]]}, tracker thread ms per frame "
@@ -4383,8 +4726,10 @@ def map_poses(m):
 
 def real_map_gba(route, device, profile=None):
     """run_global_ba(anchor_kf=0, n_iters=5) on a fresh copy of the real
-    map with ORB_DISTRIBUTED_GBA=route on `device` -> (the map, wall s, LM
-    iterations); under torch.profiler into profile["gba"] when given."""
+    map with ORB_DISTRIBUTED_GBA=route ("eager": "0" with the early-exit
+    BA, eager_forms) on `device` -> (the map, wall s, LM iterations: those
+    the early-exit form took, or the device-loop form's replays); under
+    torch.profiler into profile["gba"] when given."""
     m = real_map()
     closer = loop_closing.LoopCloser(synthetic_config(**REAL_MAP_CONFIG), m, None,
                                      device=device)
@@ -4395,10 +4740,14 @@ def real_map_gba(route, device, profile=None):
         return solve(*args, **kwargs)
 
     before = os.environ.get("ORB_DISTRIBUTED_GBA")
-    os.environ["ORB_DISTRIBUTED_GBA"] = route
-    ba._solve_step = counted
+    os.environ["ORB_DISTRIBUTED_GBA"] = "0" if route == "eager" else route
+    replays = cuda_graph.n_replays()
+    graphed = route == "0" and torch.device(device).type == "cuda"
+    if not graphed:
+        ba._solve_step = counted
     try:
-        with (profiled(profile, "gba") if profile is not None else contextlib.nullcontext()):
+        with (profiled(profile, "gba") if profile is not None else contextlib.nullcontext()), \
+                (eager_forms() if route == "eager" else contextlib.nullcontext()):
             t0 = time.perf_counter()
             closer.run_global_ba(anchor_kf=0, n_iters=REAL_MAP_GBA_ITERS)
             if torch.device(device).type == "cuda":
@@ -4410,7 +4759,9 @@ def real_map_gba(route, device, profile=None):
             os.environ.pop("ORB_DISTRIBUTED_GBA", None)
         else:
             os.environ["ORB_DISTRIBUTED_GBA"] = before
-    return m, wall, iters[0]
+    # The device-loop form: one replay for the initial cost, one an LM
+    # iteration.
+    return m, wall, cuda_graph.n_replays() - replays - 1 if graphed else iters[0]
 
 
 def real_map_point_sharded(device):
@@ -4491,16 +4842,18 @@ def phase_real_map_gba(power, device="cuda"):
     to the plain one, the card against the CPU within real_map_bound. Then
     the point-sharded solve on the same problem, twice, bit-identical to
     the plain one, in turns with it (real_map_point_sharded)."""
-    runs = {"0": [], "1": []}
-    profs = {"0": {}, "1": {}}
+    routes = ("0", "eager", "1") if torch.device(device).type == "cuda" else ("0", "1")
+    runs = {route: [] for route in routes}
+    profs = {route: {} for route in routes}
     traced = torch.device(device).type == "cuda"
     for turn in range(2):
-        for route in ("0", "1"):
+        for route in routes:
             runs[route].append(real_map_gba(route, device,
                                             profs[route] if turn and traced else None))
     cpu, cpu_wall, cpu_iters = real_map_gba("0", "cpu")
     wide = real_map_float64()
-    names = {"0": "plain", "1": "sharded, world 1 over NCCL"}
+    names = {"0": "plain, CUDA graph replays (the device-loop form)",
+             "eager": "plain, eager (the early-exit form)", "1": "sharded, world 1 over NCCL"}
     for route, (first, second) in runs.items():
         if not same_map(first[0], second[0]):
             raise AssertionError(f"real-map global BA, {names[route]}: two runs differ")
@@ -4510,8 +4863,9 @@ def phase_real_map_gba(power, device="cuda"):
             f"run), {second[2]} LM iterations, {second[1] * 1e3 / max(second[2], 1):.1f} ms "
             f"an iteration; device busy {busy_ms:.1f} of {wall_ms:.1f} ms, idle share "
             f"{1.0 - busy_ms / wall_ms:.4f}, {n_ops} device operations")
-    if not same_map(runs["0"][0][0], runs["1"][0][0]):
-        raise AssertionError("real-map global BA: the sharded route differs from the plain one")
+    if not all(same_map(runs["0"][0][0], runs[r][0][0]) for r in routes):
+        raise AssertionError("real-map global BA: the eager or the sharded route differs from "
+                             "the replayed one")
     same, plain_s, points_s = real_map_point_sharded(device)
     iters = runs["0"][1][2]
     log(f"real-map global BA problem, point-sharded (distributed_bundle_adjust_points, "
@@ -4598,14 +4952,21 @@ def drifted_loop_graph(K, seed=5, skip_every=7):
     return leaves, R_true, t_true
 
 
+FORM_NAME = {pose_graph.optimize_sim3_graph: "eager",
+             pose_graph.optimize_sim3_graph_jit: "replayed"}
+
+
 def phase_large_pose_graph(power, device="cuda"):
     """(b) The 300-vertex drifted loop's essential graph (fix_scale, 20
     iterations, solver "auto": block-Jacobi PCG above 256 vertices) on the
-    card twice and on the CPU, in float64 as tests/test_sim3.py runs it (x64
-    is on in the suite): the largest centre error under the JAX test's
-    0.10 m, the two card runs bit-identical, card vs CPU centres within
-    GRAPH_CENTRE_TOL. Then in float32, the System's precision, once on the
-    card and once on the CPU over GRAPH_F32_ITERS iterations: card vs CPU
+    card twice (optimize_sim3_graph_jit, replayed CUDA graphs) and on the
+    CPU, in float64 as tests/test_sim3.py runs it (x64 is on in the
+    suite): the largest centre error under the JAX test's 0.10 m, the two
+    card runs bit-identical, card vs CPU centres within GRAPH_CENTRE_TOL;
+    first, its first GRAPH_COMPARED_ITERS LM iterations eager
+    (optimize_sim3_graph) against replayed, bit for bit, each timed.
+    Then in float32, the System's precision, once on the card (replayed)
+    and once on the CPU over GRAPH_F32_ITERS iterations: card vs CPU
     within GRAPH_CENTRE_TOL, the error below where it started. (In float32
     the LM stalls on this graph in both packages after two steps, 10.86 m
     from the truth: edges whose rotation residual falls below ~5e-4 rad get
@@ -4613,28 +4974,36 @@ def phase_large_pose_graph(power, device="cuda"):
     rejected; ROADMAP queue 3.)"""
     leaves, R_true, t_true = drifted_loop_graph(GRAPH_K)
     c_true = -np.einsum("kba,kb->ka", R_true, t_true)
-    pcg = pose_graph._pcg_solve
+    start = pose_graph._cg_start
     calls = [0]
 
     def counted(*args, **kwargs):
         calls[0] += 1
-        return pcg(*args, **kwargs)
+        return start(*args, **kwargs)
 
-    def solve(device, dtype, n_iters):
+    def solve(device, dtype, n_iters, fn=pose_graph.optimize_sim3_graph_jit):
+        """-> (the solved graph, wall s); calls[0] += the LM steps that took
+        the PCG (the eager loop's _cg_start calls, or the replays of its
+        graph)."""
         g = pose_graph.Sim3Graph(**{k: torch.from_numpy(
             v.astype(np.int64) if k.startswith("edge_") and v.dtype != bool else
             v.astype(dtype) if v.dtype.kind == "f" else v).to(device)
             for k, v in leaves.items()})
-        pose_graph._pcg_solve = counted
+        graphed = fn is pose_graph.optimize_sim3_graph_jit and torch.device(device).type == "cuda"
+        if not graphed:
+            pose_graph._cg_start = counted
+        replays = {k: g_.replays for k, g_ in cuda_graph.graphs.items() if k[0] is start}
         try:
             t0 = time.perf_counter()
-            out = pose_graph.optimize_sim3_graph(g, n_iters=n_iters, fix_scale=True,
-                                                 solver="auto")
+            out = fn(g, n_iters=n_iters, fix_scale=True, solver="auto")
             if torch.device(device).type == "cuda":
                 torch.cuda.synchronize()
-            return out, time.perf_counter() - t0
+            wall = time.perf_counter() - t0
         finally:
-            pose_graph._pcg_solve = pcg
+            pose_graph._cg_start = start
+        calls[0] += sum(g_.replays - replays.get(k, 0) for k, g_ in cuda_graph.graphs.items()
+                        if k[0] is start)
+        return out, wall
 
     def centres(g):
         R, t = g.R.double().cpu().numpy(), g.t.double().cpu().numpy()
@@ -4643,9 +5012,22 @@ def phase_large_pose_graph(power, device="cuda"):
     pre = float(np.linalg.norm(-np.einsum("kba,kb->ka", leaves["R"], leaves["t"]) - c_true,
                                axis=1).max())
     bad = []
-    for dtype, runs, n_iters in ((np.float64, 2, 20), (np.float32, 1, GRAPH_F32_ITERS)):
+    calls[0] = 0
+    compared = [solve(device, np.float64, GRAPH_COMPARED_ITERS, fn) for fn in FORM_NAME]
+    same = all(torch.equal(x, y) for x, y in zip(compared[0][0], compared[1][0]))
+    log(f"pose graph of {GRAPH_K} vertices in float64, its first {GRAPH_COMPARED_ITERS} LM "
+        f"iterations ({calls[0]} PCG solves), eager against replayed (its first call's "
+        f"captures included), on {power}: " + ", ".join(
+            f"{FORM_NAME[fn]} {w:.3f} s, {w * 1e3 / GRAPH_COMPARED_ITERS:.1f} ms an LM iteration"
+            for fn, (_, w) in zip(FORM_NAME, compared)) + f"; bit-identical {same}")
+    if not same:
+        bad.append("float64: the eager and the replayed solves differ")
+    jit = pose_graph.optimize_sim3_graph_jit
+    for dtype, forms, n_iters in ((np.float64, (jit, jit), 20),
+                                  (np.float32, (jit,), GRAPH_F32_ITERS)):
         calls[0] = 0
-        card = [solve(device, dtype, n_iters) for _ in range(runs)]
+        card = [solve(device, dtype, n_iters, fn) for fn in forms]
+        runs = len(card)
         a = card[0][0]
         card_pcg = calls[0]
         cpu, wall_cpu = solve("cpu", dtype, n_iters)
@@ -4654,12 +5036,13 @@ def phase_large_pose_graph(power, device="cuda"):
         gap = float(np.linalg.norm(centres(a) - centres(cpu), axis=1).max())
         log(f"pose graph of {GRAPH_K} vertices ({leaves['edge_i'].size} edges) in "
             f"{np.dtype(dtype).name}, {n_iters} iterations, PCG ({card_pcg} PCG solves on the "
-            f"card), on {power}: "
-            f"{' / '.join(f'{w:.3f}' for _, w in card)} s on the card, {wall_cpu:.3f} s on "
-            f"the CPU; largest centre error {pre:.4f} m before, {err:.6g} m after"
+            f"card), on {power}: {' / '.join(f'{w:.3f}' for _, w in card)} s on the card "
+            f"(replayed), "
+            f"{wall_cpu:.3f} s on the CPU; largest centre error {pre:.4f} m before, "
+            f"{err:.6g} m after"
             f"{f' (gate {GRAPH_PCG_GATE})' if dtype == np.float64 else ''}; card vs CPU "
             f"{gap:.3g} m (bound {GRAPH_CENTRE_TOL})"
-            f"{'; two card runs bit-identical' if runs > 1 and same else ''}")
+            f"{'; the two card runs bit-identical' if runs > 1 and same else ''}")
         if not card_pcg or not same or gap >= GRAPH_CENTRE_TOL or err >= pre or (
                 dtype == np.float64 and err >= GRAPH_PCG_GATE):
             bad.append(f"{np.dtype(dtype).name}: PCG solves {card_pcg}, bits equal {same}, "
@@ -4788,7 +5171,7 @@ def phase_map_scale(power, device="cuda"):
 # Phase 5: timing
 # ---------------------------------------------------------------------------
 
-def phase_fps(name, step, image, power, blocks=5):
+def phase_fps(name, step, image, power, blocks=FPS_BLOCKS):
     """Frames/s by bench.py's recipe: 8 distinct noisy frames, frame i fed
     frame i-2's inlier count, a value fetch ending each block of 64, best
     of `blocks` blocks. step(image, fb) -> the call's inlier count (a
@@ -5015,8 +5398,8 @@ def k7_routes(caller, name, calls, power):
                   a[0], a[1], k7_mask(name, a)) for a in calls]}
     readings = {label: [] for label in routes}
     for label in (*routes, *reversed(routes)):
-        wall, busy, n_ops, _ = traced_calls(routes[label], 50)
-        events = gpu_time_ms(routes[label], 50)
+        wall, busy, n_ops, _ = traced_calls(routes[label], KERNEL_ROW_CALLS)
+        events = gpu_time_ms(routes[label], KERNEL_ROW_CALLS)
         readings[label].append((busy, events, n_ops, wall))
     for label, r in readings.items():
         measured = [v for v in r if v[0] is not None]
@@ -5039,7 +5422,7 @@ def phase_kernel_timing(x, dx, errs, counts, batched, power):
     def each(fn, calls):
         return lambda: [fn(*args) for args in calls]
 
-    def row(name, src, replaces, fn, plain, library, n_bytes, n_ops, iters=50,
+    def row(name, src, replaces, fn, plain, library, n_bytes, n_ops, iters=KERNEL_ROW_CALLS,
             caller=None):
         """One kernel's line: ms, plain_ms and library_ms are device busy
         times per call; the CUDA-event time of the same calls in a row, and
@@ -5315,7 +5698,7 @@ def phase_kernel_timing(x, dx, errs, counts, batched, power):
     ms = row("pose_lm", "orb_slam2_commit_tpu_torch/csrc/pose_lm.cu",
              "orb_slam2_commit_tpu/optim/pallas_pose_opt.py:381",
              all_k8(pose_lm.pose_lm), all_k8(pose_opt.pose_optimization_plain),
-             None, k8_bytes, k8_ops, iters=50)
+             None, k8_bytes, k8_ops)
     log(f"pose_lm: {ms / k8_evals * 1e3:.3f} us per evaluation ({k8_evals:.0f} "
         f"evaluations in the pair's two launches) on {power}")
 
@@ -5358,7 +5741,7 @@ def phase_kernel_timing(x, dx, errs, counts, batched, power):
              + obs.valid.numel(),
              pose_lm.OPS_PER_EVAL * obs_evals
              + pose_lm.OPS_PER_CLASSIFY * rounds * int(obs.valid.sum()),
-             iters=50, caller="KITTI stereo frame, 2000 observations")
+             caller="KITTI stereo frame, 2000 observations")
     log(f"pose_lm at 2000 observations: {ms / evals * 1e3:.3f} us per evaluation "
         f"({evals:.0f} evaluations) on {power}")
     return kernels
@@ -5391,7 +5774,9 @@ def run_phases(power, data_root):
 
     def done(step):
         now = time.perf_counter()
-        log(f"step {step}: {now - last[0]:.1f} s ({now - t0:.1f} s in all)")
+        log(f"step {step}: {now - last[0]:.1f} s ({now - t0:.1f} s in all); card memory "
+            f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB, reserved "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
         last[0] = now
     config, args = interop.make_example(WIDTH, HEIGHT, N_FEATURES, N_POINTS, "cuda")
     pairs = {sensor: interop.make_fused_example(
@@ -5430,6 +5815,7 @@ def run_phases(power, data_root):
     phase_step(config, args)
     done("pairs and step")
     phase_graphs(config, args, pairs)
+    phase_mapper_graphs(loop_solves, power)
     done("graphs")
     system_counts, system_batched = phase_system(seqs, power)
     done("Systems")
@@ -5506,9 +5892,12 @@ def run_phases(power, data_root):
             f"{k} {v}" for k, v in c.items() if v))
 
     log(f"CUDA graphs: {cuda_graph.n_captures()} captured, {cuda_graph.n_replays()} replays in "
-        f"the whole run; the live graphs' pools held at most {max(GRAPH_POOL_BYTES)} bytes at "
-        f"a System run's end; {len(cuda_graph.graphs)} graphs left, holding "
-        f"{sum(g.pool_bytes for g in cuda_graph.graphs.values())} bytes")
+        f"the whole run; a System run captured {min(r[0] for r in RUN_GRAPHS)}-"
+        f"{max(r[0] for r in RUN_GRAPHS)} and replayed {min(r[1] for r in RUN_GRAPHS)}-"
+        f"{max(r[1] for r in RUN_GRAPHS)}; the live graphs' pools held at most "
+        f"{max(GRAPH_POOL_BYTES)} bytes at a System run's end, its own graphs at most "
+        f"{max(GRAPH_POOL_AFTER)} bytes after its shutdown; {len(cuda_graph.graphs)} graphs "
+        f"left, holding {sum(g.pool_bytes for g in cuda_graph.graphs.values())} bytes")
     log(json.dumps({"kernels": kernels}))
 
 

@@ -26,6 +26,14 @@ def triangulate_dlt(
     Rows of A per the reference (src/Initializer.cc:1028-1060):
     x * P[2] - P[0], y * P[2] - P[1] for both views; the solution is the
     eigenvector of A^T A with the smallest eigenvalue, dehomogenized."""
+    _, V = linalg.eigh(dlt_normal_matrices(uv1, uv2, P1, P2))
+    return dlt_points(V)
+
+
+def dlt_normal_matrices(
+    uv1: torch.Tensor, uv2: torch.Tensor, P1: torch.Tensor, P2: torch.Tensor
+) -> torch.Tensor:
+    """triangulate_dlt's A^T A [..., N, 4, 4], before its eigensolve."""
     P1 = P1[..., None, :, :]
     P2 = P2[..., None, :, :]
     A = torch.stack([
@@ -34,7 +42,13 @@ def triangulate_dlt(
         uv2[..., 0, None] * P2[..., 2, :] - P2[..., 0, :],
         uv2[..., 1, None] * P2[..., 2, :] - P2[..., 1, :],
     ], dim=-2)                                            # [..., N, 4, 4]
-    _, V = linalg.eigh(A.transpose(-1, -2) @ A)
+    return A.transpose(-1, -2) @ A
+
+
+def dlt_points(V: torch.Tensor) -> torch.Tensor:
+    """World points [..., N, 3] from the eigenvectors V [..., N, 4, 4] of
+    triangulate_dlt's A^T A (ascending eigenvalues): the first,
+    dehomogenized."""
     x = V[..., :, 0]
     w = torch.where(torch.abs(x[..., 3]) > 1e-12, x[..., 3],
                     torch.full_like(x[..., 3], 1e-12))

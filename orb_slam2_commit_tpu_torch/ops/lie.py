@@ -269,5 +269,10 @@ def sim3_log(s, R, t) -> torch.Tensor:
     w = so3_log(R)
     sigma = torch.log(s)
     V = _sim3_w_matrix(w, sigma)
-    v = torch.linalg.solve(V, t[..., None])[..., 0]
+    # solve_ex, not solve: solve checks the result on the host, which a
+    # CUDA graph capture refuses (the pose graph's, optim/pose_graph.py);
+    # a singular V gives NaN, as the JAX package's solve gives a
+    # non-finite result.
+    v, info = torch.linalg.solve_ex(V, t[..., None])
+    v = torch.where((info == 0)[..., None, None], v, torch.nan)[..., 0]
     return torch.cat([w, v, sigma[..., None]], dim=-1)

@@ -14,9 +14,17 @@ The problem is dense fixed-shape tensors on one device:
 
 or, from 64 cameras on ("auto"), the implicit-Schur preconditioned CG
 (`_schur_pcg`) that never forms S. Levenberg-Marquardt accept/reject as in
-the JAX package, and a non-finite step rejected; its early exit reads the
-convergence flag on the host once per iteration. Fixed poses get zeroed
+the JAX package, and a non-finite step rejected. Fixed poses get zeroed
 Jacobians.
+
+The LM and the CG are the JAX package's two while_loops, written as
+bodies that change nothing once their exit test has failed (selects on
+it). Two forms run them: `bundle_adjust` reads the exit tests on the host
+and stops (the CPU's form, and a sharded solve's); `bundle_adjust_loop`
+runs every iteration with nothing read on the host, on the card as CUDA
+graph replays (utils/cuda_graph.py). They give the same bits.
+`bundle_adjust_jit`, the JAX package's single-dispatch form, takes the
+second on the card and the first on CPU tensors.
 
 With a `group` (a torch.distributed process group; the JAX package's
 `axis_name`), each rank holds a block of the observations
@@ -25,9 +33,9 @@ group wherever the JAX package calls `psum`, so every rank takes the same
 step. With `point_sharded=True` each rank also owns a block of the points
 and every observation of them: the point-side sums stay local and only
 camera-shaped sums cross ranks. `_Sums` names, once per solve, which sums
-cross ranks. Every flag the host reads (the LM's accept and exit tests,
-the CG's residual test) comes from reduced or replicated values, so all
-ranks take the same branch. With no group nothing is reduced.
+cross ranks. Every flag the host reads (the LM's exit test, the CG's
+residual test) comes from reduced or replicated values, so all ranks take
+the same branch. With no group nothing is reduced.
 
 The segment sums over observations (per camera, per point, and per
 (camera, point) slot of the Schur chunks' W, where a keyframe that binds
@@ -51,6 +59,7 @@ from orb_slam2_commit_tpu_torch.optim.segment import Segments, segment_sum, segm
 from orb_slam2_commit_tpu_torch.optim.residuals import (
     BAObservations, CHI2_MONO, CHI2_STEREO,
 )
+from orb_slam2_commit_tpu_torch.utils import cuda_graph
 from orb_slam2_commit_tpu_torch.utils.precision import full_float32
 
 
@@ -166,9 +175,15 @@ class ObsSegments(NamedTuple):
     chunks: Tuple[Segments, ...]
 
 
-def obs_segments(problem: BAProblem, point_chunk: int, solver: str) -> ObsSegments:
+def obs_segments(problem: BAProblem, point_chunk: int = 1024,
+                 solver: str = "auto") -> ObsSegments:
+    """The tables of the active observations (obs.valid), for a solve
+    with this point_chunk and solver (as bundle_adjust takes them). On the
+    card this reads the longest segments' lengths on the host, once: a
+    caller that solves the same observations again passes them on."""
     obs = problem.obs
     K, P = problem.R.shape[0], problem.points.shape[0]
+    point_chunk, solver = min(point_chunk, P), _resolve(problem, solver)
     cam, pt = obs.cam_idx.long(), obs.pt_idx.long()
     chunks = []
     if solver == "dense":
@@ -180,11 +195,18 @@ def obs_segments(problem: BAProblem, point_chunk: int, solver: str) -> ObsSegmen
 
 
 def _schur_pcg(Hcc_d, Hpp_inv, Hcp_o, cam, pt, segs: ObsSegments, b, fixed,
-               n_iters: int = 64, tol: float = 1e-8, sums: _Sums = _LOCAL):
+               n_iters: int = 64, tol: float = 1e-8, sums: _Sums = _LOCAL,
+               early: bool = True):
     """Solve S dc = b with S = Hcc_d - W Hpp^-1 W^T without forming S or W:
     the matvec streams over observations (two segment sums, two batched
     small products), block-Jacobi preconditioned by Hcc_d^-1 ("Bundle
-    Adjustment in the Large", implicit Schur)."""
+    Adjustment in the Large", implicit Schur).
+
+    The JAX package's while_loop stops at n_iters iterations or once
+    |r|^2 <= tol |b|^2. Here each iteration tests that and keeps the
+    iterate where it fails (a select), so the loop runs n_iters times on
+    the device with nothing read on the host; early=True also stops it
+    there, on the host (the same bits, fewer iterations)."""
     def S_mv(x):                      # x [K, 6]
         y = torch.einsum("kab,kb->ka", Hcc_d, x)
         u = sums.pt(segment_sum(torch.einsum("oab,oa->ob", Hcp_o, x[cam]), segs.pt))
@@ -192,7 +214,11 @@ def _schur_pcg(Hcc_d, Hpp_inv, Hcp_o, cam, pt, segs: ObsSegments, b, fixed,
         y2 = sums.cam(segment_sum(torch.einsum("oab,ob->oa", Hcp_o, v[pt]), segs.cam))
         return y - y2
 
-    M_inv = torch.linalg.inv(Hcc_d)
+    # inv_ex reports a singular block instead of raising (inv raises, and
+    # its check reads the device); the NaN step is rejected by the LM's
+    # cost test, as the JAX package's non-finite inverse is.
+    M_inv, info = torch.linalg.inv_ex(Hcc_d)
+    M_inv = torch.where((info == 0)[:, None, None], M_inv, torch.nan)
 
     def precond(r):
         return torch.einsum("kab,kb->ka", M_inv, r)
@@ -207,22 +233,26 @@ def _schur_pcg(Hcc_d, Hpp_inv, Hcp_o, cam, pt, segs: ObsSegments, b, fixed,
     rz = torch.sum(r * z)
     b_norm2 = torch.clamp_min(torch.sum(b * b), 1e-30)
     for _ in range(n_iters):
-        if not bool(torch.sum(r * r) > tol * b_norm2):
+        go = torch.sum(r * r) > tol * b_norm2
+        if early and not bool(go):
             break
         Sp = S_mv(p)
         alpha = rz / safe(torch.sum(p * Sp))
-        x = x + alpha * p
-        r = r - alpha * Sp
-        z = precond(r)
-        rz_new = torch.sum(r * z)
-        p = z + (rz_new / safe(rz)) * p
-        rz = rz_new
+        x_n = x + alpha * p
+        r_n = r - alpha * Sp
+        z_n = precond(r_n)
+        rz_n = torch.sum(r_n * z_n)
+        p_n = z_n + (rz_n / safe(rz)) * p
+        x, r, z, p, rz = (torch.where(go, new, old) for new, old in
+                          ((x_n, x), (r_n, r), (z_n, z), (p_n, p), (rz_n, rz)))
     return torch.where(fixed[:, None], torch.zeros_like(x), x)
 
 
 def _solve_step(problem: BAProblem, segs: ObsSegments, cam_params, use_robust, active, lam,
-                point_chunk: int, solver: str = "dense", sums: _Sums = _LOCAL):
-    """One damped Gauss-Newton step -> (delta_c [K, 6], delta_p [P, 3])."""
+                point_chunk: int, solver: str = "dense", sums: _Sums = _LOCAL,
+                early: bool = True):
+    """One damped Gauss-Newton step -> (delta_c [K, 6], delta_p [P, 3]);
+    lam a 0-d tensor, early: the PCG may stop on the host (_schur_pcg)."""
     K = problem.R.shape[0]
     P = problem.points.shape[0]
     cam = problem.obs.cam_idx.long()
@@ -255,7 +285,7 @@ def _solve_step(problem: BAProblem, segs: ObsSegments, cam_params, use_robust, a
         v = torch.einsum("pab,pb->pa", Hpp_inv, g_p)
         b_corr = sums.cam(segment_sum(torch.einsum("oab,ob->oa", Hcp_o, v[pt]), segs.cam))
         delta_c = _schur_pcg(Hcc_d, Hpp_inv, Hcp_o, cam, pt, segs, -(g_c - b_corr),
-                             problem.fixed, sums=sums)
+                             problem.fixed, sums=sums, early=early)
     else:
         # Schur reduction over point chunks: W [K, chunk, 6, 3] per chunk.
         S_corr = torch.zeros((K, 6, K, 6), dtype=dtype, device=dev)
@@ -292,6 +322,105 @@ def _apply_step(problem: BAProblem, delta_c, delta_p) -> BAProblem:
     )
 
 
+class _Solve(NamedTuple):
+    """What a solve reads besides its tensors (the static arguments of the
+    JAX package's bundle_adjust_jit): part of its CUDA graphs' keys."""
+
+    cam_params: Tuple[float, float, float, float, float]
+    use_robust: bool
+    point_chunk: int
+    lam0: float
+    solver: str
+    early: bool           # the loops may stop on the host
+    sums: _Sums
+
+
+class _LMState(NamedTuple):
+    """The LM's carry (the JAX package's while_loop state): the current
+    poses and points, the damping, the cost, each observation's chi2 and
+    depth at the current problem, and whether a converged step was taken."""
+
+    R: torch.Tensor
+    t: torch.Tensor
+    points: torch.Tensor
+    lam: torch.Tensor
+    cost: torch.Tensor
+    chi2: torch.Tensor
+    z: torch.Tensor
+    converged: torch.Tensor
+
+
+def _resolve(problem: BAProblem, solver: str, point_sharded: bool = False) -> str:
+    if point_sharded:
+        return "pcg"
+    if solver == "auto":
+        return "pcg" if problem.R.shape[0] >= 64 else "dense"
+    return solver
+
+
+def _solve_config(problem: BAProblem, fx, fy, cx, cy, bf, use_robust, point_chunk, lam0,
+                  solver, point_sharded=False, early=True, sums=_LOCAL) -> _Solve:
+    return _Solve((fx, fy, cx, cy, bf), bool(use_robust),
+                  min(point_chunk, problem.points.shape[0]), float(lam0),
+                  _resolve(problem, solver, point_sharded), early, sums)
+
+
+def _cost(problem: BAProblem, cfg: _Solve):
+    """(chi2 [O], z [O], the robust cost over the active rows in front)."""
+    obs = problem.obs
+    delta2 = torch.where(obs.is_stereo, CHI2_STEREO, CHI2_MONO).to(problem.points.dtype)
+    _, _, chi2, _, _, z = _evaluate(problem, cfg.cam_params, cfg.use_robust, obs.valid)
+    cost = _robust_total_cost(chi2, delta2, obs.valid & (z > 0), cfg.use_robust)
+    return chi2, z, cfg.sums.cam(cost)
+
+
+def _lm_init(problem: BAProblem, segs: ObsSegments, cfg: _Solve) -> _LMState:
+    chi2, z, cost = _cost(problem, cfg)
+    return _LMState(problem.R, problem.t, problem.points,
+                    problem.points.new_full((), cfg.lam0), cost, chi2, z,
+                    torch.zeros((), dtype=torch.bool, device=problem.points.device))
+
+
+def _lm_go(s: _LMState) -> torch.Tensor:
+    """The JAX package's exit test, less its count: no converged step yet
+    and the damping under 1e8."""
+    return ~s.converged & (s.lam < 1e8)
+
+
+def _lm_iteration(s: _LMState, problem: BAProblem, segs: ObsSegments, cfg: _Solve) -> _LMState:
+    """One LM iteration (the JAX package's while_loop body). Where the
+    exit test has failed it changes nothing: every new value is a select
+    on it, so an iteration past the exit leaves the bits as they were."""
+    go = _lm_go(s)
+    p = problem._replace(R=s.R, t=s.t, points=s.points)
+    delta_c, delta_p = _solve_step(p, segs, cfg.cam_params, cfg.use_robust, problem.obs.valid,
+                                   s.lam, cfg.point_chunk, cfg.solver, cfg.sums, cfg.early)
+    p_new = _apply_step(p, delta_c, delta_p)
+    chi2, z, new_cost = _cost(p_new, cfg)
+    step_sq = torch.sum(delta_c * delta_c) + cfg.sums.own(torch.sum(delta_p * delta_p))
+    step_eps = 1e-16 if problem.points.dtype == torch.float64 else 1e-10
+    # A failed solve (a singular Schur system in float32) gives a
+    # non-finite step; its projections then fail every depth gate, so
+    # its cost reads 0. Such a step is rejected, never accepted.
+    accept = go & (new_cost < s.cost) & torch.isfinite(step_sq)
+
+    def pick(new, old):
+        return torch.where(accept, new, old)
+
+    return _LMState(pick(p_new.R, s.R), pick(p_new.t, s.t), pick(p_new.points, s.points),
+                    torch.where(go, torch.where(accept, s.lam * 0.5, s.lam * 4.0), s.lam),
+                    pick(new_cost, s.cost), pick(chi2, s.chi2), pick(z, s.z),
+                    s.converged | (accept & (step_sq < step_eps)))
+
+
+def _result(s: _LMState, problem: BAProblem) -> Tuple[BAProblem, BAResult]:
+    obs = problem.obs
+    delta2 = torch.where(obs.is_stereo, CHI2_STEREO, CHI2_MONO).to(problem.points.dtype)
+    inlier = obs.valid & (s.chi2 <= delta2) & (s.z > 0)
+    return (problem._replace(R=s.R, t=s.t, points=s.points),
+            BAResult(R=s.R, t=s.t, points=s.points, chi2=s.chi2, inlier=inlier, cost=s.cost))
+
+
 @full_float32
 def bundle_adjust(
     problem: BAProblem,
@@ -303,8 +432,12 @@ def bundle_adjust(
     solver: str = "auto",
     group: Optional[dist.ProcessGroup] = None,
     point_sharded: bool = False,
+    *,
+    segs: Optional[ObsSegments] = None,
 ) -> Tuple[BAProblem, BAResult]:
-    """Run up to n_iters of LM -> (updated problem, diagnostics).
+    """Run up to n_iters of LM -> (updated problem, diagnostics); the
+    early-exit form, which reads the exit test on the host once an
+    iteration (and the PCG's once a CG iteration).
 
     solver: "dense" forms the Schur complement and solves it (exact, for
     local-BA-sized problems), "pcg" runs implicit Schur + preconditioned
@@ -315,54 +448,78 @@ def bundle_adjust(
     group: this rank's block of a problem sharded over a process group
     (see the module docstring); point_sharded=True (the points' block too)
     takes pcg, since the dense route would build a replicated [6K, 6K].
-    chi2 and inlier are this rank's observations'."""
-    if point_sharded:
-        solver = "pcg"
-    elif solver == "auto":
-        solver = "pcg" if problem.R.shape[0] >= 64 else "dense"
-    cam_params = (fx, fy, cx, cy, bf)
-    sums = _sums(group, point_sharded)
-    obs = problem.obs
-    dtype = problem.points.dtype
-    delta2 = torch.where(obs.is_stereo, CHI2_STEREO, CHI2_MONO).to(dtype)
-    active = obs.valid
-    point_chunk = min(point_chunk, problem.points.shape[0])
-    step_eps = 1e-16 if dtype == torch.float64 else 1e-10
-
-    def cost_of(p: BAProblem):
-        _, _, chi2, _, _, z = _evaluate(p, cam_params, use_robust, active)
-        return sums.cam(_robust_total_cost(chi2, delta2, active & (z > 0), use_robust))
-
-    segs = obs_segments(problem, point_chunk, solver)
-    lam = 1.0 * lam0
-    cost = cost_of(problem)
+    chi2 and inlier are this rank's observations'. segs: the observation
+    tables (obs_segments of these observations, point_chunk and solver),
+    when the caller made them already."""
+    cfg = _solve_config(problem, fx, fy, cx, cy, bf, use_robust, point_chunk, lam0, solver,
+                        point_sharded, True, _sums(group, point_sharded))
+    if segs is None:
+        segs = obs_segments(problem, cfg.point_chunk, cfg.solver)
+    s = _lm_init(problem, segs, cfg)
     for _ in range(n_iters):
-        if lam >= 1e8:
+        if not bool(_lm_go(s)):
             break
-        delta_c, delta_p = _solve_step(
-            problem, segs, cam_params, use_robust, active,
-            torch.tensor(lam, dtype=dtype, device=problem.points.device),
-            point_chunk, solver, sums)
-        p_new = _apply_step(problem, delta_c, delta_p)
-        new_cost = cost_of(p_new)
-        step_sq = torch.sum(delta_c * delta_c) + sums.own(torch.sum(delta_p * delta_p))
-        # A failed solve (a singular Schur system in float32) gives a
-        # non-finite step; its projections then fail every depth gate, so
-        # its cost reads 0. Such a step is rejected, never accepted.
-        accept, small = (bool(v) for v in torch.stack(
-            [(new_cost < cost) & torch.isfinite(step_sq), step_sq < step_eps]).cpu())
-        if accept:
-            problem, cost = p_new, new_cost
-            lam = lam * 0.5
-            if small:
-                break
-        else:
-            lam = lam * 4.0
+        s = _lm_iteration(s, problem, segs, cfg)
+    return _result(s, problem)
 
-    _, _, chi2, _, _, z = _evaluate(problem, cam_params, use_robust, active)
-    inlier = active & (chi2 <= delta2) & (z > 0)
-    return problem, BAResult(R=problem.R, t=problem.t, points=problem.points,
-                             chi2=chi2, inlier=inlier, cost=cost)
+
+@full_float32
+def bundle_adjust_loop(
+    problem: BAProblem,
+    fx: float, fy: float, cx: float, cy: float, bf: float,
+    n_iters: int = 10,
+    use_robust: bool = True,
+    point_chunk: int = 1024,
+    lam0: float = 1e-4,
+    solver: str = "auto",
+    *,
+    segs: Optional[ObsSegments] = None,
+) -> Tuple[BAProblem, BAResult]:
+    """The device-loop form of bundle_adjust (the JAX package's two
+    while_loops): n_iters LM iterations, each past the exit test a no-op,
+    with the PCG's 64 iterations masked the same way, so nothing is read
+    on the host. On the card the initial cost is one CUDA graph replay and
+    the iterations n replays of another (utils/cuda_graph.py), its carry
+    in the graph's buffers; on CPU tensors (or in cuda_graph.eager()) they
+    run eagerly. The same bits as bundle_adjust on the same tables."""
+    cfg = _solve_config(problem, fx, fy, cx, cy, bf, use_robust, point_chunk, lam0, solver,
+                        early=False)
+    if segs is None:
+        segs = obs_segments(problem, cfg.point_chunk, cfg.solver)
+    s = cuda_graph.call(_lm_init, (problem, segs), cfg)
+    s = cuda_graph.loop(_lm_iteration, s, (problem, segs), cfg, n_iters)
+    return _result(s, problem)
+
+
+# The functions bundle_adjust_loop captures (cuda_graph.release's owners).
+GRAPHED = (_lm_init, _lm_iteration)
+
+
+def bundle_adjust_jit(
+    problem: BAProblem,
+    fx: float, fy: float, cx: float, cy: float, bf: float,
+    n_iters: int = 10,
+    use_robust: bool = True,
+    point_chunk: int = 1024,
+    lam0: float = 1e-4,
+    axis_name: Optional[dist.ProcessGroup] = None,
+    solver: str = "auto",
+    point_sharded: bool = False,
+    *,
+    segs: Optional[ObsSegments] = None,
+) -> Tuple[BAProblem, BAResult]:
+    """The JAX package's bundle_adjust_jit, its parameters in its order:
+    on the card bundle_adjust_loop's CUDA graphs, on CPU tensors
+    bundle_adjust. axis_name: the process group of a sharded solve (the
+    port's counterpart of JAX's mesh axis), which runs bundle_adjust's
+    early-exit form, all-reducing eagerly. segs (the port's own): the
+    observation tables, when the caller made them already (local BA's two
+    stages, a global BA's segments)."""
+    if axis_name is not None or not problem.points.is_cuda:
+        return bundle_adjust(problem, fx, fy, cx, cy, bf, n_iters, use_robust, point_chunk,
+                             lam0, solver, axis_name, point_sharded, segs=segs)
+    return bundle_adjust_loop(problem, fx, fy, cx, cy, bf, n_iters, use_robust, point_chunk,
+                              lam0, _resolve(problem, solver, point_sharded), segs=segs)
 
 
 def local_bundle_adjust(
@@ -374,10 +531,13 @@ def local_bundle_adjust(
 ) -> Tuple[BAProblem, BAResult]:
     """The reference's two-stage local BA (src/Optimizer.cc:737-782): 5
     robust iterations, drop chi2 outliers and negative depths, 10 more
-    without the robust kernel. The host erases the observations flagged
-    not inlier (:838-861)."""
-    problem, r1 = bundle_adjust(problem, fx, fy, cx, cy, bf, n_iters=first_iters,
-                                use_robust=True, point_chunk=point_chunk)
+    without the robust kernel, each stage through bundle_adjust_jit. The
+    host erases the observations flagged not inlier (:838-861). Both
+    stages sum over the first stage's tables: a row the first stage drops
+    keeps its place with weight 0, so nothing is read between them."""
+    segs = obs_segments(problem, point_chunk)
+    problem, r1 = bundle_adjust_jit(problem, fx, fy, cx, cy, bf, n_iters=first_iters,
+                                    use_robust=True, point_chunk=point_chunk, segs=segs)
     problem = problem._replace(obs=problem.obs._replace(valid=r1.inlier))
-    return bundle_adjust(problem, fx, fy, cx, cy, bf, n_iters=second_iters,
-                         use_robust=False, point_chunk=point_chunk)
+    return bundle_adjust_jit(problem, fx, fy, cx, cy, bf, n_iters=second_iters,
+                             use_robust=False, point_chunk=point_chunk, segs=segs)

@@ -9,15 +9,24 @@ or a keyframe decision those bits can change a whole SLAM run.
 Here the ids are sorted once per problem (a BA's observation -> camera and
 observation -> point maps, a pose graph's edge -> vertex maps do not change
 during its solve) into a padded `[n, L]` table of row numbers, each segment's
-rows in ascending order; a sum gathers `vals` into that layout and reduces
-along it, which PyTorch does in a fixed order.
+rows in ascending order; a sum gathers `vals` into that layout and adds
+along it one row after another: the last entry of a running sum (`cumsum`)
+along the table's rows, an axis that is not the last, which PyTorch scans
+sequentially. So the result does not depend on the table's width or on
+zero rows in it (on the card the additions are float32 ones in
+`index_add_`'s row order; the CPU's cumsum accumulates float32 in float64).
+L is the longest segment's
+length rounded up to a power of two (the padded columns gather the zero
+row), so that problems of nearby sizes give tables of one shape: the
+tables are inputs of the solvers' CUDA graphs (utils/cuda_graph.py), which
+are keyed by their inputs' shapes, and local BA's second stage sums over
+its first stage's tables (a dropped row adds a zero).
 
-The CPU's `index_add_` already adds in row order, one row after another,
-and the port's CPU parity tests were set on that order: the monocular
-global BA of a loop closure walks along its free scale in float32, and a
-new summation order moves it past those tests' bounds. So a table is made
-for CUDA ids, and CPU ids keep `index_add_` unless the caller asks for the
-table (`ordered=True`).
+The port's CPU parity tests were set on `index_add_`'s row order (the
+monocular global BA of a loop closure walks along its free scale in
+float32, and another order moves it past those tests' bounds). A table is
+made for CUDA ids, and CPU ids keep `index_add_` unless the caller asks for
+the table (`ordered=True`).
 """
 
 from __future__ import annotations
@@ -51,17 +60,27 @@ def segments(idx: torch.Tensor, n: int, include: Optional[torch.Tensor] = None,
     bounds = torch.searchsorted(key[order].contiguous(),
                                 torch.arange(n + 1, dtype=torch.long, device=idx.device))
     length = bounds[1:] - bounds[:-1]
-    width = int(length.max()) if n else 0
+    width = bucket(int(length.max())) if n else 0
     j = torch.arange(width, dtype=torch.long, device=idx.device)
     pos = (bounds[:-1, None] + j).clamp(max=max(rows - 1, 0))
     gather = torch.where(j < length[:, None], order[pos], rows)
     return Segments(key, n, gather)
 
 
+def bucket(width: int) -> int:
+    """A table's width: the least power of two >= width (0 for 0)."""
+    return 1 << (width - 1).bit_length() if width > 0 else 0
+
+
 def segment_sum(vals: torch.Tensor, seg: Segments) -> torch.Tensor:
-    """out [n, ...]: out[j] = the sum of vals[o] over segment j's rows."""
+    """out [n, ...]: out[j] = the sum of vals[o] over segment j's rows,
+    added one after another in ascending row order."""
     if seg.gather is None:
         out = vals.new_zeros((seg.n + 1,) + vals.shape[1:])
         return out.index_add_(0, seg.key, vals)[:seg.n]
+    n, width = seg.gather.shape
+    if width == 0:
+        return vals.new_zeros((seg.n,) + vals.shape[1:])
     padded = torch.cat([vals, vals.new_zeros((1,) + vals.shape[1:])])
-    return padded[seg.gather].sum(dim=1)
+    rows = padded[seg.gather].reshape(n, width, -1)
+    return rows.cumsum(dim=1)[:, -1].reshape((n,) + vals.shape[1:])

@@ -12,8 +12,10 @@ meanwhile (:976-1006).
 
 Here the BA problem is packed from the map under the lock
 (tracking.build_ba_problem), solved outside it in segments of
-`segment_iters` LM iterations (ba.bundle_adjust; the generation is checked
-between segments, and the damping restarts in each), and merged under the
+`segment_iters` LM iterations (ba.bundle_adjust_jit: on the card a run of
+CUDA graph replays, the observation tables made once for every segment;
+the generation is checked between segments, and the damping restarts in
+each), and merged under the
 lock after the generation is checked again. On the card the runner's
 thread solves on a CUDA stream of its own; the problem is built and read
 back on that thread. An exception on the thread is kept and raised again
@@ -141,14 +143,15 @@ class GlobalBARunner:
 
         # The solve, outside the lock, in abortable segments.
         problem = assembled.problem
+        segs = ba.obs_segments(problem, 1024)
         remaining = n_iters
         while remaining > 0:
             if gen != self.full_ba_idx:
                 self.n_aborted += 1
                 return
             seg = min(self.segment_iters, remaining)
-            problem, _ = ba.bundle_adjust(problem, cam.fx, cam.fy, cam.cx, cam.cy, cam.bf,
-                                          n_iters=seg, point_chunk=1024)
+            problem, _ = ba.bundle_adjust_jit(problem, cam.fx, cam.fy, cam.cx, cam.cy, cam.bf,
+                                              n_iters=seg, point_chunk=1024, segs=segs)
             remaining -= seg
         problem = problem._replace(R=to_host(problem.R), t=to_host(problem.t),
                                    points=to_host(problem.points))

@@ -4,11 +4,11 @@ slam/jit_mapper.py).
 One call each serves the whole neighbour loop of a keyframe, with packed
 inputs and outputs in the JAX package's layouts:
 
-- `fused_triangulation_jit`: CreateNewMapPoints' per-neighbour loop
+- `fused_triangulation`: CreateNewMapPoints' per-neighbour loop
   (src/LocalMapping.cc:281-558): the triangulation matcher over B
-  neighbour pairs (one K7 launch under the B pairs' masks),
+  neighbour pairs (one K7 launch under the epipolar band),
   DLT triangulation and the in-graph gates;
-- `fused_fuse_forward_jit`: SearchInNeighbors' forward fuse pass
+- `fused_fuse_forward`: SearchInNeighbors' forward fuse pass
   (src/LocalMapping.cc:560-664): this keyframe's points projected into B
   target keyframes (one K6 launch over the B problems).
 
@@ -16,6 +16,15 @@ The host keeps the sequential claim semantics (a feature triangulated with
 an earlier neighbour is not claimed again by a later one) by replaying the
 batched results in neighbour order. Both run in float32 on the device of
 their inputs and never wait for it.
+
+Each has a single-dispatch form, named as the JAX package's jitted one
+(`*_jit`, the same arguments in the same order): on the card replays of
+CUDA graphs captured at the first call for their key (utils/cuda_graph.py;
+the callers pad B and the point count to JAX's buckets, so a System run
+captures a few): one for the fuse, two for the triangulation, whose DLT
+eigensolve (torch.linalg.eigh, which reads its status on the host) runs
+between them; on CPU tensors the eager function. The local mapper calls
+the `*_jit` forms.
 """
 
 from __future__ import annotations
@@ -24,7 +33,9 @@ import numpy as np
 import torch
 
 from orb_slam2_commit_tpu_torch.geometry import triangulation as tri
+from orb_slam2_commit_tpu_torch.optim import linalg
 from orb_slam2_commit_tpu_torch.slam import matchers
+from orb_slam2_commit_tpu_torch.utils import cuda_graph
 from orb_slam2_commit_tpu_torch.utils.config import SLAMConfig
 from orb_slam2_commit_tpu_torch.utils.device_cache import device_table
 from orb_slam2_commit_tpu_torch.utils.precision import full_float32
@@ -52,7 +63,7 @@ def _pack_feats(xy, angle, octave, free):
 
 
 @full_float32
-def fused_triangulation_jit(
+def fused_triangulation(
     kf_f32,       # [N, TRI_FEAT_COLS]
     kf_desc,      # [N, 8] int32
     nb_f32,       # [B, N, TRI_FEAT_COLS]
@@ -64,53 +75,73 @@ def fused_triangulation_jit(
     """All neighbour pairs of CreateNewMapPoints in one call -> (pts
     [B, N, 3] float32 triangulated world points per keyframe-feature row,
     flags [B, N, 2] float32: the gate mask and the matched neighbour
-    feature index, -1 where unmatched)."""
+    feature index, -1 where unmatched): triangulation_match, the DLT
+    eigensolve, triangulation_gates."""
+    args = (kf_f32, kf_desc, nb_f32, nb_desc, pair_f32, meta_f32)
+    idx, uv2, normal = triangulation_match(*args, config)
+    _, V = linalg.eigh(normal)
+    return triangulation_gates(idx, uv2, V, *args, config)
+
+
+def _tri_inputs(kf_f32, nb_f32, pair_f32, meta_f32):
     f32 = torch.float32
     kf_f32, nb_f32 = kf_f32.to(f32), nb_f32.to(f32)
     pair_f32, meta_f32 = pair_f32.to(f32), meta_f32.to(f32)
-    dev = kf_f32.device
     bsz = nb_f32.shape[0]
+    return (kf_f32, nb_f32, meta_f32[0:12].reshape(3, 4),
+            pair_f32[:, 11:23].reshape(bsz, 3, 4), pair_f32, meta_f32)
 
+
+def triangulation_match(kf_f32, kf_desc, nb_f32, nb_desc, pair_f32, meta_f32,
+                        config: SLAMConfig):
+    """The triangulation matcher over the B neighbour pairs (one K7 launch
+    under the epipolar band) -> (idx [B, N] the matched neighbour feature
+    per keyframe feature, -1 none; its position uv2 [B, N, 2]; the DLT's
+    A^T A [B, N, 4, 4])."""
+    kf_f32, nb_f32, P1, P2, pair_f32, _ = _tri_inputs(kf_f32, nb_f32, pair_f32, meta_f32)
+    bsz = nb_f32.shape[0]
     xy1 = kf_f32[:, 0:2]
-    angle1 = kf_f32[:, 2]
+    pair_valid = pair_f32[:, 30] > 0.5
+    xy2 = nb_f32[:, :, 0:2]
+    m = matchers.match_for_triangulation(
+        xy1, kf_desc, kf_f32[:, 2], (kf_f32[:, 4] > 0.5)[None, :] & pair_valid[:, None],
+        xy2, nb_desc, nb_f32[:, :, 2], nb_f32[:, :, 4] > 0.5,
+        pair_f32[:, 0:9].reshape(bsz, 3, 3), nb_f32[:, :, 3].to(torch.int32),
+        pair_f32[:, 9:11], kf_f32.new_full((), 100.0),
+        n_levels=config.orb.n_levels, scale=config.orb.scale_factor,
+    )
+    safe = torch.clamp_min(m.idx, 0).long()
+    uv2 = torch.gather(xy2, 1, safe[..., None].expand(-1, -1, 2))
+    return m.idx, uv2, tri.dlt_normal_matrices(xy1.expand(bsz, -1, -1), uv2,
+                                               P1.expand(bsz, -1, -1), P2)
+
+
+def triangulation_gates(idx, uv2, V, kf_f32, kf_desc, nb_f32, nb_desc, pair_f32, meta_f32,
+                        config: SLAMConfig):
+    """The points from the DLT's eigenvectors V [B, N, 4, 4] and the
+    gates (reference :388-535: parallax, cheirality, reprojection, scale
+    consistency) -> fused_triangulation's (pts, flags)."""
+    f32 = torch.float32
+    kf_f32, nb_f32, P1, P2, pair_f32, meta_f32 = _tri_inputs(kf_f32, nb_f32, pair_f32,
+                                                              meta_f32)
+    dev = kf_f32.device
+    xy1 = kf_f32[:, 0:2]
     octave1 = kf_f32[:, 3].to(torch.int32)
-    free1 = kf_f32[:, 4] > 0.5
-    P1 = meta_f32[0:12].reshape(3, 4)
     c1 = meta_f32[12:15]
     cos_gate = meta_f32[15]
     ratio_factor = meta_f32[16]
-
     n_lv = config.orb.n_levels
     scale_factors = _scale_factors(dev, config.orb)
     sigma2 = _level_sigma2(dev, config.orb)
-
-    xy2 = nb_f32[:, :, 0:2]
-    angle2 = nb_f32[:, :, 2]
     octave2 = nb_f32[:, :, 3].to(torch.int32)
-    free2 = nb_f32[:, :, 4] > 0.5
-    F12 = pair_f32[:, 0:9].reshape(bsz, 3, 3)
-    ep = pair_f32[:, 9:11]
-    P2 = pair_f32[:, 11:23].reshape(bsz, 3, 4)
     R2z = pair_f32[:, 23:26]
     t2z = pair_f32[:, 26]
     c2 = pair_f32[:, 27:30]
     pair_valid = pair_f32[:, 30] > 0.5
 
-    m = matchers.match_for_triangulation(
-        xy1, kf_desc, angle1, free1[None, :] & pair_valid[:, None],
-        xy2, nb_desc, angle2, free2, F12, octave2, ep,
-        torch.tensor(100.0, dtype=f32, device=dev),
-        n_levels=n_lv, scale=config.orb.scale_factor,
-    )
-    idx = m.idx                                           # [B, N]
     matched = idx >= 0
     safe = torch.clamp_min(idx, 0).long()
-    uv2 = torch.gather(xy2, 1, safe[..., None].expand(-1, -1, 2))
-    pts = tri.triangulate_dlt(xy1.expand(bsz, -1, -1), uv2,
-                              P1.expand(bsz, -1, -1), P2)
-
-    # Gates (reference :388-535): parallax, cheirality, reprojection,
-    # scale consistency.
+    pts = tri.dlt_points(V)
     r1 = pts - c1
     r2 = pts - c2[:, None, :]
     d1 = torch.linalg.norm(r1, dim=-1)
@@ -151,7 +182,7 @@ FUSE_FEAT_COLS = 4
 FUSE_TGT_COLS = 13
 
 
-def fused_fuse_forward_jit(
+def fused_fuse_forward(
     pt_f32,       # [P, FUSE_PT_COLS]
     pt_desc,      # [P, 8] int32
     tgt_feat,     # [B, N, FUSE_FEAT_COLS]
@@ -189,3 +220,21 @@ def fused_fuse_forward_jit(
         th=3.0, n_levels=config.orb.n_levels, scale=config.orb.scale_factor,
     )
     return m.idx.to(f32)
+
+
+@full_float32
+def fused_triangulation_jit(kf_f32, kf_desc, nb_f32, nb_desc, pair_f32, meta_f32,
+                            config: SLAMConfig):
+    args = (kf_f32, kf_desc, nb_f32, nb_desc, pair_f32, meta_f32)
+    if not kf_f32.is_cuda:
+        return fused_triangulation(*args, config)
+    idx, uv2, normal = cuda_graph.call(triangulation_match, args, config)
+    # torch.linalg.eigh reads its result's status on the host (it has no
+    # _ex form), which a capture refuses: it runs between the two replays.
+    _, V = linalg.eigh(normal)
+    return cuda_graph.call(triangulation_gates, (idx, uv2, V) + args, config)
+
+
+def fused_fuse_forward_jit(pt_f32, pt_desc, tgt_feat, tgt_desc, tgt_meta, config: SLAMConfig):
+    return cuda_graph.call(fused_fuse_forward, (pt_f32, pt_desc, tgt_feat, tgt_desc, tgt_meta),
+                           config)

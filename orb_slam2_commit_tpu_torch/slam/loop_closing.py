@@ -495,7 +495,7 @@ class LoopCloser:
             edge_i=torch.from_numpy(ei_p).to(dev), edge_j=torch.from_numpy(ej_p).to(dev),
             meas_s=self._dev(np.ones(Ep)), meas_R=self._dev(mR_p), meas_t=self._dev(mt_p),
             edge_valid=self._dev(valid_p))
-        out = pose_graph.optimize_sim3_graph(graph, n_iters=20, fix_scale=fix_scale)
+        out = pose_graph.optimize_sim3_graph_jit(graph, n_iters=20, fix_scale=fix_scale)
         s_out = to_host(out.s)[:Kv].astype(np.float64)
         R_out = to_host(out.R)[:Kv].astype(np.float64)
         t_out = to_host(out.t)[:Kv].astype(np.float64)
@@ -541,7 +541,7 @@ class LoopCloser:
             out, result = dba.distributed_bundle_adjust(
                 prob, group, cam.fx, cam.fy, cam.cx, cam.cy, cam.bf, n_iters=n_iters)
         else:
-            out, result = ba.bundle_adjust(
+            out, result = ba.bundle_adjust_jit(
                 assembled.problem, cam.fx, cam.fy, cam.cx, cam.cy, cam.bf,
                 n_iters=n_iters, point_chunk=1024)
         write_back_ba(m, assembled, out, result, erase_outliers=False)

@@ -58,6 +58,7 @@ from orb_slam2_commit_tpu_torch.models import serialization
 from orb_slam2_commit_tpu_torch.models.kf_database import KeyFrameDatabase
 from orb_slam2_commit_tpu_torch.models.map_state import MapState
 from orb_slam2_commit_tpu_torch.models.vocabulary import default_vocabulary, load_vocabulary
+from orb_slam2_commit_tpu_torch.optim import ba, pose_graph
 from orb_slam2_commit_tpu_torch.slam.async_pipeline import MappingWorker
 from orb_slam2_commit_tpu_torch.slam.frame import Frame, make_frame, make_stereo_frame
 from orb_slam2_commit_tpu_torch.slam.global_ba import GlobalBARunner
@@ -372,8 +373,9 @@ class System:
         """Drain the keyframe queue, then finish the mapping worker and wait
         for a global BA in flight to merge (System::Shutdown,
         src/System.cc:315-334); raises what a background thread raised.
-        Then it releases the tracker's CUDA graphs (those captured under
-        its configurations) and logs the captures made since it was built."""
+        Then it releases its CUDA graphs (the tracker's and the mapper's,
+        captured under its configurations, and the solvers': BA's and the
+        pose graph's) and logs the captures made since it was built."""
         worker = self.mapping_worker
         try:
             if worker is not None:
@@ -383,7 +385,8 @@ class System:
                 worker.join()
             if self._gba is not None:
                 self._gba.join()
-            released = cuda_graph.release(self.config, self.init_config)
+            released = cuda_graph.release(self.config, self.init_config, *ba.GRAPHED,
+                                          *pose_graph.GRAPHED)
             _LOG.info("System %s: %d CUDA graph captures since it was built, %d graphs "
                       "released", self.config.sensor,
                       cuda_graph.n_captures() - self._captures_at_start, released)

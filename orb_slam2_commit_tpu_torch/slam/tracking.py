@@ -269,7 +269,7 @@ class Tracker:
             point_ids=np.where(self.map.pt_valid)[0], orb_cfg=self.config.orb,
             device=self.device,
         )
-        out, result = ba.bundle_adjust(
+        out, result = ba.bundle_adjust_jit(
             assembled.problem, cam.fx, cam.fy, cam.cx, cam.cy, cam.bf,
             n_iters=n_iters, point_chunk=512,
         )

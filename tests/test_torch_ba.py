@@ -224,3 +224,26 @@ def test_failed_solve_is_rejected(monkeypatch):
     assert float(res.cost) > 0
     out, _ = ba.bundle_adjust(problem, FX, FY, CX, CY, 0.0, n_iters=6, solver="dense")
     assert torch.isfinite(out.R).all() and not torch.equal(out.R, problem.R)
+
+
+def test_singular_preconditioner_block_is_rejected(monkeypatch):
+    """A singular block of the PCG's block-Jacobi preconditioner (camera
+    3's damped Hcc block zeroed) no longer raises (torch.linalg.inv did):
+    inv_ex marks it NaN, the step comes out NaN and is rejected, as the
+    JAX package's non-finite inverse is, and the problem is unchanged."""
+    a, _, _ = make_problem(seed=22, n_cams=8)
+    problem = _problem(ba, BAObservations, a, torch.from_numpy)
+    pcg, calls = ba._schur_pcg, []
+
+    def singular(Hcc_d, *args, **kwargs):
+        calls.append(1)
+        Hcc_d = Hcc_d.clone()
+        Hcc_d[3] = 0.0
+        return pcg(Hcc_d, *args, **kwargs)
+
+    monkeypatch.setattr(ba, "_schur_pcg", singular)
+    out, res = ba.bundle_adjust(problem, FX, FY, CX, CY, 0.0, n_iters=1, solver="pcg")
+    assert calls == [1]
+    for k in ("R", "t", "points"):
+        np.testing.assert_array_equal(getattr(out, k).numpy(), a[k], err_msg=k)
+    assert float(res.cost) > 0

@@ -26,7 +26,7 @@ else runs as on the card, in float32, the JAX side in 32-bit mode:
   float64 reaches 1e-7). The 12-vertex loop is not held under PCG: its
   176 CG iterations run far past convergence, where float32 rounding
   moves both packages' iterates apart by ~0.02 (the JAX package's tol of
-  1e-16 never stops them; pose_graph._pcg_solve).
+  1e-16 never stops them; pose_graph._cg_block).
 Nothing launches a kernel here."""
 
 import sys
