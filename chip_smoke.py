@@ -160,7 +160,22 @@ Phases (any failure exits non-zero and prints no result line):
      eagerly too, launches per replay the eager call's, and no
      device-to-host copy or synchronization from a replayed local BA's
      first replay to the read of its result or in a replayed global BA
-     segment (torch.profiler);
+     segment (torch.profiler); the staged tracker's single-dispatch forms
+     (phase_staged_graphs, after the localization session: the staged
+     frame's extraction on both routes and stereo front end, the pose LM,
+     the four matcher forms, EPnP RANSAC, the two-view bootstrap and the
+     BoW descent, on calls recorded from the monocular kidnap run and the
+     localization session), every replay bit for bit its eager call, its
+     launches all from replays and the eager call's, one replay for a
+     one-graph form, and the host's reads of the device in a replayed call
+     those of its eigensolves and SVDs alone (torch.profiler); EPnP's
+     batched Horn SVD bit for bit one call a case; the localization
+     session (four turns), the monocular sweep's first 20 frames and the
+     RGB-D System with the staged tracker (ORB_TPU_FUSED_TRACK=0, every
+     frame OK and the ATE gate; two turns each) run eager (every form at
+     its eager function) and replayed in turns, bit for bit the same, with
+     frames/s, stage ms, captures, replays, pool bytes and the idle share,
+     and the kidnap sequence's eager warm-up against its counted run;
      the System's sequences held to every frame OK, the ATE gate, at
      least 2 keyframes, points made by triangulation and a fuse pass, and
      the RGB-D sequence's first frames against the CPU's; the monocular
@@ -285,18 +300,19 @@ try:
     from orb_slam2_commit_tpu_torch import interop
     from orb_slam2_commit_tpu_torch.kernels import (
         _build, level, matching as kmatching, patches, pose_lm, select, subpix)
-    from orb_slam2_commit_tpu_torch.geometry import sim3_solver
-    from orb_slam2_commit_tpu_torch.models import native_core, serialization
+    from orb_slam2_commit_tpu_torch.geometry import pnp, sim3_solver, twoview
+    from orb_slam2_commit_tpu_torch.models import native_core, serialization, vocabulary
     from orb_slam2_commit_tpu_torch.models.kf_database import KeyFrameDatabase
     from orb_slam2_commit_tpu_torch.ops import extractor, lie, pyramid, stereo
     from orb_slam2_commit_tpu_torch.ops import subpix as ops_subpix
     from orb_slam2_commit_tpu_torch.ops import packed_extractor as pe
-    from orb_slam2_commit_tpu_torch.optim import ba, pose_graph, pose_opt, segment, sim3_opt
+    from orb_slam2_commit_tpu_torch.optim import (
+        ba, linalg, pose_graph, pose_opt, segment, sim3_opt)
     from orb_slam2_commit_tpu_torch.parallel import distributed_ba as dba, multihost
     from orb_slam2_commit_tpu_torch.slam import (
         jit_frontend, jit_mapper, loop_closing, matchers, tracking)
     from orb_slam2_commit_tpu_torch.slam.local_mapping import LocalMapper
-    from orb_slam2_commit_tpu_torch.slam.system import System
+    from orb_slam2_commit_tpu_torch.slam.system import STAGED_GRAPHED, System
     from orb_slam2_commit_tpu_torch.slam.tracking import Tracker
     from orb_slam2_commit_tpu_torch.examples import run_ar, run_dataset, run_live
     from orb_slam2_commit_tpu_torch.slam import ar
@@ -682,8 +698,14 @@ def device_busy_ms(fn, iters, warmup=3):
     same per operation name (traced_calls). The host's gaps between them
     are not counted, so a call whose launches take less device time than
     the host needs to issue them reads its device time (CUDA events over
-    calls in a row would read the host's issue rate)."""
+    calls in a row would read the host's issue rate). Where neither of
+    traced_calls' two sessions saw a device operation (the profiler drops
+    whole sessions late in a long process), three more are taken."""
     _, busy, _, by_name = traced_calls(fn, iters, warmup)
+    if busy is None:
+        _, busy, _, by_name = traced_calls(fn, iters, 0, sessions=3)
+        log(f"device_busy_ms: two profiler sessions saw no device operation; three more "
+            f"{'saw them' if busy is not None else 'saw none either'}")
     if busy is None:
         raise AssertionError("the profiler saw no device operation")
     return busy, by_name
@@ -1568,6 +1590,8 @@ PACKED_FORM = {"monocular": "fused_motion_track_packed",
                "stereo": "fused_stereo_motion_track_packed",
                "rgbd": "fused_rgbd_motion_track_packed"}
 GRAPH_FPS_BLOCKS = 2
+# phase_graph_systems' turns (four until PR 19: its depth cut).
+GRAPH_SYSTEM_TURNS = ("eager", "graphs")
 # Graph captures of one form under one configuration in one System run: the
 # monocular motion stage sees twice the features after initialization.
 GRAPHS_PER_FORM = 2
@@ -1594,14 +1618,30 @@ MAPPER_FORMS = ((ba, "bundle_adjust_jit", "bundle_adjust"),
                 (pose_graph, "optimize_sim3_graph_jit", "optimize_sim3_graph"),
                 (jit_mapper, "fused_triangulation_jit", "fused_triangulation"),
                 (jit_mapper, "fused_fuse_forward_jit", "fused_fuse_forward"))
+# The staged tracker's single-dispatch forms -> their eager functions
+# (module, form, eager function's name): the staged frame's extraction and
+# stereo front end, the pose LM, the matchers, EPnP RANSAC, the two-view
+# bootstrap and the BoW descent.
+STAGED_FORMS = ((extractor, "extract_features_jit", "extract_features"),
+                (stereo, "stereo_frontend_jit", "stereo_frontend"),
+                (pose_opt, "pose_optimization_jit", "pose_optimization"),
+                (matchers, "match_for_initialization_jit", "match_for_initialization"),
+                (matchers, "match_projection_last_frame_jit", "match_projection_last_frame"),
+                (matchers, "match_brute_force_jit", "match_brute_force"),
+                (matchers, "search_local_points_jit", "search_local_points"),
+                (pnp, "epnp_ransac_many_jit", "epnp_ransac_many"),
+                (twoview, "initialize_two_view_jit", "initialize_two_view"),
+                (vocabulary, "_descend_jit", "_descend"))
 
 
 @contextlib.contextmanager
 def eager_forms():
     """The module references to every single-dispatch form (the
-    tracker's, the mapper's and the loop closer's) pointed at their eager
-    functions inside the block (an eager run to compare with)."""
-    forms = [(jit_frontend, f"{n}_jit", n) for n in GRAPH_FORMS] + list(MAPPER_FORMS)
+    tracker's, the staged tracker's, the mapper's and the loop closer's)
+    pointed at their eager functions inside the block (an eager run to
+    compare with)."""
+    forms = ([(jit_frontend, f"{n}_jit", n) for n in GRAPH_FORMS] + list(MAPPER_FORMS)
+             + list(STAGED_FORMS))
     saved = [(module, form, getattr(module, form)) for module, form, _ in forms]
     for module, form, eager in forms:
         setattr(module, form, getattr(module, eager))
@@ -2211,7 +2251,8 @@ def phase_system(seqs, power):
 def phase_graph_systems(seqs, power, errs):
     """The synchronous RGB-D and stereo Systems and the asynchronous RGB-D
     System, eager (the tracker's forms pointed at the eager functions)
-    and through the graphs, in turns (eager, graphs, graphs, eager): each
+    and through the graphs, in turns (GRAPH_SYSTEM_TURNS, each under a
+    device-only profile): each
     synchronous eager run bit-identical to the graph runs of its
     sequence (check_same_bits); frames/s, and the asynchronous tracker
     thread's ms a frame. The first eager runs of the synchronous Systems
@@ -2219,7 +2260,7 @@ def phase_graph_systems(seqs, power, errs):
     wrapper calls there, not replays), each held against its plain
     version (phase_dataset_kernels; errs updated)."""
     rows, recorded, mapping, idle = {}, {}, {}, {}
-    for turn, kind in enumerate(("eager", "graphs", "graphs", "eager")):
+    for turn, kind in enumerate(GRAPH_SYSTEM_TURNS):
         with eager_forms() if kind == "eager" else contextlib.nullcontext():
             for sensor, seq in seqs.items():
                 calls = {k: [] for k in DATASET_RECORDED}
@@ -2228,8 +2269,7 @@ def phase_graph_systems(seqs, power, errs):
                     if turn == 0:
                         for k, (module, _) in DATASET_RECORDED.items():
                             stack.enter_context(recording(module, k, calls[k]))
-                    if turn >= 2:
-                        stack.enter_context(profiled(prof, "run", device_only=True))
+                    stack.enter_context(profiled(prof, "run", device_only=True))
                     sys_, _, _, seconds = run_system(seq, vocabulary="default")
                 if GRAPH_POOL_AFTER[-1]:
                     raise AssertionError(f"{system_name(sensor)} ({kind}): its graphs hold "
@@ -2268,7 +2308,7 @@ def phase_graph_systems(seqs, power, errs):
         "local_mapping, map_tri, map_fuse, map_lba; CUDA graph captures, replays, the live "
         "pools' bytes at the run's end; 0 bytes after its shutdown): " + "; ".join(
             f"{what} {kind} {v}" for (what, kind), v in mapping.items())
-        + "; idle share over a whole run (the last two turns, under torch.profiler): "
+        + "; idle share over a whole run (each turn, under torch.profiler): "
         + ", ".join(f"{what} {kind} {v}" for (what, kind), v in idle.items())
         + f", on {power}")
 
@@ -2519,6 +2559,327 @@ def phase_mapper_graphs(solves, power):
             raise AssertionError(f"{name}: the replayed window read the device "
                                  f"{row['replayed']}, or the eager one was not seen "
                                  f"waiting {row['eager']}")
+
+
+# ---------------------------------------------------------------------------
+# The staged tracker's single-dispatch forms: CUDA graphs
+# ---------------------------------------------------------------------------
+
+# The staged forms' calls recorded from the card's runs (the monocular
+# kidnap run and the localization session; the stereo front end on the
+# stereo pair's images): form -> [(source, signature, args, kwargs)], the
+# first STAGED_KEEP calls of each signature (tensor shapes and dtypes, the
+# other arguments but tz_rel, which changes every frame). phase_staged_graphs
+# takes one call a signature: the first with a candidate (no boolean tensor
+# argument all False), else the first.
+STAGED_RECORDED = {}
+STAGED_KEEP = 4
+# Calls of each unit timed each way, in turns (eager, replayed, replayed,
+# eager) of this many calls.
+STAGED_UNIT_CALLS = 3
+# The System runs eager and replayed in turns (the last two under a
+# device-only profile: the idle share): the localization session four
+# turns; the RGB-D System with the staged tracker two; the sweep two over
+# its first SWEEP_TURN_FRAMES frames (its initialization and the first
+# keyframes: the staged part of a monocular run), each profiled over
+# MONO_PROFILED_FRAMES only (a whole sweep's trace took ~45 s to read
+# back).
+STAGED_TURNS = ("eager", "replayed", "replayed", "eager")
+TWO_TURNS = ("eager", "replayed")
+SWEEP_TURN_FRAMES = 20
+MONO_PROFILED_FRAMES = range(10, 20)
+# Profiler sessions a host-read count may be taken over, until the
+# replayed call's synchronizations equal its library calls' (the most of
+# each: the profiler can drop a record, never add one).
+HOST_READ_SESSIONS = 3
+# The kernels of the staged RGB-D System's frames, launched by the staged
+# forms' replays in a replayed run: extraction (K1-K5), the projection
+# matchers (K6), the pose LM (K8).
+STAGED_RGBD_REPLAYED = ("level_preprocess", "combine_nms", "cell_topk_map", "describe_patches",
+                        "projection_hamming_top2", "pose_lm")
+# One row a unit call for the log's summary: (form, source, eager ms,
+# replayed ms, replays, library calls, host reads eager / replayed).
+STAGED_ROWS = []
+
+
+def staged_signature(form, args, kwargs):
+    leaves = tree_leaves((args, {k: v for k, v in kwargs.items() if k != "tz_rel"}))
+    return (form,) + tuple((tuple(a.shape), a.dtype) if isinstance(a, torch.Tensor) else a
+                           for a in leaves)
+
+
+@contextlib.contextmanager
+def staged_recording(source):
+    """Record the staged forms' calls inside the block into STAGED_RECORDED
+    (nothing read on the host)."""
+    counts = {}
+    saved = [(module, form, getattr(module, form)) for module, form, _ in STAGED_FORMS]
+
+    def spy(form, fn):
+        def call(*args, **kwargs):
+            sig = staged_signature(form, args, kwargs)
+            if counts.get(sig, 0) < STAGED_KEEP:
+                counts[sig] = counts.get(sig, 0) + 1
+                STAGED_RECORDED.setdefault(form, []).append((source, sig, args, kwargs))
+            return fn(*args, **kwargs)
+        return call
+
+    for module, form, fn in saved:
+        setattr(module, form, spy(form, fn))
+    try:
+        yield
+    finally:
+        for module, form, fn in saved:
+            setattr(module, form, fn)
+
+
+@contextlib.contextmanager
+def linalg_recorded(calls):
+    """calls.append((fn, args)) for each batched eigensolve and SVD
+    (optim/linalg.py) inside the block."""
+    saved = {name: getattr(linalg, name) for name in ("eigh", "svd")}
+
+    def spy(fn):
+        def call(*args):
+            calls.append((fn, args))
+            return fn(*args)
+        return call
+
+    for name, fn in saved.items():
+        setattr(linalg, name, spy(fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(linalg, name, fn)
+
+
+def staged_calls(form):
+    """[(source, args, kwargs)]: one recorded call of the form a signature,
+    the first with a candidate (no boolean tensor argument all False)."""
+    by_sig = {}
+    for source, sig, args, kwargs in STAGED_RECORDED.get(form, []):
+        full = not any(isinstance(a, torch.Tensor) and a.dtype == torch.bool and a.numel()
+                       and not bool(a.any()) for a in tree_leaves((args, kwargs)))
+        if sig not in by_sig or (full and not by_sig[sig][0]):
+            by_sig[sig] = (full, (source, args, kwargs))
+    return [call for _, call in by_sig.values()]
+
+
+def staged_replayed():
+    """{kernel: launches} that replays of the staged forms' graphs added
+    since the process started."""
+    out = {}
+    for fn in STAGED_GRAPHED:
+        for k, n in cuda_graph.replayed_by.get(fn.__name__, {}).items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+def staged_unit(module, form, eager_name, source, args, kwargs, power):
+    """One recorded call of a staged form: its graphs released, so the
+    first call captures and the second only replays; both bit for bit the
+    eager call; the second call's launches per kernel the eager call's, all
+    of them added by replays; one replay for a one-graph form (none of its
+    library calls between replays); under torch.profiler the host's waits
+    for the device (SYNC_CALLS) in a replayed call equal those of its
+    library calls alone (recorded from that call and run again on their
+    inputs; the device-to-host copies logged beside them); synced ms
+    eager and replayed in turns."""
+    what = f"{form} ({source})"
+    jit, eager = getattr(module, form), getattr(module, eager_name)
+    cuda_graph.release(*module.GRAPHED)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    want = eager(*args, **kwargs)
+    torch.cuda.synchronize()
+    eager_counts = {k: v for k, v in _build.launches.items() if v}
+    caps = cuda_graph.n_captures()
+    first = jit(*args, **kwargs)
+    torch.cuda.synchronize()
+    captured = cuda_graph.n_captures() - caps
+    _build.reset_launches()
+    reps, before = cuda_graph.n_replays(), dict(cuda_graph.replayed_launches)
+    lib = []
+    with linalg_recorded(lib):
+        got = jit(*args, **kwargs)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _build.launches.items() if v}
+    replays = cuda_graph.n_replays() - reps
+    from_replays = {k: v - before.get(k, 0) for k, v in cuda_graph.replayed_launches.items()
+                    if v > before.get(k, 0)}
+    if not (same_bits(first, want) and same_bits(got, want)):
+        raise AssertionError(f"{what}: a replay differs from the eager call")
+    if counts != eager_counts or from_replays != counts:
+        raise AssertionError(f"{what}: a call launched {counts} ({from_replays} from replays), "
+                             f"the eager call {eager_counts}")
+    check_unit_replays(what, captured, cuda_graph.n_captures() - caps, replays, len(lib),
+                       module not in (pnp, twoview))
+    fns = {"eager": lambda: eager(*args, **kwargs), "replayed": lambda: jit(*args, **kwargs),
+           "library calls alone": lambda: [f(*a) for f, a in lib]}
+    waits = {kind: host_waits(fn)[1:] for kind, fn in fns.items()}
+    for _ in range(HOST_READ_SESSIONS - 1):
+        if waits["replayed"][1] == waits["library calls alone"][1]:
+            break
+        for kind in ("replayed", "library calls alone"):
+            waits[kind] = tuple(map(max, waits[kind], host_waits(fns[kind])[1:]))
+    if waits["replayed"][1] != waits["library calls alone"][1]:
+        raise AssertionError(f"{what}: a replayed call waited for the device "
+                             f"{waits['replayed'][1]} times, its library calls alone "
+                             f"{waits['library calls alone'][1]} times")
+    ms = {"eager": [], "replayed": []}
+    for kind in ("eager", "replayed", "replayed", "eager"):
+        fn = eager if kind == "eager" else jit
+        ms[kind].append(round(synced_ms(lambda: fn(*args, **kwargs), STAGED_UNIT_CALLS), 3))
+    pool = sum(g.pool_bytes for k, g in cuda_graph.graphs.items() if k[0] in module.GRAPHED)
+    log(f"{what}: replayed bit for bit the eager call; {captured} graphs captured ({pool} pool "
+        f"bytes), {replays} replays a call around {len(lib)} library calls; launches a call "
+        f"{counts or 'none'}, all from replays (eager {eager_counts or 'none'}); host reads "
+        f"(device-to-host copies, synchronizations) eager {waits['eager']}, replayed "
+        f"{waits['replayed']}, its library calls alone {waits['library calls alone']}; synced "
+        f"ms eager {ms['eager']}, replayed {ms['replayed']}, on {power}")
+    STAGED_ROWS.append((form, source, ms["eager"], ms["replayed"], replays, len(lib),
+                        waits["eager"], waits["replayed"]))
+    return got
+
+
+def check_unit_replays(what, captured, captures, replays, n_lib, one_graph):
+    """A staged form's graphs all captured at its first call (none at the
+    second), each replayed once at the second call; a one-graph form with
+    no library call between replays."""
+    if not captured or captures != captured or replays != captured \
+            or (one_graph and (replays != 1 or n_lib)):
+        raise AssertionError(f"{what}: {captured} captures at the first call, {captures} in "
+                             f"all, {replays} replays and {n_lib} library calls at the second")
+
+
+def check_horn_svds(source, args, kwargs):
+    """EPnP's three Horn SVDs in one batched call (pnp._horn_svds) against
+    one call each, on a recorded RANSAC's matrices: bit for bit."""
+    samples, X, uv, valid, sigma2, fx, fy, cx, cy = args[:9]
+    key = (fx, fy, cx, cy, kwargs.get("min_inliers", 10), kwargs.get("chi2_th", 5.991))
+    Xs, uvs, spread = pnp._ransac_gather(samples, X, uv, key)
+    w, V = linalg.eigh(spread)
+    cws, alphas, MtM, _ = pnp._solve_null(Xs, uvs, w, V, key)
+    _, V = linalg.eigh(MtM)
+    _, covs, _ = pnp._solve_cases(Xs, cws, alphas, V, key)
+    joint = pnp._horn_svds(covs)
+    alone = [linalg.svd(c) for c in covs]
+    same = all(same_bits((U, Vh), (a[0], a[2])) for (U, Vh), a in zip(joint, alone))
+    log(f"EPnP's Horn SVDs ({source}, {tuple(covs[0].shape)} each): one batched call bit for "
+        f"bit three calls {same}")
+    if not same:
+        raise AssertionError("EPnP's batched Horn SVDs differ from one call a case")
+
+
+def window_profiled(prof, frames):
+    """run_system's `around` hook: one device-only torch.profiler session
+    over frames[0] to frames[-1] (profiled: prof["run"])."""
+    stack = contextlib.ExitStack()
+
+    @contextlib.contextmanager
+    def around(i):
+        if i == frames[0]:
+            stack.enter_context(profiled(prof, "run", device_only=True))
+        try:
+            yield
+        finally:
+            if i == frames[-1]:
+                stack.close()
+    return around
+
+
+def staged_turns(what, run, stages, power, want_replayed=(), turns=STAGED_TURNS):
+    """run(prof) -> (system, frames, seconds, (captures, replays, pool
+    bytes at the run's end)) in turns: eager (eager_forms) and replayed;
+    in the last two turns prof is a dict for run to profile itself into
+    (profiled's "run": the whole run or a window), else None. Every run
+    remembered under `what` and held bit for bit to that name's other runs
+    (check_same_bits); an eager run captures and replays nothing, a
+    replayed one launches each of want_replayed from the staged forms'
+    replays. Logs frames/s, the stages' mean ms, captures, replays, pool
+    bytes and the idle share."""
+    rows, t0 = [], time.perf_counter()
+    for turn, kind in enumerate(turns):
+        prof = {} if turn >= len(turns) - 2 else None
+        before = staged_replayed()
+        with eager_forms() if kind == "eager" else contextlib.nullcontext():
+            sys_, n_frames, seconds, graphs = run(prof)
+        replayed = {k: v - before.get(k, 0) for k, v in staged_replayed().items()
+                    if v > before.get(k, 0)}
+        if kind == "eager" and graphs[:2] != (0, 0):
+            raise AssertionError(f"{what} (eager): {graphs[0]} captures, {graphs[1]} replays")
+        if kind == "replayed" and [k for k in want_replayed if not replayed.get(k)]:
+            raise AssertionError(f"{what} (replayed): the staged forms' replays launched "
+                                 f"{replayed}")
+        t = sys_.timings()
+        remember(what, kind, sys_)
+        rows.append((kind, round(n_frames / seconds, 2),
+                     {k: round(t[k]["mean_ms"], 3) for k in stages if k in t},
+                     graphs, round(1.0 - prof["run"][1] / prof["run"][0], 4)
+                     if prof and "run" in prof else "not recorded", replayed))
+    check_same_bits(what)
+    log(f"{what}, eager against replayed in turns (frames/s; mean ms of "
+        f"{', '.join(stages)}; CUDA graph captures, replays, the live pools' bytes at the "
+        f"run's end; idle share (the last two turns); launches from the staged forms' "
+        f"replays): " + "; ".join(
+            f"{kind} {fps}, {st}, {g}, idle {idle}, {rep or 'none'}"
+            for kind, fps, st, g, idle, rep in rows) + f", on {power} (the turns took "
+        f"{time.perf_counter() - t0:.1f} s)")
+    return rows
+
+
+def phase_staged_graphs(pairs, seqs, power):
+    """The staged tracker's single-dispatch forms on the calls recorded
+    from the card's monocular kidnap run and localization session (and the
+    stereo front end on the stereo pair's images), each through
+    staged_unit; the extraction also on the per-level route
+    (ORB_TPU_FORCE_PACKED=0: K1 and the standalone K4 per level in the
+    replay); EPnP's batched Horn SVDs against one call each. Then the
+    RGB-D System with the staged tracker (ORB_TPU_FUSED_TRACK=0) eager and
+    replayed in turns (staged_turns), each run held to every frame OK and
+    the ATE gate. It starts with no graph of the staged forms held."""
+    cfg, motion, _ = pairs["stereo"]
+    cam = cfg.camera
+    args = (motion[0], motion[1], cfg.orb, cam.height, cam.width, cam.bf, cam.baseline)
+    STAGED_RECORDED.setdefault("stereo_frontend_jit", []).append(
+        ("stereo pair", staged_signature("stereo_frontend_jit", args, {}), args, {}))
+    missing = [form for _, form, _ in STAGED_FORMS if not STAGED_RECORDED.get(form)]
+    if missing:
+        raise AssertionError(f"no call of {missing} was recorded")
+    cuda_graph.release(*STAGED_GRAPHED)
+    for module, form, eager_name in STAGED_FORMS:
+        for source, args, kwargs in staged_calls(form):
+            staged_unit(module, form, eager_name, source, args, kwargs, power)
+    source, args, kwargs = staged_calls("extract_features_jit")[0]
+    with env_set(ORB_TPU_FORCE_PACKED="0"):
+        staged_unit(extractor, "extract_features_jit", "extract_features",
+                    f"{source}, per-level route", args, kwargs, power)
+    check_horn_svds(*staged_calls("epnp_ransac_many_jit")[0])
+    cuda_graph.release(*STAGED_GRAPHED)
+
+    seq = seqs["rgbd"]
+    _, _, _, gt = seq
+    gt_c = centres(gt)
+    span = float(np.linalg.norm(gt_c[-1] - gt_c[0]))
+    what = "System RGB-D, staged tracker"
+
+    def run(prof):
+        with env_set(ORB_TPU_FUSED_TRACK="0"), \
+                profiled(prof, "run", device_only=True) if prof is not None \
+                else contextlib.nullcontext():
+            sys_, states, poses, seconds = run_system(seq, vocabulary="default")
+        rmse = trajectory.ate_rmse(sys_.trajectory_positions(), gt_c, align_scale=False)
+        if any(st != "OK" for st in states) or not rmse < ATE_SPAN_GATE * span:
+            raise AssertionError(f"{what}: states {states}, ATE {rmse} (gate "
+                                 f"{ATE_SPAN_GATE * span})")
+        return sys_, SYSTEM_FRAMES, seconds, RUN_GRAPHS[-1]
+
+    staged_turns(what, run, ("extract_frame", "track", "local_mapping"), power,
+                 STAGED_RGBD_REPLAYED, TWO_TURNS)
+    log("staged forms, per recorded call (form, source, synced ms eager, replayed, replays "
+        "a call, library calls between them, host reads eager, replayed): "
+        + "; ".join(str(r) for r in STAGED_ROWS) + f", on {power}")
 
 
 # ---------------------------------------------------------------------------
@@ -2861,11 +3222,52 @@ def k7_caller(name, args):
 
 
 @contextlib.contextmanager
+def replays_seen(on_replay):
+    """on_replay(graph, times) after each replay of a CUDA graph inside the
+    block (cuda_graph.Graph.replayed, which adds the replay's launches)."""
+    fn = cuda_graph.Graph.replayed
+
+    def spy(self, times=1):
+        fn(self, times)
+        on_replay(self, times)
+
+    cuda_graph.Graph.replayed = spy
+    try:
+        yield
+    finally:
+        cuda_graph.Graph.replayed = fn
+
+
+def replayed_k7_caller(g):
+    """The K7 caller of a replayed graph's K7 launches and the problems one
+    launch carries, or None: the staged matchers' graphs (initialization's
+    window; the flags, batched over relocalization's candidates or one
+    reference keyframe) and the mapper's triangulation."""
+    if g.name == "_init_match":
+        return "initialization", 1
+    if g.name == "triangulation_match":
+        return "triangulation", g.inputs[2].shape[0]
+    if g.name == "_brute_force":
+        desc_a = g.inputs[0]
+        return ("relocalization", desc_a.shape[0]) if desc_a.dim() == 3 else (
+            "reference keyframe", 1)
+    return None
+
+
+@contextlib.contextmanager
 def k7_launches_by_caller(counts, problems):
     """counts[caller] += launches of K7 under a candidate test by each
     caller, and problems[caller] += the problems they carried (read off
-    the launch counters around each call)."""
+    the launch counters around each eager call, and off the tallies of
+    the replays of the graphs that launch it: replayed_k7_caller)."""
     fns = {name: getattr(kmatching, name) for name in K7_FORMS}
+
+    def on_replay(g, times):
+        hit = replayed_k7_caller(g)
+        if hit is not None:
+            n = sum(g.launches.get(k, 0) for k in K7_FORMS) * times
+            counts[hit[0]] += n
+            problems[hit[0]] += n * hit[1]
 
     def spy(name):
         def call(*args):
@@ -2883,24 +3285,34 @@ def k7_launches_by_caller(counts, problems):
     for name in K7_FORMS:
         setattr(kmatching, name, spy(name))
     try:
-        yield counts
+        with replays_seen(on_replay):
+            yield counts
     finally:
         for name, fn in fns.items():
             setattr(kmatching, name, fn)
 
 
+# The eager warm-up of the kidnap sequence (mono_path_inputs): its stage
+# timings and frames/s, against the counted (replayed) run in phase_mono.
+MONO_WARMUP = {}
+
+
 def mono_path_inputs(kidnap_seq):
-    """One warm-up run of the kidnap sequence on the card (every kernel of
-    the monocular path built, both feature budgets' tables made),
+    """One warm-up run of the kidnap sequence on the card, eager
+    (eager_forms; every kernel of the monocular path built, both feature
+    budgets' tables made),
     recording the calls of K7 at initialization (under the window) and at
     relocalization (under the flags, those with a candidate pair): the
     first SYSTEM_RECORDED of each."""
     calls = {name: [] for name in K7_FORMS}
     with contextlib.ExitStack() as stack:
+        # Eager: the recorded arguments are the wrappers' own, not a graph's.
+        stack.enter_context(eager_forms())
         for name in K7_FORMS:
             stack.enter_context(recording(kmatching, name, calls[name]))
         sys_, states, _, seconds = run_system(kidnap_seq, n_frames=MONO_FRAMES)
     remember("System monocular kidnap", "warm-up", sys_)
+    MONO_WARMUP.update(timings=sys_.timings(), fps=MONO_FRAMES / seconds)
     by = {c: [a for name in K7_FORMS for a, _ in calls[name] if k7_caller(name, a) == c]
           for c in K7_CALLERS}
     log(f"System monocular kidnap warm-up: {seconds:.2f} s for {MONO_FRAMES} frames, "
@@ -2967,8 +3379,12 @@ def phase_mono(seq, kidnap_seq, power):
     with frames 3-14 under torch.profiler, and the first frames against
     the CPU. Then the kidnap sequence, its counts read the same way: LOST
     during the occlusion, relocalized after it (K7 batched over the
-    candidates), recovered poses within KIDNAP_GATE. -> (launch counts of
-    the sweep, K7 launches by caller over both runs, problems by caller)."""
+    candidates), recovered poses within KIDNAP_GATE; the staged forms'
+    calls recorded (STAGED_RECORDED); its frames/s and stage ms against
+    the eager warm-up's (mono_path_inputs). Then the sweep's first
+    SWEEP_TURN_FRAMES frames eager and replayed in turns (staged_turns,
+    TWO_TURNS), bit for bit the same. -> (launch counts of the sweep, K7 launches by
+    caller over both runs, problems by caller)."""
     what = "System monocular"
     _, _, _, gt = seq
     by_caller, problems = {}, {}
@@ -3029,7 +3445,7 @@ def phase_mono(seq, kidnap_seq, power):
     _, _, _, gt = kidnap_seq
     kid_caller, kid_problems = {}, {}
     _build.reset_launches()
-    with k7_launches_by_caller(kid_caller, kid_problems):
+    with k7_launches_by_caller(kid_caller, kid_problems), staged_recording("monocular kidnap"):
         sys_, states, poses, seconds = run_system(kidnap_seq, n_frames=MONO_FRAMES)
     remember(what, "counted", sys_)
     check_same_bits(what)
@@ -3060,6 +3476,23 @@ def phase_mono(seq, kidnap_seq, power):
         + f", on {power}")
     if len(post) < 8 or not np.median(err) < KIDNAP_GATE * span:
         raise AssertionError(f"{what}: recovered poses off the trajectory")
+    warm = MONO_WARMUP["timings"]
+    log(f"{what}, eager (mono_path_inputs' warm-up, the first run of the sequence) against "
+        f"replayed (the counted run), bit for bit the same: frames/s "
+        f"{MONO_WARMUP['fps']:.2f} against {MONO_FRAMES / seconds:.2f}; "
+        + ", ".join(f"{k} {warm[k]['mean_ms']:.3f} against {timings[k]['mean_ms']:.3f} ms"
+                    for k in ("init_twoview", "track_reloc", "reloc_match", "reloc_epnp")
+                    if k in warm and k in timings) + f", on {power}")
+
+    def run(prof):
+        sys_, _, _, seconds = run_system(
+            seq, n_frames=SWEEP_TURN_FRAMES,
+            around=None if prof is None else window_profiled(prof, MONO_PROFILED_FRAMES))
+        return sys_, SWEEP_TURN_FRAMES, seconds, RUN_GRAPHS[-1]
+
+    staged_turns(f"System monocular, first {SWEEP_TURN_FRAMES} frames", run,
+                 ("extract_frame", "init_twoview", "track"), power,
+                 ("level_preprocess", "window_hamming_top2", "pose_lm"), TWO_TURNS)
     for k in K7_CALLERS:
         by_caller[k] += kid_caller[k]
         problems[k] += kid_problems[k]
@@ -3077,9 +3510,10 @@ def loop_kernel_calls(counts, calls=None):
     K7 in compute_sim3 (every candidate's brute force in one launch), K6 in
     its SearchBySim3 (match_by_sim3, one launch a direction) and in its
     loop-neighbourhood projection (match_fuse), K7 in relocalization with a
-    keyframe database (BoW candidates). The caller of a launch is the loop
-    method running when it happens (a stack of spies). With `calls`, also
-    calls[caller].append(args) for each of them."""
+    keyframe database (BoW candidates; replayed in the staged matcher's
+    graph, `_brute_force`, counted off its tally). The caller of a launch
+    is the loop method running when it happens (a stack of spies). With
+    `calls`, also calls[caller].append(args) for each eager call."""
     stack = []
     spied = [(loop_closing.LoopCloser, "compute_sim3"),
              (loop_closing.LoopCloser, "_search_by_sim3"), (Tracker, "_relocalize")]
@@ -3124,6 +3558,11 @@ def loop_kernel_calls(counts, calls=None):
             return out
         return call
 
+    def on_replay(g, times):
+        if g.name == "_brute_force" and caller_of("valid_hamming_top2") is not None:
+            counts[caller_of("valid_hamming_top2")] += \
+                g.launches.get("valid_hamming_top2", 0) * times
+
     for caller in LOOP_CALLERS:
         counts[caller] = 0
         if calls is not None:
@@ -3133,7 +3572,8 @@ def loop_kernel_calls(counts, calls=None):
     for kernel in SYSTEM_KERNELS:
         setattr(kmatching, kernel, kernel_spy(kernel))
     try:
-        yield counts
+        with replays_seen(on_replay):
+            yield counts
     finally:
         for (cls, name), fn in methods.items():
             setattr(cls, name, fn)
@@ -3245,8 +3685,9 @@ def loop_path_inputs(seq, kidnap_seq):
     """One warm-up run of the ring survey on the card (the vocabulary's
     tables uploaded, every kernel of the path built), the loop closer's
     stages each under torch.profiler and the loop callers' K6 and K7 calls
-    recorded; then the kidnap sequence with the vocabulary, its BoW
-    relocalization calls recorded (those with a candidate pair), and the
+    recorded; then the kidnap sequence with the vocabulary, eager
+    (eager_forms), its BoW relocalization calls recorded (those with a
+    candidate pair), and the
     survey's sim3_ransac and optimize_sim3 calls. -> (inputs: the first
     LOOP_RECORDED calls of each caller, the stages' profiles, the Sim3
     calls)."""
@@ -3255,7 +3696,7 @@ def loop_path_inputs(seq, kidnap_seq):
             sim3_recorded(*sim3_calls), loop_solves_recorded(solves):
         sys_, states, seconds, pre = run_loop(seq)
     remember("ring survey", "warm-up", sys_)
-    with loop_kernel_calls(counts, calls):
+    with eager_forms(), loop_kernel_calls(counts, calls):
         kid, kid_states, _, _ = run_system(kidnap_seq, n_frames=MONO_FRAMES,
                                            vocabulary="default")
     remember("System monocular kidnap with the vocabulary", "warm-up", kid)
@@ -3678,24 +4119,62 @@ def map_sizes(m):
     return m.n_keyframes(), m.n_points(), m.next_pt
 
 
+def localizer(config, path, device):
+    """A System with the map saved at path loaded, in the localization-only
+    mode."""
+    sys_ = System(config, async_mapping=False, device=device)
+    sys_.load_map(path)
+    sys_.activate_localization_mode()
+    return sys_
+
+
+def localized_run(seq, path, prof=None):
+    """A new card System localizing against the saved map over frames
+    LOC_FIRST to LOC_FRAMES - 1 (under a device-only profile into prof
+    where given), then its shutdown -> (system, frames, seconds,
+    (captures, replays, the live pools' bytes at the run's end)); none of
+    its graphs left after the shutdown."""
+    config, images, depths, _ = seq
+    sys_ = localizer(config, path, "cuda")
+    keys, caps, reps = set(cuda_graph.graphs), cuda_graph.n_captures(), cuda_graph.n_replays()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profiled(prof, "run", device_only=True) if prof is not None \
+            else contextlib.nullcontext():
+        for i in range(LOC_FIRST, LOC_FRAMES):
+            sys_.track_rgbd(images[i], depths[i], i / config.camera.fps)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    graphs = (cuda_graph.n_captures() - caps, cuda_graph.n_replays() - reps,
+              sum(g.pool_bytes for g in cuda_graph.graphs.values()))
+    sys_.shutdown()
+    left = [k for k in cuda_graph.graphs if k not in keys]
+    if left:
+        raise AssertionError(f"localization session: {len(left)} of its graphs left after "
+                             f"shutdown")
+    return sys_, LOC_FRAMES - LOC_FIRST, seconds, graphs
+
+
 def phase_localization(seq, power):
     """The localization session on the card (see LOC_MAPPED), the launch
     counts reset just before the localized frames and read just after
-    them, with its gates; then its first frames on the CPU. -> launch
-    counts."""
+    them, with its gates, the staged forms' calls recorded
+    (STAGED_RECORDED); then its first frames on the CPU; then the session
+    eager and replayed in turns (staged_turns), each run bit for bit the
+    counted one. -> launch counts."""
+    with tempfile.TemporaryDirectory() as tmp:
+        return _localization(seq, power, tmp)
+
+
+def _localization(seq, power, tmp):
     what = "localization session"
     config, images, depths, gt = seq
     mapper, states, _, seconds = run_system(seq, n_frames=LOC_MAPPED, vocabulary="default")
     if any(st != "OK" for st in states):
         raise AssertionError(f"{what}: mapping states {states}")
-    loc = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "map.npz")
-        mapper.save_map(path)
-        for device in ("cuda", "cpu"):
-            loc[device] = System(config, async_mapping=False, device=device)
-            loc[device].load_map(path)
-            loc[device].activate_localization_mode()
+    path = os.path.join(tmp, "map.npz")
+    mapper.save_map(path)
+    loc = {device: localizer(config, path, device) for device in ("cuda", "cpu")}
     card = loc["cuda"]
     loaded = map_sizes(card.map)
     spawned = []
@@ -3710,15 +4189,18 @@ def phase_localization(seq, power):
     poses, vo = [], []
     _build.reset_launches()
     t0 = time.perf_counter()
-    for i in frames:
-        poses.append(card.track_rgbd(images[i], depths[i], i / config.camera.fps))
-        vo.append(bool(card.tracker.vo_only))
-        if map_sizes(card.map) != loaded or card.tracker._temporal_points.size:
-            raise AssertionError(f"{what}, frame {i}: the map changed ({map_sizes(card.map)} "
-                                 f"against {loaded} loaded) or temporal points were left")
+    with staged_recording(what):
+        for i in frames:
+            poses.append(card.track_rgbd(images[i], depths[i], i / config.camera.fps))
+            vo.append(bool(card.tracker.vo_only))
+            if map_sizes(card.map) != loaded or card.tracker._temporal_points.size:
+                raise AssertionError(f"{what}, frame {i}: the map changed "
+                                     f"({map_sizes(card.map)} against {loaded} loaded) or "
+                                     f"temporal points were left")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     c = dict(_build.launches)
+    remember(what, "counted", card)
     tracked = [i for i, p in zip(frames, poses) if p is not None]
     vo_frames = [i for i, v in zip(frames, vo) if v]
     est = card.trajectory_positions()
@@ -3755,6 +4237,11 @@ def phase_localization(seq, power):
         f"within rot {worst[0]:.5f} deg, |dt| {worst[1]:.6f}")
     if not (worst[0] < ROT_DEG_TOL and worst[1] < T_TOL):
         raise AssertionError(f"{what}: card and CPU poses differ beyond the bounds")
+    card.shutdown()
+    staged_turns(what, lambda prof: localized_run(seq, path, prof),
+                 ("extract_frame", "track", "track_reloc", "reloc_bow", "reloc_match",
+                  "reloc_epnp"), power, ("level_preprocess", "projection_hamming_top2",
+                                         "pose_lm"))
     return c
 
 
@@ -5829,13 +6316,17 @@ def run_phases(power, data_root):
     done("monocular")
     loop_counts = phase_loop(loop_seq, kidnap_seq, loop_profs, loop_sim3, power)
     done("loop")
+    loc_counts = phase_localization(localization_sequence(), power)
+    done("localization")
+    phase_staged_graphs(pairs, seqs, power)
+    done("staged graphs")
     new_counts = {"per-level extraction of one image": level_counts,
                   "RGB-D System with the staged mapper": staged_counts,
-                  "localization session": phase_localization(localization_sequence(), power),
+                  "localization session": loc_counts,
                   "asynchronous RGB-D System": phase_async(seqs["rgbd"], SYSTEM_FPS["rgbd"],
                                                            power),
                   "global BA runner stress": phase_gba_stress(mono_seq, power)}
-    done("localization and asynchronous")
+    done("asynchronous")
     dataset_counts, kitti_mono, dataset_x = phase_datasets(data_root, cells, firsts, power)
     done("datasets")
     online_counts, dataset_x["AR run"] = phase_online(seqs, power)

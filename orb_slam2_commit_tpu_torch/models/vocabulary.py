@@ -8,7 +8,12 @@ packed node descriptors, word ids). `transform` descends the tree for all
 features at once on the tensor's device, in plain PyTorch: per level a
 gather of each feature's k child descriptors, XOR, popcount, the first
 minimum (:1218-1259 batched). The JAX package runs this descent in XLA,
-not in a Pallas kernel, so it has no hand-written kernel here either.
+not in a Pallas kernel, so it has no hand-written kernel here either. On
+CUDA tensors the descent is one replay of a CUDA graph (`_descend_jit`,
+utils/cuda_graph.py; the JAX package's jitted `_transform_device`) that
+reads the vocabulary's device tables in place: they are part of the
+graph's key, not inputs copied at each call. On CPU tensors it runs
+eagerly.
 
 Training (bitwise-majority k-means with k-means++ seeding, DBoW2's
 meanValue) and the text / npz formats are numpy, as in the JAX package:
@@ -20,12 +25,13 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from orb_slam2_commit_tpu_torch.interop import resolve_device, to_device, to_host
+from orb_slam2_commit_tpu_torch.utils import cuda_graph
 
 N_WORDS_DEFAULT_K = 10
 N_WORDS_DEFAULT_L = 6
@@ -132,6 +138,42 @@ def _descend(desc: torch.Tensor, children: torch.Tensor, node_desc: torch.Tensor
     return word_id[current], mid_nodes
 
 
+class DeviceTables(NamedTuple):
+    """A vocabulary's tables on one device. As part of a graph's key it
+    hashes and compares by the tensors' identities (never by their
+    values), so the graph reads these very tensors, and the key keeps
+    them alive while the graph lives."""
+    children: torch.Tensor   # [n_nodes, k] int64
+    node_desc: torch.Tensor  # [n_nodes, 8] int32
+    word_id: torch.Tensor    # [n_nodes] int64
+
+    def __eq__(self, other):
+        return isinstance(other, DeviceTables) and all(a is b for a, b in zip(self, other))
+
+    def __ne__(self, other):
+        return not self == other
+
+    def __hash__(self):
+        return hash(tuple(id(t) for t in self))
+
+
+def _descend_tables(desc: torch.Tensor, key):
+    tables, levels, levels_up = key
+    return _descend(desc, *tables, levels, levels_up)
+
+
+def _descend_jit(desc: torch.Tensor, children: torch.Tensor, node_desc: torch.Tensor,
+                 word_id: torch.Tensor, levels: int, levels_up: int):
+    """_descend through utils/cuda_graph.call, the tables in the key: one
+    replay on the card, eagerly on the CPU."""
+    return cuda_graph.call(_descend_tables, (desc,),
+                           (DeviceTables(children, node_desc, word_id), levels, levels_up))
+
+
+# The functions _descend_jit captures (cuda_graph.release's owners).
+GRAPHED = (_descend_tables,)
+
+
 @dataclasses.dataclass
 class BinaryVocabulary:
     k: int
@@ -182,16 +224,16 @@ class BinaryVocabulary:
                    word_id=np.asarray(word_list, np.int32), word_weight=weights,
                    n_words=len(word_hits))
 
-    def device_tables(self, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def device_tables(self, device) -> DeviceTables:
         """(children, node_desc, word_id) on `device`, uploaded once per
-        device (~53 MB for the bundled vocabulary); the tree does not
+        device (~85 MB for the bundled vocabulary); the tree does not
         change after construction."""
         dev = resolve_device(device)
         cache = self.__dict__.setdefault("_device_cache", {})
         if dev not in cache:
-            cache[dev] = (torch.from_numpy(self.children.astype(np.int64)).to(dev),
-                          to_device(self.node_desc, dev),
-                          torch.from_numpy(self.word_id.astype(np.int64)).to(dev))
+            cache[dev] = DeviceTables(torch.from_numpy(self.children.astype(np.int64)).to(dev),
+                                      to_device(self.node_desc, dev),
+                                      torch.from_numpy(self.word_id.astype(np.int64)).to(dev))
         return cache[dev]
 
     def transform(self, desc, valid: np.ndarray, levels_up: int = 2,
@@ -199,10 +241,11 @@ class BinaryVocabulary:
         """[N, 8] descriptors (uint32 numpy, or an int32 tensor) -> (word
         ids [N], node ids at depth levels - levels_up [N]) as numpy, -1 for
         invalid features (TemplatedVocabulary::transform(feature, word,
-        node, levelsup), :1218-1259). The descent runs on `device`."""
+        node, levelsup), :1218-1259). The descent runs on `device`, one
+        graph replay on the card (`_descend_jit`)."""
         dev = resolve_device(device)
         d = desc.to(dev) if isinstance(desc, torch.Tensor) else to_device(desc, dev)
-        words, nodes = _descend(d, *self.device_tables(dev), self.levels, levels_up)
+        words, nodes = _descend_jit(d, *self.device_tables(dev), self.levels, levels_up)
         valid = np.asarray(valid, bool)
         return (np.where(valid, to_host(words), -1).astype(np.int32),
                 np.where(valid, to_host(nodes), -1).astype(np.int32))

@@ -17,6 +17,13 @@ time, which is the JAX package's readable oracle. The per-level route has
 two forms, `descriptors.use_patch_route`: the patch route (K1 per level,
 then the standalone K4 twice per level) and the gather route (dense maps
 in plain PyTorch).
+
+`extract_features_jit` is the single-dispatch form (the JAX package's
+jitted namesake, the same arguments): on CUDA tensors one replay of a
+CUDA graph captured at the first call for its key (utils/cuda_graph.py;
+the routes below are part of it), on CPU tensors the same function run
+eagerly. The staged frame (slam/frame.make_frame) calls it; the fused
+tracker's graphs call `extract_features` inside their own captures.
 """
 
 from __future__ import annotations
@@ -28,7 +35,9 @@ import numpy as np
 import torch
 
 from orb_slam2_commit_tpu_torch.ops import descriptors, fast, pyramid
+from orb_slam2_commit_tpu_torch.utils import cuda_graph
 from orb_slam2_commit_tpu_torch.utils.config import ORBConfig
+from orb_slam2_commit_tpu_torch.utils.precision import full_float32
 
 
 class Features(NamedTuple):
@@ -54,6 +63,13 @@ def use_packed_route() -> bool:
     takes the per-level route, and the two routes give the same
     features."""
     return os.environ.get("ORB_TPU_FORCE_PACKED", "1") != "0"
+
+
+def routes() -> tuple:
+    """The extraction routes, read at call time (`use_packed_route`,
+    ops/descriptors.use_patch_route) and so fixed in a graph at its
+    capture: part of the key of every graph that extracts."""
+    return use_packed_route(), os.environ.get("ORB_TPU_FORCE_PATCHES")
 
 
 def _border_premask(score: torch.Tensor, border: int) -> torch.Tensor:
@@ -138,3 +154,22 @@ def extract_features(
                       torch.full((budget,), lvl, dtype=torch.int32, device=image.device),
                       desc, valid))
     return Features(*(torch.cat(cols, dim=0) for cols in zip(*parts)))
+
+
+def _extract(image: torch.Tensor, key) -> Features:
+    config, height, width = key
+    return extract_features(image, config, height, width)
+
+
+@full_float32
+def extract_features_jit(
+    image: torch.Tensor, config: ORBConfig, height: int, width: int
+) -> Features:
+    """extract_features through utils/cuda_graph.call: one replay on the
+    card (K1-K5, or K1 and the standalone K4 per level on
+    ORB_TPU_FORCE_PACKED=0), eagerly on the CPU."""
+    return cuda_graph.call(_extract, (image,), (config, height, width), static=routes())
+
+
+# The functions extract_features_jit captures (cuda_graph.release's owners).
+GRAPHED = (_extract,)

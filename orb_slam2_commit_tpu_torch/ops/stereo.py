@@ -20,6 +20,13 @@ float32 ulp of the exact sum whatever the order of its terms, so the card
 and the CPU give the same float32 sums. The JAX package sums in float32 in
 XLA's order, a few ulps away; tests/test_torch_stereo.py states what that
 does to u_right.
+
+`stereo_frontend_jit` is the single-dispatch form (the JAX package's
+jitted namesake, the same arguments): on CUDA tensors one replay of a
+CUDA graph (utils/cuda_graph.py; K1-K5 for both images and K7 on the
+band), on CPU tensors the same function run eagerly. The staged stereo
+frame (slam/frame.make_stereo_frame) calls it; the fused tracker's graph
+calls `stereo_frontend` inside its own capture.
 """
 
 from __future__ import annotations
@@ -33,8 +40,10 @@ import torch.nn.functional as F
 from orb_slam2_commit_tpu_torch.kernels import matching as matching_kernel
 from orb_slam2_commit_tpu_torch.ops import extractor as ext
 from orb_slam2_commit_tpu_torch.ops import matching, pyramid
+from orb_slam2_commit_tpu_torch.utils import cuda_graph
 from orb_slam2_commit_tpu_torch.utils.config import ORBConfig
 from orb_slam2_commit_tpu_torch.utils.device_cache import device_table
+from orb_slam2_commit_tpu_torch.utils.precision import full_float32
 
 SAD_HALF = 5          # 11x11 window (reference w=5, src/Frame.cc:675)
 SLIDE = 5             # +/-5 px scan (reference L=5, :683)
@@ -84,6 +93,30 @@ def stereo_frontend(
         _scale_factors(image_l.device, orb_config),
     )
     return feats_l, feats_r, match
+
+
+def _frontend(image_l, image_r, key):
+    return stereo_frontend(image_l, image_r, *key)
+
+
+@full_float32
+def stereo_frontend_jit(
+    image_l: torch.Tensor,
+    image_r: torch.Tensor,
+    orb_config: ORBConfig,
+    height: int,
+    width: int,
+    bf: float,
+    baseline: float,
+) -> Tuple[ext.Features, ext.Features, StereoMatch]:
+    """stereo_frontend through utils/cuda_graph.call: one replay on the
+    card, eagerly on the CPU."""
+    return cuda_graph.call(_frontend, (image_l, image_r),
+                           (orb_config, height, width, bf, baseline), static=ext.routes())
+
+
+# The functions stereo_frontend_jit captures (cuda_graph.release's owners).
+GRAPHED = (_frontend,)
 
 
 def _gather_window(stack, level, yc, xc, half):

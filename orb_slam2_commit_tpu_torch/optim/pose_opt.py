@@ -18,6 +18,13 @@ the early-exit loop leaves it; a skipped round keeps its input state.
 On CPU tensors, where a host read costs nothing, the loop stops and the
 round is skipped as soon as every later update would be masked out: the
 same results, without the work.
+
+`pose_optimization_jit` is the single-dispatch form (the JAX package's
+jitted namesake, the same arguments): on CUDA tensors one replay of a
+CUDA graph holding the K8 launch (utils/cuda_graph.py; the camera
+constants and the loop counts are part of its key), on CPU tensors
+`pose_optimization` run eagerly. The staged tracker calls it; the fused
+tracker's graphs call `pose_optimization` inside their own captures.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from orb_slam2_commit_tpu_torch.optim import residuals as res
 from orb_slam2_commit_tpu_torch.optim.residuals import (
     BAObservations, CHI2_MONO, CHI2_STEREO,
 )
+from orb_slam2_commit_tpu_torch.utils import cuda_graph
 from orb_slam2_commit_tpu_torch.utils.precision import full_float32
 
 
@@ -140,6 +148,34 @@ def pose_optimization(
 
     return pose_lm.pose_lm(R0.contiguous(), t0.contiguous(), points.contiguous(),
                            obs, fx, fy, cx, cy, bf, n_rounds, iters_per_round)
+
+
+def _pose(R0, t0, points, obs, key) -> PoseOptResult:
+    return pose_optimization(R0, t0, points, obs, *key)
+
+
+@full_float32
+def pose_optimization_jit(
+    R0: torch.Tensor,
+    t0: torch.Tensor,
+    points: torch.Tensor,
+    obs: BAObservations,
+    fx: float,
+    fy: float,
+    cx: float,
+    cy: float,
+    bf: float,
+    n_rounds: int = 4,
+    iters_per_round: int = 10,
+) -> PoseOptResult:
+    """pose_optimization through utils/cuda_graph.call: one replay (one K8
+    launch) on the card, eagerly on the CPU."""
+    return cuda_graph.call(_pose, (R0, t0, points, obs),
+                           (fx, fy, cx, cy, bf, n_rounds, iters_per_round))
+
+
+# The functions pose_optimization_jit captures (cuda_graph.release's owners).
+GRAPHED = (_pose,)
 
 
 @full_float32

@@ -1,6 +1,8 @@
 """Per-image measurement bundle (PyTorch port of slam/frame.py): the image
-goes through the port's packed ORB extractor once, on the System's device;
-keypoints are undistorted; everything else is fixed-shape numpy mirrors
+goes through the port's ORB extractor once, on the System's device (one
+CUDA graph replay on the card: ops/extractor.extract_features_jit, and
+ops/stereo.stereo_frontend_jit for a stereo pair); keypoints are
+undistorted; everything else is fixed-shape numpy mirrors
 that the host pipeline reads and the matchers and optimizers take back to
 the device as they need them (reference: src/Frame.cc).
 """
@@ -85,8 +87,8 @@ def make_frame(
     synthesized (Frame::ComputeStereoFromRGBD, src/Frame.cc:791-816)."""
     device = resolve_device(device)
     cam = config.camera
-    feats = ext.extract_features(image_to_device(image, device), config.orb, cam.height,
-                                 cam.width)
+    feats = ext.extract_features_jit(image_to_device(image, device), config.orb, cam.height,
+                                     cam.width)
     xy_raw = to_host(feats.xy).astype(np.float64)
     valid = to_host(feats.valid)
     # Undistorted in float32 on the device, as the JAX package does.
@@ -139,7 +141,7 @@ def make_stereo_frame(
 
     device = resolve_device(device)
     cam = config.camera
-    feats_l, _, match = stereo_ops.stereo_frontend(
+    feats_l, _, match = stereo_ops.stereo_frontend_jit(
         image_to_device(image_left, device),
         image_to_device(image_right, device),
         config.orb, cam.height, cam.width, cam.bf, cam.baseline,

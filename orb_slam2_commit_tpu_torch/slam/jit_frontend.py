@@ -27,7 +27,6 @@ tracker calls the packed forms and `fused_local_map_track_jit`.
 
 from __future__ import annotations
 
-import os
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -483,16 +482,10 @@ def fused_local_map_track(
 # a call on the card, the eager function on the CPU.
 # ---------------------------------------------------------------------------
 
-def routes() -> tuple:
-    """The extraction routes, read at call time (ops/extractor.py,
-    ops/descriptors.py) and so fixed in a graph at its capture: part of
-    each form's key."""
-    return ext.use_packed_route(), os.environ.get("ORB_TPU_FORCE_PATCHES")
-
-
 def _graphed(fn, args, config: SLAMConfig):
-    """fn(*args, config) through utils/cuda_graph.call."""
-    return cuda_graph.call(fn, args, config, static=routes())
+    """fn(*args, config) through utils/cuda_graph.call, the extraction
+    routes in its key."""
+    return cuda_graph.call(fn, args, config, static=ext.routes())
 
 
 def tracking_forward_step_jit(image, pt_pos, pt_desc, pt_octave, pt_angle, pt_valid,

@@ -12,7 +12,18 @@ matcher under the epipolar band (K7, one launch over a batch of neighbour
 pairs) and its fuse projection (K6, one launch over a batch of target
 keyframes), and loop closing's SearchBySim3 projection (K6, one launch a
 direction) and its brute force over the loop candidates (K7, one launch,
-the keyframe's descriptors shared)."""
+the keyframe's descriptors shared).
+
+The staged tracker's matchers have single-dispatch forms (`*_jit`, each
+with its eager function's arguments; the JAX package jits these
+matchers themselves): `match_for_initialization_jit`,
+`match_projection_last_frame_jit`, `match_brute_force_jit` and
+`search_local_points_jit` (frustum_check and match_local_map in one
+call). On CUDA tensors each is one replay of a CUDA graph
+(utils/cuda_graph.py) captured at the first call for its key, which holds
+the float arguments (the search radii, the camera constants); on CPU
+tensors the same function runs eagerly. The fused tracker's and the
+mapper's graphs call the eager matchers inside their own captures."""
 
 from __future__ import annotations
 
@@ -24,6 +35,7 @@ import torch
 from orb_slam2_commit_tpu_torch.kernels import matching as matching_kernel
 from orb_slam2_commit_tpu_torch.ops import matching
 from orb_slam2_commit_tpu_torch.ops.matching import MatchResult, TH_HIGH, TH_LOW
+from orb_slam2_commit_tpu_torch.utils import cuda_graph
 from orb_slam2_commit_tpu_torch.utils.device_cache import device_table
 from orb_slam2_commit_tpu_torch.utils.precision import full_float32
 
@@ -365,3 +377,141 @@ def match_fuse(
         pt_desc, info.proj, (radius,), info.pred_octave - 1, info.pred_octave + 1,
         info.visible, xy, desc, octave, valid, TH_LOW)[0]
     return matching.resolve_duplicate_targets(m, desc.shape[-2])
+
+
+def search_local_points(
+    pt_pos: torch.Tensor, pt_normal: torch.Tensor, pt_min_dist: torch.Tensor,
+    pt_max_dist: torch.Tensor, pt_valid: torch.Tensor,
+    R: torch.Tensor, t: torch.Tensor,
+    fx: float, fy: float, cx: float, cy: float,
+    width: float, height: float,
+    pt_desc: torch.Tensor,
+    xy: torch.Tensor, desc: torch.Tensor,
+    octave: torch.Tensor, valid: torch.Tensor,
+    feat_taken: torch.Tensor,
+    th=1.0, ratio: float = 0.8,
+    n_levels: int = 8, scale: float = 1.2,
+) -> Tuple[FrustumInfo, MatchResult]:
+    """frustum_check, then match_local_map on its result (Tracking::
+    SearchLocalPoints, src/Tracking.cc:1403-1468) -> (FrustumInfo,
+    MatchResult)."""
+    info = frustum_check(pt_pos, pt_normal, pt_min_dist, pt_max_dist, pt_valid, R, t,
+                         fx, fy, cx, cy, width, height, n_levels=n_levels, scale=scale)
+    return info, match_local_map(info, pt_desc, xy, desc, octave, valid, feat_taken,
+                                 th=th, ratio=ratio, n_levels=n_levels, scale=scale)
+
+
+# Each form's graph runs its matcher on the form's tensor arguments, the
+# other arguments in the key.
+
+def _init_match(xy1, desc1, angle1, octave1, valid1, xy2, desc2, angle2, octave2, valid2,
+                key):
+    window, ratio = key
+    return match_for_initialization(xy1, desc1, angle1, octave1, valid1, xy2, desc2, angle2,
+                                    octave2, valid2, window=window, ratio=ratio)
+
+
+@full_float32
+def match_for_initialization_jit(
+    xy1: torch.Tensor, desc1: torch.Tensor, angle1: torch.Tensor,
+    octave1: torch.Tensor, valid1: torch.Tensor,
+    xy2: torch.Tensor, desc2: torch.Tensor, angle2: torch.Tensor,
+    octave2: torch.Tensor, valid2: torch.Tensor,
+    window: float = 100.0, ratio: float = 0.9,
+) -> MatchResult:
+    """match_for_initialization: one replay (K7 under the window) on the
+    card, eagerly on the CPU."""
+    return cuda_graph.call(_init_match, (xy1, desc1, angle1, octave1, valid1, xy2, desc2,
+                                         angle2, octave2, valid2), (window, ratio))
+
+
+def _last_frame_match(pt_pos, pt_desc, pt_octave, pt_angle, pt_valid, R, t, xy, desc, angle,
+                      octave, valid, tz_rel, key):
+    fx, fy, cx, cy, width, height, th, mono, baseline, n_levels, scale = key
+    return match_projection_last_frame(
+        pt_pos, pt_desc, pt_octave, pt_angle, pt_valid, R, t, xy, desc, angle, octave, valid,
+        fx, fy, cx, cy, width, height, th=th, tz_rel=tz_rel, mono=mono, baseline=baseline,
+        n_levels=n_levels, scale=scale)
+
+
+@full_float32
+def match_projection_last_frame_jit(
+    pt_pos: torch.Tensor, pt_desc: torch.Tensor, pt_octave: torch.Tensor,
+    pt_angle: torch.Tensor, pt_valid: torch.Tensor,
+    R: torch.Tensor, t: torch.Tensor,
+    xy: torch.Tensor, desc: torch.Tensor, angle: torch.Tensor,
+    octave: torch.Tensor, valid: torch.Tensor,
+    fx: float, fy: float, cx: float, cy: float,
+    width: float, height: float,
+    th=15.0,
+    tz_rel=0.0,
+    mono: bool = True,
+    baseline: float = 0.0,
+    n_levels: int = 8,
+    scale: float = 1.2,
+) -> Union[MatchResult, Tuple[MatchResult, MatchResult]]:
+    """match_projection_last_frame: one replay (one K6 launch) on the
+    card, eagerly on the CPU. th is a float or a pair of floats (part of
+    the key); tz_rel, which changes every frame, goes in as a 0-d float32
+    tensor, the value the eager function compares, made by a fill (a copy
+    from the host would wait for the device)."""
+    tz = torch.full((), float(tz_rel), dtype=torch.float32, device=pt_pos.device)
+    return cuda_graph.call(
+        _last_frame_match,
+        (pt_pos, pt_desc, pt_octave, pt_angle, pt_valid, R, t, xy, desc, angle, octave, valid,
+         tz),
+        (fx, fy, cx, cy, width, height, th, mono, baseline, n_levels, scale))
+
+
+def _brute_force(desc_a, angle_a, valid_a, desc_b, angle_b, valid_b, key):
+    max_dist, ratio = key
+    return match_brute_force(desc_a, angle_a, valid_a, desc_b, angle_b, valid_b,
+                             max_dist=max_dist, ratio=ratio)
+
+
+def match_brute_force_jit(
+    desc_a: torch.Tensor, angle_a: torch.Tensor, valid_a: torch.Tensor,
+    desc_b: torch.Tensor, angle_b: torch.Tensor, valid_b: torch.Tensor,
+    max_dist: int = TH_LOW, ratio: float = 0.7,
+) -> MatchResult:
+    """match_brute_force: one replay (K7 under the flags, batched over the
+    candidates in relocalization) on the card, eagerly on the CPU."""
+    return cuda_graph.call(_brute_force, (desc_a, angle_a, valid_a, desc_b, angle_b, valid_b),
+                           (max_dist, ratio))
+
+
+def _local_points(pt_pos, pt_normal, pt_min_dist, pt_max_dist, pt_valid, R, t, pt_desc, xy,
+                  desc, octave, valid, feat_taken, key):
+    fx, fy, cx, cy, width, height, th, ratio, n_levels, scale = key
+    return search_local_points(
+        pt_pos, pt_normal, pt_min_dist, pt_max_dist, pt_valid, R, t, fx, fy, cx, cy, width,
+        height, pt_desc, xy, desc, octave, valid, feat_taken, th=th, ratio=ratio,
+        n_levels=n_levels, scale=scale)
+
+
+@full_float32
+def search_local_points_jit(
+    pt_pos: torch.Tensor, pt_normal: torch.Tensor, pt_min_dist: torch.Tensor,
+    pt_max_dist: torch.Tensor, pt_valid: torch.Tensor,
+    R: torch.Tensor, t: torch.Tensor,
+    fx: float, fy: float, cx: float, cy: float,
+    width: float, height: float,
+    pt_desc: torch.Tensor,
+    xy: torch.Tensor, desc: torch.Tensor,
+    octave: torch.Tensor, valid: torch.Tensor,
+    feat_taken: torch.Tensor,
+    th=1.0, ratio: float = 0.8,
+    n_levels: int = 8, scale: float = 1.2,
+) -> Tuple[FrustumInfo, MatchResult]:
+    """search_local_points: one replay (one K6 launch) on the card,
+    eagerly on the CPU. th is a float (part of the key)."""
+    return cuda_graph.call(
+        _local_points,
+        (pt_pos, pt_normal, pt_min_dist, pt_max_dist, pt_valid, R, t, pt_desc, xy, desc,
+         octave, valid, feat_taken),
+        (fx, fy, cx, cy, width, height, th, ratio, n_levels, scale))
+
+
+# The functions the matchers' single-dispatch forms capture
+# (cuda_graph.release's owners).
+GRAPHED = (_init_match, _last_frame_match, _brute_force, _local_points)

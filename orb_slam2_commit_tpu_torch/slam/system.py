@@ -53,12 +53,15 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from orb_slam2_commit_tpu_torch.geometry import pnp, twoview
 from orb_slam2_commit_tpu_torch.interop import resolve_device
-from orb_slam2_commit_tpu_torch.models import serialization
+from orb_slam2_commit_tpu_torch.models import serialization, vocabulary
 from orb_slam2_commit_tpu_torch.models.kf_database import KeyFrameDatabase
 from orb_slam2_commit_tpu_torch.models.map_state import MapState
 from orb_slam2_commit_tpu_torch.models.vocabulary import default_vocabulary, load_vocabulary
-from orb_slam2_commit_tpu_torch.optim import ba, pose_graph
+from orb_slam2_commit_tpu_torch.ops import extractor, stereo
+from orb_slam2_commit_tpu_torch.optim import ba, pose_graph, pose_opt
+from orb_slam2_commit_tpu_torch.slam import matchers
 from orb_slam2_commit_tpu_torch.slam.async_pipeline import MappingWorker
 from orb_slam2_commit_tpu_torch.slam.frame import Frame, make_frame, make_stereo_frame
 from orb_slam2_commit_tpu_torch.slam.global_ba import GlobalBARunner
@@ -69,6 +72,13 @@ from orb_slam2_commit_tpu_torch.utils import cuda_graph
 from orb_slam2_commit_tpu_torch.utils import trajectory as traj
 from orb_slam2_commit_tpu_torch.utils.config import SLAMConfig
 from orb_slam2_commit_tpu_torch.utils.profiling import Profiler
+
+# The functions the staged tracker's single-dispatch forms capture, keyed
+# by their own arguments rather than the System's configuration: the
+# staged frame's extraction and stereo front end, the pose LM, the
+# matchers, EPnP RANSAC, the two-view bootstrap and the BoW descent.
+STAGED_GRAPHED = (extractor.GRAPHED + stereo.GRAPHED + pose_opt.GRAPHED + matchers.GRAPHED
+                  + pnp.GRAPHED + twoview.GRAPHED + vocabulary.GRAPHED)
 
 _LOG = logging.getLogger(__name__)
 
@@ -374,8 +384,9 @@ class System:
         for a global BA in flight to merge (System::Shutdown,
         src/System.cc:315-334); raises what a background thread raised.
         Then it releases its CUDA graphs (the tracker's and the mapper's,
-        captured under its configurations, and the solvers': BA's and the
-        pose graph's) and logs the captures made since it was built."""
+        captured under its configurations, the staged tracker's
+        (STAGED_GRAPHED) and the solvers': BA's and the pose graph's) and
+        logs the captures made since it was built."""
         worker = self.mapping_worker
         try:
             if worker is not None:
@@ -386,7 +397,7 @@ class System:
             if self._gba is not None:
                 self._gba.join()
             released = cuda_graph.release(self.config, self.init_config, *ba.GRAPHED,
-                                          *pose_graph.GRAPHED)
+                                          *pose_graph.GRAPHED, *STAGED_GRAPHED)
             _LOG.info("System %s: %d CUDA graph captures since it was built, %d graphs "
                       "released", self.config.sensor,
                       cuda_graph.n_captures() - self._captures_at_start, released)

@@ -12,7 +12,10 @@ brute-force matching (K7 under a mask; batched over the relocalization
 candidates), pose-only BA (K8), the two-view bootstrap
 (geometry/twoview.py), EPnP RANSAC (geometry/pnp.py) and, on the fused
 route, the whole motion stage and the local-map stage as one call each
-(slam/jit_frontend.py). Host code orchestrates and keeps numpy
+(slam/jit_frontend.py). The staged route's units are called through
+their single-dispatch forms (`*_jit`): on the card each is one CUDA graph
+replay, or for the two-view bootstrap and EPnP RANSAC a few replays
+around the eigensolves and SVDs. Host code orchestrates and keeps numpy
 bookkeeping. The RANSAC sample sets come from the tracker's host sampler
 (geometry/ransac.py), so the card and the CPU draw the same sets.
 
@@ -147,7 +150,7 @@ class Tracker:
             is_stereo=self._dev(is_stereo & bound),
             valid=self._dev(bound & frame.valid),
         )
-        res = pose_opt.pose_optimization(
+        res = pose_opt.pose_optimization_jit(
             self._dev(R0), self._dev(t0), self._dev(pts), obs,
             cam.fx, cam.fy, cam.cx, cam.cy, cam.bf,
         )
@@ -181,7 +184,7 @@ class Tracker:
 
         ref = self.init_ref_frame
         dev = self._dev
-        m = matchers.match_for_initialization(
+        m = matchers.match_for_initialization_jit(
             dev(ref.xy), dev(ref.desc), dev(ref.angle), dev(ref.octave), dev(ref.valid),
             dev(frame.xy), dev(frame.desc), dev(frame.angle), dev(frame.octave),
             dev(frame.valid),
@@ -193,7 +196,7 @@ class Tracker:
 
         matched = idx >= 0
         with self._timed("init_twoview"):
-            res = twoview.initialize_two_view(
+            res = twoview.initialize_two_view_jit(
                 dev(self.sampler.twoview(matched, twoview.N_RANSAC, twoview.SAMPLE_SIZE)),
                 dev(ref.xy), dev(frame.xy[np.maximum(idx, 0)]), dev(matched),
                 dev(np.asarray(cfg.camera.k_matrix)),
@@ -461,7 +464,7 @@ class Tracker:
         pt_ids = np.maximum(last.point_ids, 0)
         pt_ok = bound & self.map.pt_valid[pt_ids]
         th = float(self.config.tracker.search_radius_motion)
-        found = matchers.match_projection_last_frame(
+        found = matchers.match_projection_last_frame_jit(
             self._dev(self.map.pt_pos[pt_ids]), self._dev(last.desc),
             self._dev(last.octave), self._dev(last.angle), self._dev(pt_ok),
             self._dev(R_pred), self._dev(t_pred),
@@ -512,7 +515,7 @@ class Tracker:
         kf_bound = self.map.kf_point_idx[k] >= 0
         pt_ids = np.maximum(self.map.kf_point_idx[k], 0)
         kf_ok = kf_bound & self.map.pt_valid[pt_ids]
-        m = matchers.match_brute_force(
+        m = matchers.match_brute_force_jit(
             self._dev(self.map.kf_desc[k]), self._dev(self.map.kf_angle[k]),
             self._dev(kf_ok),
             self._dev(frame.desc), self._dev(frame.angle), self._dev(frame.valid),
@@ -566,7 +569,7 @@ class Tracker:
         angle_a[:C] = self.map.kf_angle[ck]
         valid_a[:C] = kf_ok
         with self._timed("reloc_match"):
-            m = matchers.match_brute_force(
+            m = matchers.match_brute_force_jit(
                 self._dev(desc_a), self._dev(angle_a), self._dev(valid_a),
                 self._dev(frame.desc), self._dev(frame.angle), self._dev(frame.valid),
             )
@@ -585,7 +588,7 @@ class Tracker:
         sigma2 = np.asarray(cfg.orb.level_sigma2())[
             np.clip(frame.octave, 0, cfg.orb.n_levels - 1)]
         with self._timed("reloc_epnp"):
-            res = pnp.epnp_ransac_many(
+            res = pnp.epnp_ransac_many_jit(
                 self._dev(self.sampler.pnp(bound_masks)),
                 self._dev(self.map.pt_pos[np.maximum(bindings, 0)]),
                 self._dev(frame.xy), self._dev(bound_masks), self._dev(sigma2),
@@ -702,14 +705,11 @@ class Tracker:
         desc[:m_c] = self.map.pt_desc[cand]
         pvalid[:m_c] = True
 
-        info = matchers.frustum_check(
+        info, m = matchers.search_local_points_jit(
             self._dev(pos), self._dev(normal), self._dev(dmin), self._dev(dmax),
             self._dev(pvalid), self._dev(frame.R), self._dev(frame.t),
             cam.fx, cam.fy, cam.cx, cam.cy, float(cam.width), float(cam.height),
-            n_levels=self.config.orb.n_levels, scale=self.config.orb.scale_factor,
-        )
-        m = matchers.match_local_map(
-            info, self._dev(desc),
+            self._dev(desc),
             self._dev(frame.xy), self._dev(frame.desc), self._dev(frame.octave),
             self._dev(frame.valid), self._dev(frame.point_ids >= 0), th=float(th),
             n_levels=self.config.orb.n_levels, scale=self.config.orb.scale_factor,
