@@ -175,7 +175,28 @@ Phases (any failure exits non-zero and prints no result line):
      frame OK and the ATE gate; two turns each) run eager (every form at
      its eager function) and replayed in turns, bit for bit the same, with
      frames/s, stage ms, captures, replays, pool bytes and the idle share,
-     and the kidnap sequence's eager warm-up against its counted run;
+     and the kidnap sequence's eager warm-up against its counted run; the
+     loop closer's, the staged mapper's and AR's single-dispatch forms
+     (phase_loop_graphs, after phase_staged_graphs: the Sim3 RANSAC and
+     LM, SearchBySim3 both ways, the loop's and the staged mapper's fuse,
+     the staged triangulation matcher, the loop closer's brute force over
+     its candidates and the plane fit, on calls recorded from the ring
+     survey, the staged-mapper RGB-D System, the AR demo and the
+     full-width loop run), every replay bit for bit its eager call, K6's
+     and K7's launches inside the replays the eager call's, the host's
+     reads those of the SVDs and the eigh alone; the staged-mapper System
+     and the AR demo eager and replayed in turns, bit for bit; the sharded
+     global BA on the real map (a world of one over NCCL) through the
+     device loop, its all-reduces captured, eager and replayed in turns,
+     bit for bit the plain solve, with its ms an LM iteration and idle
+     share; the full-width loop run (phase_full_loop: the multi-loop
+     drive's figure-eight at 640x480, 1500 features, stereo, to its first
+     corrected loop; the ring survey at full width never initializes)
+     eager (the loop path's forms eager) and replayed in two subprocesses
+     beside each other and beside the first phases, which build inputs
+     and time nothing, read before the first timed phase, untimed, each
+     within tests/test_loop_pipeline.py's four gates, bit for bit each
+     other;
      the System's sequences held to every frame OK, the ATE gate, at
      least 2 keyframes, points made by triangulation and a fuse pass, and
      the RGB-D sequence's first frames against the CPU's; the monocular
@@ -277,12 +298,14 @@ Then a `kernels` JSON line, the nvidia-smi line, and last the result line
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import json
 import logging
 import os
 import re
+import shutil
 import socket
 import subprocess
 import sys
@@ -312,7 +335,7 @@ try:
     from orb_slam2_commit_tpu_torch.slam import (
         jit_frontend, jit_mapper, loop_closing, matchers, tracking)
     from orb_slam2_commit_tpu_torch.slam.local_mapping import LocalMapper
-    from orb_slam2_commit_tpu_torch.slam.system import STAGED_GRAPHED, System
+    from orb_slam2_commit_tpu_torch.slam.system import LOOP_GRAPHED, STAGED_GRAPHED, System
     from orb_slam2_commit_tpu_torch.slam.tracking import Tracker
     from orb_slam2_commit_tpu_torch.examples import run_ar, run_dataset, run_live
     from orb_slam2_commit_tpu_torch.slam import ar
@@ -356,9 +379,10 @@ K8_TILED_ROWS = (2048, 8192)
 # Calls traced by torch.profiler for the device's busy time and idle share.
 PROFILE_CALLS = 5
 # Timed calls of each kernel row (phase 5), and blocks of 64 frames of each
-# frames/s reading (bench.py's recipe), cut from 50 and 5 as the script grew.
-KERNEL_ROW_CALLS = 25
-FPS_BLOCKS = 3
+# frames/s reading (bench.py's recipe), cut from 50 and 25 calls and from
+# 5 and 3 blocks as the script grew.
+KERNEL_ROW_CALLS = 8
+FPS_BLOCKS = 2
 
 # A K6 problem past one shared-memory chunk of the kernel (2048 columns).
 K6_CHUNKED = dict(seed=8, m=256, n=20000)
@@ -472,8 +496,9 @@ LOC_MIN_TRACKED, LOC_CPU_FRAMES = 8, 3
 # once the map has GBA_MIN_KFS keyframes; scale-aligned ATE under
 # GBA_ATE_GATE x span (that test's gate).
 GBA_EVERY, GBA_MIN_KFS, GBA_ATE_GATE = 5, 4, 0.10
-# Asynchronous against synchronous RGB-D System runs, in turns.
-ASYNC_TURNS = 2
+# Asynchronous against synchronous RGB-D System runs, in turns (2 before a
+# depth cut).
+ASYNC_TURNS = 1
 
 # The online phase (examples/run_live.py, slam/viewer.py, slam/ar.py,
 # examples/run_ar.py). (a) The RGB-D and stereo sequences published over
@@ -499,7 +524,7 @@ ASYNC_TURNS = 2
 # the CPU: 63.8 deg in JAX, 60.0 deg in the port).
 # (d) The online entry points' command lines, each in a subprocess.
 LIVE_RATES = (30.0, 10.0)
-LIVE_VIEWER = (False, True, True, False)
+LIVE_VIEWER = (False, True)
 AR_OVERLAID_CPU = 21
 AR_GROUND = (0.1, 1.0, -0.15)      # utils/synthetic.make_scene's plane normal
 AR_FIT_RAD, AR_FLAG_BAND, AR_ITERS = 1e-4, 1e-5, 128
@@ -692,7 +717,7 @@ def traced_calls(fn, iters, warmup=3, sessions=2):
     return best
 
 
-def device_busy_ms(fn, iters, warmup=3):
+def device_busy_ms(fn, iters, warmup=3, sessions=2):
     """Device time per call of fn(): the summed durations of the device
     operations it ran, under torch.profiler over `iters` calls, and the
     same per operation name (traced_calls). The host's gaps between them
@@ -700,8 +725,10 @@ def device_busy_ms(fn, iters, warmup=3):
     the host needs to issue them reads its device time (CUDA events over
     calls in a row would read the host's issue rate). Where neither of
     traced_calls' two sessions saw a device operation (the profiler drops
-    whole sessions late in a long process), three more are taken."""
-    _, busy, _, by_name = traced_calls(fn, iters, warmup)
+    whole sessions late in a long process), three more are taken.
+    sessions: traced_calls' first sessions (the kernel rows' plain and
+    library times take one: a depth cut)."""
+    _, busy, _, by_name = traced_calls(fn, iters, warmup, sessions)
     if busy is None:
         _, busy, _, by_name = traced_calls(fn, iters, 0, sessions=3)
         log(f"device_busy_ms: two profiler sessions saw no device operation; three more "
@@ -1589,7 +1616,7 @@ GRAPH_FORMS = ("tracking_forward_step", "fused_motion_track", "fused_stereo_moti
 PACKED_FORM = {"monocular": "fused_motion_track_packed",
                "stereo": "fused_stereo_motion_track_packed",
                "rgbd": "fused_rgbd_motion_track_packed"}
-GRAPH_FPS_BLOCKS = 2
+GRAPH_FPS_BLOCKS = 1
 # phase_graph_systems' turns (four until PR 19: its depth cut).
 GRAPH_SYSTEM_TURNS = ("eager", "graphs")
 # Graph captures of one form under one configuration in one System run: the
@@ -1611,40 +1638,67 @@ KERNEL_SYMBOLS = {"level_preprocess": "level_kernel", "combine_nms": "combine_nm
                   "stereo_band_top2": "stereo_band_top2_kernel", "pose_lm": "pose_lm_kernel"}
 
 
+def bundle_adjust_early(problem, fx, fy, cx, cy, bf, n_iters=10, use_robust=True,
+                        point_chunk=1024, lam0=1e-4, axis_name=None, solver="auto",
+                        point_sharded=False, *, segs=None):
+    """bundle_adjust_jit's parameters onto the early-exit form
+    (ba.bundle_adjust, whose group parameter sits after solver)."""
+    return ba.bundle_adjust(problem, fx, fy, cx, cy, bf, n_iters, use_robust, point_chunk,
+                            lam0, solver, axis_name, point_sharded, segs=segs)
+
+
 # The mapper's and the loop closer's single-dispatch forms -> their eager
-# functions (module, form, eager function's name): BA's early-exit form,
+# functions (module, form, eager function): BA's early-exit form,
 # the pose graph's eager loop, the mapper's two batched functions.
-MAPPER_FORMS = ((ba, "bundle_adjust_jit", "bundle_adjust"),
-                (pose_graph, "optimize_sim3_graph_jit", "optimize_sim3_graph"),
-                (jit_mapper, "fused_triangulation_jit", "fused_triangulation"),
-                (jit_mapper, "fused_fuse_forward_jit", "fused_fuse_forward"))
+MAPPER_FORMS = ((ba, "bundle_adjust_jit", bundle_adjust_early),
+                (pose_graph, "optimize_sim3_graph_jit", pose_graph.optimize_sim3_graph),
+                (jit_mapper, "fused_triangulation_jit", jit_mapper.fused_triangulation),
+                (jit_mapper, "fused_fuse_forward_jit", jit_mapper.fused_fuse_forward))
 # The staged tracker's single-dispatch forms -> their eager functions
-# (module, form, eager function's name): the staged frame's extraction and
+# (module, form, eager function): the staged frame's extraction and
 # stereo front end, the pose LM, the matchers, EPnP RANSAC, the two-view
 # bootstrap and the BoW descent.
-STAGED_FORMS = ((extractor, "extract_features_jit", "extract_features"),
-                (stereo, "stereo_frontend_jit", "stereo_frontend"),
-                (pose_opt, "pose_optimization_jit", "pose_optimization"),
-                (matchers, "match_for_initialization_jit", "match_for_initialization"),
-                (matchers, "match_projection_last_frame_jit", "match_projection_last_frame"),
-                (matchers, "match_brute_force_jit", "match_brute_force"),
-                (matchers, "search_local_points_jit", "search_local_points"),
-                (pnp, "epnp_ransac_many_jit", "epnp_ransac_many"),
-                (twoview, "initialize_two_view_jit", "initialize_two_view"),
-                (vocabulary, "_descend_jit", "_descend"))
+STAGED_FORMS = ((extractor, "extract_features_jit", extractor.extract_features),
+                (stereo, "stereo_frontend_jit", stereo.stereo_frontend),
+                (pose_opt, "pose_optimization_jit", pose_opt.pose_optimization),
+                (matchers, "match_for_initialization_jit", matchers.match_for_initialization),
+                (matchers, "match_projection_last_frame_jit",
+                 matchers.match_projection_last_frame),
+                (matchers, "match_brute_force_jit", matchers.match_brute_force),
+                (matchers, "search_local_points_jit", matchers.search_local_points),
+                (pnp, "epnp_ransac_many_jit", pnp.epnp_ransac_many),
+                (twoview, "initialize_two_view_jit", twoview.initialize_two_view),
+                (vocabulary, "_descend_jit", vocabulary._descend))
+
+
+# The loop closer's, the staged mapper's and the AR anchor's
+# single-dispatch forms -> their eager functions: the Sim3 RANSAC and LM,
+# SearchBySim3 both ways, the loop's and the staged mapper's fuse, the
+# staged triangulation matcher, the plane fit. (The loop closer's brute
+# force over its candidates is STAGED_FORMS' match_brute_force_jit; the
+# sharded global BA is MAPPER_FORMS' bundle_adjust_jit.)
+LOOP_FORMS = ((sim3_solver, "sim3_ransac_jit", sim3_solver.sim3_ransac),
+              (sim3_opt, "optimize_sim3_jit", sim3_opt.optimize_sim3),
+              (matchers, "search_by_sim3_jit", matchers.search_by_sim3),
+              (matchers, "match_fuse_jit", matchers.match_fuse),
+              (matchers, "match_for_triangulation_jit", matchers.match_for_triangulation),
+              (matchers, "search_fuse_jit", matchers.search_fuse),
+              (ar, "fit_plane_ransac_jit", ar.fit_plane_ransac))
 
 
 @contextlib.contextmanager
-def eager_forms():
+def eager_forms(forms=None):
     """The module references to every single-dispatch form (the
-    tracker's, the staged tracker's, the mapper's and the loop closer's)
-    pointed at their eager functions inside the block (an eager run to
-    compare with)."""
-    forms = ([(jit_frontend, f"{n}_jit", n) for n in GRAPH_FORMS] + list(MAPPER_FORMS)
-             + list(STAGED_FORMS))
+    tracker's, the staged tracker's, the mapper's and the loop closer's),
+    or to `forms` ((module, form, eager function) entries), pointed at
+    their eager functions inside the block (an eager run to compare
+    with)."""
+    if forms is None:
+        forms = ([(jit_frontend, f"{n}_jit", getattr(jit_frontend, n)) for n in GRAPH_FORMS]
+                 + list(MAPPER_FORMS) + list(STAGED_FORMS) + list(LOOP_FORMS))
     saved = [(module, form, getattr(module, form)) for module, form, _ in forms]
     for module, form, eager in forms:
-        setattr(module, form, getattr(module, eager))
+        setattr(module, form, eager)
     try:
         yield
     finally:
@@ -1760,9 +1814,13 @@ def phase_graphs(config, args, pairs):
     cuda_graph.release()
 
 
+# phase_graph_timing's turns (four before its depth cut).
+GRAPH_TIMING_TURNS = ("eager", "graphs")
+
+
 def phase_graph_timing(config, args, pairs, power):
-    """Eager against replayed, in turns (eager, graphs, graphs, eager) in
-    this process: the step's and each pair's frames/s by phase_fps's
+    """Eager against replayed, in turns (GRAPH_TIMING_TURNS) in this
+    process: the step's and each pair's frames/s by phase_fps's
     recipe (GRAPH_FPS_BLOCKS blocks), and each one's device busy time and
     idle share under torch.profiler (profiled_calls: it sees the kernels
     of a replayed graph). The profiled calls' kernels, counted by name,
@@ -1783,7 +1841,7 @@ def phase_graph_timing(config, args, pairs, power):
         paths[PATH[sensor]] = (make, (run_pair, run_pair_graphed), motion[0], once)
     for what, (make, (eager, graphed), image, once) in paths.items():
         rows = {"eager": [], "graphs": []}
-        for kind in ("eager", "graphs", "graphs", "eager"):
+        for kind in GRAPH_TIMING_TURNS:
             fn = eager if kind == "eager" else graphed
             fps = phase_fps(f"{what} ({kind})", make(fn), image, power, GRAPH_FPS_BLOCKS)
             once(fn)()
@@ -2575,8 +2633,8 @@ def phase_mapper_graphs(solves, power):
 STAGED_RECORDED = {}
 STAGED_KEEP = 4
 # Calls of each unit timed each way, in turns (eager, replayed, replayed,
-# eager) of this many calls.
-STAGED_UNIT_CALLS = 3
+# eager) of this many calls (3 before a depth cut).
+STAGED_UNIT_CALLS = 2
 # The System runs eager and replayed in turns (the last two under a
 # device-only profile: the idle share): the localization session four
 # turns; the RGB-D System with the staged tracker two; the sweep two over
@@ -2600,6 +2658,10 @@ STAGED_RGBD_REPLAYED = ("level_preprocess", "combine_nms", "cell_topk_map", "des
 # One row a unit call for the log's summary: (form, source, eager ms,
 # replayed ms, replays, library calls, host reads eager / replayed).
 STAGED_ROWS = []
+# The modules whose forms replay more than one graph a call, around
+# library calls: EPnP RANSAC, two-view initialization, the Sim3 RANSAC,
+# the plane fit.
+MULTI_GRAPH_MODULES = (pnp, twoview, sim3_solver, ar)
 
 
 def staged_signature(form, args, kwargs):
@@ -2609,18 +2671,18 @@ def staged_signature(form, args, kwargs):
 
 
 @contextlib.contextmanager
-def staged_recording(source):
-    """Record the staged forms' calls inside the block into STAGED_RECORDED
-    (nothing read on the host)."""
+def staged_recording(source, forms=STAGED_FORMS, store=STAGED_RECORDED):
+    """Record the forms' calls inside the block into store (nothing read
+    on the host): the staged forms into STAGED_RECORDED by default."""
     counts = {}
-    saved = [(module, form, getattr(module, form)) for module, form, _ in STAGED_FORMS]
+    saved = [(module, form, getattr(module, form)) for module, form, _ in forms]
 
     def spy(form, fn):
         def call(*args, **kwargs):
             sig = staged_signature(form, args, kwargs)
             if counts.get(sig, 0) < STAGED_KEEP:
                 counts[sig] = counts.get(sig, 0) + 1
-                STAGED_RECORDED.setdefault(form, []).append((source, sig, args, kwargs))
+                store.setdefault(form, []).append((source, sig, args, kwargs))
             return fn(*args, **kwargs)
         return call
 
@@ -2654,11 +2716,11 @@ def linalg_recorded(calls):
             setattr(linalg, name, fn)
 
 
-def staged_calls(form):
+def staged_calls(form, store=STAGED_RECORDED):
     """[(source, args, kwargs)]: one recorded call of the form a signature,
     the first with a candidate (no boolean tensor argument all False)."""
     by_sig = {}
-    for source, sig, args, kwargs in STAGED_RECORDED.get(form, []):
+    for source, sig, args, kwargs in store.get(form, []):
         full = not any(isinstance(a, torch.Tensor) and a.dtype == torch.bool and a.numel()
                        and not bool(a.any()) for a in tree_leaves((args, kwargs)))
         if sig not in by_sig or (full and not by_sig[sig][0]):
@@ -2666,17 +2728,17 @@ def staged_calls(form):
     return [call for _, call in by_sig.values()]
 
 
-def staged_replayed():
-    """{kernel: launches} that replays of the staged forms' graphs added
-    since the process started."""
+def staged_replayed(owners=STAGED_GRAPHED):
+    """{kernel: launches} that replays of the owners' graphs (the staged
+    forms' by default) added since the process started."""
     out = {}
-    for fn in STAGED_GRAPHED:
+    for fn in owners:
         for k, n in cuda_graph.replayed_by.get(fn.__name__, {}).items():
             out[k] = out.get(k, 0) + n
     return out
 
 
-def staged_unit(module, form, eager_name, source, args, kwargs, power):
+def staged_unit(module, form, eager, source, args, kwargs, power, timed=True):
     """One recorded call of a staged form: its graphs released, so the
     first call captures and the second only replays; both bit for bit the
     eager call; the second call's launches per kernel the eager call's, all
@@ -2685,9 +2747,9 @@ def staged_unit(module, form, eager_name, source, args, kwargs, power):
     for the device (SYNC_CALLS) in a replayed call equal those of its
     library calls alone (recorded from that call and run again on their
     inputs; the device-to-host copies logged beside them); synced ms
-    eager and replayed in turns."""
+    eager and replayed in turns (unless timed is False)."""
     what = f"{form} ({source})"
-    jit, eager = getattr(module, form), getattr(module, eager_name)
+    jit = getattr(module, form)
     cuda_graph.release(*module.GRAPHED)
     torch.cuda.synchronize()
     _build.reset_launches()
@@ -2714,7 +2776,7 @@ def staged_unit(module, form, eager_name, source, args, kwargs, power):
         raise AssertionError(f"{what}: a call launched {counts} ({from_replays} from replays), "
                              f"the eager call {eager_counts}")
     check_unit_replays(what, captured, cuda_graph.n_captures() - caps, replays, len(lib),
-                       module not in (pnp, twoview))
+                       module not in MULTI_GRAPH_MODULES)
     fns = {"eager": lambda: eager(*args, **kwargs), "replayed": lambda: jit(*args, **kwargs),
            "library calls alone": lambda: [f(*a) for f, a in lib]}
     waits = {kind: host_waits(fn)[1:] for kind, fn in fns.items()}
@@ -2728,7 +2790,7 @@ def staged_unit(module, form, eager_name, source, args, kwargs, power):
                              f"{waits['replayed'][1]} times, its library calls alone "
                              f"{waits['library calls alone'][1]} times")
     ms = {"eager": [], "replayed": []}
-    for kind in ("eager", "replayed", "replayed", "eager"):
+    for kind in ("eager", "replayed", "replayed", "eager") if timed else ():
         fn = eager if kind == "eager" else jit
         ms[kind].append(round(synced_ms(lambda: fn(*args, **kwargs), STAGED_UNIT_CALLS), 3))
     pool = sum(g.pool_bytes for k, g in cuda_graph.graphs.items() if k[0] in module.GRAPHED)
@@ -2740,7 +2802,7 @@ def staged_unit(module, form, eager_name, source, args, kwargs, power):
         f"ms eager {ms['eager']}, replayed {ms['replayed']}, on {power}")
     STAGED_ROWS.append((form, source, ms["eager"], ms["replayed"], replays, len(lib),
                         waits["eager"], waits["replayed"]))
-    return got
+    return got, counts, replays, len(lib)
 
 
 def check_unit_replays(what, captured, captures, replays, n_lib, one_graph):
@@ -2789,7 +2851,8 @@ def window_profiled(prof, frames):
     return around
 
 
-def staged_turns(what, run, stages, power, want_replayed=(), turns=STAGED_TURNS):
+def staged_turns(what, run, stages, power, want_replayed=(), turns=STAGED_TURNS,
+                 owners=STAGED_GRAPHED):
     """run(prof) -> (system, frames, seconds, (captures, replays, pool
     bytes at the run's end)) in turns: eager (eager_forms) and replayed;
     in the last two turns prof is a dict for run to profile itself into
@@ -2798,19 +2861,20 @@ def staged_turns(what, run, stages, power, want_replayed=(), turns=STAGED_TURNS)
     (check_same_bits); an eager run captures and replays nothing, a
     replayed one launches each of want_replayed from the staged forms'
     replays. Logs frames/s, the stages' mean ms, captures, replays, pool
-    bytes and the idle share."""
+    bytes and the idle share. owners: the functions whose replays' launches
+    are counted (the staged forms' by default)."""
     rows, t0 = [], time.perf_counter()
     for turn, kind in enumerate(turns):
         prof = {} if turn >= len(turns) - 2 else None
-        before = staged_replayed()
+        before = staged_replayed(owners)
         with eager_forms() if kind == "eager" else contextlib.nullcontext():
             sys_, n_frames, seconds, graphs = run(prof)
-        replayed = {k: v - before.get(k, 0) for k, v in staged_replayed().items()
+        replayed = {k: v - before.get(k, 0) for k, v in staged_replayed(owners).items()
                     if v > before.get(k, 0)}
         if kind == "eager" and graphs[:2] != (0, 0):
             raise AssertionError(f"{what} (eager): {graphs[0]} captures, {graphs[1]} replays")
         if kind == "replayed" and [k for k in want_replayed if not replayed.get(k)]:
-            raise AssertionError(f"{what} (replayed): the staged forms' replays launched "
+            raise AssertionError(f"{what} (replayed): the forms' replays launched "
                                  f"{replayed}")
         t = sys_.timings()
         remember(what, kind, sys_)
@@ -2821,7 +2885,7 @@ def staged_turns(what, run, stages, power, want_replayed=(), turns=STAGED_TURNS)
     check_same_bits(what)
     log(f"{what}, eager against replayed in turns (frames/s; mean ms of "
         f"{', '.join(stages)}; CUDA graph captures, replays, the live pools' bytes at the "
-        f"run's end; idle share (the last two turns); launches from the staged forms' "
+        f"run's end; idle share (the last two turns); launches from the forms' "
         f"replays): " + "; ".join(
             f"{kind} {fps}, {st}, {g}, idle {idle}, {rep or 'none'}"
             for kind, fps, st, g, idle, rep in rows) + f", on {power} (the turns took "
@@ -2848,12 +2912,12 @@ def phase_staged_graphs(pairs, seqs, power):
     if missing:
         raise AssertionError(f"no call of {missing} was recorded")
     cuda_graph.release(*STAGED_GRAPHED)
-    for module, form, eager_name in STAGED_FORMS:
+    for module, form, eager in STAGED_FORMS:
         for source, args, kwargs in staged_calls(form):
-            staged_unit(module, form, eager_name, source, args, kwargs, power)
+            staged_unit(module, form, eager, source, args, kwargs, power)
     source, args, kwargs = staged_calls("extract_features_jit")[0]
     with env_set(ORB_TPU_FORCE_PACKED="0"):
-        staged_unit(extractor, "extract_features_jit", "extract_features",
+        staged_unit(extractor, "extract_features_jit", extractor.extract_features,
                     f"{source}, per-level route", args, kwargs, power)
     check_horn_svds(*staged_calls("epnp_ransac_many_jit")[0])
     cuda_graph.release(*STAGED_GRAPHED)
@@ -2880,6 +2944,341 @@ def phase_staged_graphs(pairs, seqs, power):
     log("staged forms, per recorded call (form, source, synced ms eager, replayed, replays "
         "a call, library calls between them, host reads eager, replayed): "
         + "; ".join(str(r) for r in STAGED_ROWS) + f", on {power}")
+
+
+# ---------------------------------------------------------------------------
+# The loop closer's, the staged mapper's and the AR anchor's single-dispatch
+# forms, and the sharded global BA through the device loop
+# ---------------------------------------------------------------------------
+
+# The loop path's forms whose calls are recorded (from phase_loop's ring
+# survey and from the eager turns of phase_loop_graphs' runs) and held
+# replay against eager call: LOOP_FORMS and the loop closer's brute force
+# over its candidates.
+LOOP_UNIT_FORMS = LOOP_FORMS + ((matchers, "match_brute_force_jit",
+                                 matchers.match_brute_force),)
+LOOP_RECORDED_CALLS = {}
+# The functions the loop path's forms capture (their replays' launches
+# counted in the turns).
+LOOP_OWNERS = LOOP_GRAPHED + tuple(
+    f for f in matchers.GRAPHED
+    if f.__name__ in ("_brute_force", "_sim3_search", "_fuse", "_triangulation", "_search_fuse"))
+# The loop closure at full width. The ring survey's scene and path at
+# 640x480 with 1000 features (monocular, the 7-DoF Sim3 path) never
+# initializes, in either package (a CPU run of the JAX System; the port's
+# CPU run and a run on the card), so the full-width loop run is the
+# multi-loop drive's (the figure-eight at its full-drive settings, stereo,
+# 640x480, 1500 features, the drive's keyframe thresholds) with a
+# synchronous System, to its first corrected loop. Its first
+# FULL_LOOP_FRAMES stereo frames are rendered once, a file each, by
+# RENDER_PROCS subprocesses of this script (frame k by process k mod
+# RENDER_PROCS); its two turns (eager: the loop path's forms eager,
+# LOOP_UNIT_FORMS; replayed), two more, read each frame as it is written.
+# All of them run beside the first steps, which build inputs and time
+# nothing; the timed phases start after both turns have ended
+# (FULL_LOOP_TIMEOUT_S each). Neither turn is timed.
+FULL_LOOP = dict(width=640, height=480, n_features=1500, sensor="stereo")
+FULL_LOOP_DRIVE = dict(n_frames=1400, n_points=120000, seed=13, r=25.0, laps=2.15,
+                       max_depth=12.0)
+# The first loop closes at frame 660 (on an H100).
+FULL_LOOP_FRAMES = 720
+RENDER_PROCS = 8
+FULL_LOOP_TIMEOUT_S = 600
+# The AR demo's frames in each turn (its default).
+AR_TURN_FRAMES = 24
+
+
+def full_loop_config():
+    cfg = synthetic_config(**FULL_LOOP)
+    return dataclasses.replace(cfg, tracker=dataclasses.replace(
+        cfg.tracker, kf_baseline_depth_ratio=0.08, kf_view_angle_deg=8.0))
+
+
+def full_loop_frame(root, k):
+    return os.path.join(root, f"frame_{k:04d}.npy")
+
+
+def render_full_loop(index, root):
+    """Frames index, index + RENDER_PROCS, ... of the full-width loop run's
+    drive, each [2, H, W] (left, right) into its own file under root
+    (written under another name, then renamed), in a process of its own."""
+    frames, _, _ = synthetic.figure8_frames(full_loop_config().camera, stereo=True,
+                                            **FULL_LOOP_DRIVE)
+    for k in range(int(index), FULL_LOOP_FRAMES, RENDER_PROCS):
+        _, left, right = next(frames(k))
+        path = full_loop_frame(root, k)
+        np.save(path + ".part.npy", np.stack([left, right]))
+        os.replace(path + ".part.npy", path)
+    return 0
+
+
+def full_loop_turn(kind, out, root):
+    """One turn of the full-width loop run (kind "eager": the loop path's
+    forms at their eager functions, eager_forms(LOOP_UNIT_FORMS), and
+    their calls recorded; "replayed"), in a process of its own: the
+    drive's frames (each read from root once render_full_loop has written
+    it) through a synchronous System until its first loop closure ->
+    out.npz (the System's fingerprint), out.json (states, the four gates,
+    the loop path's captures and replays, all captures, replays and pool
+    bytes, launches) and, for the eager turn, out.pt (one recorded call of
+    each form a signature, on the CPU)."""
+    torch.set_num_threads(1)
+    cfg = full_loop_config()
+    poses = synthetic.figure8_trajectory(FULL_LOOP_DRIVE["n_frames"], r=FULL_LOOP_DRIVE["r"],
+                                         laps=FULL_LOOP_DRIVE["laps"])
+    gt_c = centres(poses)
+    what = f"full-width loop run ({kind})"
+    sys_ = System(cfg, async_mapping=False, device="cuda")
+    pre = {}
+    correct = sys_.loop_closer.correct_loop
+
+    def correct_spy(*args, **kwargs):
+        if "ate" not in pre:
+            n = len(sys_.tracker.trajectory)
+            pre.update(ate=loop_ate(sys_, gt_c[:n]), n=n, frame=sys_.frame_count - 1)
+        return correct(*args, **kwargs)
+
+    sys_.loop_closer.correct_loop = correct_spy
+    store, states = {}, []
+    _build.reset_launches()
+    caps, reps = cuda_graph.n_captures(), cuda_graph.n_replays()
+    with contextlib.ExitStack() as stack:
+        if kind == "eager":
+            stack.enter_context(eager_forms(LOOP_UNIT_FORMS))
+            stack.enter_context(staged_recording(what, LOOP_UNIT_FORMS, store))
+        for k in range(FULL_LOOP_FRAMES):
+            path = full_loop_frame(root, k)
+            while not os.path.exists(path):
+                time.sleep(0.05)
+            left, right = np.load(path)
+            sys_.track_stereo(left, right, k / 30.0)
+            states.append(sys_.tracking_state().name)
+            if sys_.loop_closer.n_loops_closed >= 1:
+                break
+        torch.cuda.synchronize()
+    loop_graphs = [g for k, g in cuda_graph.graphs.items() if k[0] in LOOP_OWNERS]
+    graphs = graphs_since(caps, reps)
+    prefix, final, span = loop_gates(what, sys_, states, pre, gt_c[:len(states)])
+    np.savez(out + ".npz", **fingerprint(sys_))
+    with open(out + ".json", "w") as f:
+        json.dump({"states": states, "gates": [prefix, final, span, pre["ate"]],
+                   "frame": pre["frame"], "graphs": graphs,
+                   "loop_graphs": [len(loop_graphs), sum(g.replays for g in loop_graphs)],
+                   "launches": dict(_build.launches),
+                   "closures": sys_.loop_closer.correction_stats,
+                   "n_keyframes": int(sys_.map.n_keyframes()),
+                   "n_points": int(sys_.map.pt_valid.sum())}, f)
+    if kind == "eager":
+        def cpu(tree):
+            return tree_map(lambda a: a.cpu() if isinstance(a, torch.Tensor) else a, tree)
+        torch.save({form: [(source, cpu(args), cpu(kwargs))
+                           for source, args, kwargs in loop_unit_calls(form, store)]
+                    for form in store}, out + ".pt")
+    sys_.shutdown()
+    return 0
+
+
+def start_full_loop_turns(root):
+    """Start the full-width loop run's render processes and both of its
+    turns, one host thread each -> (the frames' directory, the render
+    processes, {kind: (out, process)})."""
+    env = dict(os.environ, TMPDIR=root, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
+               OPENBLAS_NUM_THREADS="1")
+    frames = os.path.join(root, "full_loop_frames")
+    os.makedirs(frames)
+    renders = [started_process([sys.executable, os.path.abspath(__file__),
+                                "--render-full-loop", str(i), frames], env,
+                               os.path.join(root, f"full_loop_render_{i}"))
+               for i in range(RENDER_PROCS)]
+    procs = {}
+    for kind in ("eager", "replayed"):
+        out = os.path.join(root, f"full_loop_{kind}")
+        procs[kind] = (out, started_process(
+            [sys.executable, os.path.abspath(__file__), "--full-loop-turn", kind, out, frames],
+            env, out))
+    return frames, renders, procs
+
+
+def phase_full_loop(started, power):
+    """The full-width loop run's two turns (start_full_loop_turns): each
+    exits 0 having closed its first loop within tests/test_loop_pipeline.py's
+    four gates, the replayed turn bit for bit the eager one, its forms'
+    replays launching K6 and K7; then each form's calls recorded by the
+    eager turn, on the card, through staged_unit (phase_loop_graphs (b);
+    not timed, as the ring survey's calls are). The turns ran beside each
+    other, so nothing of theirs is read as a time."""
+    frames, renders, procs = started
+    for proc in renders:
+        _, stderr = finished(proc, FULL_LOOP_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise AssertionError(f"rendering the full-width loop run's frames exited "
+                                 f"{proc.returncode}: {stderr[-3000:]}")
+    turns = {}
+    for kind, (out, proc) in procs.items():
+        _, stderr = finished(proc, FULL_LOOP_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise AssertionError(f"full-width loop run ({kind}) exited {proc.returncode}: "
+                                 f"{stderr[-3000:]}")
+        with open(out + ".json") as f:
+            turns[kind] = json.load(f)
+        RUNS.setdefault("full-width loop run", []).append((kind, dict(np.load(out + ".npz"))))
+        r = turns[kind]
+        log(f"full-width loop run ({kind}; the multi-loop drive at "
+            f"{FULL_LOOP['width']}x{FULL_LOOP['height']}, {FULL_LOOP['n_features']} features, "
+            f"stereo, synchronous): first loop closed "
+            f"{[(c['kf'], c['loop_kf']) for c in r['closures']]} at frame {r['frame']} of "
+            f"{len(r['states'])} frames, {r['n_keyframes']} keyframes, {r['n_points']} "
+            f"points; ATE before the correction {r['gates'][3]:.6f}, of that prefix after it "
+            f"{r['gates'][0]:.6f}, final {r['gates'][1]:.6f} over a {r['gates'][2]:.3f} span "
+            f"(gate {LOOP_ATE_SPAN} x span); the loop path's graphs captured, replayed "
+            f"{r['loop_graphs']}; all captures, replays, pool bytes {r['graphs']}; "
+            f"launches {r['launches']}; on {power} (not timed: the two turns shared the card)")
+    shutil.rmtree(frames)
+    check_same_bits("full-width loop run")
+    if turns["eager"]["loop_graphs"] != [0, 0] or not turns["replayed"]["loop_graphs"][1]:
+        raise AssertionError(f"full-width loop run: the loop path's graphs (captured, "
+                             f"replayed) in the eager turn {turns['eager']['loop_graphs']}, "
+                             f"in the replayed turn {turns['replayed']['loop_graphs']}")
+    recorded = torch.load(procs["eager"][0] + ".pt", weights_only=False)
+    cuda_graph.release(*LOOP_OWNERS)
+    for module, form, eager in LOOP_UNIT_FORMS:
+        for source, args, kwargs in recorded.get(form, []):
+            args, kwargs = tree_map(lambda a: a.cuda() if isinstance(a, torch.Tensor) else a,
+                                    (args, kwargs))
+            staged_unit(module, form, eager, source, args, kwargs, power, timed=False)
+    cuda_graph.release(*LOOP_OWNERS)
+    log(f"full-width loop run: its forms' recorded calls replayed against eager "
+        f"({ {form: len(v) for form, v in recorded.items()} } by form)")
+
+
+def loop_unit_calls(form, store=None):
+    """The recorded calls of a loop-path form (staged_calls), one a
+    source; of the brute force, the loop closer's (a candidate axis on
+    side B)."""
+    calls = staged_calls(form, LOOP_RECORDED_CALLS if store is None else store)
+    if form == "match_brute_force_jit":
+        calls = [c for c in calls if c[1][3].dim() == 3]
+    return list({source: (source, args, kwargs) for source, args, kwargs in calls}.values())
+
+
+def graphs_since(caps, reps):
+    """(captures, replays since those counts, the live graphs' pool bytes)."""
+    return (cuda_graph.n_captures() - caps, cuda_graph.n_replays() - reps,
+            sum(g.pool_bytes for g in cuda_graph.graphs.values()))
+
+
+def phase_loop_graphs(seqs, power):
+    """The loop closer's, the staged mapper's and the AR anchor's
+    single-dispatch forms, and the sharded global BA through the device
+    loop, on the card:
+    (a) the staged mapper's RGB-D System (ORB_TPU_STAGED_MAPPER=1) eager
+        and replayed in turns, bit for bit, every frame OK and the ATE
+        gate; the AR demo (run_ar) the same, the cube anchored and the
+        anchors' planes equal; the eager turns record the forms' calls
+        (the full-width loop run's turns run beside the other phases:
+        phase_full_loop);
+    (b) every recorded call of each form (these runs' and phase_loop's ring
+        survey's; the full-width loop run's in phase_full_loop) through
+        staged_unit: the replay bit for bit the eager
+        call, the launches a call equal and all from replays, the replays
+        and library calls a call, the host's waits those of the SVDs and
+        the eigendecomposition alone, synced ms each way in turns;
+    (c) the sharded global BA on the real map (ORB_DISTRIBUTED_GBA=1, a
+        world of one over NCCL): eager (the early-exit form) and replayed
+        (the device loop, the all-reduces in its graphs) in turns, the
+        last two under torch.profiler, bit for bit each other and the plain
+        replayed solve; ms an LM iteration and the idle share."""
+    rows_at = len(STAGED_ROWS)
+    cuda_graph.release(*LOOP_OWNERS)
+
+    # (a) The runs in turns, the eager turns recorded.
+    rgbd = seqs["rgbd"]
+    gt_r = centres(rgbd[3])
+    span = float(np.linalg.norm(gt_r[-1] - gt_r[0]))
+    what = "System RGB-D, staged mapper"
+
+    def mapper_run(prof):
+        # Not profiled (the idle share not recorded): a depth cut.
+        eager = matchers.search_fuse_jit is matchers.search_fuse
+        with env_set(ORB_TPU_STAGED_MAPPER="1"), \
+                staged_recording(what, LOOP_UNIT_FORMS, LOOP_RECORDED_CALLS) if eager \
+                else contextlib.nullcontext():
+            sys_, states, poses, seconds = run_system(rgbd, vocabulary="default")
+        rmse = trajectory.ate_rmse(sys_.trajectory_positions(), gt_r, align_scale=False)
+        if any(st != "OK" for st in states) or not rmse < ATE_SPAN_GATE * span:
+            raise AssertionError(f"{what}: states {states}, ATE {rmse} (gate "
+                                 f"{ATE_SPAN_GATE * span})")
+        return sys_, SYSTEM_FRAMES, seconds, RUN_GRAPHS[-1]
+
+    staged_turns(what, mapper_run, ("track", "map_tri", "map_fuse", "local_mapping"), power,
+                 ("epipolar_hamming_top2", "projection_hamming_top2"), TWO_TURNS, LOOP_OWNERS)
+
+    what = "AR demo (run_ar)"
+    planes = []
+
+    def ar_run(prof):
+        caps, reps = cuda_graph.n_captures(), cuda_graph.n_replays()
+        eager = ar.fit_plane_ransac_jit is ar.fit_plane_ransac
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ar_") as out, \
+                staged_recording(what, LOOP_UNIT_FORMS, LOOP_RECORDED_CALLS) if eager \
+                else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            run = run_ar.run(AR_TURN_FRAMES, out_dir=out, device="cuda")
+            seconds = time.perf_counter() - t0
+        if run.anchor.Twp is None:
+            raise AssertionError(f"{what}: no plane anchored")
+        planes.append((run.anchor.Twp, run.anchor.size, list(run.overlaid)))
+        return run.system, AR_TURN_FRAMES, seconds, graphs_since(caps, reps)
+
+    staged_turns(what, ar_run, ("extract_frame", "track"), power, (), TWO_TURNS, LOOP_OWNERS)
+    if not all(np.array_equal(p[0], planes[0][0]) and p[1:] == planes[0][1:] for p in planes):
+        raise AssertionError(f"{what}: the turns anchored different planes")
+    log(f"{what}: the same plane anchored in every turn, bit for bit (size "
+        f"{planes[0][1]:.4f}, overlaid on {sum(planes[0][2])} of {AR_TURN_FRAMES} frames)")
+
+    # (b) Every recorded call of each form, replay against eager call.
+    missing = [form for _, form, _ in LOOP_UNIT_FORMS if not loop_unit_calls(form)]
+    if missing:
+        raise AssertionError(f"no call of {missing} was recorded")
+    cuda_graph.release(*LOOP_OWNERS)
+    per_form = {}
+    for module, form, eager in LOOP_UNIT_FORMS:
+        for source, args, kwargs in loop_unit_calls(form):
+            if form == "fit_plane_ransac_jit":
+                # The sample sets drawn once, on the card, so that every
+                # call of the unit scores the same hypotheses.
+                gen = torch.Generator().manual_seed(0)
+                kwargs = dict(kwargs, generator=None, idx=ar.sample_indices(
+                    args[0].shape[0], kwargs.get("n_iters", 128), gen).to(args[0].device))
+                args = args[:2]
+            _, counts, replays, n_lib = staged_unit(module, form, eager, source, args,
+                                                    kwargs, power)
+            per_form.setdefault(form, []).append((source, counts, replays, n_lib))
+    cuda_graph.release(*LOOP_OWNERS)
+    log("loop-path forms, per recorded call (form: [(source, launches a call, all from "
+        "replays and equal to the eager call's; replays; library calls between them)]): "
+        + "; ".join(f"{form}: {calls}" for form, calls in per_form.items()))
+    log("loop-path forms, per recorded call (form, source, synced ms eager, replayed, "
+        "replays a call, library calls between them, host reads eager, replayed): "
+        + "; ".join(str(r) for r in STAGED_ROWS[rows_at:]) + f", on {power}")
+
+    # (c) The sharded global BA, eager and replayed in turns.
+    runs, profs = {"eager": [], "replayed": []}, {"eager": {}, "replayed": {}}
+    for turn, kind in enumerate(("eager", "replayed", "replayed", "eager")):
+        runs[kind].append(real_map_gba("1", "cuda", profs[kind] if turn >= 2 else None,
+                                       eager=kind == "eager"))
+    plain, _, _ = real_map_gba("0", "cuda")
+    if not all(same_map(plain, r[0]) for rs in runs.values() for r in rs):
+        raise AssertionError("sharded real-map global BA: a turn differs from the plain "
+                             "replayed solve")
+    for kind, rs in runs.items():
+        wall_ms, busy_ms, n_ops = profs[kind].get("gba", (rs[-1][1] * 1e3, 0.0, 0))
+        log(f"sharded real-map global BA ({REAL_MAP_SIZE[0]} keyframes, {REAL_MAP_SIZE[1]} "
+            f"points, world 1 over NCCL), {kind}: {[round(r[1], 4) for r in rs]} s a run, "
+            f"{rs[-1][2]} LM iterations, {[round(r[1] * 1e3 / max(r[2], 1), 2) for r in rs]} "
+            f"ms an iteration; the profiled run's device busy {busy_ms:.1f} of {wall_ms:.1f} "
+            f"ms, idle share {1.0 - busy_ms / wall_ms:.4f}, {n_ops} device operations; bit "
+            f"for bit the plain replayed solve, on {power}")
 
 
 # ---------------------------------------------------------------------------
@@ -3039,30 +3438,43 @@ def replay_on_cpu(what, config, kf, before, card):
 
 def phase_staged_mapper(seq, power):
     """The RGB-D sequence through a synchronous System with the staged
-    mapper (ORB_TPU_STAGED_MAPPER=1), the launch counts reset just before
-    and read just after: every frame OK, the ATE gate, the System's kernels
-    launched, nothing with a batch axis, and per mapped keyframe K7 under
-    the epipolar band once per neighbour pair and K6 once per fuse target
-    (plus the reverse pass). Each recorded call of K7 and K6 in that run
-    against its plain version; each keyframe's staged triangulation
-    replayed on the CPU from the card's map just before it (bindings
-    equal, positions to STAGED_TRI_RTOL); the same
-    keyframes as a batched run of the sequence and a point count within
-    POINTS_RTOL of its. Its map against the batched route's first run
-    (equal, or the first difference); map_tri and map_fuse per keyframe in
-    a staged run with no spies against the batched run. -> (launch
-    counts, the System)."""
+    mapper (ORB_TPU_STAGED_MAPPER=1), its forms replayed as on the card's
+    main path, the launch counts reset just before and read just after:
+    every frame OK, the ATE gate, the System's kernels launched, nothing
+    with a batch axis, and per mapped keyframe K7 under the epipolar band
+    once per neighbour pair and K6 once per fuse target (plus the reverse
+    pass), each launched by a replay of the triangulation's or the fuse's
+    graph, beside one eager launch per graph captured (its warm-up). Each
+    recorded call of those two forms (cloned) run again through its eager
+    function: the K7 and K6 calls it makes against their plain versions.
+    Each keyframe's staged triangulation replayed on the CPU from the
+    card's map just before it (bindings equal, positions to
+    STAGED_TRI_RTOL); the same keyframes as a batched run of the sequence
+    and a point count within POINTS_RTOL of its. Its map against the
+    batched route's first run (equal, or the first difference); map_tri
+    and map_fuse per keyframe in a staged run with no spies against the
+    batched run. -> (launch counts, the System)."""
     what = "System RGB-D, staged mapper"
     batched_sys, _, _, _ = run_system(seq, vocabulary="default")
     mapped = []
     tri, fuse = LocalMapper._create_new_points_staged, LocalMapper._fuse_neighbors
 
+    def launched(fn, kernel, body):
+        """body() -> (kernel's launches in it, those that fn's replays
+        added, fn's graphs captured in it)."""
+        def now():
+            return (_build.launches[kernel],
+                    cuda_graph.replayed_by.get(fn.__name__, {}).get(kernel, 0),
+                    sum(1 for k in cuda_graph.graphs if k[0] is fn))
+        before = now()
+        body()
+        return tuple(b - a for a, b in zip(before, now()))
+
     def tri_spy(self, kf):
         pairs = len(self._neighbor_pairs(kf)[1])
-        before, k7 = interop.map_state_to_numpy(self.map), _build.launches[
-            "epipolar_hamming_top2"]
-        tri(self, kf)
-        mapped.append(dict(kf=kf, pairs=pairs, k7=_build.launches["epipolar_hamming_top2"] - k7,
+        before = interop.map_state_to_numpy(self.map)
+        k7 = launched(matchers._triangulation, "epipolar_hamming_top2", lambda: tri(self, kf))
+        mapped.append(dict(kf=kf, pairs=pairs, k7=k7,
                            made=self.map.next_pt - before["next_pt"],
                            tri=(before, map_after(self.map))))
 
@@ -3070,56 +3482,83 @@ def phase_staged_mapper(seq, power):
         targets = self._fuse_targets(kf)
         pts = self.map.kf_point_idx[kf]
         has_pts = bool(self.map.pt_valid[pts[pts >= 0]].any())
-        k6 = _build.launches["projection_hamming_top2"]
-        fuse(self, kf)
+        k6 = launched(matchers._search_fuse, "projection_hamming_top2", lambda: fuse(self, kf))
         mapped[-1].update(targets=len(targets),
                           want_k6=(len(targets) if has_pts else 0) + (1 if targets else 0),
-                          k6=_build.launches["projection_hamming_top2"] - k6)
+                          k6=k6)
 
-    batched, k7_calls, k6_calls = {}, [], []
+    # Each call of the two forms, its arguments cloned (the caller's
+    # tensors are not kept).
+    forms = {matchers.match_for_triangulation: "match_for_triangulation_jit",
+             matchers.search_fuse: "search_fuse_jit"}
+    form_calls = {eager: [] for eager in forms}
+    saved = {form: getattr(matchers, form) for form in forms.values()}
+
+    def form_spy(eager, fn):
+        def call(*args, **kwargs):
+            form_calls[eager].append(tree_map(
+                lambda a: a.clone() if isinstance(a, torch.Tensor) else a, (args, kwargs)))
+            return fn(*args, **kwargs)
+        return call
+
+    batched = {}
     LocalMapper._create_new_points_staged, LocalMapper._fuse_neighbors = tri_spy, fuse_spy
+    for eager, form in forms.items():
+        setattr(matchers, form, form_spy(eager, saved[form]))
     try:
-        with env_set(ORB_TPU_STAGED_MAPPER="1"), batched_launches(batched), \
-                recording(kmatching, "epipolar_hamming_top2", k7_calls), \
-                recording(kmatching, "projection_hamming_top2", k6_calls):
+        with env_set(ORB_TPU_STAGED_MAPPER="1"), batched_launches(batched):
             torch.cuda.synchronize()
             _build.reset_launches()
-            replayed = dict(cuda_graph.replayed_launches)
             sys_, states, poses, seconds = run_system(seq, vocabulary="default")
             counts = dict(_build.launches)
-            in_graphs = {k: v - replayed.get(k, 0)
-                         for k, v in cuda_graph.replayed_launches.items()}
     finally:
         LocalMapper._create_new_points_staged, LocalMapper._fuse_neighbors = tri, fuse
+        for form, fn in saved.items():
+            setattr(matchers, form, fn)
     log(f"{what} launches: {counts}; of them with a batch axis: {batched}")
     if [k for k in SYSTEM_LAUNCHED if counts[k] < 1] or [k for k in SYSTEM_UNUSED if counts[k]] \
             or any(batched.values()):
         raise AssertionError(f"{what}: a kernel of the path did not launch, or one off it did")
     if any(st != "OK" for st in states) or any(p is None for p in poses):
         raise AssertionError(f"{what}: states {states}")
-    bad = [m for m in mapped if m["k7"] != m["pairs"] or m["k6"] != m["want_k6"]]
-    log(f"{what}: per mapped keyframe (kf, neighbour pairs, K7 epipolar launches, points "
-        f"triangulated, fuse targets, K6 launches in the fuse): "
+    # (launches, of them in replays, graphs captured): a replay per pair or
+    # target, and a warm-up launch per graph captured.
+    bad = [m for m in mapped if m["k7"] != (m["pairs"] + m["k7"][2], m["pairs"], m["k7"][2])
+           or m["k6"] != (m["want_k6"] + m["k6"][2], m["want_k6"], m["k6"][2])]
+    log(f"{what}: per mapped keyframe (kf, neighbour pairs, K7 epipolar (launches, of them in "
+        f"replays, graphs captured), points triangulated, fuse targets, K6 in the fuse "
+        f"(launches, in replays, graphs captured)): "
         f"{[(m['kf'], m['pairs'], m['k7'], m['made'], m['targets'], m['k6']) for m in mapped]}")
     if not mapped or bad or sum(m["pairs"] for m in mapped) < 1:
-        raise AssertionError(f"{what}: launches off one per pair and one per target: {bad}")
+        raise AssertionError(f"{what}: launches off one replay per pair and per target and "
+                             f"one warm-up per graph: {bad}")
 
-    # (name, calls, wrapper, plain version, the arguments' row and column tables)
-    for name, calls, kernel, plain, cols in (
-            ("K7 epipolar_hamming_top2", k7_calls, kmatching.epipolar_hamming_top2,
+    # Each recorded call of the two forms through its eager function (a
+    # replay is bit for bit its eager call: phase_loop_graphs): the K7 and
+    # K6 calls it makes, against their plain versions.
+    # (name, eager function, calls wanted, wrapper, plain version, the
+    # arguments' row and column tables)
+    for name, eager, want, kernel, plain, cols in (
+            ("K7 epipolar_hamming_top2", matchers.match_for_triangulation,
+             sum(m["pairs"] for m in mapped), kmatching.epipolar_hamming_top2,
              kmatching.epipolar_hamming_top2_plain, (0, 1)),
-            ("K6 projection_hamming_top2", k6_calls, kmatching.projection_hamming_top2,
+            ("K6 projection_hamming_top2", matchers.search_fuse,
+             sum(m["want_k6"] for m in mapped), kmatching.projection_hamming_top2,
              kmatching.projection_hamming_top2_plain, (1, 6))):
-        # The tracker's launches of K6 come from its graphs' replays, not
-        # from calls of the wrapper.
-        called = counts[kernel.__name__] - in_graphs.get(kernel.__name__, 0)
-        if len(calls) < called:
-            raise AssertionError(f"{what}: {len(calls)} calls of {name} recorded for "
-                                 f"{called} launches outside the tracker's graphs")
+        calls = []
+        with recording(kmatching, kernel.__name__, calls):
+            for args, kwargs in form_calls[eager]:
+                eager(*args, **kwargs)
+        if len(form_calls[eager]) != want or len(calls) != want:
+            raise AssertionError(f"{what}: {len(form_calls[eager])} calls of {forms[eager]} "
+                                 f"recorded, {len(calls)} of {name} from them, for {want} "
+                                 f"replays")
         n, hit, rows = check_recorded(name, calls, kernel, plain)
         shapes = sorted({tuple(a[i].shape[-2] for i in cols) for a, _ in calls})
-        log(f"{name} on the staged run's {n} calls (rows x columns {shapes}): exact against "
-            f"its plain version in every output ({hit} of {rows} rows with a candidate)")
+        log(f"{name} on the staged run's {n} replayed calls (each recomputed by "
+            f"{forms[eager]}'s eager function on its recorded inputs; rows x columns "
+            f"{shapes}): exact against its plain version in every output ({hit} of {rows} "
+            f"rows with a candidate)")
 
     config = sys_.mapper.config
     d_tri = max(replay_on_cpu(what, config, m["kf"], *m["tri"]) for m in mapped)
@@ -3242,13 +3681,19 @@ def replayed_k7_caller(g):
     """The K7 caller of a replayed graph's K7 launches and the problems one
     launch carries, or None: the staged matchers' graphs (initialization's
     window; the flags, batched over relocalization's candidates or one
-    reference keyframe) and the mapper's triangulation."""
+    reference keyframe) and the mapper's triangulation (batched, or the
+    staged mapper's one pair)."""
     if g.name == "_init_match":
         return "initialization", 1
     if g.name == "triangulation_match":
         return "triangulation", g.inputs[2].shape[0]
+    if g.name == "_triangulation":
+        return "triangulation", 1
     if g.name == "_brute_force":
-        desc_a = g.inputs[0]
+        desc_a, desc_b = g.inputs[0], g.inputs[3]
+        if desc_b.dim() == 3:
+            raise AssertionError("a monocular run without a vocabulary matched loop "
+                                 "candidates")
         return ("relocalization", desc_a.shape[0]) if desc_a.dim() == 3 else (
             "reference keyframe", 1)
     return None
@@ -3512,8 +3957,10 @@ def loop_kernel_calls(counts, calls=None):
     loop-neighbourhood projection (match_fuse), K7 in relocalization with a
     keyframe database (BoW candidates; replayed in the staged matcher's
     graph, `_brute_force`, counted off its tally). The caller of a launch
-    is the loop method running when it happens (a stack of spies). With
-    `calls`, also calls[caller].append(args) for each eager call."""
+    is the loop method running when it happens (a stack of spies); the
+    replays of the loop closer's graphs add their tallies. With `calls`,
+    also calls[caller].append(args) for each call made outside a capture
+    (the eager calls and each graph's warm-up)."""
     stack = []
     spied = [(loop_closing.LoopCloser, "compute_sim3"),
              (loop_closing.LoopCloser, "_search_by_sim3"), (Tracker, "_relocalize")]
@@ -3553,15 +4000,21 @@ def loop_kernel_calls(counts, calls=None):
             out = fn(*args)
             if caller is not None:
                 counts[caller] += _build.launches[kernel] - before
-                if calls is not None:
-                    calls[caller].append(args)
+                # Not inside a capture; clones, since a graph's first call
+                # (its warm-up) passes the graph's own buffers.
+                if calls is not None and not torch.cuda.is_current_stream_capturing():
+                    calls[caller].append(tuple(a.clone() if isinstance(a, torch.Tensor)
+                                               else a for a in args))
             return out
         return call
 
     def on_replay(g, times):
-        if g.name == "_brute_force" and caller_of("valid_hamming_top2") is not None:
-            counts[caller_of("valid_hamming_top2")] += \
-                g.launches.get("valid_hamming_top2", 0) * times
+        # The loop closer's graphs (the brute force over its candidates,
+        # SearchBySim3, the widening's fuse) and relocalization's brute
+        # force, by the loop method running.
+        for kernel, n in g.launches.items():
+            if caller_of(kernel) is not None:
+                counts[caller_of(kernel)] += n * times
 
     for caller in LOOP_CALLERS:
         counts[caller] = 0
@@ -3926,7 +4379,7 @@ def loop_vs_cpu(sys_, sim3_runs):
         raise AssertionError("; ".join(bad))
 
 
-SIM3_JITTERS = 16
+SIM3_JITTERS = 8
 
 
 def sim3_float32_envelope(call, gap, cpu):
@@ -3968,8 +4421,8 @@ def sim3_float32_envelope(call, gap, cpu):
 @contextlib.contextmanager
 def sim3_recorded(ransac_calls, opt_calls):
     """Record (args, kwargs, result) of every sim3_ransac and optimize_sim3
-    call the loop closer makes."""
-    fns = (sim3_solver.sim3_ransac, sim3_opt.optimize_sim3)
+    call the loop closer makes (through their single-dispatch forms)."""
+    fns = (sim3_solver.sim3_ransac_jit, sim3_opt.optimize_sim3_jit)
 
     def spy(fn, out):
         def call(*args, **kwargs):
@@ -3978,17 +4431,18 @@ def sim3_recorded(ransac_calls, opt_calls):
             return res
         return call
 
-    sim3_solver.sim3_ransac = spy(fns[0], ransac_calls)
-    sim3_opt.optimize_sim3 = spy(fns[1], opt_calls)
+    sim3_solver.sim3_ransac_jit = spy(fns[0], ransac_calls)
+    sim3_opt.optimize_sim3_jit = spy(fns[1], opt_calls)
     try:
         yield
     finally:
-        sim3_solver.sim3_ransac, sim3_opt.optimize_sim3 = fns
+        sim3_solver.sim3_ransac_jit, sim3_opt.optimize_sim3_jit = fns
 
 
 def phase_loop(seq, kidnap_seq, profs, warm_sim3, power):
     """The ring survey on the card, the launch counts reset just before and
-    read just after it: the four gates of tests/test_loop_pipeline.py,
+    read just after it (the loop path's forms' calls recorded for
+    phase_loop_graphs): the four gates of tests/test_loop_pipeline.py,
     every kernel of the monocular path launched and K6 and K7 by each loop
     caller; frames/s and the loop stages' times; the card against the CPU;
     the warm-up's profiles of the loop stages. Then the kidnap sequence with the
@@ -4001,7 +4455,8 @@ def phase_loop(seq, kidnap_seq, profs, warm_sim3, power):
     by_caller, ransac_calls, opt_calls, at_close = {}, [], [], []
     _build.reset_launches()
     caps = cuda_graph.n_captures()
-    with loop_kernel_calls(by_caller), sim3_recorded(ransac_calls, opt_calls):
+    with loop_kernel_calls(by_caller), sim3_recorded(ransac_calls, opt_calls), \
+            staged_recording(what, LOOP_UNIT_FORMS, LOOP_RECORDED_CALLS):
         sys_, states, seconds, pre = run_loop(
             seq, on_close=lambda: at_close.append(len(opt_calls)))
     c = dict(_build.launches)
@@ -5211,12 +5666,14 @@ def map_poses(m):
     return kfs, -np.einsum("kba,kb->ka", R, t), R, m.pt_pos[m.pt_valid]
 
 
-def real_map_gba(route, device, profile=None):
+def real_map_gba(route, device, profile=None, eager=False):
     """run_global_ba(anchor_kf=0, n_iters=5) on a fresh copy of the real
     map with ORB_DISTRIBUTED_GBA=route ("eager": "0" with the early-exit
-    BA, eager_forms) on `device` -> (the map, wall s, LM iterations: those
-    the early-exit form took, or the device-loop form's replays); under
-    torch.profiler into profile["gba"] when given."""
+    BA, eager_forms; eager=True: the route's early-exit form) on `device`
+    -> (the map, wall s, LM iterations: those the early-exit form took, or
+    the device-loop form's replays); under torch.profiler into
+    profile["gba"] when given."""
+    eager = eager or route == "eager"
     m = real_map()
     closer = loop_closing.LoopCloser(synthetic_config(**REAL_MAP_CONFIG), m, None,
                                      device=device)
@@ -5229,12 +5686,12 @@ def real_map_gba(route, device, profile=None):
     before = os.environ.get("ORB_DISTRIBUTED_GBA")
     os.environ["ORB_DISTRIBUTED_GBA"] = "0" if route == "eager" else route
     replays = cuda_graph.n_replays()
-    graphed = route == "0" and torch.device(device).type == "cuda"
+    graphed = not eager and torch.device(device).type == "cuda"
     if not graphed:
         ba._solve_step = counted
     try:
         with (profiled(profile, "gba") if profile is not None else contextlib.nullcontext()), \
-                (eager_forms() if route == "eager" else contextlib.nullcontext()):
+                (eager_forms() if eager else contextlib.nullcontext()):
             t0 = time.perf_counter()
             closer.run_global_ba(anchor_kf=0, n_iters=REAL_MAP_GBA_ITERS)
             if torch.device(device).type == "cuda":
@@ -5246,8 +5703,8 @@ def real_map_gba(route, device, profile=None):
             os.environ.pop("ORB_DISTRIBUTED_GBA", None)
         else:
             os.environ["ORB_DISTRIBUTED_GBA"] = before
-    # The device-loop form: one replay for the initial cost, one an LM
-    # iteration.
+    # The device-loop form (plain, or sharded with its all-reduces in the
+    # graphs): one replay for the initial cost, one an LM iteration.
     return m, wall, cuda_graph.n_replays() - replays - 1 if graphed else iters[0]
 
 
@@ -5340,7 +5797,8 @@ def phase_real_map_gba(power, device="cuda"):
     cpu, cpu_wall, cpu_iters = real_map_gba("0", "cpu")
     wide = real_map_float64()
     names = {"0": "plain, CUDA graph replays (the device-loop form)",
-             "eager": "plain, eager (the early-exit form)", "1": "sharded, world 1 over NCCL"}
+             "eager": "plain, eager (the early-exit form)",
+             "1": "sharded, world 1 over NCCL, CUDA graph replays (the device-loop form)"}
     for route, (first, second) in runs.items():
         if not same_map(first[0], second[0]):
             raise AssertionError(f"real-map global BA, {names[route]}: two runs differ")
@@ -5551,12 +6009,26 @@ def reference_summary_keys(script):
     raise AssertionError(f"no summary dict in scripts/{script}")
 
 
+# Every process started_process started; any still running when the
+# script exits (a phase failed before it was read) is killed then.
+STARTED = []
+
+
+@atexit.register
+def _stop_started():
+    for proc in STARTED:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 def started_process(cmd, env, prefix):
     """cmd started from the repository root, its output into prefix.out
     and prefix.err."""
     with open(prefix + ".out", "w") as out, open(prefix + ".err", "w") as err:
         proc = subprocess.Popen(cmd, stdout=out, stderr=err, text=True, env=env, cwd=REPO)
     proc.prefix = prefix
+    STARTED.append(proc)
     return proc
 
 
@@ -5919,8 +6391,9 @@ def phase_kernel_timing(x, dx, errs, counts, batched, power):
         ms, by_name = device_busy_ms(fn, iters)
         clocks = smi_clocks()
         events_ms = gpu_time_ms(fn, iters)
-        plain_ms = device_busy_ms(plain, max(iters // 10, 5))[0]
-        lib_ms = device_busy_ms(library, iters)[0] if library is not None else None
+        plain_ms = device_busy_ms(plain, max(iters // 10, 5), sessions=1)[0]
+        lib_ms = (device_busy_ms(library, iters, sessions=1)[0] if library is not None
+                  else None)
         b_ms, b_by = bound_ms(n_bytes, n_ops)
         if caller is None:
             kernels.append({
@@ -6235,6 +6708,12 @@ def phase_kernel_timing(x, dx, errs, counts, batched, power):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--full-loop-turn"]:
+        # A turn of the full-width loop run, started by run_phases.
+        return full_loop_turn(*sys.argv[2:5])
+    if sys.argv[1:2] == ["--render-full-loop"]:
+        # Frames of the full-width loop run, started by run_phases.
+        return render_full_loop(*sys.argv[2:4])
     # Each capture of a CUDA graph, and each System's captures and released
     # graphs at its shutdown, logged by the package.
     handler = logging.StreamHandler(sys.stdout)
@@ -6265,6 +6744,10 @@ def run_phases(power, data_root):
             f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB, reserved "
             f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
         last[0] = now
+    # The full-width loop run's two turns, beside the steps up to the
+    # datasets' writing, which build inputs and time nothing; read before
+    # the System warm-ups.
+    full_loop = start_full_loop_turns(data_root)
     config, args = interop.make_example(WIDTH, HEIGHT, N_FEATURES, N_POINTS, "cuda")
     pairs = {sensor: interop.make_fused_example(
         WIDTH, HEIGHT, N_FEATURES, N_POINTS, N_CANDIDATES, "cuda", sensor=sensor)
@@ -6282,18 +6765,21 @@ def run_phases(power, data_root):
     x.update(stereo_path_inputs(*pairs["stereo"]))
     done("main and stereo path inputs")
     seqs = {sensor: system_sequence(sensor) for sensor in ("rgbd", "stereo")}
-    x.update(system_path_inputs(seqs))
-    done("System path inputs")
     mono_seq = system_sequence("monocular")
     kidnap_seq = system_sequence("monocular", kidnap=True)
+    loop_seq = loop_sequence()
+    done("sequences rendered")
+    cells, firsts = write_datasets(data_root)
+    done("datasets written")
+    phase_full_loop(full_loop, power)
+    done("the full-width loop run")
+    x.update(system_path_inputs(seqs))
+    done("System path inputs")
     x.update(mono_path_inputs(kidnap_seq))
     done("monocular path inputs")
-    loop_seq = loop_sequence()
     loop_x, loop_profs, loop_sim3, loop_solves = loop_path_inputs(loop_seq, kidnap_seq)
     x.update(loop_x)
     done("loop path inputs")
-    cells, firsts = write_datasets(data_root)
-    done("datasets written")
     errs = phase_kernels(x)
     phase_loop_kernels(x)
     phase_solves_twice(loop_solves)
@@ -6320,6 +6806,8 @@ def run_phases(power, data_root):
     done("localization")
     phase_staged_graphs(pairs, seqs, power)
     done("staged graphs")
+    phase_loop_graphs(seqs, power)
+    done("loop graphs")
     new_counts = {"per-level extraction of one image": level_counts,
                   "RGB-D System with the staged mapper": staged_counts,
                   "localization session": loc_counts,
@@ -6369,6 +6857,7 @@ def run_phases(power, data_root):
         "KITTI stereo frame, 2000 observations": kitti["pose_lm"]}, power)
     done("kernel timing")
     phase_map_scale(power)
+    done("map scale")
     log(f"K7 under a candidate test over the monocular sweep and the kidnap sequence, by "
         f"caller: launches {mono_k7}, problems {mono_problems}")
     for path, c in new_counts.items():

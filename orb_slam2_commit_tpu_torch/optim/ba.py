@@ -20,9 +20,10 @@ Jacobians.
 The LM and the CG are the JAX package's two while_loops, written as
 bodies that change nothing once their exit test has failed (selects on
 it). Two forms run them: `bundle_adjust` reads the exit tests on the host
-and stops (the CPU's form, and a sharded solve's); `bundle_adjust_loop`
-runs every iteration with nothing read on the host, on the card as CUDA
-graph replays (utils/cuda_graph.py). They give the same bits.
+and stops (the CPU's form); `bundle_adjust_loop` runs every iteration
+with nothing read on the host, on the card as CUDA graph replays
+(utils/cuda_graph.py), a sharded solve's all-reduces inside them. They
+give the same bits.
 `bundle_adjust_jit`, the JAX package's single-dispatch form, takes the
 second on the card and the first on CPU tensors.
 
@@ -47,7 +48,7 @@ solve gives the same bits on every run on the card.
 
 from __future__ import annotations
 
-from functools import partial
+from functools import lru_cache, partial
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -131,7 +132,10 @@ class _Sums(NamedTuple):
     own: Callable[[torch.Tensor], torch.Tensor]
 
 
+@lru_cache(maxsize=None)
 def _sums(group, point_sharded: bool) -> _Sums:
+    """One _Sums per (group, point_sharded), so that a solve's graph key
+    (which holds it) finds the graphs of the solves before it."""
     pts = None if point_sharded else group
     own = group if point_sharded else None
     return _Sums(partial(_psum, group=group), partial(_psum, group=pts),
@@ -472,6 +476,8 @@ def bundle_adjust_loop(
     point_chunk: int = 1024,
     lam0: float = 1e-4,
     solver: str = "auto",
+    group: Optional[dist.ProcessGroup] = None,
+    point_sharded: bool = False,
     *,
     segs: Optional[ObsSegments] = None,
 ) -> Tuple[BAProblem, BAResult]:
@@ -481,9 +487,15 @@ def bundle_adjust_loop(
     on the host. On the card the initial cost is one CUDA graph replay and
     the iterations n replays of another (utils/cuda_graph.py), its carry
     in the graph's buffers; on CPU tensors (or in cuda_graph.eager()) they
-    run eagerly. The same bits as bundle_adjust on the same tables."""
+    run eagerly. The same bits as bundle_adjust on the same tables.
+
+    group, point_sharded: a sharded solve, as bundle_adjust takes them.
+    Its all-reduces (NCCL on the card) are captured inside the graphs and
+    run at each replay; the first call's eager warm-up (cuda_graph)
+    runs them once before the capture, which sets the communicator up.
+    Under gloo (CPU tensors) they run eagerly."""
     cfg = _solve_config(problem, fx, fy, cx, cy, bf, use_robust, point_chunk, lam0, solver,
-                        early=False)
+                        point_sharded, False, _sums(group, point_sharded))
     if segs is None:
         segs = obs_segments(problem, cfg.point_chunk, cfg.solver)
     s = cuda_graph.call(_lm_init, (problem, segs), cfg)
@@ -511,15 +523,16 @@ def bundle_adjust_jit(
     """The JAX package's bundle_adjust_jit, its parameters in its order:
     on the card bundle_adjust_loop's CUDA graphs, on CPU tensors
     bundle_adjust. axis_name: the process group of a sharded solve (the
-    port's counterpart of JAX's mesh axis), which runs bundle_adjust's
-    early-exit form, all-reducing eagerly. segs (the port's own): the
+    port's counterpart of JAX's mesh axis); on the card its all-reduces
+    are captured in the loop's graphs. segs (the port's own): the
     observation tables, when the caller made them already (local BA's two
     stages, a global BA's segments)."""
-    if axis_name is not None or not problem.points.is_cuda:
+    if not problem.points.is_cuda:
         return bundle_adjust(problem, fx, fy, cx, cy, bf, n_iters, use_robust, point_chunk,
                              lam0, solver, axis_name, point_sharded, segs=segs)
     return bundle_adjust_loop(problem, fx, fy, cx, cy, bf, n_iters, use_robust, point_chunk,
-                              lam0, _resolve(problem, solver, point_sharded), segs=segs)
+                              lam0, _resolve(problem, solver, point_sharded), axis_name,
+                              point_sharded, segs=segs)
 
 
 def local_bundle_adjust(

@@ -8,7 +8,11 @@ S12^-1) reprojection errors, two stages with the chi2 > 10 outliers
 dropped between them (:1381-1419). The Jacobian is forward-mode autodiff
 over the 7-dim tangent, as in the JAX package. Every LM step runs on the
 device with no host round trip: the accept test is a select, as in the
-JAX package's fori_loop.
+JAX package's fori_loop. `optimize_sim3_jit` is the single-dispatch form
+(the JAX package's jitted namesake, the same arguments): on CUDA tensors
+both stages, their 15 iterations unrolled, are one replay of a CUDA graph
+(utils/cuda_graph.py); on CPU tensors the same function runs eagerly.
+The loop closer calls it on the RANSAC's pairs (padded on the card).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import torch
 
 from orb_slam2_commit_tpu_torch.ops import lie
 from orb_slam2_commit_tpu_torch.optim import linalg
+from orb_slam2_commit_tpu_torch.utils import cuda_graph
 from orb_slam2_commit_tpu_torch.utils.precision import full_float32
 
 CHI2_SIM3 = 9.995  # the reference's th2 = 10 (src/Optimizer.cc:1386)
@@ -66,8 +71,16 @@ def optimize_sim3(
 ) -> Sim3OptResult:
     """n_iters // 2 LM iterations on every valid pair, the chi2 gate, then
     n_iters on the pairs it kept. fix_scale freezes the sigma component."""
+    return _optimize(s0, R0, t0, x1, x2, uv1, uv2, inv_sigma2_1, inv_sigma2_2, valid,
+                     (fx, fy, cx, cy, fix_scale, n_iters))
+
+
+def _optimize(s0, R0, t0, x1, x2, uv1, uv2, inv_sigma2_1, inv_sigma2_2, valid, key):
+    """optimize_sim3 on its tensors, the other arguments in key."""
+    fx, fy, cx, cy, fix_scale, n_iters = key
     dtype = x1.dtype
     eye7 = torch.eye(7, dtype=dtype, device=x1.device)
+    free = torch.arange(7, device=x1.device) < 6      # all but the scale
 
     def chi2_of(s_, R_, t_):
         e = _residuals(s_, R_, t_, x1, x2, uv1, uv2, fx, fy, cx, cy)
@@ -89,7 +102,8 @@ def optimize_sim3(
                            x1, x2, uv1, uv2, fx, fy, cx, cy)[0]
             return torch.cat([e[:, :2] * w1[:, None], e[:, 2:] * w2[:, None]], 1).reshape(-1)
 
-        lam = torch.tensor(1e-3, dtype=dtype, device=x1.device)
+        # A fill, not a torch.tensor literal (a copy from the host).
+        lam = torch.full((), 1e-3, dtype=dtype, device=x1.device)
         cost = cost_of(s, R, t, active > 0)
         for _ in range(iters):
             zero = torch.zeros((1, 7), dtype=dtype, device=x1.device)
@@ -98,12 +112,11 @@ def optimize_sim3(
             H = J.T @ J
             g = J.T @ r0
             if fix_scale:
-                H = H.clone()
-                H[6, :] = 0.0
-                H[:, 6] = 0.0
-                H[6, 6] = 1.0
-                g = g.clone()
-                g[6] = 0.0
+                # The scale's row and column of H those of the identity,
+                # its gradient 0: selects, where an indexed store would
+                # copy its value from the host.
+                H = torch.where(free[:, None] & free[None, :], H, eye7)
+                g = torch.where(free, g, 0.0)
             H_lm = H + lam * torch.diag(torch.diagonal(H)) + 1e-9 * eye7
             delta = -linalg.chol_solve_spd(H_lm, g)
             s_n, R_n, t_n = _retract(delta, s, R, t)
@@ -120,3 +133,23 @@ def optimize_sim3(
     s, R, t, inl = run_stage(s0, R0, t0, valid.to(dtype), n_iters // 2)
     s, R, t, inl = run_stage(s, R, t, inl.to(dtype), n_iters)
     return Sim3OptResult(s12=s, R12=R, t12=t, inliers=inl, n_inliers=torch.sum(inl))
+
+
+@full_float32
+def optimize_sim3_jit(
+    s0: torch.Tensor, R0: torch.Tensor, t0: torch.Tensor,
+    x1: torch.Tensor, x2: torch.Tensor,
+    uv1: torch.Tensor, uv2: torch.Tensor,
+    inv_sigma2_1: torch.Tensor, inv_sigma2_2: torch.Tensor,
+    valid: torch.Tensor,
+    fx: float, fy: float, cx: float, cy: float,
+    fix_scale: bool = False,
+    n_iters: int = 10,
+) -> Sim3OptResult:
+    """optimize_sim3: one replay on the card, eagerly on the CPU."""
+    return cuda_graph.call(_optimize, (s0, R0, t0, x1, x2, uv1, uv2, inv_sigma2_1,
+                                       inv_sigma2_2, valid), (fx, fy, cx, cy, fix_scale, n_iters))
+
+
+# The function optimize_sim3_jit captures (cuda_graph.release's owner).
+GRAPHED = (_optimize,)

@@ -18,6 +18,12 @@ group at each of the JAX package's `psum` sites. Two schemes:
    iteration, whatever the number of points.
 
 A group of one rank runs the same code; each all-reduce is then a copy.
+
+Both solve through `ba.bundle_adjust_jit` (the JAX package jits each
+sharded solve whole): on the card the LM and the PCG run as the device
+loop's CUDA graph replays with the NCCL all-reduces captured inside them,
+nothing read on the host; on the CPU (gloo) the early-exit form runs, the
+same bits.
 """
 
 from __future__ import annotations
@@ -87,9 +93,9 @@ def distributed_bundle_adjust(
     assert O % n == 0, "pad observations first"
     blk = O // n
     local = problem._replace(obs=_rows(problem.obs, rank * blk, (rank + 1) * blk))
-    out, res = ba.bundle_adjust(local, fx, fy, cx, cy, bf, n_iters=n_iters,
-                                use_robust=use_robust, point_chunk=point_chunk,
-                                group=group)
+    out, res = ba.bundle_adjust_jit(local, fx, fy, cx, cy, bf, n_iters=n_iters,
+                                    use_robust=use_robust, point_chunk=point_chunk,
+                                    axis_name=group)
     chi2, inlier = _all_gather_rows(res.chi2, group), _all_gather_rows(res.inlier, group)
     return out._replace(obs=problem.obs), res._replace(chi2=chi2, inlier=inlier)
 
@@ -205,8 +211,9 @@ def distributed_bundle_adjust_points(
     P, O = problem.points.shape[0], problem.obs.valid.shape[0]
     assert P % n == 0 and O % n == 0, "partition_problem first"
     local = point_block(problem, rank, P // n, O // n, problem.points.device)
-    out, res = ba.bundle_adjust(local, fx, fy, cx, cy, bf, n_iters=n_iters,
-                                use_robust=use_robust, group=group, point_sharded=True)
+    out, res = ba.bundle_adjust_jit(local, fx, fy, cx, cy, bf, n_iters=n_iters,
+                                    use_robust=use_robust, axis_name=group,
+                                    point_sharded=True)
     points = _all_gather_rows(out.points, group)
     res = res._replace(points=points, chi2=_all_gather_rows(res.chi2, group),
                        inlier=_all_gather_rows(res.inlier, group))

@@ -130,8 +130,8 @@ def bundle_adjust_multihost(
     without its final gather. R and t come back the same on every rank;
     points, chi2 and inlier are this rank's block and slots."""
     assert problem.points.shape[0] == plan.p_blk
-    return ba.bundle_adjust(problem, fx, fy, cx, cy, bf, n_iters=n_iters,
-                            use_robust=use_robust, group=group, point_sharded=True)
+    return ba.bundle_adjust_jit(problem, fx, fy, cx, cy, bf, n_iters=n_iters,
+                                use_robust=use_robust, axis_name=group, point_sharded=True)
 
 
 def local_point_shards(out: ba.BAProblem) -> np.ndarray:

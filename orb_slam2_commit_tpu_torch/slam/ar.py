@@ -12,7 +12,11 @@ map points by RANSAC in `ViewerAR::DetectPlane`, the plane's pose in
     the scene, then the winning consensus set is refitted by an
     eigendecomposition of its covariance. The sample index sets are drawn
     on the host from a torch.Generator (or passed in), so the card and the
-    CPU score the same hypotheses;
+    CPU score the same hypotheses. `fit_plane_ransac_jit` is the JAX
+    package's jitted fit as a single dispatch: on CUDA tensors two CUDA
+    graph replays (utils/cuda_graph.py) around the eigendecomposition,
+    which reads its status on the host; on CPU tensors the same stages run
+    eagerly;
   * the cube is projected with the tracker's current pose and drawn into
     the frame overlay in host numpy (no GL).
 """
@@ -25,6 +29,8 @@ import numpy as np
 import torch
 
 from orb_slam2_commit_tpu_torch.interop import resolve_device, to_host
+from orb_slam2_commit_tpu_torch.optim import linalg
+from orb_slam2_commit_tpu_torch.utils import cuda_graph
 
 
 class PlaneFit(NamedTuple):
@@ -43,28 +49,12 @@ def sample_indices(n: int, n_iters: int = 128,
     return torch.randint(0, n, (n_iters, 3), generator=generator)
 
 
-def fit_plane_ransac(
-    points: torch.Tensor,    # [N, 3]
-    valid: torch.Tensor,     # [N] bool
-    generator: Optional[torch.Generator] = None,
-    n_iters: int = 128,
-    rel_threshold: float = 0.02,
-    idx: Optional[torch.Tensor] = None,
-) -> PlaneFit:
-    """Dominant-plane RANSAC over the map-point cloud, on the points'
-    device.
-
-    The distance threshold is rel_threshold x the scene scale (the median
-    distance of the points to the valid points' centroid, invalid points
-    counted as farther than all), so the fit does not depend on the
-    monocular map's arbitrary scale, as the reference sizes its AR geometry
-    in map units (ViewerAR.h's Plane). idx: the [n_iters, 3] sample index
-    sets; drawn from `generator` (sample_indices) when None."""
-    dev = points.device
+def _hypotheses(points, valid, idx, key):
+    """Stage 1: the scene scale and threshold, every hypothesis's plane and
+    inliers, the first best one -> (the consensus set's covariance and
+    centroid, the threshold, the winner's index)."""
+    rel_threshold, = key
     n = points.shape[0]
-    if idx is None:
-        idx = sample_indices(n, n_iters, generator)
-    idx = idx.to(dev)
     pts = points.to(torch.float32)
     valid = valid.to(torch.bool)
     w = valid.to(torch.float32)
@@ -88,7 +78,8 @@ def fit_plane_ransac(
     inl = (dist < th) & valid[:, None]
     score = torch.where(ok, inl.sum(0), 0)
     best = torch.argmax(score)
-    best_inl = inl[:, best]
+    # index_select, not a 0-d index (that one reads the index on the host).
+    best_inl = inl.index_select(1, best[None])[:, 0]
 
     # Refit on the consensus set: the normal is the eigenvector of the
     # centred covariance with the smallest eigenvalue.
@@ -96,15 +87,72 @@ def fit_plane_ransac(
     m = torch.clamp(wb.sum(), min=1.0)
     c = (pts * wb[:, None]).sum(0) / m
     x = (pts - c) * wb[:, None]
-    cov = x.T @ x / m
-    _, vecs = torch.linalg.eigh(cov)
+    return x.T @ x / m, c, th, best
+
+
+def _classify(points, valid, vecs, c, th, best, key):
+    """Stage 2, after the eigendecomposition: the refitted plane and the
+    final classification against it -> PlaneFit."""
+    pts = points.to(torch.float32)
+    valid = valid.to(torch.bool)
     n_fit = vecs[:, 0]
     n_fit = n_fit / torch.clamp(torch.linalg.vector_norm(n_fit), min=1e-12)
     d_fit = -torch.dot(n_fit, c)
-    # The final classification, against the refitted plane.
     inl_fit = (torch.abs(pts @ n_fit + d_fit) < th) & valid
     return PlaneFit(normal=n_fit, offset=d_fit, centroid=c, n_inliers=inl_fit.sum(),
                     inliers=inl_fit, best=best, threshold=th)
+
+
+def _fit(points, valid, generator, n_iters, rel_threshold, idx) -> PlaneFit:
+    """The fit's two stages, each through utils/cuda_graph.call, with the
+    eigendecomposition between them."""
+    if idx is None:
+        idx = sample_indices(points.shape[0], n_iters, generator)
+    idx = idx.to(points.device)
+    key = (float(rel_threshold),)
+    cov, c, th, best = cuda_graph.call(_hypotheses, (points, valid, idx), key)
+    _, vecs = linalg.eigh(cov)
+    return cuda_graph.call(_classify, (points, valid, vecs, c, th, best), key)
+
+
+def fit_plane_ransac(
+    points: torch.Tensor,    # [N, 3]
+    valid: torch.Tensor,     # [N] bool
+    generator: Optional[torch.Generator] = None,
+    n_iters: int = 128,
+    rel_threshold: float = 0.02,
+    idx: Optional[torch.Tensor] = None,
+) -> PlaneFit:
+    """Dominant-plane RANSAC over the map-point cloud, on the points'
+    device.
+
+    The distance threshold is rel_threshold x the scene scale (the median
+    distance of the points to the valid points' centroid, invalid points
+    counted as farther than all), so the fit does not depend on the
+    monocular map's arbitrary scale, as the reference sizes its AR geometry
+    in map units (ViewerAR.h's Plane). idx: the [n_iters, 3] sample index
+    sets; drawn from `generator` (sample_indices) when None. The stages of
+    fit_plane_ransac_jit, run eagerly on any device."""
+    with cuda_graph.eager():
+        return _fit(points, valid, generator, n_iters, rel_threshold, idx)
+
+
+def fit_plane_ransac_jit(
+    points: torch.Tensor,
+    valid: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    n_iters: int = 128,
+    rel_threshold: float = 0.02,
+    idx: Optional[torch.Tensor] = None,
+) -> PlaneFit:
+    """fit_plane_ransac with each stage through utils/cuda_graph.call: on
+    the card two replays around one eigendecomposition, eagerly on the
+    CPU."""
+    return _fit(points, valid, generator, n_iters, rel_threshold, idx)
+
+
+# The functions fit_plane_ransac_jit captures (cuda_graph.release's owners).
+GRAPHED = (_hypotheses, _classify)
 
 
 def plane_frame(normal: np.ndarray, centroid: np.ndarray,
@@ -206,7 +254,7 @@ class ARAnchor:
         n_valid = int(pt_valid.sum())
         if self.Twp is not None or n_valid < self.min_points:
             return self.Twp is not None
-        fit = fit_plane_ransac(
+        fit = fit_plane_ransac_jit(
             torch.as_tensor(np.asarray(pt_pos, np.float32), device=self.device),
             torch.as_tensor(np.asarray(pt_valid, bool), device=self.device),
             self.generator)

@@ -14,7 +14,10 @@ Triangulation and the forward fuse pass take the batched route by default
 keyframe). ORB_TPU_STAGED_MAPPER=1, read at each keyframe, takes the JAX
 package's per-neighbour staged route, its oracle: K7 under the epipolar
 band once per neighbour pair, with no batch axis, and K6 once per fuse
-target. Map tables stay numpy on the host; what a kernel or
+target, each a single-dispatch form (matchers.match_for_triangulation_jit,
+matchers.search_fuse_jit: one CUDA graph replay on the card); the
+reverse fuse pass takes search_fuse_jit on either route. Map tables stay
+numpy on the host; what a kernel or
 the BA reads goes to the mapper's device at its call. `map_lock` (the
 asynchronous System's RLock) guards the host map mutations, as in the JAX
 package. The mapping worker holds the same lock across the whole call, so
@@ -352,7 +355,7 @@ class LocalMapper:
                                cam.fy * c1_in_2[1] / c1_in_2[2] + cam.cy])
             else:
                 ep = np.array([1e9, 1e9])
-            m = matchers.match_for_triangulation(
+            m = matchers.match_for_triangulation_jit(
                 *kf_side[:3], self._dev(free1),
                 self._dev(self.map.kf_xy[k2]), self._dev(self.map.kf_desc[k2]),
                 self._dev(self.map.kf_angle[k2]), self._dev(free2),
@@ -471,7 +474,7 @@ class LocalMapper:
             ids_p = np.concatenate([pt_ids, np.zeros(pad, pt_ids.dtype)])
             valid = np.zeros(P, bool)
             valid[:n_real] = True
-            info = matchers.frustum_check(
+            m = matchers.search_fuse_jit(
                 self._dev(self.map.pt_pos[ids_p]),
                 self._dev(self.map.pt_normal[ids_p]),
                 self._dev(self.map.pt_min_dist[ids_p]),
@@ -481,11 +484,7 @@ class LocalMapper:
                 self._dev(self.map.kf_pose_t[target_kf]),
                 cam.fx, cam.fy, cam.cx, cam.cy,
                 float(cam.width), float(cam.height),
-                n_levels=self.config.orb.n_levels,
-                scale=self.config.orb.scale_factor,
-            )
-            m = matchers.match_fuse(
-                info, self._dev(self.map.pt_desc[ids_p]),
+                self._dev(self.map.pt_desc[ids_p]),
                 self._dev(self.map.kf_xy[target_kf]),
                 self._dev(self.map.kf_desc[target_kf]),
                 self._dev(self.map.kf_octave[target_kf]),

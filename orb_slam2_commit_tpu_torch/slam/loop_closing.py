@@ -42,7 +42,6 @@ from orb_slam2_commit_tpu_torch.geometry.ransac import RansacSampler
 from orb_slam2_commit_tpu_torch.interop import resolve_device, to_device, to_host
 from orb_slam2_commit_tpu_torch.models.kf_database import KeyFrameDatabase
 from orb_slam2_commit_tpu_torch.models.map_state import MapState
-from orb_slam2_commit_tpu_torch.ops import matching
 from orb_slam2_commit_tpu_torch.optim import ba, pose_graph, sim3_opt
 from orb_slam2_commit_tpu_torch.parallel import distributed_ba as dba
 from orb_slam2_commit_tpu_torch.parallel import multihost
@@ -68,6 +67,12 @@ def use_distributed_gba() -> bool:
     return dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
 
 
+def _pad(a: np.ndarray, n: int, fill=0) -> np.ndarray:
+    """a [m, ...] padded to n rows of fill."""
+    a = np.asarray(a)
+    return np.concatenate([a, np.full((n - a.shape[0],) + a.shape[1:], fill, a.dtype)])
+
+
 @dataclasses.dataclass
 class ConsistentGroup:
     keyframes: Set[int]
@@ -89,6 +94,9 @@ class LoopCloser:
         self.last_loop_kf: int = -(10 ** 9)
         self.n_loops_closed = 0
         self.sampler = RansacSampler(seed=7)
+        # Pad the Sim3 pairs to a power of two (_pair_tensors): on the
+        # card, where each pair count would be a CUDA graph of its own.
+        self.pad_pairs = self.device.type == "cuda"
         # One record per closure: {kf, loop_kf, n_keyframes, n_points,
         # correct_s}.
         self.correction_stats: List[dict] = []
@@ -183,13 +191,23 @@ class LoopCloser:
         fix_scale = cfg.sensor != "monocular"
         m = self.map
 
+        # The candidates padded to a power of two (>= 4), the padding's
+        # flags False: one graph per bucket on the card.
+        C = len(candidates)
+        Cp = _round_up_pow2(C, 4)
         cands = np.asarray(candidates, np.int64)
         kf_ok = (m.kf_point_idx[kf] >= 0) & m.kf_feat_valid[kf]
-        cd_ok = (m.kf_point_idx[cands] >= 0) & m.kf_feat_valid[cands]
-        bf = matchers.match_brute_force(
+        n_feat = m.kf_desc.shape[1]
+        cd_desc = np.zeros((Cp, n_feat, 8), m.kf_desc.dtype)
+        cd_angle = np.zeros((Cp, n_feat), m.kf_angle.dtype)
+        cd_ok = np.zeros((Cp, n_feat), bool)
+        cd_desc[:C] = m.kf_desc[cands]
+        cd_angle[:C] = m.kf_angle[cands]
+        cd_ok[:C] = (m.kf_point_idx[cands] >= 0) & m.kf_feat_valid[cands]
+        bf = matchers.match_brute_force_jit(
             self._dev(m.kf_desc[kf]), self._dev(m.kf_angle[kf]), self._dev(kf_ok),
-            self._dev(m.kf_desc[cands]), self._dev(m.kf_angle[cands]), self._dev(cd_ok))
-        idx_all = to_host(bf.idx)                                    # [C, N]
+            self._dev(cd_desc), self._dev(cd_angle), self._dev(cd_ok))
+        idx_all = to_host(bf.idx)                                    # [Cp, N]
 
         for c, cand in enumerate(candidates):
             idx = idx_all[c]
@@ -197,13 +215,13 @@ class LoopCloser:
             if rows.size < MIN_SIM3_MATCHES:
                 continue
             feat1, feat2 = rows, idx[rows]
-            x1, x2, uv1, uv2, s2_1, s2_2 = self._pair_arrays(kf, cand, feat1, feat2)
+            n_real = feat1.size
+            pairs = self._pair_tensors(kf, cand, feat1, feat2)
 
-            res = sim3_solver.sim3_ransac(
-                self._dev(self.sampler.sim3(np.ones(x1.shape[0], bool))).long(),
-                self._dev(x1), self._dev(x2), self._dev(np.ones(x1.shape[0], bool)),
-                self._dev(uv1), self._dev(uv2), self._dev(s2_1), self._dev(s2_2),
-                cam.fx, cam.fy, cam.cx, cam.cy,
+            res = sim3_solver.sim3_ransac_jit(
+                self._dev(self.sampler.sim3(np.ones(n_real, bool))).long(),
+                pairs["x1"], pairs["x2"], pairs["valid"], pairs["uv1"], pairs["uv2"],
+                pairs["s2_1"], pairs["s2_2"], cam.fx, cam.fy, cam.cx, cam.cy,
                 fix_scale=fix_scale, min_inliers=MIN_SIM3_MATCHES)
             ok, s12, R12, t12, inliers = (to_host(v) for v in (
                 res.ok, res.s12, res.R12, res.t12, res.inliers))
@@ -215,19 +233,21 @@ class LoopCloser:
             # RANSAC Sim3 into the other keyframe, the mutually consistent
             # new pairs added before the Sim3 LM.
             new1, new2 = self._search_by_sim3(kf, cand, float(s12), R12, t12, feat1, feat2)
-            valid0 = inliers
+            valid0 = inliers[:n_real]
             if new1.size:
                 feat1 = np.concatenate([feat1, new1])
                 feat2 = np.concatenate([feat2, new2])
-                x1, x2, uv1, uv2, s2_1, s2_2 = self._pair_arrays(kf, cand, feat1, feat2)
                 valid0 = np.concatenate([valid0, np.ones(new1.size, bool)])
+                pairs = self._pair_tensors(kf, cand, feat1, feat2)
 
-            opt = sim3_opt.optimize_sim3(
-                res.s12, res.R12, res.t12, self._dev(x1), self._dev(x2),
-                self._dev(uv1), self._dev(uv2), self._dev(1.0 / s2_1), self._dev(1.0 / s2_2),
-                self._dev(valid0), cam.fx, cam.fy, cam.cx, cam.cy, fix_scale=fix_scale)
+            opt = sim3_opt.optimize_sim3_jit(
+                res.s12, res.R12, res.t12, pairs["x1"], pairs["x2"], pairs["uv1"],
+                pairs["uv2"], pairs["inv1"], pairs["inv2"],
+                self._dev(_pad(valid0, pairs["x1"].shape[0])), cam.fx, cam.fy, cam.cx, cam.cy,
+                fix_scale=fix_scale)
             n_in, s12, R12, t12, opt_inl = (to_host(v) for v in (
                 opt.n_inliers, opt.s12, opt.R12, opt.t12, opt.inliers))
+            opt_inl = opt_inl[:feat1.size]
             if int(n_in) < MIN_SIM3_MATCHES:
                 continue
 
@@ -266,7 +286,7 @@ class LoopCloser:
                                                       a.dtype)])
 
                 proj = np.where(in_img[:, None], np.stack([u, vv], -1), 0.0)
-                m2 = matchers.match_fuse(
+                m2 = matchers.match_fuse_jit(
                     matchers.FrustumInfo(
                         visible=self._dev(padv(in_img)), proj=self._dev(padv(proj)),
                         pred_octave=torch.zeros(P, dtype=torch.int32, device=self.device),
@@ -299,6 +319,25 @@ class LoopCloser:
         s2_2 = sig[np.clip(m.kf_octave[cand][feat2], 0, n_lv - 1)]
         return x1, x2, m.kf_xy[kf][feat1], m.kf_xy[cand][feat2], s2_1, s2_2
 
+    def _pair_tensors(self, kf: int, cand: int, feat1: np.ndarray, feat2: np.ndarray):
+        """_pair_arrays on the device: the RANSAC's and the LM's inputs ->
+        {x1, x2, uv1, uv2, s2_1, s2_2, inv1, inv2 (the inverse variances),
+        valid}. With pad_pairs (the card's default), padded to a power of
+        two (>= 64) with `valid` False on the padding (zero points and
+        pixels, unit variances); otherwise the count stays exact, as in the
+        JAX package (which compiles each count). The padding moves the
+        refit's and the LM's float sums by a few ulps (their reduction
+        trees follow the length); tests/test_torch_loop_closing.py holds
+        the padded closure to the JAX package's."""
+        x1, x2, uv1, uv2, s2_1, s2_2 = self._pair_arrays(kf, cand, feat1, feat2)
+        n = _round_up_pow2(feat1.size, 64) if self.pad_pairs else feat1.size
+        out = {k: self._dev(_pad(a, n, fill)) for k, a, fill in (
+            ("x1", x1, 0.0), ("x2", x2, 0.0), ("uv1", uv1, 0.0), ("uv2", uv2, 0.0),
+            ("s2_1", s2_1, 1.0), ("s2_2", s2_2, 1.0), ("inv1", 1.0 / s2_1, 1.0),
+            ("inv2", 1.0 / s2_2, 1.0))}
+        out["valid"] = self._dev(_pad(np.ones(feat1.size, bool), n))
+        return out
+
     def _search_by_sim3(self, kf: int, cand: int, s12: float, R12: np.ndarray,
                         t12: np.ndarray, feat1: np.ndarray, feat2: np.ndarray):
         """Both directions of SearchBySim3 with the mutual check
@@ -318,25 +357,25 @@ class LoopCloser:
         # Full tables: unbound rows read point 0 and are masked invalid.
         pid1 = np.where(b1, m.kf_point_idx[kf], 0)
         pid2 = np.where(b2, m.kf_point_idx[cand], 0)
-        common = dict(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy,
-                      width=float(cam.width), height=float(cam.height),
-                      n_levels=cfg.orb.n_levels, scale=cfg.orb.scale_factor)
-
-        def one_way(pc, pid, ok, dst):
-            return matchers.match_by_sim3(
-                self._dev(pc), self._dev(m.pt_desc[pid]), self._dev(m.pt_min_dist[pid]),
-                self._dev(m.pt_max_dist[pid]), self._dev(ok & m.pt_valid[pid]),
-                self._dev(m.kf_xy[dst]), self._dev(m.kf_desc[dst]),
-                self._dev(m.kf_octave[dst]), self._dev(m.kf_feat_valid[dst]), **common)
-
-        # The candidate's points into the current keyframe, and back
-        # through S21 = S12^-1.
+        # The candidate's points into the current keyframe (S12), and the
+        # keyframe's back through S21 = S12^-1: both directions and the
+        # mutual check (:1442-1455) in one call.
         pc2 = m.pt_pos[pid2] @ m.kf_pose_R[cand].T + m.kf_pose_t[cand]
-        best_in_kf = one_way(s12 * (pc2 @ R12.T) + t12, pid2, b2, kf)
         pc1 = m.pt_pos[pid1] @ m.kf_pose_R[kf].T + m.kf_pose_t[kf]
-        best_in_cd = one_way(((pc1 - t12) @ R12) / s12, pid1, b1, cand)
-        # Mutual agreement (:1442-1455).
-        mutual = to_host(matching.mutual_consistency(best_in_cd, best_in_kf).idx)
+
+        def points(pc, pid, ok):
+            return (self._dev(pc), self._dev(m.pt_desc[pid]), self._dev(m.pt_min_dist[pid]),
+                    self._dev(m.pt_max_dist[pid]), self._dev(ok & m.pt_valid[pid]))
+
+        def features(k):
+            return (self._dev(m.kf_xy[k]), self._dev(m.kf_desc[k]), self._dev(m.kf_octave[k]),
+                    self._dev(m.kf_feat_valid[k]))
+
+        mutual = to_host(matchers.search_by_sim3_jit(
+            *points(((pc1 - t12) @ R12) / s12, pid1, b1),
+            *points(s12 * (pc2 @ R12.T) + t12, pid2, b2), *features(kf), *features(cand),
+            cam.fx, cam.fy, cam.cx, cam.cy, float(cam.width), float(cam.height),
+            n_levels=cfg.orb.n_levels, scale=cfg.orb.scale_factor).idx)
         a = np.where(mutual >= 0)[0]
         return a.astype(np.int64), mutual[a].astype(np.int64)
 

@@ -23,7 +23,15 @@ call). On CUDA tensors each is one replay of a CUDA graph
 (utils/cuda_graph.py) captured at the first call for its key, which holds
 the float arguments (the search radii, the camera constants); on CPU
 tensors the same function runs eagerly. The fused tracker's and the
-mapper's graphs call the eager matchers inside their own captures."""
+mapper's graphs call the eager matchers inside their own captures.
+
+The loop closer's and the staged mapper's matchers have such forms too:
+`match_brute_force_jit` over the loop candidates (batched, the candidate
+count padded to a power of two), `search_by_sim3_jit` (both directions of
+SearchBySim3 and their mutual check, two K6 launches), `match_fuse_jit`
+(the loop's widening), `match_for_triangulation_jit` (one neighbour pair,
+K7 under the epipolar band) and `search_fuse_jit` (frustum_check and
+match_fuse, one K6 launch)."""
 
 from __future__ import annotations
 
@@ -512,6 +520,160 @@ def search_local_points_jit(
         (fx, fy, cx, cy, width, height, th, ratio, n_levels, scale))
 
 
+def search_by_sim3(
+    pc1: torch.Tensor, pt_desc1: torch.Tensor, pt_min_dist1: torch.Tensor,
+    pt_max_dist1: torch.Tensor, pt_valid1: torch.Tensor,
+    pc2: torch.Tensor, pt_desc2: torch.Tensor, pt_min_dist2: torch.Tensor,
+    pt_max_dist2: torch.Tensor, pt_valid2: torch.Tensor,
+    xy1: torch.Tensor, desc1: torch.Tensor, octave1: torch.Tensor, valid1: torch.Tensor,
+    xy2: torch.Tensor, desc2: torch.Tensor, octave2: torch.Tensor, valid2: torch.Tensor,
+    fx: float, fy: float, cx: float, cy: float,
+    width: float, height: float,
+    th: float = 7.5, n_levels: int = 8, scale: float = 1.2,
+) -> MatchResult:
+    """Both directions of SearchBySim3 and their mutual check
+    (src/ORBmatcher.cc:1238-1487): keyframe 1's points (a row per feature
+    of keyframe 1) already in camera 2 (pc1) matched into keyframe 2's
+    features, keyframe 2's points already in camera 1 (pc2) into keyframe
+    1's, each by match_by_sim3 -> keyframe 1's features' matches in
+    keyframe 2 that point back (:1442-1455), idx [N1]."""
+    common = dict(fx=fx, fy=fy, cx=cx, cy=cy, width=width, height=height, th=th,
+                  n_levels=n_levels, scale=scale)
+    best_in_1 = match_by_sim3(pc2, pt_desc2, pt_min_dist2, pt_max_dist2, pt_valid2,
+                              xy1, desc1, octave1, valid1, **common)
+    best_in_2 = match_by_sim3(pc1, pt_desc1, pt_min_dist1, pt_max_dist1, pt_valid1,
+                              xy2, desc2, octave2, valid2, **common)
+    return matching.mutual_consistency(best_in_2, best_in_1)
+
+
+def search_fuse(
+    pt_pos: torch.Tensor, pt_normal: torch.Tensor, pt_min_dist: torch.Tensor,
+    pt_max_dist: torch.Tensor, pt_valid: torch.Tensor,
+    R: torch.Tensor, t: torch.Tensor,
+    fx: float, fy: float, cx: float, cy: float,
+    width: float, height: float,
+    pt_desc: torch.Tensor,
+    xy: torch.Tensor, desc: torch.Tensor,
+    octave: torch.Tensor, valid: torch.Tensor,
+    th: float = 3.0,
+    n_levels: int = 8, scale: float = 1.2,
+) -> MatchResult:
+    """frustum_check, then match_fuse on its result: one point set fused
+    into one keyframe (ORBmatcher::Fuse, src/ORBmatcher.cc:918-1092, as
+    SearchInNeighbors calls it, src/LocalMapping.cc:560-664)."""
+    info = frustum_check(pt_pos, pt_normal, pt_min_dist, pt_max_dist, pt_valid, R, t,
+                         fx, fy, cx, cy, width, height, n_levels=n_levels, scale=scale)
+    return match_fuse(info, pt_desc, xy, desc, octave, valid, th=th, n_levels=n_levels,
+                      scale=scale)
+
+
+def _sim3_search(pc1, pt_desc1, pt_min_dist1, pt_max_dist1, pt_valid1, pc2, pt_desc2,
+                 pt_min_dist2, pt_max_dist2, pt_valid2, xy1, desc1, octave1, valid1, xy2, desc2,
+                 octave2, valid2, key):
+    fx, fy, cx, cy, width, height, th, n_levels, scale = key
+    return search_by_sim3(pc1, pt_desc1, pt_min_dist1, pt_max_dist1, pt_valid1, pc2, pt_desc2,
+                          pt_min_dist2, pt_max_dist2, pt_valid2, xy1, desc1, octave1, valid1,
+                          xy2, desc2, octave2, valid2, fx, fy, cx, cy, width, height, th=th,
+                          n_levels=n_levels, scale=scale)
+
+
+def search_by_sim3_jit(
+    pc1: torch.Tensor, pt_desc1: torch.Tensor, pt_min_dist1: torch.Tensor,
+    pt_max_dist1: torch.Tensor, pt_valid1: torch.Tensor,
+    pc2: torch.Tensor, pt_desc2: torch.Tensor, pt_min_dist2: torch.Tensor,
+    pt_max_dist2: torch.Tensor, pt_valid2: torch.Tensor,
+    xy1: torch.Tensor, desc1: torch.Tensor, octave1: torch.Tensor, valid1: torch.Tensor,
+    xy2: torch.Tensor, desc2: torch.Tensor, octave2: torch.Tensor, valid2: torch.Tensor,
+    fx: float, fy: float, cx: float, cy: float,
+    width: float, height: float,
+    th: float = 7.5, n_levels: int = 8, scale: float = 1.2,
+) -> MatchResult:
+    """search_by_sim3: one replay (two K6 launches) on the card, eagerly
+    on the CPU."""
+    return cuda_graph.call(
+        _sim3_search,
+        (pc1, pt_desc1, pt_min_dist1, pt_max_dist1, pt_valid1, pc2, pt_desc2, pt_min_dist2,
+         pt_max_dist2, pt_valid2, xy1, desc1, octave1, valid1, xy2, desc2, octave2, valid2),
+        (fx, fy, cx, cy, width, height, th, n_levels, scale))
+
+
+def _fuse(info, pt_desc, xy, desc, octave, valid, key):
+    th, n_levels, scale = key
+    return match_fuse(info, pt_desc, xy, desc, octave, valid, th=th, n_levels=n_levels,
+                      scale=scale)
+
+
+def match_fuse_jit(
+    info: FrustumInfo,
+    pt_desc: torch.Tensor,
+    xy: torch.Tensor, desc: torch.Tensor,
+    octave: torch.Tensor, valid: torch.Tensor,
+    th: float = 3.0,
+    n_levels: int = 8, scale: float = 1.2,
+) -> MatchResult:
+    """match_fuse: one replay (one K6 launch) on the card, eagerly on the
+    CPU."""
+    return cuda_graph.call(_fuse, (info, pt_desc, xy, desc, octave, valid),
+                           (th, n_levels, scale))
+
+
+def _triangulation(xy1, desc1, angle1, free1, xy2, desc2, angle2, free2, F12, octave2,
+                   epipole2, min_epipole_dist2, key):
+    n_levels, scale = key
+    return match_for_triangulation(xy1, desc1, angle1, free1, xy2, desc2, angle2, free2, F12,
+                                   octave2, epipole2, min_epipole_dist2, n_levels=n_levels,
+                                   scale=scale)
+
+
+def match_for_triangulation_jit(
+    xy1: torch.Tensor, desc1: torch.Tensor, angle1: torch.Tensor,
+    free1: torch.Tensor,
+    xy2: torch.Tensor, desc2: torch.Tensor, angle2: torch.Tensor,
+    free2: torch.Tensor,
+    F12: torch.Tensor,
+    octave2: torch.Tensor,
+    epipole2: torch.Tensor,
+    min_epipole_dist2,
+    n_levels: int = 8, scale: float = 1.2,
+) -> MatchResult:
+    """match_for_triangulation: one replay (K7 under the epipolar band) on
+    the card, eagerly on the CPU. min_epipole_dist2 is a tensor (an input)
+    or a float (part of the key)."""
+    return cuda_graph.call(_triangulation, (xy1, desc1, angle1, free1, xy2, desc2, angle2,
+                                            free2, F12, octave2, epipole2, min_epipole_dist2),
+                           (n_levels, scale))
+
+
+def _search_fuse(pt_pos, pt_normal, pt_min_dist, pt_max_dist, pt_valid, R, t, pt_desc, xy,
+                 desc, octave, valid, key):
+    fx, fy, cx, cy, width, height, th, n_levels, scale = key
+    return search_fuse(pt_pos, pt_normal, pt_min_dist, pt_max_dist, pt_valid, R, t, fx, fy,
+                       cx, cy, width, height, pt_desc, xy, desc, octave, valid, th=th,
+                       n_levels=n_levels, scale=scale)
+
+
+def search_fuse_jit(
+    pt_pos: torch.Tensor, pt_normal: torch.Tensor, pt_min_dist: torch.Tensor,
+    pt_max_dist: torch.Tensor, pt_valid: torch.Tensor,
+    R: torch.Tensor, t: torch.Tensor,
+    fx: float, fy: float, cx: float, cy: float,
+    width: float, height: float,
+    pt_desc: torch.Tensor,
+    xy: torch.Tensor, desc: torch.Tensor,
+    octave: torch.Tensor, valid: torch.Tensor,
+    th: float = 3.0,
+    n_levels: int = 8, scale: float = 1.2,
+) -> MatchResult:
+    """search_fuse: one replay (one K6 launch) on the card, eagerly on the
+    CPU."""
+    return cuda_graph.call(
+        _search_fuse,
+        (pt_pos, pt_normal, pt_min_dist, pt_max_dist, pt_valid, R, t, pt_desc, xy, desc,
+         octave, valid),
+        (fx, fy, cx, cy, width, height, th, n_levels, scale))
+
+
 # The functions the matchers' single-dispatch forms capture
 # (cuda_graph.release's owners).
-GRAPHED = (_init_match, _last_frame_match, _brute_force, _local_points)
+GRAPHED = (_init_match, _last_frame_match, _brute_force, _local_points, _sim3_search, _fuse,
+           _triangulation, _search_fuse)

@@ -53,15 +53,15 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from orb_slam2_commit_tpu_torch.geometry import pnp, twoview
+from orb_slam2_commit_tpu_torch.geometry import pnp, sim3_solver, twoview
 from orb_slam2_commit_tpu_torch.interop import resolve_device
 from orb_slam2_commit_tpu_torch.models import serialization, vocabulary
 from orb_slam2_commit_tpu_torch.models.kf_database import KeyFrameDatabase
 from orb_slam2_commit_tpu_torch.models.map_state import MapState
 from orb_slam2_commit_tpu_torch.models.vocabulary import default_vocabulary, load_vocabulary
 from orb_slam2_commit_tpu_torch.ops import extractor, stereo
-from orb_slam2_commit_tpu_torch.optim import ba, pose_graph, pose_opt
-from orb_slam2_commit_tpu_torch.slam import matchers
+from orb_slam2_commit_tpu_torch.optim import ba, pose_graph, pose_opt, sim3_opt
+from orb_slam2_commit_tpu_torch.slam import ar, matchers
 from orb_slam2_commit_tpu_torch.slam.async_pipeline import MappingWorker
 from orb_slam2_commit_tpu_torch.slam.frame import Frame, make_frame, make_stereo_frame
 from orb_slam2_commit_tpu_torch.slam.global_ba import GlobalBARunner
@@ -79,6 +79,9 @@ from orb_slam2_commit_tpu_torch.utils.profiling import Profiler
 # matchers, EPnP RANSAC, the two-view bootstrap and the BoW descent.
 STAGED_GRAPHED = (extractor.GRAPHED + stereo.GRAPHED + pose_opt.GRAPHED + matchers.GRAPHED
                   + pnp.GRAPHED + twoview.GRAPHED + vocabulary.GRAPHED)
+# The same for the loop closer's Sim3 RANSAC and Sim3 LM and the AR
+# anchor's plane fit (its matchers are in matchers.GRAPHED).
+LOOP_GRAPHED = sim3_solver.GRAPHED + sim3_opt.GRAPHED + ar.GRAPHED
 
 _LOG = logging.getLogger(__name__)
 
@@ -385,7 +388,8 @@ class System:
         src/System.cc:315-334); raises what a background thread raised.
         Then it releases its CUDA graphs (the tracker's and the mapper's,
         captured under its configurations, the staged tracker's
-        (STAGED_GRAPHED) and the solvers': BA's and the pose graph's) and
+        (STAGED_GRAPHED), the loop closer's and the AR anchor's
+        (LOOP_GRAPHED) and the solvers': BA's and the pose graph's) and
         logs the captures made since it was built."""
         worker = self.mapping_worker
         try:
@@ -397,7 +401,8 @@ class System:
             if self._gba is not None:
                 self._gba.join()
             released = cuda_graph.release(self.config, self.init_config, *ba.GRAPHED,
-                                          *pose_graph.GRAPHED, *STAGED_GRAPHED)
+                                          *pose_graph.GRAPHED, *STAGED_GRAPHED,
+                                          *LOOP_GRAPHED)
             _LOG.info("System %s: %d CUDA graph captures since it was built, %d graphs "
                       "released", self.config.sensor,
                       cuda_graph.n_captures() - self._captures_at_start, released)

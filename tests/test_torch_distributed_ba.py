@@ -14,7 +14,10 @@ and each collective under a timeout); the JAX side on a 4-device mesh
   1e-5, and the inlier flags (scatter_obs for the point-sharded slots)
   equal;
 - both converge to the ground truth (the JAX tests' gates);
-- each rank holds p_blk points.
+- each rank holds p_blk points;
+- on each rank's block, the device-loop form (ba.bundle_adjust_loop: the
+  card's CUDA graph form, run eagerly on the CPU) gives the early-exit
+  form's bits, observation-sharded and point-sharded.
 Nothing launches a kernel here."""
 
 import sys
@@ -168,3 +171,14 @@ def test_point_state_is_sharded(ranks):
     for b in blocks:
         assert b.shape == (-(-200 // WORLD), 3)
     assert sorted(r["rank"] for r in ranks) == list(range(WORLD))
+
+
+@pytest.mark.parametrize("case", ["loop_obs", "loop_points"])
+def test_sharded_loop_form_equals_early_exit(ranks, case):
+    """The sharded solve's device-loop form against its early-exit form on
+    every rank, over gloo: every leaf bit for bit."""
+    for r in ranks:
+        loop, early = r[case]["loop"], r[case]["early"]
+        for k in ("R", "t", "points", "chi2", "inlier"):
+            np.testing.assert_array_equal(loop[k], early[k], err_msg=f"rank {r['rank']} {k}")
+        assert loop["cost"] == early["cost"]

@@ -30,7 +30,9 @@ port's precision). process_keyframe over all 24 keyframes:
   before, rotation error < 2 deg.
 The closing keyframe alone, on the JAX closer's state carried across just
 before it (interop's map, database and loop-closer converters), closes
-the same loop. Then tests/test_loop_closing.py's SearchBySim3
+the same loop; so does the card's route there, its Sim3 pairs padded to a
+power of two (LoopCloser.pad_pairs), held to the JAX closure up to its
+global BA. Then tests/test_loop_closing.py's SearchBySim3
 augmentation cases on both packages (the loop accepted only with the
 augmentation, the same pairs recovered, each the true landmark's), and
 one relocalization through the database branch (`Tracker._relocalize`
@@ -38,6 +40,7 @@ with the keyframe database) on the closed map, against the JAX tracker's
 with its EPnP sample sets.
 Nothing launches a kernel here."""
 
+import contextlib
 import dataclasses
 import sys
 from pathlib import Path
@@ -67,6 +70,7 @@ from orb_slam2_commit_tpu_torch.utils.config import synthetic_config
 sys.path.insert(0, str(Path(__file__).parent))
 from test_loop_closing import (  # noqa: E402
     K_KF, TestSearchBySim3Augmentation, build_drifted_loop_map)
+from test_torch_sim3 import OPT_TOL  # noqa: E402
 from test_torch_system_mono import JaxSampler  # noqa: E402
 
 torch.set_num_threads(1)
@@ -111,6 +115,29 @@ def _centres(R, t):
     return -np.einsum("kba,kb->ka", R, t)
 
 
+@contextlib.contextmanager
+def _closure_recorded(cls, rec):
+    """On a closer class's first closure inside the block: rec["sim3"] =
+    correct_loop's (s, R, t, matches) and rec["pre_gba"] the map as
+    run_global_ba gets it (after the Sim3 correction and the essential
+    graph)."""
+    correct, gba = cls.correct_loop, cls.run_global_ba
+
+    def correct_spy(self, kf, loop_kf, s_cw, R_cw, t_cw, matches):
+        rec.setdefault("sim3", (float(s_cw), np.array(R_cw), np.array(t_cw), dict(matches)))
+        return correct(self, kf, loop_kf, s_cw, R_cw, t_cw, matches)
+
+    def gba_spy(self, *args, **kwargs):
+        rec.setdefault("pre_gba", interop.map_state_to_numpy(self.map))
+        return gba(self, *args, **kwargs)
+
+    cls.correct_loop, cls.run_global_ba = correct_spy, gba_spy
+    try:
+        yield rec
+    finally:
+        cls.correct_loop, cls.run_global_ba = correct, gba
+
+
 @pytest.fixture(scope="module")
 def loop_runs():
     with pytest.MonkeyPatch.context() as mp:
@@ -134,16 +161,16 @@ def _loop_runs():
                                           pm.cfg.max_keyframes, device="cpu"),
                          essential_min_weight=30, device="cpu")
     pcloser.sampler = Sim3Sampler(jax.random.key(7))
-    steps, carried = [], None
+    steps, carried, j_first = [], None, {}
     for k in range(K_KF):
         if carried is None:
             before = dict(map=interop.map_state_to_numpy(jm), key=jcloser._rng_key,
                           db=interop.database_to_numpy(jcloser.db),
                           closer=interop.loop_closer_state_to_numpy(jcloser))
-        with jax.enable_x64(False):
+        with jax.enable_x64(False), _closure_recorded(jloop.LoopCloser, j_first):
             j_closed = jcloser.process_keyframe(k)
         if j_closed and carried is None:
-            carried = dict(before, kf=k, after=interop.map_state_to_numpy(jm))
+            carried = dict(before, kf=k, after=interop.map_state_to_numpy(jm), jax=j_first)
         p_closed = pcloser.process_keyframe(k)
         steps.append((k, j_closed, p_closed,
                       interop.loop_closer_state_to_numpy(jcloser),
@@ -205,6 +232,60 @@ def test_closing_keyframe_on_carried_state(loop_runs):
     worst = max(rot_angle(got["kf_pose_R"][k], want["kf_pose_R"][k]) for k in range(c["kf"] + 1))
     assert worst < ROT_DEG_TOL
     assert np.abs(got["kf_pose_t"] - want["kf_pose_t"]).max() < T_TOL
+
+
+def test_closing_keyframe_padded_pairs_on_carried_state(loop_runs):
+    """The card's route of the closing keyframe on the JAX closer's
+    carried state: the Sim3 pairs padded to a power of two
+    (LoopCloser.pad_pairs, the card's default; `valid` False on the
+    padding). It closes the same loop with the same observation table and
+    point validity; the Sim3 it hands correct_loop, with the same matches,
+    within tests/test_torch_sim3.py's OPT_TOL of JAX's, and the map that
+    global BA gets (the Sim3 propagated, the essential graph) within 1e-3
+    deg and OPT_TOL of JAX's (measured: 3e-6 in s and 7e-6 in t; 2e-5 deg,
+    9e-6 in t, 2e-5 in the points). After the global BA, which is
+    monocular with its scale free, the drift gates of
+    test_drift_removed_gates over the keyframes so far, not the bounds
+    above: the padding moves the Sim3 LM's sums by a few ulps (their
+    reduction trees follow the length), and that global BA carries such a
+    move to 0.037 deg, 0.058 in t and 0.26 in the points from JAX's (the
+    unpadded route: 0.014 deg, 0.0027, 0.0097; JAX's own float32 and
+    float64 runs of this closure: 0.029 deg, 0.014, 0.036)."""
+    c, pcloser = loop_runs["carried"], loop_runs["pcloser"]
+    pm = interop.map_state_from_numpy(c["map"])
+    closer = LoopCloser(pcloser.config, pm,
+                        interop.database_from_numpy(c["db"], pcloser.db.voc, device="cpu"),
+                        device="cpu")
+    interop.loop_closer_state_into(closer, c["closer"])
+    closer.sampler = Sim3Sampler(c["key"])
+    closer.pad_pairs = True
+    with pytest.MonkeyPatch.context() as mp, _closure_recorded(LoopCloser, {}) as rec:
+        mp.setenv("ORB_DISTRIBUTED_GBA", "0")
+        assert closer.process_keyframe(c["kf"])
+    want, got = c["after"], interop.map_state_to_numpy(pm)
+    assert got["loop_edges"] == want["loop_edges"] and closer.n_loops_closed == 1
+    np.testing.assert_array_equal(got["kf_point_idx"], want["kf_point_idx"])
+    np.testing.assert_array_equal(got["pt_valid"], want["pt_valid"])
+
+    (s, R, t, matches), (js, jR, jt, jmatches) = rec["sim3"], c["jax"]["sim3"]
+    assert matches == jmatches
+    assert abs(s - js) < OPT_TOL
+    assert np.abs(R - jR).max() < OPT_TOL and np.abs(t - jt).max() < OPT_TOL
+    pre, jpre = rec["pre_gba"], c["jax"]["pre_gba"]
+    n = c["kf"] + 1
+    assert max(rot_angle(pre["kf_pose_R"][k], jpre["kf_pose_R"][k]) for k in range(n)) < 1e-3
+    assert np.abs(pre["kf_pose_t"][:n] - jpre["kf_pose_t"][:n]).max() < OPT_TOL
+    pts = np.where(jpre["pt_valid"])[0]
+    assert np.abs(pre["pt_pos"][pts] - jpre["pt_pos"][pts]).max() < OPT_TOL
+
+    c_true = _centres(loop_runs["R_true"][:n], loop_runs["t_true"][:n])
+    before, after = c["map"], got
+    ate_pre = ate_rmse(_centres(before["kf_pose_R"][:n], before["kf_pose_t"][:n]), c_true,
+                       align_scale=True)
+    ate_post = ate_rmse(_centres(after["kf_pose_R"][:n], after["kf_pose_t"][:n]), c_true,
+                        align_scale=True)
+    assert ate_post < 0.75 * ate_pre, (ate_pre, ate_post)
+    assert max(rot_angle(loop_runs["R_true"][k], after["kf_pose_R"][k]) for k in range(n)) < 2.0
 
 
 def test_drift_removed_gates(loop_runs):

@@ -101,6 +101,33 @@ def dba_cases(inputs, group, cam):
                                 part.points.device)
         out[name]["local_points"] = _numpy(local.points)
         out[name]["p_blk"] = plan.p_blk
+    out.update(loop_form_cases(inputs, group, cam))
+    return out
+
+
+def loop_form_cases(inputs, group, cam):
+    """The sharded solves' two forms on this rank's block: the device loop
+    (optim/ba.bundle_adjust_loop, run eagerly here: every LM and PCG
+    iteration, the all-reduces run each time) and the early-exit form
+    (bundle_adjust), observation-sharded and point-sharded."""
+    import torch.distributed as dist
+
+    from orb_slam2_commit_tpu_torch.optim import ba
+    from orb_slam2_commit_tpu_torch.parallel import distributed_ba as dba
+
+    n, rank = dist.get_world_size(group), dist.get_rank(group)
+    p = _problem(inputs["obs_match"])
+    p = p._replace(obs=dba.shard_observations(p.obs, n))
+    blk = p.obs.valid.shape[0] // n
+    obs_local = p._replace(obs=dba._rows(p.obs, rank * blk, (rank + 1) * blk))
+    part, plan = dba.partition_problem(_problem(inputs["points_match"]), n)
+    pts_local = dba.point_block(part, rank, plan.p_blk, plan.o_blk, part.points.device)
+    out = {}
+    for name, local, kw in (("loop_obs", obs_local, dict(point_chunk=64)),
+                            ("loop_points", pts_local, dict(point_sharded=True))):
+        out[name] = {form: _solved(*fn(local, *cam, n_iters=8, group=group, **kw))
+                     for form, fn in (("loop", ba.bundle_adjust_loop),
+                                      ("early", ba.bundle_adjust))}
     return out
 
 
