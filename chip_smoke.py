@@ -22,7 +22,9 @@ seed 5, 0.05 m a frame); and the monocular System (`System.track_monocular`,
 two-view initialization at 2000 features, its global BA) over a 40-frame
 lateral sweep (500 landmarks, seed 3) and over the same sweep with a
 kidnap (frames 22-26 a flat grey image; relocalization without a
-vocabulary). The JAX package's other three routes follow the Systems: the
+vocabulary), then over the rotation-dominant arc of
+tests/test_robustness.py (60 frames, 0.6 of a turn, 400x300, 500
+features). The JAX package's other three routes follow the Systems: the
 main-path image through `extract_features` on the per-level route
 (ORB_TPU_FORCE_PACKED=0, patch form: K1 once a level, the standalone K4
 twice a level), the RGB-D sequence through a System with the staged
@@ -206,6 +208,9 @@ Phases (any failure exits non-zero and prints no result line):
      the CPU's (the same host sample sets); the kidnap sequence held to
      LOST during the occlusion, relocalized after it through K7 batched
      over the candidates, and its recovered poses on the trajectory; the
+     arc held to its JAX test's gates (>= 40 frames tracked, OK at the
+     end, > 300 points, ATE under 0.03 x span), frame 13 tracked against
+     the reference keyframe, every kernel of the path launched; the
      ring survey held to tests/test_loop_pipeline.py's four gates (a loop
      closed, its edge and a map change, the corrected prefix's ATE below
      the drifted one, the final ATE under 0.015 x span), K6 and K7 counted
@@ -435,6 +440,20 @@ KIDNAP_GATE = 0.05
 # sample sets): the same initialization frame and keyframes, poses
 # within ROT_DEG_TOL / T_TOL.
 MONO_CPU_FRAMES = 10
+# The rotation-dominant arc: tests/test_robustness.py::TestRotationDominant
+# (render_loop_sequence over 0.6 of a turn in 60 frames, seed 4; 400x300,
+# 500 features, min_matches_init=60), no vocabulary. Its gates: >= 40
+# frames tracked, OK at the end, more than 300 points, scale-aligned ATE
+# under 0.03 x span (that test's span: twice the largest |coordinate|);
+# and, as in the JAX System, frame 13 (after the initialization at frame
+# 12) tracked against the reference keyframe. Every kernel of the
+# monocular path launches, K7 under the flags too (that tracking).
+ARC_FRAMES = 60
+ARC_SCENE = dict(n_frames=ARC_FRAMES, frac=0.6, seed=4)
+ARC_SIZE = (400, 300, 500)
+ARC_MIN_TRACKED, ARC_MIN_POINTS, ARC_ATE_GATE = 40, 300, 0.03
+ARC_REF_FRAME = 13
+ARC_LAUNCHED = MONO_LAUNCHED + ("valid_hamming_top2",)
 # K7 under a candidate test has four callers in the monocular System; a
 # recorded call is told apart by its form and shapes (k7_caller).
 K7_CALLERS = ("reference keyframe", "initialization", "triangulation", "relocalization")
@@ -3815,7 +3834,63 @@ def centres(poses):
     return np.asarray([-R.T @ t for R, t in poses])
 
 
-def phase_mono(seq, kidnap_seq, power):
+def arc_sequence():
+    """(config, images, None, ground-truth poses) of the arc (ARC_SCENE)."""
+    config = synthetic_config(*ARC_SIZE, sensor="monocular")
+    config = dataclasses.replace(config, tracker=dataclasses.replace(config.tracker,
+                                                                     min_matches_init=60))
+    images, poses, _ = synthetic.render_loop_sequence(config.camera, **ARC_SCENE)
+    return config, images, None, poses
+
+
+def phase_arc(seq, power):
+    """The arc on the card through track_monocular, the launch counts reset
+    just before and read just after it, with its gates (ARC_*) and every
+    kernel of ARC_LAUNCHED launched; frames/s with the run's own graph
+    captures (the System releases its graphs at shutdown). -> the launch
+    counts."""
+    what = "System monocular arc"
+    _, _, _, gt = seq
+    ref_tracked, track_ref = [], Tracker._track_reference_keyframe
+
+    def ref_spy(self, frame):
+        ok = track_ref(self, frame)
+        ref_tracked.append((frame.frame_id, ok))
+        return ok
+
+    Tracker._track_reference_keyframe = ref_spy
+    _build.reset_launches()
+    try:
+        sys_, states, poses, seconds = run_system(seq, n_frames=ARC_FRAMES)
+    finally:
+        Tracker._track_reference_keyframe = track_ref
+    c = dict(_build.launches)
+    tracked = sum(p is not None for p in poses)
+    est = sys_.trajectory_positions()
+    lost = np.asarray([e.lost for e in sys_.tracker.trajectory], bool)
+    gt_c = centres(gt)
+    rmse = trajectory.ate_rmse(est[~lost], gt_c[len(gt_c) - len(est):][~lost],
+                               align_scale=True)
+    span = float(np.abs(gt_c).max() * 2)
+    log(f"{what} launches: {c}; states {''.join(st[0] for st in states)}; reference-keyframe "
+        f"tracking (frame, ok): {ref_tracked[:4]}")
+    log(f"{what}: {tracked} of {ARC_FRAMES} frames tracked, {sys_.map.next_kf} keyframes "
+        f"inserted, {sys_.map.n_points()} points; scale-aligned ATE {rmse:.6f} over a "
+        f"{span:.3f} m span (gate {ARC_ATE_GATE} x span); {ARC_FRAMES / seconds:.2f} frames/s "
+        f"({seconds:.3f} s, its captures in it) on {power}; launches per frame: " + ", ".join(
+            f"{k} {c[k] / ARC_FRAMES:.2f}" for k in ARC_LAUNCHED))
+    if [k for k in ARC_LAUNCHED if c[k] < 1] or [k for k in SYSTEM_UNUSED if c[k]]:
+        raise AssertionError(f"{what}: a kernel of the path did not launch, or one off it did")
+    if tracked < ARC_MIN_TRACKED or states[-1] != "OK" \
+            or sys_.map.n_points() <= ARC_MIN_POINTS or not rmse < ARC_ATE_GATE * span:
+        raise AssertionError(f"{what}: under its gates")
+    if (ARC_REF_FRAME, True) not in ref_tracked:
+        raise AssertionError(f"{what}: frame {ARC_REF_FRAME} not tracked against the "
+                             f"reference keyframe")
+    return c
+
+
+def phase_mono(seq, kidnap_seq, arc_seq, power):
     """The sweep on the card through track_monocular, the launch counts
     reset just before and read just after it: it initializes (K7 under the
     window, [2000, 2000]), every frame after that OK, >= 3 keyframes, >= 150
@@ -3828,8 +3903,9 @@ def phase_mono(seq, kidnap_seq, power):
     calls recorded (STAGED_RECORDED); its frames/s and stage ms against
     the eager warm-up's (mono_path_inputs). Then the sweep's first
     SWEEP_TURN_FRAMES frames eager and replayed in turns (staged_turns,
-    TWO_TURNS), bit for bit the same. -> (launch counts of the sweep, K7 launches by
-    caller over both runs, problems by caller)."""
+    TWO_TURNS), bit for bit the same. Then the arc (phase_arc). -> (launch
+    counts of the sweep, K7 launches by caller over the sweep and the
+    kidnap, problems by caller, launch counts of the arc)."""
     what = "System monocular"
     _, _, _, gt = seq
     by_caller, problems = {}, {}
@@ -3941,7 +4017,7 @@ def phase_mono(seq, kidnap_seq, power):
     for k in K7_CALLERS:
         by_caller[k] += kid_caller[k]
         problems[k] += kid_problems[k]
-    return c, by_caller, problems
+    return c, by_caller, problems, phase_arc(arc_seq, power)
 
 
 # ---------------------------------------------------------------------------
@@ -6767,6 +6843,7 @@ def run_phases(power, data_root):
     seqs = {sensor: system_sequence(sensor) for sensor in ("rgbd", "stereo")}
     mono_seq = system_sequence("monocular")
     kidnap_seq = system_sequence("monocular", kidnap=True)
+    arc_seq = arc_sequence()
     loop_seq = loop_sequence()
     done("sequences rendered")
     cells, firsts = write_datasets(data_root)
@@ -6798,7 +6875,8 @@ def run_phases(power, data_root):
     staged_counts, staged_sys = phase_staged_mapper(seqs["rgbd"], power)
     phase_native_core(staged_sys, power)
     done("per-level extraction, staged mapper and native core")
-    mono_counts, mono_k7, mono_problems = phase_mono(mono_seq, kidnap_seq, power)
+    mono_counts, mono_k7, mono_problems, arc_counts = phase_mono(mono_seq, kidnap_seq, arc_seq,
+                                                                 power)
     done("monocular")
     loop_counts = phase_loop(loop_seq, kidnap_seq, loop_profs, loop_sim3, power)
     done("loop")
@@ -6808,7 +6886,8 @@ def run_phases(power, data_root):
     done("staged graphs")
     phase_loop_graphs(seqs, power)
     done("loop graphs")
-    new_counts = {"per-level extraction of one image": level_counts,
+    new_counts = {"monocular arc": arc_counts,
+                  "per-level extraction of one image": level_counts,
                   "RGB-D System with the staged mapper": staged_counts,
                   "localization session": loc_counts,
                   "asynchronous RGB-D System": phase_async(seqs["rgbd"], SYSTEM_FPS["rgbd"],

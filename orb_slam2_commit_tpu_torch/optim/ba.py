@@ -15,7 +15,12 @@ The problem is dense fixed-shape tensors on one device:
 or, from 64 cameras on ("auto"), the implicit-Schur preconditioned CG
 (`_schur_pcg`) that never forms S. Levenberg-Marquardt accept/reject as in
 the JAX package, and a non-finite step rejected. Fixed poses get zeroed
-Jacobians.
+Jacobians. Where the damping falls under float32's epsilon (only an LM of
+more than 10 iterations from lam0 = 1e-4 gets there: the monocular initial
+map's 20), the dense route takes the step of the system damped, reduced
+and solved in float64, rounded once (_solve_step): in float32 the damping
+is lost there, and a monocular problem's free scale leaves S singular up
+to rounding.
 
 The LM and the CG are the JAX package's two while_loops, written as
 bodies that change nothing once their exit test has failed (selects on
@@ -254,15 +259,12 @@ def _schur_pcg(Hcc_d, Hpp_inv, Hcp_o, cam, pt, segs: ObsSegments, b, fixed,
 
 def _solve_step(problem: BAProblem, segs: ObsSegments, cam_params, use_robust, active, lam,
                 point_chunk: int, solver: str = "dense", sums: _Sums = _LOCAL,
-                early: bool = True):
+                early: bool = True, wide: bool = False):
     """One damped Gauss-Newton step -> (delta_c [K, 6], delta_p [P, 3]);
-    lam a 0-d tensor, early: the PCG may stop on the host (_schur_pcg)."""
-    K = problem.R.shape[0]
-    P = problem.points.shape[0]
-    cam = problem.obs.cam_idx.long()
-    pt = problem.obs.pt_idx.long()
-    dtype, dev = problem.points.dtype, problem.points.device
-
+    lam a 0-d tensor, early: the PCG may stop on the host (_schur_pcg).
+    wide (the dense route of a float32 problem): where lam is under
+    float32's epsilon, the step of the system damped, reduced and solved
+    in float64 (_damped_step), rounded once."""
     e, w, chi2, Jc, Jp, z = _evaluate(problem, cam_params, use_robust, active)
     Jc_w = Jc * w[..., None]
     Jp_w = Jp * w[..., None]
@@ -271,6 +273,33 @@ def _solve_step(problem: BAProblem, segs: ObsSegments, cam_params, use_robust, a
     g_c = segment_sum(torch.einsum("ora,or->oa", Jc_w, e), segs.cam)
     g_p = segment_sum(torch.einsum("ora,or->oa", Jp_w, e), segs.pt)
     Hcc, g_c, Hpp, g_p = sums.cam(Hcc), sums.cam(g_c), sums.pt(Hpp), sums.pt(g_p)
+    blocks = (Hcc, Hpp, g_c, g_p, torch.einsum("ora,orb->oab", Jc_w, Jp))  # Hcp_o [O, 6, 3]
+    args = (problem, segs, lam, point_chunk, solver, sums, early)
+    step = _damped_step(*blocks, *args, problem.points.dtype)
+    if not wide:
+        return step
+    # In float32 the damping lam * Hcc is lost to rounding once lam falls
+    # under the format's epsilon (after 10 accepted steps from lam0 =
+    # 1e-4), and a monocular problem's free scale then leaves S singular
+    # up to rounding: its step along the scale is noise, and a step that
+    # puts every point behind the cameras reads cost 0 and is accepted
+    # (the initial map's 20-iteration BA on a rotation-dominant arc). In
+    # float64 the damping holds. Above the epsilon, the float32 step.
+    fine = lam < torch.finfo(problem.points.dtype).eps
+    step64 = _damped_step(*blocks, *args, torch.float64)
+    return tuple(torch.where(fine, a, b) for a, b in zip(step64, step))
+
+
+def _damped_step(Hcc, Hpp, g_c, g_p, Hcp_o, problem: BAProblem, segs: ObsSegments, lam,
+                 point_chunk: int, solver: str, sums: _Sums, early: bool, dtype):
+    """_solve_step's step from the summed blocks, damped, reduced and
+    solved in dtype, rounded to the problem's dtype."""
+    K = problem.R.shape[0]
+    P = problem.points.shape[0]
+    cam = problem.obs.cam_idx.long()
+    pt = problem.obs.pt_idx.long()
+    dev = problem.points.device
+    Hcc, Hpp, g_c, g_p, Hcp_o, lam = (x.to(dtype) for x in (Hcc, Hpp, g_c, g_p, Hcp_o, lam))
 
     # LM damping (diagonal scaling) + tiny Tikhonov for rank safety.
     eye6 = torch.eye(6, dtype=dtype, device=dev)
@@ -282,7 +311,6 @@ def _solve_step(problem: BAProblem, segs: ObsSegments, cam_params, use_robust, a
     cam_unused = torch.abs(Hcc).sum(dim=(1, 2)) == 0
     Hcc_d = torch.where(cam_unused[:, None, None], eye6, Hcc_d)
     Hpp_inv = _inv3x3(Hpp_d)
-    Hcp_o = torch.einsum("ora,orb->oab", Jc_w, Jp)          # [O, 6, 3]
     zero = torch.zeros((), dtype=dtype, device=dev)
 
     if solver == "pcg":
@@ -314,7 +342,7 @@ def _solve_step(problem: BAProblem, segs: ObsSegments, cam_params, use_robust, a
     Hpc_dc = sums.pt(segment_sum(torch.einsum("oab,oa->ob", Hcp_o, delta_c[cam]), segs.pt))
     delta_p = -torch.einsum("pab,pb->pa", Hpp_inv, g_p + Hpc_dc)
     delta_p = torch.where(problem.point_valid[:, None], delta_p, zero)
-    return delta_c, delta_p
+    return delta_c.to(problem.points.dtype), delta_p.to(problem.points.dtype)
 
 
 def _apply_step(problem: BAProblem, delta_c, delta_p) -> BAProblem:
@@ -337,6 +365,7 @@ class _Solve(NamedTuple):
     solver: str
     early: bool           # the loops may stop on the host
     sums: _Sums
+    wide: bool            # _solve_step's float64 step under float32's epsilon
 
 
 class _LMState(NamedTuple):
@@ -363,10 +392,17 @@ def _resolve(problem: BAProblem, solver: str, point_sharded: bool = False) -> st
 
 
 def _solve_config(problem: BAProblem, fx, fy, cx, cy, bf, use_robust, point_chunk, lam0,
-                  solver, point_sharded=False, early=True, sums=_LOCAL) -> _Solve:
+                  solver, point_sharded=False, early=True, sums=_LOCAL,
+                  n_iters: int = 10) -> _Solve:
+    """The solve's config; wide when its route is dense, the problem
+    float32 and n_iters LM iterations can halve lam0 under float32's
+    epsilon (20 can from 1e-4, 10 cannot: the step stays float32's)."""
+    solver = _resolve(problem, solver, point_sharded)
+    wide = (solver == "dense" and problem.points.dtype == torch.float32
+            and float(lam0) * 0.5 ** (n_iters - 1) < torch.finfo(torch.float32).eps)
     return _Solve((fx, fy, cx, cy, bf), bool(use_robust),
-                  min(point_chunk, problem.points.shape[0]), float(lam0),
-                  _resolve(problem, solver, point_sharded), early, sums)
+                  min(point_chunk, problem.points.shape[0]), float(lam0), solver, early, sums,
+                  wide)
 
 
 def _cost(problem: BAProblem, cfg: _Solve):
@@ -398,7 +434,8 @@ def _lm_iteration(s: _LMState, problem: BAProblem, segs: ObsSegments, cfg: _Solv
     go = _lm_go(s)
     p = problem._replace(R=s.R, t=s.t, points=s.points)
     delta_c, delta_p = _solve_step(p, segs, cfg.cam_params, cfg.use_robust, problem.obs.valid,
-                                   s.lam, cfg.point_chunk, cfg.solver, cfg.sums, cfg.early)
+                                   s.lam, cfg.point_chunk, cfg.solver, cfg.sums, cfg.early,
+                                   cfg.wide)
     p_new = _apply_step(p, delta_c, delta_p)
     chi2, z, new_cost = _cost(p_new, cfg)
     step_sq = torch.sum(delta_c * delta_c) + cfg.sums.own(torch.sum(delta_p * delta_p))
@@ -456,7 +493,7 @@ def bundle_adjust(
     tables (obs_segments of these observations, point_chunk and solver),
     when the caller made them already."""
     cfg = _solve_config(problem, fx, fy, cx, cy, bf, use_robust, point_chunk, lam0, solver,
-                        point_sharded, True, _sums(group, point_sharded))
+                        point_sharded, True, _sums(group, point_sharded), n_iters)
     if segs is None:
         segs = obs_segments(problem, cfg.point_chunk, cfg.solver)
     s = _lm_init(problem, segs, cfg)
@@ -495,7 +532,7 @@ def bundle_adjust_loop(
     runs them once before the capture, which sets the communicator up.
     Under gloo (CPU tensors) they run eagerly."""
     cfg = _solve_config(problem, fx, fy, cx, cy, bf, use_robust, point_chunk, lam0, solver,
-                        point_sharded, False, _sums(group, point_sharded))
+                        point_sharded, False, _sums(group, point_sharded), n_iters)
     if segs is None:
         segs = obs_segments(problem, cfg.point_chunk, cfg.solver)
     s = cuda_graph.call(_lm_init, (problem, segs), cfg)

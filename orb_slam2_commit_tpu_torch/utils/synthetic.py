@@ -214,6 +214,15 @@ def _flow_px(
     return u1 - u0
 
 
+def _blur_flow(cam: CameraConfig, photo: Optional[Photometry], poses, k: int,
+               depth: float = 9.0) -> Optional[np.ndarray]:
+    """Frame k's motion-blur flow (_flow_px from frame k - 1's pose); None
+    without motion blur and at frame 0."""
+    if photo is None or photo.motion_blur_frac <= 0.0 or k == 0:
+        return None
+    return _flow_px(cam, *poses[k - 1], *poses[k], depth=depth)
+
+
 def render(
     scene: Scene,
     R_cw: np.ndarray,
@@ -355,12 +364,15 @@ def render_sequence(
     motion: str = "forward",
     depth_range: Tuple[float, float] = (4.0, 12.0),
     spread: float = 6.0,
+    photo: Optional[Photometry] = None,
 ):
     """Images [T, H, W] float32 + ground-truth (R_cw, t_cw) poses + scene
     (+ depth maps [T, H, W] when with_depth). motion="forward" is the
     forward march; motion="sweep" the lateral sweep, whose peak per-frame
     translation is `step` (use it with depth_range=(1.5, 4.0), spread=2.0,
-    the monocular tests' scene)."""
+    the monocular tests' scene). photo: each frame k degraded by
+    apply_photometry(seed, k), its motion blur along the flow from frame
+    k - 1 of the point at the mean of depth_range."""
     rng = np.random.default_rng(seed)
     scene = make_scene(rng, n_points=n_points, planar_frac=planar_frac,
                        depth_range=depth_range, spread=spread)
@@ -372,12 +384,17 @@ def render_sequence(
         poses = look_ahead_trajectory(n_frames, step=step)
     else:
         raise ValueError(f"motion: 'forward' or 'sweep', got {motion!r}")
+
+    def degrade(img, k):
+        return apply_photometry(img, photo, seed, k, flow_px=_blur_flow(
+            cam, photo, poses, k, depth=float(np.mean(depth_range))))
+
     if with_depth:
         rendered = [render(scene, R, t, cam, with_depth=True) for R, t in poses]
-        images = np.stack([r[0] for r in rendered])
+        images = np.stack([degrade(r[0], k) for k, r in enumerate(rendered)])
         depths = np.stack([r[1] for r in rendered])
         return images, poses, scene, depths
-    images = np.stack([render(scene, R, t, cam) for R, t in poses])
+    images = np.stack([degrade(render(scene, R, t, cam), k) for k, (R, t) in enumerate(poses)])
     return images, poses, scene
 
 
@@ -393,14 +410,22 @@ def render_stereo_sequence(
     n_points: int = 500,
     seed: int = 0,
     step: float = 0.06,
+    photo: Optional[Photometry] = None,
 ):
     """Rectified stereo pairs along the forward trajectory: left images
-    [T, H, W], right images [T, H, W], the left camera's poses, scene."""
+    [T, H, W], right images [T, H, W], the left camera's poses, scene.
+    photo: both images of frame k degraded by apply_photometry(seed, k)
+    (the right one on noise stream 1), blurred along the flow from frame
+    k - 1."""
     rng = np.random.default_rng(seed)
     scene = make_scene(rng, n_points=n_points)
     poses = look_ahead_trajectory(n_frames, step=step)
-    lefts = [render(scene, R, t, cam) for R, t in poses]
-    rights = [render(scene, *right_pose(R, t, cam.baseline), cam) for R, t in poses]
+    lefts, rights = [], []
+    for k, (R, t) in enumerate(poses):
+        flow = _blur_flow(cam, photo, poses, k)
+        lefts.append(apply_photometry(render(scene, R, t, cam), photo, seed, k, flow_px=flow))
+        rights.append(apply_photometry(render(scene, *right_pose(R, t, cam.baseline), cam),
+                                       photo, seed, k, flow_px=flow, noise_stream=1))
     return np.stack(lefts), np.stack(rights), poses, scene
 
 
@@ -460,15 +485,20 @@ def render_loop_sequence(
     frac: float = 1.2,
     radius_range: Tuple[float, float] = (7.0, 9.0),
     max_depth: float = 12.0,
+    photo: Optional[Photometry] = None,
 ):
     """(images [T, H, W], poses, scene) of the loop-closure survey:
     ring_scene around loop_trajectory's circle, the ring's far side
-    hidden beyond max_depth as behind an opaque wall."""
+    hidden beyond max_depth as behind an opaque wall. photo: frame k
+    degraded by apply_photometry(seed, k), blurred along the flow from
+    frame k - 1."""
     rng = np.random.default_rng(seed)
     scene = ring_scene(rng, n_points=n_points, center=np.array([radius, 0.0, 0.0]),
                        radius_range=radius_range)
     poses = loop_trajectory(n_frames, radius=radius, frac=frac)
-    images = np.stack([render(scene, R, t, cam, max_depth=max_depth) for R, t in poses])
+    images = np.stack([apply_photometry(render(scene, R, t, cam, max_depth=max_depth), photo,
+                                        seed, k, flow_px=_blur_flow(cam, photo, poses, k))
+                       for k, (R, t) in enumerate(poses)])
     return images, poses, scene
 
 
@@ -558,9 +588,7 @@ def drive_frames(
     def frames(start=0):
         for k in range(start, len(poses)):
             R, t = poses[k]
-            flow = None
-            if photo is not None and photo.motion_blur_frac > 0.0 and k > 0:
-                flow = _flow_px(cam, *poses[k - 1], *poses[k])
+            flow = _blur_flow(cam, photo, poses, k)
             left = render(scene, R, t, cam, max_depth=max_depth)
             left = apply_photometry(left, photo, seed, k, flow_px=flow)
             if stereo:
@@ -667,9 +695,7 @@ def figure8_frames(
     def frames(start=0):
         for k in range(start, len(poses)):
             R, t = poses[k]
-            flow = None
-            if photo is not None and photo.motion_blur_frac > 0.0 and k > 0:
-                flow = _flow_px(cam, *poses[k - 1], *poses[k])
+            flow = _blur_flow(cam, photo, poses, k)
             left = render(scene, R, t, cam, max_depth=max_depth)
             left = apply_photometry(left, photo, seed, k, flow_px=flow)
             if stereo:
